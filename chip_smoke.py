@@ -3,11 +3,15 @@
     python3 chip_smoke.py                 # the whole check, one GPU
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its
-plain torch version on the card, drives the port's main path -- the
-flagship inverted-pendulum partition build at eps_a=1e-2 and the online
-evaluation of 65,536 thetas through the point-location kernel -- with
-every kernel launch counted, and checks the results against the plain
-references.  Any failed phase exits non-zero.  The second-to-last line
+plain torch version on the card, drives the port's main paths -- the
+flagship inverted-pendulum partition build at eps_a=1e-2, the online
+evaluation of 65,536 thetas through the point-location kernel, and
+multi-tenant serving of the flagship table to four tenants from one
+device arena (20,000 requests through the scheduler and the arena
+kernel, with a delta hot swap mid-traffic and a bitwise torn-read
+audit) -- with every kernel launch counted from zero just before each
+path, and checks the results against the plain references.  Any failed
+phase exits non-zero.  The second-to-last line
 of standard output is the kernels JSON object (each kernel's launches,
 error against its plain version, its time, the plain version's time, a
 library yardstick where one exists and the bound the card allows); the
@@ -22,6 +26,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,6 +48,18 @@ REF_UNCERTIFIED_MAX = 70
 #: seed of every sampled input.
 QUERIES = 65536
 SEED = 0
+
+#: The serving run: tenants of the flagship table in one arena (plus a
+#: spare extent for the delta publish's two-epoch handoff), closed-loop
+#: client threads, requests in all, the scheduler's micro-batch cap
+#: (ServeConfig.max_batch) and deadline, and the share of queries
+#: drawn outside the certified box.
+TENANTS = 4
+CLIENTS = 16
+REQUESTS = 20_000
+MAX_BATCH = 256
+MAX_WAIT_US = 2000.0
+OUTSIDE_FRAC = 0.05
 
 
 def log(*a) -> None:
@@ -85,6 +102,379 @@ def ipm_leg_cost(K: int, nz: int, nc: int, n_iter: int,
                 + 2 * (4 * nc * nz + 2 * nz * nz + 8 * nc)  # two KKT steps
                 + 4 * 3 * nc + 6 * nc + 2 * nz + 4 * nc)  # steps, mu_aff
     return float(nbytes), float(K * n_iter * per_iter)
+
+
+def serve_queries(tenants, lb, ub, n, rng):
+    """n serving queries, tenants round-robin, OUTSIDE_FRAC of them
+    pushed 5-50% past the certified box along a random direction:
+    (names, thetas, outside mask)."""
+    names = [tenants[i % len(tenants)] for i in range(n)]
+    th = rng.uniform(lb, ub, (n, lb.size))
+    out = rng.uniform(size=n) < OUTSIDE_FRAC
+    d = rng.normal(size=(int(out.sum()), lb.size))
+    d /= np.abs(d).max(axis=1, keepdims=True)
+    th[out] = (lb + ub) / 2 + (ub - lb) / 2 * d \
+        * rng.uniform(1.05, 1.5, (d.shape[0], 1))
+    return names, th, out
+
+
+def arena_eval_cost(ext, B, pp1, n_u) -> tuple[float, float]:
+    """(bytes, flops) one launch needs: every row scores its own
+    tenant's leaves, (p+1)^2 FMAs each; the live extents' bary is read
+    once, each row's query planes and extent read once, its record
+    written once and its winner's U/V rows gathered once."""
+    rows_l = (ext[:, 1] - ext[:, 0]).astype(np.float64)
+    flops = 2.0 * float(rows_l.sum()) * pp1 * pp1
+    live = {(int(s), int(e)) for s, e in ext}
+    nbytes = 4.0 * (sum(e - s for s, e in live) * pp1 * pp1
+                    + B * (3 * pp1 + 2) + B * (4 + n_u)
+                    + B * pp1 * (n_u + 1))
+    return nbytes, flops
+
+
+def serve_phases(dev, res, table, rng, tmp: str) -> dict:
+    """Phases 6-8: the flagship table served to TENANTS tenants from one
+    device arena, the arena kernel against its plain version, and a
+    closed-loop serving run with a mid-traffic delta hot swap and a
+    bitwise torn-read audit.  Returns the kernel's entry of the kernels
+    line."""
+    import os
+    import threading
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
+    from explicit_hybrid_mpc_tpu_torch.lifecycle.delta import (
+        write_delta_artifact)
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+    from explicit_hybrid_mpc_tpu_torch.online.descent import load_descent
+    from explicit_hybrid_mpc_tpu_torch.serve import (ArenaScheduler,
+                                                     DeviceArena,
+                                                     FallbackPolicy,
+                                                     registry)
+
+    # -- phase 6: the arena on the card -------------------------------------
+    tenants = [f"t{k}" for k in range(TENANTS)]
+    tree, roots = res.tree, res.roots
+    v1_dir = os.path.join(tmp, "t0_v1")
+    d2_dir = os.path.join(tmp, "t0_v2.delta")
+    registry.save_artifacts(tree, roots, v1_dir)
+    # v2: half of the payload slots doubled -- exact in floating point,
+    # so a read that mixes versions shows bit for bit.
+    v2 = tree.clone()
+    half = v2._n_slots // 2
+    v2._pl_inputs[:half] *= 2.0
+    v2._pl_costs[:half] *= 2.0
+    dstats = write_delta_artifact(v2, roots, d2_dir, v1_dir,
+                                  base_version="v1")
+    lb, ub = registry.root_box(load_descent(os.path.join(v1_dir,
+                                                         "descent.npz")))
+    L, p, n_u = table.n_leaves, tree.p, tree.n_u
+    pp1 = p + 1
+    cols = 128 * -(-L // 128)
+
+    def fresh_arena(obs=None):
+        a = DeviceArena(p=p, n_u=n_u, capacity_cols=(TENANTS + 1) * cols,
+                        device=dev, obs=obs)
+        a.publish_from_artifacts("t0", "v1", v1_dir)
+        for n in tenants[1:]:
+            a.publish(n, "v1", table, lb, ub)
+        return a
+
+    o = obs_lib.Obs("jsonl")
+    arena = fresh_arena(o)
+    ast = arena.stats()
+    log(f"[arena] {TENANTS} tenants x {L} leaves (p={p}, n_u={n_u}) in "
+        f"{arena.capacity_cols} columns on {dev}: resident "
+        f"{ast['resident_bytes']} bytes ({arena._col_bytes()} per column, "
+        f"U sized by n_u); v2 delta {dstats['n_fresh']} fresh / "
+        f"{dstats['n_kept']} kept rows, {dstats['delta_bytes']} bytes")
+
+    # -- phase 7: K3 (arena_eval) against its plain version -----------------
+    exts = {n: arena.extent(n) for n in tenants}
+
+    def score_at(q, rows, cols):
+        # The plain score min_i thc . bary[i, :, col] of the given rows at
+        # the given columns, elementwise in float32 (no TF32).
+        thc = torch.minimum(torch.maximum(q[0, rows], q[1, rows]),
+                            q[2, rows])
+        return (thc.T[None] * arena.bary[:, :, cols]).sum(1).amin(0)
+
+    def rel(a, b):
+        return (a - b).abs() / b.abs().clamp(min=1)
+
+    k3 = {}
+    k3_err = 0.0
+    for B in (MAX_BATCH, QUERIES):
+        names, th, out = serve_queries(tenants, lb, ub, B, rng)
+        # A few rows carry a NaN coordinate: clamped, and never served.
+        nan = np.zeros(B, dtype=bool)
+        nan[7::B // 4] = True
+        th[nan, np.arange(B)[nan] % p] = np.nan
+        buf, _ = arena.pack_queries(exts, names, th)
+        args = (arena.bary, arena.U, arena.V,
+                *fused.split_queries(torch.as_tensor(buf).to(dev), B, pp1))
+        rk = fused.arena_eval_cuda(*args)
+        rk2 = fused.arena_eval_cuda(*args)
+        rp = fused.arena_eval_torch(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(rk, rk2):
+            fail(f"K3 B={B}: two launches on the same input differ")
+        kv, kc, ku, kcost, kcl = fused.unpack(rk)
+        pv, pc, pu, pcost, pcl = fused.unpack(rp)
+        e = args[4]
+        if not bool(((kc >= e[:, 0]) & (kc < e[:, 1])).all()):
+            fail(f"K3 B={B}: a row won a column outside its extent")
+        if not torch.equal(kcl, pcl):
+            fail(f"K3 B={B}: clamped flags differ on "
+                 f"{int((kcl != pcl).sum())} rows")
+        if int(kcl.sum()) != int((out | nan).sum()):
+            fail(f"K3 B={B}: {int(kcl.sum())} rows clamped, "
+                 f"{int((out | nan).sum())} drawn outside the box or NaN")
+        # NaN rows: val NaN at the extent's first column on both, so
+        # unserved; no other row is NaN.
+        nan_t = torch.as_tensor(nan, device=dev)
+        if not (torch.equal(torch.isnan(kv), nan_t)
+                and torch.equal(torch.isnan(pv), nan_t)
+                and torch.equal(kc[nan_t], e[nan_t, 0])
+                and torch.equal(pc[nan_t], e[nan_t, 0])):
+            fail(f"K3 B={B}: the {int(nan.sum())} NaN rows are not NaN at "
+                 "their extent's first column on both")
+        fin = ~nan_t
+        # Tie-free rows: the winner's score clears 1e-5, so the query is
+        # strictly inside one leaf and every other leaf scores below 0.
+        clear = pv > 1e-5
+        n_clear = int(clear.sum())
+        if not torch.equal(kc[clear], pc[clear]):
+            fail(f"K3 B={B}: columns differ on "
+                 f"{int((kc != pc)[clear].sum())} of {n_clear} tie-free "
+                 "rows")
+        # Served on both, except rows within the tolerance of the
+        # threshold itself.
+        edge = rel(-pv, torch.full_like(pv, arena.tol)) <= 1e-5
+        if not torch.equal((kv >= -arena.tol)[~edge],
+                           (pv >= -arena.tol)[~edge]):
+            fail(f"K3 B={B}: served flags differ")
+        # val on every finite row, u/cost on every finite row whose
+        # column agrees: the same float32 products summed in another
+        # order, a few ulps apart -- held to 1e-5 times max(1, |value|).
+        # Where the columns differ (a tie on a shared facet, clamped rows
+        # on the box's boundary among them), the plain score at the
+        # kernel's column is held to 1e-5 of the plain maximum.
+        same = (kc == pc) & fin
+        diff = torch.nonzero((kc != pc) & fin)[:, 0]
+        gap = rel(score_at(args[3], diff, kc[diff].long()), pv[diff]) \
+            if diff.numel() else torch.zeros(1, device=dev)
+        worst = {"val": float(rel(kv, pv)[fin].max()),
+                 "u": float(rel(ku, pu)[same].max()),
+                 "cost": float(rel(kcost, pcost)[same].max()),
+                 "tie": float(gap.max())}
+        if not max(worst.values()) <= 1e-5:
+            fail(f"K3 B={B}: relative differences {worst} (> 1e-5)")
+        err = max(float((kv - pv)[fin].abs().max()),
+                  float((ku - pu)[same].abs().max()),
+                  float((kcost - pcost)[same].abs().max()))
+        k3_err = max(k3_err, err)
+        reps = 200 if B == MAX_BATCH else 10
+        ms = cuda_time(lambda: fused.arena_eval_cuda(*args), reps)
+        plain_ms = cuda_time(lambda: fused.arena_eval_torch(*args), 3,
+                             warmup=1)
+        nbytes, flops = arena_eval_cost(buf[3 * B * pp1:].reshape(B, 2),
+                                        B, pp1, n_u)
+        bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
+        bound_by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_S \
+            else "operations"
+        # The plain version is itself the library yardstick: a
+        # composition of matmul, amin, where, argmax and gather.
+        k3[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[K3] B={B} over {TENANTS} tenants x {L} leaves: columns equal "
+            f"on {n_clear} tie-free and {int(same.sum()) - n_clear} other "
+            f"finite rows, {diff.numel()} differ within "
+            f"{worst['tie']:.2e} of the plain maximum; {int(kcl.sum())} "
+            f"clamped ({int(nan.sum())} NaN rows unserved on both); two "
+            f"launches bitwise equal; max |d val,u,cost| {err:.2e} "
+            f"(relative to max(1, |value|): val {worst['val']:.2e}, u "
+            f"{worst['u']:.2e}, cost {worst['cost']:.2e}); kernel "
+            f"{ms:.4f} ms, plain (= library) {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB)")
+
+    # -- phase 8: the serving run -------------------------------------------
+    fb = FallbackPolicy(lb, ub, mode="clamp", obs=o)
+    sched = ArenaScheduler(arena, max_batch=MAX_BATCH,
+                           max_wait_us=MAX_WAIT_US, fallback=fb, obs=o)
+    names, th, out = serve_queries(tenants, lb, ub, REQUESTS, rng)
+    results = [None] * REQUESTS
+    t_sub = np.zeros(REQUESTS)
+    lat = np.zeros(REQUESTS)
+    errors: list[str] = []
+    lock = threading.Lock()
+    done = [0]
+    halfway = threading.Event()
+
+    def client(c):
+        for j in range(c, REQUESTS, CLIENTS):
+            t0 = time.perf_counter()
+            try:
+                r = sched.submit(names[j], th[j]).result(60.0)[0]
+            except BaseException as e:  # noqa: BLE001 -- counted, fails
+                with lock:
+                    errors.append(f"request {j}: {e!r}")
+                continue
+            lat[j] = time.perf_counter() - t0
+            t_sub[j] = t0
+            results[j] = r
+            with lock:
+                done[0] += 1
+                if done[0] == REQUESTS // 2:
+                    halfway.set()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLIENTS)]
+    fused.launches = 0
+    t_run = time.perf_counter()
+    for t in threads:
+        t.start()
+    if not halfway.wait(600.0):
+        fail("the serving run did not reach half its requests")
+    e_v1 = arena.extent("t0")
+    t_sw = time.perf_counter()
+    arena.publish_delta("t0", "v2", d2_dir, v1_dir)
+    t_flip = time.perf_counter()
+    swap_us = (t_flip - t_sw) * 1e6
+    for t in threads:
+        t.join()
+    sched.close()
+    run_s = time.perf_counter() - t_run
+    n_launch = fused.launches
+    drained = arena.wait_retired(e_v1, 30.0)
+
+    dropped = sum(r is None for r in results)
+    if errors or dropped:
+        fail(f"serving run: {len(errors)} errored, {dropped} dropped "
+             f"requests ({errors[:3]})")
+    if n_launch != sched.n_batches or n_launch <= 0:
+        fail(f"arena_eval launched {n_launch} times for "
+             f"{sched.n_batches} scheduler batches")
+    if not drained:
+        fail("the v1 extent of t0 never retired after the swap")
+    versions = [r.version for r in results]
+    late = [j for j in range(REQUESTS) if versions[j] == "v1"
+            and names[j] == "t0" and t_sub[j] > t_flip]
+    if late:
+        fail(f"{len(late)} requests submitted after the swap were served "
+             "by the retired v1")
+    if "v2" not in versions or "v1" not in versions:
+        fail(f"the swap was not mid-traffic: versions {set(versions)}")
+    # Fallback counters against account_kernel's rule: outside_box =
+    # clamped rows (the rows drawn outside), hole = unclamped unserved,
+    # 'clamp' = clamped and served, everything else bad is 'unserved'.
+    cnt = o.metrics.snapshot()["counters"]
+    tags = [r.fallback for r in results]
+    n_out, n_clamp = int(out.sum()), tags.count("clamp")
+    n_unserved = tags.count("unserved")
+    hole = sum(1 for j in range(REQUESTS)
+               if not out[j] and tags[j] is not None)
+    checks = {
+        "outside_box": (cnt.get("serve.fallback.outside_box", 0), n_out),
+        "hole": (cnt.get("serve.fallback.hole", 0), hole),
+        "clamp": (cnt.get("serve.fallback.clamp", 0), n_clamp),
+        "unserved": (cnt.get("serve.fallback.unserved", 0), n_unserved),
+        "requests": (cnt.get("serve.fallback.requests", 0),
+                     n_clamp + n_unserved),
+        "per-tenant outside_box": (
+            sum(cnt.get(f"serve.ctl.{n}.fallback.outside_box", 0)
+                for n in tenants), n_out),
+        "seen": (fb.n_seen, REQUESTS),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    wrong_tag = sum(1 for j in range(REQUESTS)
+                    if (out[j] and tags[j] is None)
+                    or (tags[j] in (None, "clamp")) != results[j].inside)
+    if bad or wrong_tag or n_clamp + n_unserved != n_out + hole:
+        fail(f"fallback counters do not reconcile: {bad}, {wrong_tag} "
+             "rows tagged against their flags")
+
+    # Torn-read audit: a reference arena on the card with the same
+    # publish history re-evaluates every recorded in-box row on the
+    # version that served it; the kernel is deterministic and a row's
+    # answer does not depend on its batch, so any cross-version read
+    # shows bit for bit.
+    ref = fresh_arena()
+    audit_launch0 = fused.launches
+
+    def audit(rows):
+        bad = 0
+        for lo in range(0, len(rows), MAX_BATCH):
+            chunk = rows[lo:lo + MAX_BATCH]
+            r = ref.evaluate([names[j] for j in chunk], th[chunk])
+            for k, j in enumerate(chunk):
+                s = results[j]
+                bad += not (np.array_equal(s.u,
+                                           r.u[k, :n_u].astype(np.float64))
+                            and s.cost == float(r.cost[k])
+                            and s.leaf == int(r.leaf[k]))
+        return bad
+
+    inbox = [j for j in range(REQUESTS) if not out[j]]
+    rows_v1 = [j for j in inbox if versions[j] == "v1"]
+    rows_v2 = [j for j in inbox if versions[j] == "v2"]
+    torn = audit(rows_v1)
+    # The audit can tell the versions apart: t0's v2 rows read against v1.
+    cross = audit([j for j in rows_v2 if names[j] == "t0"])
+    ref.publish_delta("t0", "v2", d2_dir, v1_dir)
+    torn += audit(rows_v2)
+    if torn:
+        fail(f"{torn} torn reads: served rows differ bitwise from the "
+             "reference arena's answer for their version")
+    if cross == 0:
+        fail("the audit cannot tell v1 from v2 (no t0 v2 row differs)")
+    lat_us = lat * 1e6
+    log(f"[serve] {REQUESTS} requests from {CLIENTS} closed-loop clients "
+        f"over {TENANTS} tenants in {run_s:.2f} s "
+        f"({REQUESTS / run_s:.0f} req/s): p50 "
+        f"{np.percentile(lat_us, 50):.1f} us, p99 "
+        f"{np.percentile(lat_us, 99):.1f} us; {sched.n_batches} launches "
+        f"= {sched.n_batches / REQUESTS:.4f} launches per request "
+        f"(mean batch {REQUESTS / sched.n_batches:.1f} rows)")
+    t0_v = [v for v, n in zip(versions, names) if n == "t0"]
+    log(f"[serve] publish_delta swap {swap_us:.1f} us mid-traffic; t0 "
+        f"served v1 {t0_v.count('v1')}, v2 {t0_v.count('v2')} times; 0 "
+        f"dropped, 0 errored, v1 drained; torn reads 0 of "
+        f"{len(rows_v1) + len(rows_v2)} audited in-box rows (t0 v2 rows "
+        f"that differ from v1: {cross}; audit launches "
+        f"{fused.launches - audit_launch0}, not counted)")
+    log(f"[serve] fallback: outside_box {n_out}, hole {hole}, clamp "
+        f"{n_clamp}, unserved {n_unserved} (reconciled with "
+        f"account_kernel); resident {arena.stats()['resident_bytes']} "
+        "bytes")
+    # Where a batch's time goes: one CLIENTS-row batch (the run's mean
+    # batch) through arena.evaluate on this thread -- packing, one put,
+    # the launch and one device-to-host copy -- and the kernel alone.
+    nb, thb = names[:CLIENTS], th[:CLIENTS]
+    for _ in range(5):
+        arena.evaluate(nb, thb)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        arena.evaluate(nb, thb)
+    ev_us = (time.perf_counter() - t0) / 200 * 1e6
+    buf, _ = arena.pack_queries({n: arena.extent(n) for n in tenants}, nb,
+                                thb)
+    args = (arena.bary, arena.U, arena.V,
+            *fused.split_queries(torch.as_tensor(buf).to(dev), CLIENTS, pp1))
+    kb_ms = cuda_time(lambda: fused.arena_eval_cuda(*args), 200)
+    cycle_ms = 1e3 * run_s / sched.n_batches
+    log(f"[serve] batch cycle {cycle_ms:.3f} ms = {MAX_WAIT_US / 1e3:.1f} "
+        f"ms deadline + host work; one {CLIENTS}-row arena.evaluate "
+        f"{ev_us:.0f} us host wall, its kernel {1e3 * kb_ms:.1f} us "
+        f"(device busy about {kb_ms / cycle_ms:.4f} of the run)")
+    o.close()
+    return {"name": "arena_eval", "route": "cuda",
+            "source": "explicit_hybrid_mpc_tpu_torch/csrc/arena_eval.cu",
+            "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:266",
+            "launches": n_launch, "max_abs_err": k3_err,
+            **k3[MAX_BATCH]}
 
 
 def main() -> int:
@@ -407,7 +797,11 @@ def main() -> int:
         f"library {k2_lib_ms:.3f} ms, bound {k2_bound_ms:.4f} ms "
         f"({k2_bound_by})")
 
-    # -- phase 6: where the device time of a build goes --------------------
+    # -- phases 6-8: multi-tenant serving through the arena kernel ---------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        k3_entry = serve_phases(dev, res, table, rng, tmp)
+
+    # -- phase 9: where the device time of a build goes --------------------
     # A second flagship build under torch.profiler (device activity
     # only): the device's busy share is the summed time of every CUDA
     # kernel over the wall (one stream, so kernels do not overlap); the
@@ -452,6 +846,7 @@ def main() -> int:
          "launches": n_k2, "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_lib_ms},
+        k3_entry,
     ]}
     log(card)
     log(json.dumps(kernels_line))

@@ -11,6 +11,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+#: Largest padding bucket a single evaluator call may mint when the
+#: deploy config leaves max_bucket unset (ServeConfig validates
+#: max_batch against it).
+DEFAULT_MAX_BUCKET = 1 << 14
+
+
+def is_pow2(n: int) -> bool:
+    """True when `n` is a positive power of two -- the one batching
+    validity check, shared by ServeConfig and the scheduler so their
+    contracts cannot drift."""
+    return n >= 1 and not (n & (n - 1))
+
+
 @dataclasses.dataclass(frozen=True)
 class PartitionConfig:
     """Configuration for an offline partition build.
@@ -422,3 +435,108 @@ _UNPORTED = (
     ("recompile_guard", lambda v: v != "off",
      "A15: analysis/recompile_guard.py"),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Configuration for the online serving runtime (serve/).
+
+    Distinct from PartitionConfig on purpose: serving knobs are
+    RUN-scoped (a deploy restarts the server, never the build), and
+    none of them can change a served value -- only latency, batching,
+    and degraded-mode behavior.  Validated eagerly so a bad deploy
+    config dies at startup, not on the first oversized batch.  The
+    demand, tracing and SLO knobs belong to modules not yet ported: a
+    non-default value raises NotImplementedError naming the ROADMAP
+    item.
+    """
+
+    # Controller name in the registry (one scheduler per name).
+    controller: str = "default"
+    # Micro-batch flush threshold (rows).  Must be a power of two.
+    max_batch: int = 256
+    # Deadline budget: a queued query waits at most this long for the
+    # batch to fill before the scheduler flushes a partial bucket.
+    max_wait_us: float = 2000.0
+    # Largest padding bucket a single evaluator call may mint.
+    # None = the evaluator default.
+    max_bucket: Optional[int] = None
+    # Shard count for the descent tables (None = one per local device).
+    n_shards: Optional[int] = None
+    # Degraded-mode policy for not-inside queries (serve/fallback.py):
+    # 'clamp' = clamp-to-certified-box re-evaluation (+ optional
+    # budgeted oracle re-solve when an oracle is provided); 'off' =
+    # return the raw not-inside result untouched.
+    fallback: str = "clamp"
+    # Running budget for host-side oracle re-solves, as a fraction of
+    # all requests seen (0 disables oracle fallback even when an
+    # oracle is available).
+    max_oracle_frac: float = 0.05
+    # Observability mode/path, same semantics as PartitionConfig.obs.
+    obs: str = "off"
+    obs_path: Optional[str] = None
+    # Demand telemetry (ROADMAP A14: obs/demand.py).
+    demand: str = "off"
+    demand_max_leaves: int = 4096
+    demand_decay_s: float = 300.0
+    demand_reservoir: int = 64
+    demand_subopt_frac: float = 0.0
+    demand_subopt_eps: float = 0.0
+    demand_snapshot_every_s: float = 30.0
+    demand_dir: Optional[str] = None
+    # Request tracing (ROADMAP A14: obs/reqtrace.py).
+    tracing: str = "off"
+    trace_exemplar_k: int = 8
+    trace_window_s: float = 30.0
+    # SLO engine (ROADMAP A14: obs/slo.py).
+    slo: str = "off"
+    slo_goal: float = 0.999
+    slo_p99_target_us: float = 50_000.0
+    slo_interval_s: float = 60.0
+    slo_dir: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if not is_pow2(self.max_batch):
+            raise ValueError(f"max_batch must be a power of two, "
+                             f"got {self.max_batch}")
+        if self.max_bucket is not None and not is_pow2(self.max_bucket):
+            raise ValueError("max_bucket must be a power of two, "
+                             f"got {self.max_bucket}")
+        eff_bucket = (self.max_bucket if self.max_bucket is not None
+                      else DEFAULT_MAX_BUCKET)
+        if eff_bucket < self.max_batch:
+            raise ValueError(
+                f"max_batch {self.max_batch} exceeds the effective "
+                f"evaluator bucket {eff_bucket} (max_bucket"
+                f"{'' if self.max_bucket is not None else ' default'})"
+                ": every full micro-batch would split")
+        if self.max_wait_us <= 0:
+            raise ValueError("max_wait_us must be > 0")
+        if self.fallback not in ("clamp", "off"):
+            raise ValueError(f"unknown fallback mode {self.fallback!r} "
+                             "(expected 'clamp' or 'off')")
+        if not 0.0 <= self.max_oracle_frac <= 1.0:
+            raise ValueError("max_oracle_frac must be in [0, 1]")
+        if self.obs not in ("off", "jsonl", "full"):
+            raise ValueError(f"unknown obs mode {self.obs!r} "
+                             "(expected 'off', 'jsonl', or 'full')")
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        for fld, item in _SERVE_UNPORTED:
+            if getattr(self, fld) != defaults[fld]:
+                raise NotImplementedError(
+                    f"ServeConfig.{fld} is not yet ported to the torch "
+                    f"package (ROADMAP {item})")
+
+
+#: Serving knobs whose modules wait for later port slices: (field,
+#: ROADMAP item).  Any value other than the default raises.
+_SERVE_UNPORTED = tuple(
+    [(f, "A14: obs/demand.py") for f in (
+        "demand", "demand_max_leaves", "demand_decay_s",
+        "demand_reservoir", "demand_subopt_frac", "demand_subopt_eps",
+        "demand_snapshot_every_s", "demand_dir")]
+    + [(f, "A14: obs/reqtrace.py") for f in (
+        "tracing", "trace_exemplar_k", "trace_window_s")]
+    + [(f, "A14: obs/slo.py") for f in (
+        "slo", "slo_goal", "slo_p99_target_us", "slo_interval_s",
+        "slo_dir")])

@@ -28,7 +28,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "kernels")
 
 #: Kernel name -> source file under csrc/.
-SOURCES = {"ipm_leg": "ipm_leg.cu", "locate": "locate.cu"}
+SOURCES = {"ipm_leg": "ipm_leg.cu", "locate": "locate.cu",
+           "arena_eval": "arena_eval.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

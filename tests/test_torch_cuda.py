@@ -147,3 +147,159 @@ def test_locate_kernel_matches_plain(gpu):
     assert bool((chosen >= full.amax(1) - 1e-5).all())
     res = locate.evaluate(lt, evaluator.stage(table, device=gpu), th)
     assert res.u.shape == (3000, 1) and bool(torch.isfinite(res.u).all())
+
+
+# -- the fused serving kernel (csrc/arena_eval.cu) -------------------------
+
+
+def _grid_table(rng, L, n_u=1):
+    """Disjoint unit-grid simplices: each contains its own centroid, so
+    location is tie-free."""
+    from explicit_hybrid_mpc_tpu_torch.partition import geometry
+
+    base = np.vstack([np.zeros(2), np.eye(2)])
+    side = int(np.ceil(np.sqrt(L)))
+    offs = np.stack([np.arange(L) % side, np.arange(L) // side], 1)
+    verts = 0.8 * base[None] + offs[:, None, :] \
+        + 0.1 * rng.uniform(size=(L, 1, 2))
+    return export.LeafTable(
+        bary_M=geometry.barycentric_matrices(verts),
+        U=rng.normal(size=(L, 3, n_u)), V=np.abs(rng.normal(size=(L, 3))),
+        delta=np.zeros(L, dtype=np.int64), node_id=np.arange(L))
+
+
+def _arena_inputs(gpu, rng, sizes, B, n_u=2):
+    """Tenants of `sizes` leaves packed at 128-column granules, and a
+    (3, B, 3) query batch: centroids, random points, 10% out of box."""
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+
+    C = 128 * sum(max(1, -(-L // 128)) for L in sizes)
+    bary = np.zeros((3, 3, C), np.float32)
+    U = np.zeros((3, C, n_u), np.float32)
+    V = np.zeros((3, C), np.float32)
+    exts, cents, start = [], [], 0
+    for L in sizes:
+        n = 128 * max(1, -(-L // 128))
+        if L:
+            t = _grid_table(rng, L, n_u)
+            b, u, v = fused.pack_columns(t, n, 3, 3, n_u)
+            bary[:, :, start:start + n], U[:, start:start + n] = b, u
+            V[:, start:start + n] = v
+            cents.append(np.stack([np.linalg.inv(m)[:-1].mean(1)
+                                   for m in t.bary_M]))
+        else:
+            cents.append(np.zeros((1, 2)))
+        exts.append((start, start + L))
+        start += n
+    tenant = rng.integers(0, len(sizes), B)
+    th = np.stack([cents[k][rng.integers(0, len(cents[k]))] for k in tenant])
+    side = int(np.ceil(np.sqrt(max(sizes))))
+    rand = rng.uniform(0, side, (B, 2))
+    th = np.where((rng.uniform(size=B) < 0.3)[:, None], rand, th)
+    out = rng.uniform(size=B) < 0.1
+    th[out] = rng.uniform(-5, side + 5, (int(out.sum()), 2))
+    q = np.zeros((3, B, 3), np.float32)
+    q[0, :, :2] = th
+    q[1, :, :2] = 0.0
+    q[2, :, :2] = side
+    q[:, :, 2] = 1.0
+    ext = np.array([exts[k] for k in tenant], np.int32)
+    t = [torch.as_tensor(a, device=gpu) for a in (bary, U, V, q, ext)]
+    return t, ext
+
+
+@pytest.mark.parametrize("sizes,B", [((0, 37, 1000), 300),
+                                     ((11, 128, 129, 5000), 4096),
+                                     ((1,), 1)])
+def test_arena_eval_kernel_matches_plain(gpu, sizes, B):
+    """Empty, one-tile and multi-tile extents, rows outside the box,
+    rows with a NaN coordinate: column, clamped and served exact
+    (tie-free tables); val/u/cost to 1e-5 times max(1, |value|) -- the
+    same float32 products summed in another order differ by a few ulps,
+    and points far outside every leaf extrapolate to values of tens --
+    and NaN exactly where the plain version has NaN.  A NaN row is
+    clamped and unserved on both."""
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+
+    args, ext = _arena_inputs(gpu, np.random.default_rng(len(sizes)),
+                              sizes, B)
+    nan_rows = torch.arange(1, B, 97, device=gpu)
+    args[3][0, nan_rows, (nan_rows % 2)] = float("nan")
+    before = fused.launches
+    rec = fused.arena_eval(*args)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    ref = fused.arena_eval_torch(*args)
+    k, p = fused.unpack(rec), fused.unpack(ref)
+    assert torch.equal(k[1], p[1]) and torch.equal(k[4], p[4])
+    assert torch.equal(k[0] >= -1e-4, p[0] >= -1e-4)            # served
+    assert bool(k[4][nan_rows].all())
+    assert not bool((k[0][nan_rows] >= -1e-4).any())
+    for a, b in zip((k[0], k[2], k[3]), (p[0], p[2], p[3])):
+        both = torch.isnan(a) & torch.isnan(b)
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert bool(((a - b).abs() <= 1e-5 * b.abs().clamp(min=1))
+                    [~both].all())
+    col = k[1].cpu().numpy()
+    live = ext[:, 1] > ext[:, 0]
+    assert ((col >= ext[:, 0]) & (col < ext[:, 1]))[live].all()
+    assert (col[~live] == 0).all()
+
+
+def test_arena_eval_kernel_is_deterministic(gpu):
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+
+    args, _ = _arena_inputs(gpu, np.random.default_rng(9), (300, 2000), 2048)
+    a = fused.arena_eval_cuda(*args)
+    b = fused.arena_eval_cuda(*args)
+    # A row's answer does not depend on the batch it rides in.
+    c = fused.arena_eval_cuda(*args[:3], args[3][:, 100:164].contiguous(),
+                              args[4][100:164].contiguous())
+    assert torch.equal(a, b) and torch.equal(a[100:164], c)
+
+
+def test_device_arena_on_the_card(gpu):
+    """The arena on cuda serves through the kernel, with the CPU arena's
+    answers on the same publish history."""
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+    from explicit_hybrid_mpc_tpu_torch.serve import DeviceArena
+
+    rng = np.random.default_rng(4)
+    tabs = {n: _grid_table(rng, L) for n, L in (("a", 300), ("b", 77))}
+    arenas = [DeviceArena(p=2, n_u=1, capacity_cols=1024, device=d)
+              for d in (gpu, "cpu")]
+    for ar in arenas:
+        for n, t in tabs.items():
+            ar.publish(n, "v1", t, np.zeros(2), np.full(2, 18.0))
+    names = ["a", "b"] * 64
+    th = rng.uniform(-1, 19, (128, 2))
+    before = fused.launches
+    g, c = (ar.evaluate(names, th) for ar in arenas)
+    assert fused.launches == before + 1
+    assert np.array_equal(g.col, c.col) and np.array_equal(g.served, c.served)
+    assert np.array_equal(g.clamped, c.clamped)
+    np.testing.assert_allclose(g.u, c.u, atol=1e-5)
+
+
+def test_device_arena_raises_when_the_kernel_cannot_load(gpu, monkeypatch):
+    """No fallback: a kernel that cannot be built or loaded fails the
+    evaluation, and the plain version never runs on a CUDA tensor."""
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+    from explicit_hybrid_mpc_tpu_torch.serve import DeviceArena
+
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=512, device=gpu)
+    arena.publish("a", "v1", _grid_table(np.random.default_rng(1), 100),
+                  np.zeros(2), np.full(2, 10.0))
+
+    def no_lib(name):
+        raise kernels.KernelError(f"cannot load the {name} kernel")
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(kernels, "library", no_lib)
+    monkeypatch.setattr(fused, "arena_eval_torch", no_plain)
+    with pytest.raises(kernels.KernelError):
+        arena.evaluate("a", np.ones((4, 2)))
+    assert arena.stats()["retiring"] == 0 and arena.extent("a")._refs == 0

@@ -1,0 +1,54 @@
+"""Torch port: importing every module of the package loads neither JAX
+nor the JAX package.
+
+Checked in a fresh interpreter (this test process has both loaded):
+every module under ``explicit_hybrid_mpc_tpu_torch`` is imported, the
+serving and lifecycle subpackages included, and then ``sys.modules``
+must hold no ``jax`` / ``jax.*`` and no ``explicit_hybrid_mpc_tpu`` /
+``explicit_hybrid_mpc_tpu.*`` entry."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import explicit_hybrid_mpc_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if not m.name.endswith(".__main__")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "explicit_hybrid_mpc_tpu")
+             or m.startswith(("jax.", "jaxlib.", "explicit_hybrid_mpc_tpu.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+@pytest.fixture(scope="module")
+def probe():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH",)}
+    env["PYTHONPATH"] = _REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_no_module_of_the_port_loads_jax(probe):
+    assert probe["bad"] == []
+
+
+@pytest.mark.parametrize("sub", ["serve.arena", "serve.scheduler",
+                                 "serve.fallback", "serve.registry",
+                                 "lifecycle.delta", "online.fused",
+                                 "online.descent", "online.locate",
+                                 "kernels", "oracle.ipm_leg"])
+def test_the_walk_reaches_every_subpackage(probe, sub):
+    assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

@@ -1,0 +1,643 @@
+"""Torch port: the serving path on the CPU -- descent export, serving
+artifacts, delta artifacts, the device arena, its scheduler and the
+fallback policy -- against the JAX package on the same inputs.
+
+Every test runs the port with ``device="cpu"``, where the arena runs
+the fused kernel's plain version (tests/test_torch_fused.py holds that
+to the JAX kernel).  Tolerances: host arrays and files bitwise (both
+packages run the same numpy); arena leaf/served/clamped exact and
+u/cost to 1e-5 against the JAX XLA arena (float32 products summed in
+another order); bitwise within the port (the torn-read audit)."""
+
+import json
+import os
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import explicit_hybrid_mpc_tpu  # noqa: F401  (enables x64)
+import jax.numpy as jnp
+from explicit_hybrid_mpc_tpu import config as jconfig
+from explicit_hybrid_mpc_tpu.config import PartitionConfig as JaxConfig
+from explicit_hybrid_mpc_tpu.lifecycle import delta as jdelta
+from explicit_hybrid_mpc_tpu.online import descent as jdescent
+from explicit_hybrid_mpc_tpu.online import export as jexport
+from explicit_hybrid_mpc_tpu.partition.frontier import (
+    build_partition as jax_build)
+from explicit_hybrid_mpc_tpu.problems.registry import make as jax_make
+from explicit_hybrid_mpc_tpu.serve import DeviceArena as JaxArena
+from explicit_hybrid_mpc_tpu.serve import registry as jregistry
+from explicit_hybrid_mpc_tpu_torch import config, obs
+from explicit_hybrid_mpc_tpu_torch.lifecycle import delta
+from explicit_hybrid_mpc_tpu_torch.online import descent, evaluator, export
+from explicit_hybrid_mpc_tpu_torch.partition import geometry
+from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+from explicit_hybrid_mpc_tpu_torch.serve import (ArenaFull, ArenaScheduler,
+                                                 DeviceArena, FallbackPolicy,
+                                                 registry)
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+#: The tier-1 double-integrator configuration (p = 2, n_u = 1).
+DI = ("double_integrator", {"N": 3, "theta_box": 1.5})
+_BOX = (np.zeros(2), np.full(2, 8.0))
+
+
+def _doubled(tree):
+    """A v2 generation: half of the used payload slots doubled (exact in
+    floating point, so a cross-version read shows bit for bit; the other
+    half rides a delta as kept rows)."""
+    t = tree.clone()
+    n = t._n_slots
+    t._pl_inputs[:n // 2] *= 2.0
+    t._pl_costs[:n // 2] *= 2.0
+    return t
+
+
+def _port_tree(jtree):
+    """The JAX package's tree as the port's Tree (the columnar state is
+    the same in both), so both packages export the same inputs."""
+    t = Tree.__new__(Tree)
+    t.__setstate__(jtree.__getstate__())
+    return t
+
+
+@pytest.fixture(scope="module")
+def di(tmp_path_factory):
+    """The tier-1 DI tree (built once, by the JAX package) and, written
+    by each package, a v1 artifact of it plus a v2 delta against that."""
+    name, kw = DI
+    jres = jax_build(jax_make(name, **kw), JaxConfig(
+        problem=name, problem_args=tuple(sorted(kw.items())),
+        backend="cpu", eps_a=0.5, batch_simplices=64, max_depth=20))
+    root = tmp_path_factory.mktemp("di")
+    out = {}
+    for pkg, tree, save, write in (
+            ("jax", jres.tree, jregistry.save_artifacts,
+             jdelta.write_delta_artifact),
+            ("torch", _port_tree(jres.tree), registry.save_artifacts,
+             delta.write_delta_artifact)):
+        base, dd = str(root / f"{pkg}_v1"), str(root / f"{pkg}_d2")
+        save(tree, jres.roots, base)
+        v2 = _doubled(tree)
+        stats = write(v2, jres.roots, dd, base, base_version="v1")
+        out[pkg] = dict(tree=tree, roots=jres.roots, base=base, delta=dd,
+                        stats=stats, v2=v2)
+    return out
+
+
+def _thetas(n, rng, outside=0.0):
+    """DI queries: uniform in the box, a fraction pushed outside it."""
+    th = rng.uniform(-1.5, 1.5, (n, 2))
+    k = int(outside * n)
+    th[:k] *= rng.uniform(1.2, 2.0, (k, 1))
+    return th
+
+
+def _files(d):
+    return sorted(f for f in os.listdir(d) if not f.startswith("."))
+
+
+def _same_dir(a, b):
+    """Two artifact directories hold the same files with the same
+    arrays (npy/npz bitwise) and the same JSON."""
+    assert _files(a) == _files(b)
+    for f in _files(a):
+        pa, pb = os.path.join(a, f), os.path.join(b, f)
+        if f.endswith(".npz"):
+            with np.load(pa) as za, np.load(pb) as zb:
+                assert sorted(za.files) == sorted(zb.files)
+                for k in za.files:
+                    assert za[k].dtype == zb[k].dtype
+                    assert za[k].tobytes() == zb[k].tobytes(), (f, k)
+        elif f.endswith(".json"):
+            with open(pa) as fa, open(pb) as fb:
+                assert json.load(fa) == json.load(fb), f
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                assert fa.read() == fb.read(), f
+
+
+# -- descent, artifacts, deltas -------------------------------------------
+
+
+@pytest.mark.parametrize("force_batched", [False, True])
+def test_export_descent_matches_the_jax_package(di, force_batched):
+    jt, tt, roots = di["jax"]["tree"], di["torch"]["tree"], \
+        di["jax"]["roots"]
+    jdt = jdescent.export_descent(jt, roots, jexport.export_leaves(jt),
+                                  force_batched=force_batched, stage=False)
+    tdt = descent.export_descent(tt, roots, export.export_leaves(tt),
+                                 force_batched=force_batched, stage=False)
+    assert tdt.max_depth == jdt.max_depth
+    for k in descent._FIELDS:
+        a, b = np.asarray(getattr(tdt, k)), np.asarray(getattr(jdt, k))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+def test_descent_locate_and_evaluate_match(di):
+    d = di["jax"]["base"]
+    th = _thetas(300, np.random.default_rng(0), outside=0.1)
+    jdt = jdescent.load_descent(os.path.join(d, "descent.npz"))
+    jtab = jexport.load_leaf_table(d)
+    from explicit_hybrid_mpc_tpu.online import evaluator as jevaluator
+
+    ref = jdescent.evaluate_descent(jdt, jevaluator.stage(jtab),
+                                    jnp.asarray(th))
+    ref_row, ref_node = jdescent.locate_descent(jdt, jnp.asarray(th))
+    tdt = descent.stage_table(descent.load_descent(
+        os.path.join(d, "descent.npz")), device=CPU)
+    row, node = descent.locate_descent(tdt, torch.as_tensor(th))
+    assert np.array_equal(row.numpy(), np.asarray(ref_row))
+    assert np.array_equal(node.numpy(), np.asarray(ref_node))
+    got = descent.evaluate_descent(
+        tdt, evaluator.stage(export.load_leaf_table(d), device=CPU),
+        torch.as_tensor(th))
+    assert np.array_equal(got.leaf.numpy(), np.asarray(ref.leaf))
+    assert np.array_equal(got.inside.numpy(), np.asarray(ref.inside))
+    np.testing.assert_allclose(got.u.numpy(), np.asarray(ref.u), atol=1e-12)
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(ref.cost),
+                               atol=1e-12)
+    assert 0 < int(got.inside.sum()) < len(th)
+
+
+def test_descent_files_cross_load(di, tmp_path):
+    d = di["jax"]["base"]
+    host = descent.load_descent(os.path.join(d, "descent.npz"))
+    p = str(tmp_path / "descent.npz")
+    descent.save_descent(descent.stage_table(host, device=CPU), p)
+    back = jdescent.load_descent(p)
+    for k in descent._FIELDS:
+        assert np.asarray(getattr(back, k)).tobytes() == \
+            np.asarray(getattr(host, k)).tobytes()
+    assert back.max_depth == host.max_depth
+
+
+def test_save_artifacts_writes_the_jax_files(di):
+    _same_dir(di["torch"]["base"], di["jax"]["base"])
+    jlb, jub = jregistry.root_box(jdescent.load_descent(
+        os.path.join(di["jax"]["base"], "descent.npz")))
+    lb, ub = registry.root_box(descent.load_descent(
+        os.path.join(di["torch"]["base"], "descent.npz")))
+    assert lb.tobytes() == np.asarray(jlb).tobytes()
+    assert ub.tobytes() == np.asarray(jub).tobytes()
+    np.testing.assert_allclose(lb, [-1.5, -1.5], atol=1e-12)
+
+
+def test_write_delta_artifact_writes_the_jax_files(di):
+    assert di["torch"]["stats"] == di["jax"]["stats"]
+    st = di["torch"]["stats"]
+    assert 0 < st["n_fresh"] and st["n_kept"] > 0
+    _same_dir(di["torch"]["delta"], di["jax"]["delta"])
+
+
+def test_apply_delta_and_plan_match(di, tmp_path):
+    """The port applies a JAX-written delta to bitwise the JAX result,
+    and plans it the same way."""
+    base, dd = di["jax"]["base"], di["jax"]["delta"]
+    mine, ref = str(tmp_path / "mine"), str(tmp_path / "ref")
+    delta.apply_delta(dd, base, mine)
+    jdelta.apply_delta(dd, base, ref)
+    _same_dir(mine, ref)
+    plan, jplan = delta.load_delta_plan(dd, base), \
+        jdelta.load_delta_plan(dd, base)
+    assert plan["src_idx"].tobytes() == jplan["src_idx"].tobytes()
+    for k, v in jplan["fresh"].items():
+        assert plan["fresh"][k].tobytes() == v.tobytes()
+    # The applied v2 table is the doubled tree's export.
+    v2 = export.export_leaves(di["torch"]["v2"])
+    got = export.load_leaf_table(mine)
+    for a, b in zip(got, v2):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    # A delta against the wrong base is refused.
+    other = str(tmp_path / "other")
+    registry.save_artifacts(di["torch"]["v2"], di["torch"]["roots"],
+                            other, provenance={"problem": "other"})
+    with pytest.raises(delta.DeltaMismatch):
+        delta.load_delta_plan(dd, other)
+
+
+# -- the arena against the JAX arena --------------------------------------
+
+
+def _synthetic_table(rng, L=40, n_u=1):
+    """Disjoint unit-grid simplices (tests/test_arena.py's idiom)."""
+    base = np.vstack([np.zeros(2), np.eye(2)])
+    side = int(np.ceil(np.sqrt(L)))
+    bary, U, V = [], [], []
+    for i in range(L):
+        off = np.array([i % side, i // side], dtype=float)
+        verts = 0.8 * base + off + 0.1 * rng.uniform(size=2)
+        bary.append(geometry.barycentric_matrix(verts))
+        U.append(rng.normal(size=(3, n_u)))
+        V.append(np.abs(rng.normal(size=3)))
+    return export.LeafTable(
+        bary_M=np.stack(bary), U=np.stack(U), V=np.stack(V),
+        delta=np.zeros(L, dtype=np.int64),
+        node_id=np.arange(L, dtype=np.int64))
+
+
+def _centroids(table):
+    return np.stack([np.linalg.inv(table.bary_M[i])[:-1, :].mean(axis=1)
+                     for i in range(table.n_leaves)])
+
+
+def _jt(table):
+    return jexport.LeafTable(*(np.asarray(a) for a in table))
+
+
+def test_arena_matches_the_jax_arena(di):
+    """The same publish history -- a JAX-written artifact, a synthetic
+    tenant, then the JAX-written delta -- into both arenas; one mixed
+    batch gives the same leaves and flags, and the resident columns are
+    the JAX arena's, sliced."""
+    base, dd = di["jax"]["base"], di["jax"]["delta"]
+    syn = _synthetic_table(np.random.default_rng(11))
+    port = DeviceArena(p=2, n_u=1, capacity_cols=512, device="cpu")
+    ref = JaxArena(p=2, n_u=1, capacity_cols=512, backend="xla")
+    for a in (port, ref):
+        a.publish_from_artifacts("c", "v1", base)
+        a.publish("s", "v1", *((syn,) if a is port else (_jt(syn),)),
+                  *_BOX)
+    rng = np.random.default_rng(12)
+    names = ["c", "s"] * 40
+    th = np.where(np.array(names)[:, None] == "c",
+                  _thetas(80, rng, outside=0.1),
+                  _centroids(syn)[rng.integers(0, 40, 80)])
+    for step in ("v1", "v2"):
+        if step == "v2":
+            for a in (port, ref):
+                a.publish_delta("c", "v2", dd, base)
+        got, exp = port.evaluate(names, th), ref.evaluate(names, th)
+        assert got.versions == exp.versions == {"c": step, "s": "v1"}
+        assert np.array_equal(got.leaf, exp.leaf)
+        assert np.array_equal(got.col, exp.col)
+        assert np.array_equal(got.served, exp.served)
+        assert np.array_equal(got.clamped, exp.clamped)
+        assert got.clamped.any() and got.served.any()
+        np.testing.assert_allclose(got.u, exp.u[:, :1], atol=1e-5)
+        np.testing.assert_allclose(got.cost, exp.cost, atol=1e-5)
+        for n in ("c", "s"):
+            e, r = port.extent(n), ref.extent(n)
+            sl, rl = slice(e.start, e.end), slice(r.start, r.end)
+            assert (e.start, e.n_cols, e.n_leaves) == \
+                (r.start, r.n_cols, r.n_leaves)
+            assert port.bary[:, :, sl].numpy().tobytes() == \
+                np.asarray(ref.bary[:3, :3, rl]).tobytes()
+            assert port.U[:, sl].numpy().tobytes() == \
+                np.ascontiguousarray(np.asarray(ref.U[:3, rl, :1])).tobytes()
+            assert port.V[:, sl].numpy().tobytes() == \
+                np.asarray(ref.V[:3, rl]).tobytes()
+    assert port.stats()["resident_cols"] == ref.stats()["resident_cols"]
+
+
+def test_nan_query_is_unserved_in_both_arenas_and_the_scheduler():
+    """A NaN state estimate never comes back as a certified control: the
+    port's arena and the JAX XLA arena both flag it clamped and
+    unserved, and the scheduler answers it not ok, tagged 'unserved'."""
+    syn = _synthetic_table(np.random.default_rng(13))
+    port = DeviceArena(p=2, n_u=1, capacity_cols=256, device="cpu")
+    ref = JaxArena(p=2, n_u=1, capacity_cols=256, backend="xla")
+    port.publish("s", "v1", syn, *_BOX)
+    ref.publish("s", "v1", _jt(syn), *_BOX)
+    cents = _centroids(syn)
+    th = np.array([[np.nan, 1.0], cents[3], [2.0, np.nan], cents[7]])
+    got, exp = port.evaluate("s", th), ref.evaluate("s", th)
+    assert np.array_equal(got.served, exp.served)
+    assert np.array_equal(got.clamped, exp.clamped)
+    assert np.array_equal(got.col, exp.col)
+    assert got.served.tolist() == [False, True, False, True]
+    assert got.clamped.tolist() == [True, False, True, False]
+    o = obs.Obs("jsonl")
+    fb = FallbackPolicy(*_BOX, mode="clamp", obs=o)
+    with ArenaScheduler(port, max_batch=8, max_wait_us=500.0,
+                        fallback=fb, obs=o) as sched:
+        res = [sched.submit("s", t).result(30.0)[0] for t in th]
+    assert [r.ok for r in res] == [False, True, False, True]
+    assert [r.fallback for r in res] == ["unserved", None, "unserved", None]
+    c = o.metrics.snapshot()["counters"]
+    assert c["serve.fallback.outside_box"] == 2
+    assert c["serve.fallback.unserved"] == 2
+    assert c.get("serve.fallback.clamp", 0) == 0
+    o.close()
+
+
+# -- arena directory, capacity, hot swap ----------------------------------
+
+
+def test_publish_stats_and_capacity(rng):
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=256, device="cpu")
+    t = _synthetic_table(rng)
+    arena.publish("a", "v1", t, *_BOX)
+    arena.publish("b", "v1", _synthetic_table(rng, L=30), *_BOX)
+    s = arena.stats()
+    assert s["controllers"] == 2 and s["free_cols"] == 0
+    assert s["versions"] == {"a": "v1", "b": "v1"}
+    assert s["resident_bytes"] == 256 * arena._col_bytes() == 256 * 60
+    with pytest.raises(ArenaFull):
+        arena.publish("c", "v1", _synthetic_table(rng, L=5), *_BOX)
+    with pytest.raises(ValueError):
+        arena.publish("a", "v1", t, *_BOX)
+    arena.retire("a")
+    assert arena.stats()["free_cols"] == 128
+    arena.publish("c", "v1", _synthetic_table(rng, L=5), *_BOX)
+    with pytest.raises(KeyError):
+        arena.extent("a")
+    with pytest.raises(KeyError):
+        arena.evaluate("a", np.zeros((1, 2)))
+
+
+@pytest.mark.parametrize("kw", [dict(capacity_cols=100),
+                                dict(capacity_cols=0), dict(n_u=0)])
+def test_arena_rejects_bad_shapes(kw):
+    args = dict(p=2, n_u=1, capacity_cols=128, device="cpu")
+    with pytest.raises(ValueError):
+        DeviceArena(**{**args, **kw})
+
+
+def test_arena_defaults_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-GPU path is moot")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceArena(p=2, n_u=1, capacity_cols=128)
+
+
+def test_theta_width_and_table_width_mismatch(rng):
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=128, device="cpu")
+    arena.publish("a", "v1", _synthetic_table(rng), *_BOX)
+    with pytest.raises(ValueError):
+        arena.evaluate("a", np.zeros((2, 3)))
+    with pytest.raises(ValueError):
+        arena.evaluate(["a", "a", "a"], np.zeros((2, 2)))
+    wide = export.LeafTable(bary_M=np.eye(4)[None], U=np.zeros((1, 4, 1)),
+                            V=np.zeros((1, 4)), delta=np.zeros(1, int),
+                            node_id=np.zeros(1, int))
+    with pytest.raises(ValueError):
+        arena.publish("w", "v1", wide, np.zeros(3), np.ones(3))
+
+
+def test_two_epoch_handoff(rng):
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=256, device="cpu")
+    t1, t2 = _synthetic_table(rng), _synthetic_table(rng)
+    e1 = arena.publish("a", "v1", t1, *_BOX)
+    cols = slice(e1.start, e1.end)
+    before = (arena.bary[:, :, cols].clone(), arena.U[:, cols].clone(),
+              arena.V[:, cols].clone())
+    with arena.lease(["a"]):
+        arena.publish("a", "v2", t2, *_BOX)
+        assert arena.extent("a").version == "v2"
+        assert e1.state == "retiring"
+        assert not arena.wait_retired(e1, timeout=0.05)
+        # The publish wrote free columns only: a reader of the leased v1
+        # extent still finds its columns bitwise as they were.
+        assert torch.equal(arena.bary[:, :, cols], before[0])
+        assert torch.equal(arena.U[:, cols], before[1])
+        assert torch.equal(arena.V[:, cols], before[2])
+    assert e1.state == "retired" and arena.wait_retired(e1, timeout=1.0)
+    assert arena.stats()["retiring"] == 0
+    cents = _centroids(t2)[:4]
+    out = arena.evaluate("a", cents)
+    ref = evaluator.evaluate(evaluator.stage(t2, device=CPU),
+                             torch.as_tensor(cents))
+    assert np.array_equal(out.leaf, ref.leaf.numpy())
+    assert out.versions == {"a": "v2"}
+
+
+def test_swap_without_reader_retires_immediately(rng):
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=256, device="cpu")
+    e1 = arena.publish("a", "v1", _synthetic_table(rng), *_BOX)
+    arena.publish("a", "v2", _synthetic_table(rng), *_BOX)
+    assert e1.state == "retired" and arena.wait_retired(e1, 0.0)
+    assert arena.stats()["free_cols"] == 128
+
+
+def test_publish_delta_is_bitwise_a_full_republish(di, tmp_path):
+    base, dd = di["torch"]["base"], di["torch"]["delta"]
+    full = str(tmp_path / "v2_full")
+    delta.apply_delta(dd, base, full)
+    o = obs.Obs("jsonl")
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=512, device="cpu", obs=o)
+    e1 = arena.publish_from_artifacts("c", "v1", base)
+    e2 = arena.publish_delta("c", "v2", dd, base)
+    assert arena.extent("c").version == "v2" and e1.state == "retired"
+    assert e2.n_leaves == e1.n_leaves
+    ref = DeviceArena(p=2, n_u=1, capacity_cols=512, device="cpu")
+    er = ref.publish_from_artifacts("c", "v2", full)
+    sl, rl = slice(e2.start, e2.end), slice(er.start, er.end)
+    for name in ("bary", "U", "V"):
+        a = getattr(arena, name)
+        b = getattr(ref, name)
+        idx = (slice(None), slice(None), sl) if name == "bary" else \
+            (slice(None), sl)
+        ridx = idx[:-1] + (rl,)
+        assert a[idx].numpy().tobytes() == b[ridx].numpy().tobytes(), name
+    with pytest.raises(delta.DeltaMismatch):
+        arena.publish_delta("c", "v3", dd, base)       # base is not active
+    with pytest.raises(delta.DeltaMismatch):
+        arena.publish_delta("nope", "v2", dd, base)
+    assert arena.extent("c").version == "v2"
+    c = o.metrics.snapshot()["counters"]
+    assert c["serve.arena.publishes"] == 1
+    assert c["serve.arena.delta_publishes"] == 1
+    o.close()
+
+
+# -- the scheduler --------------------------------------------------------
+
+
+def test_arena_scheduler_mixed_batches(rng):
+    o = obs.Obs("jsonl")
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=512, device="cpu", obs=o)
+    tables = {}
+    for k in range(3):
+        tables[f"t{k}"] = _synthetic_table(rng, L=20 + 3 * k)
+        arena.publish(f"t{k}", "v1", tables[f"t{k}"], *_BOX)
+    fb = FallbackPolicy(*_BOX, obs=o)
+    n_req = 36
+    with ArenaScheduler(arena, max_batch=64, max_wait_us=20000.0,
+                        fallback=fb, obs=o) as sched:
+        names = [f"t{i % 3}" for i in range(n_req)]
+        thetas = [_centroids(tables[nm])[i % 10]
+                  for i, nm in enumerate(names)]
+        tickets = [sched.submit(nm, th) for nm, th in zip(names, thetas)]
+        results = [t.result(30.0)[0] for t in tickets]
+        assert sched.n_requests == n_req
+        assert sched.n_batches < n_req
+        for nm, th, r in zip(names, thetas, results):
+            ref = evaluator.evaluate(evaluator.stage(tables[nm], device=CPU),
+                                     torch.as_tensor(th[None, :]))
+            assert r.leaf == int(ref.leaf[0])
+            assert r.inside and r.ok and r.version == "v1"
+            assert r.fallback is None
+            np.testing.assert_allclose(r.u, ref.u.numpy()[0], atol=1e-5)
+        snap = o.metrics.snapshot()["counters"]
+        assert snap.get("serve.requests") == n_req
+        assert snap.get("serve.batches") == sched.n_batches
+        assert sum(snap.get(f"serve.ctl.t{k}.requests", 0)
+                   for k in range(3)) == n_req
+        assert snap.get("serve.arena.launches", 0) == sched.n_batches
+        with pytest.raises(KeyError):
+            sched.submit("ghost", np.zeros(2))
+        with pytest.raises(ValueError):
+            sched.submit("t0", np.zeros(3))
+    with pytest.raises(RuntimeError):
+        sched.submit("t0", np.zeros(2))
+    o.close()
+
+
+def test_arena_scheduler_validation_and_unported_hooks(rng):
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=128, device="cpu")
+    arena.publish("a", "v1", _synthetic_table(rng), *_BOX)
+    with pytest.raises(ValueError):
+        ArenaScheduler(arena, max_batch=48)
+    with pytest.raises(ValueError):
+        ArenaScheduler(arena, max_wait_us=0.0)
+    for hook in ("demand", "trace", "slo"):
+        with pytest.raises(NotImplementedError, match="A14"):
+            ArenaScheduler(arena, **{hook: object()})
+
+
+def test_scheduler_swap_during_traffic_has_no_torn_reads(rng):
+    """Requests race a hot swap to a payload-doubled v2: nothing drops,
+    every row is tagged with the version it evaluated on, the old extent
+    drains, and every served row is bitwise a reference arena's answer
+    for that version."""
+    t1 = _synthetic_table(rng)
+    t2 = t1._replace(U=2.0 * t1.U, V=2.0 * t1.V)
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=256, device="cpu")
+    e1 = arena.publish("a", "v1", t1, *_BOX)
+    cents = _centroids(t1)
+    tickets, started = [], threading.Event()
+    with ArenaScheduler(arena, max_batch=8, max_wait_us=500.0) as sched:
+        def pump():
+            for i in range(200):
+                tickets.append((i, sched.submit("a", cents[i % 40])))
+                if i == 20:
+                    started.set()
+
+        th = threading.Thread(target=pump)
+        th.start()
+        started.wait(10.0)
+        arena.publish("a", "v2", t2, *_BOX)
+        th.join()
+        results = [(i, t.result(30.0)[0]) for i, t in tickets]
+    assert len(results) == 200
+    versions = {r.version for _i, r in results}
+    assert versions <= {"v1", "v2"} and "v2" in versions
+    assert all(r.inside for _i, r in results)
+    assert arena.wait_retired(e1, timeout=10.0)
+    refs = {}
+    for v, t in (("v1", t1), ("v2", t2)):
+        refs[v] = DeviceArena(p=2, n_u=1, capacity_cols=128, device="cpu")
+        refs[v].publish("a", v, t, *_BOX)
+    torn = 0
+    for i, r in results:
+        ref = refs[r.version].evaluate("a", cents[i % 40][None])
+        torn += not (np.float64(ref.u[0, 0]).tobytes()
+                     == np.float64(r.u[0]).tobytes()
+                     and np.float32(ref.cost[0]).tobytes()
+                     == np.float32(r.cost).tobytes()
+                     and int(ref.leaf[0]) == r.leaf)
+    assert torn == 0
+
+
+# -- fallback reconciliation ----------------------------------------------
+
+
+class _HostServer:
+    """Host-path server for FallbackPolicy.apply: the port's f64 plain
+    evaluator with no root_bary (the policy clamps to its constructor
+    box, the box the arena rows carry)."""
+
+    root_bary = None
+
+    def __init__(self, table):
+        self._dev = evaluator.stage(table, device=CPU)
+
+    def evaluate(self, thetas):
+        return evaluator.evaluate(self._dev, torch.as_tensor(thetas))
+
+
+def test_fallback_counters_reconcile_kernel_vs_host(rng):
+    """The kernel path (arena clamp + account_kernel) and the host path
+    (f64 evaluate + FallbackPolicy.apply) land identical
+    serve.fallback.* counters and per-row tags on the same mix."""
+    table = _synthetic_table(rng, L=40)
+    cents = _centroids(table)
+    lb = np.zeros(2)
+    ub = cents[np.argmax(cents.sum(axis=1))]
+    thetas = np.concatenate([
+        cents[:6],
+        np.array([[0.95, 0.95], [1.95, 2.95]]),
+        ub + np.array([[2.0, 3.0], [5.0, 0.5]]),
+        np.array([[-1.0, 0.95]])])
+    o_k = obs.Obs("jsonl")
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=128, device="cpu",
+                        obs=o_k)
+    arena.publish("a", "v1", table, lb, ub)
+    fb_k = FallbackPolicy(lb, ub, obs=o_k)
+    res = arena.evaluate("a", thetas)
+    tags_k = fb_k.account_kernel(res.clamped, res.served)
+    o_h = obs.Obs("jsonl")
+    fb_h = FallbackPolicy(lb, ub, obs=o_h)
+    server = _HostServer(table)
+    patched, tags_h = fb_h.apply(thetas, server.evaluate(thetas), server)
+    assert tags_k == tags_h
+    assert fb_k.n_seen == fb_h.n_seen == thetas.shape[0]
+    ck = o_k.metrics.snapshot()["counters"]
+    ch = o_h.metrics.snapshot()["counters"]
+    for key in ("outside_box", "hole", "clamp", "unserved", "requests"):
+        assert ck.get(f"serve.fallback.{key}", 0) == \
+            ch.get(f"serve.fallback.{key}", 0), key
+    assert ck["serve.fallback.outside_box"] == 3
+    assert ck["serve.fallback.hole"] == 2
+    assert ck["serve.fallback.clamp"] == 2
+    assert ck["serve.fallback.unserved"] == 3
+    clamp_rows = [i for i, t in enumerate(tags_k) if t == "clamp"]
+    np.testing.assert_allclose(res.u[clamp_rows],
+                               np.asarray(patched.u)[clamp_rows], atol=1e-5)
+    o_k.close()
+    o_h.close()
+
+
+def test_fallback_mode_off_counts_nothing():
+    o = obs.Obs("jsonl")
+    fb = FallbackPolicy(*_BOX, mode="off", obs=o)
+    tags = fb.account_kernel(np.array([True, False]),
+                             np.array([False, True]))
+    assert tags == [None, None] and fb.n_seen == 2
+    assert o.metrics.snapshot()["counters"].get(
+        "serve.fallback.requests", 0) == 0
+    o.close()
+
+
+# -- ServeConfig ----------------------------------------------------------
+
+
+def test_serve_config_has_the_jax_fields_and_checks():
+    import dataclasses
+
+    mine = {f.name: f.default for f in dataclasses.fields(config.ServeConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(jconfig.ServeConfig)}
+    assert mine == ref
+    assert config.DEFAULT_MAX_BUCKET == jconfig.DEFAULT_MAX_BUCKET
+    for n in (0, 1, 2, 3, 48, 64, 1 << 20):
+        assert config.is_pow2(n) == jconfig.is_pow2(n)
+    for bad in (dict(max_batch=48), dict(max_wait_us=0.0),
+                dict(fallback="oracle"), dict(max_oracle_frac=2.0),
+                dict(obs="loud"), dict(max_batch=1 << 15),
+                dict(max_bucket=100)):
+        with pytest.raises(ValueError):
+            config.ServeConfig(**bad)
+        with pytest.raises(ValueError):
+            jconfig.ServeConfig(**bad)
+    for knob, val, item in (("demand", "on", "A14"), ("tracing", "on", "A14"),
+                            ("slo", "on", "A14"),
+                            ("trace_exemplar_k", 4, "A14")):
+        jconfig.ServeConfig(**{knob: val})
+        with pytest.raises(NotImplementedError, match=item):
+            config.ServeConfig(**{knob: val})
+    assert config.ServeConfig().max_batch == 256
