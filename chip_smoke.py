@@ -19,11 +19,23 @@ last line is {"ok": true, "device": {...}}.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
+
+    K1_BASELINE=old_ipm_leg.cu python3 chip_smoke.py
+
+also builds another version of csrc/ipm_leg.cu (the same C interface;
+for a redesign of K1, its parent's source from `git show`) and holds
+this kernel against it in the same call: phase 2's sweep of the build's
+launch shapes timed in turns, and (phase 10) four flagship builds in
+turns (baseline, kernel, kernel, baseline) for the build wall, then one
+recorded build with each for a cell-by-cell diff of the two trees that
+names, for every cell the two builds decide differently, the test that
+decided it and how far from its threshold it sat.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -32,17 +44,29 @@ import time
 import numpy as np
 
 #: Published peaks of one H100 SXM used for the bounds (NVIDIA's data
-#: sheet): HBM bandwidth, float32 outside the tensor cores, float64
-#: outside the tensor cores.
+#: sheet): HBM bandwidth, float32 outside the tensor cores, and float64
+#: on the FP64 tensor cores -- the card's highest rate for the type
+#: (34 TFLOP/s outside them), so that a bound is never above what the
+#: card could reach.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-PEAK_F64_S = 34e12
+PEAK_F64_S = 67e12
 
 #: Reference of the flagship build: the JAX package on the CPU at the
 #: same configuration (inverted_pendulum defaults, eps_a=1e-2, every
 #: other PartitionConfig field at its default).
 REF_REGIONS = 11670
 REF_UNCERTIFIED_MAX = 70
+
+#: K1's sweep: (label, QP class, n_iter) of the flagship build's five
+#: shape classes, the batch sizes K, and the cell that stands for K1 in
+#: the kernels line (the build's most frequent point launch: K 1,024,
+#: nz 5, nc 35, 12 iterations).
+K1_CLASSES = (("point phase 1", "point", 12), ("point", "point", 18),
+              ("elastic simplex-min", "simplex_min", 12),
+              ("simplex-min", "simplex_min", 18), ("Farkas", "farkas", 30))
+K1_SWEEP_K = (8, 64, 256, 1024, 2048)
+K1_MAIN_K = 1024
 
 #: Online batch (thetas evaluated through the locate kernel) and the
 #: seed of every sampled input.
@@ -102,6 +126,372 @@ def ipm_leg_cost(K: int, nz: int, nc: int, n_iter: int,
                 + 2 * (4 * nc * nz + 2 * nz * nz + 8 * nc)  # two KKT steps
                 + 4 * 3 * nc + 6 * nc + 2 * nz + 4 * nc)  # steps, mu_aff
     return float(nbytes), float(K * n_iter * per_iter)
+
+
+def leg_bound_ms(K: int, nz: int, nc: int, n_iter: int) -> float:
+    """The least time one f64 leg could take on the card (ipm_leg_cost)."""
+    nbytes, flops = ipm_leg_cost(K, nz, nc, n_iter, 8)
+    return 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F64_S)
+
+
+def record_legs(real, launches: list, store: dict | None = None,
+                key: str | None = None):
+    """A stand-in for ipm_leg.ipm_leg_cuda that notes each launch's
+    (K, nz, nc, n_iter) in `launches` -- and, given `store`, keeps its
+    inputs under `key` -- then launches the kernel."""
+    def leg(Q, q, A, b, z, s, lam, n_iter):
+        launches.append((q.shape[0], q.shape[1], b.shape[1], int(n_iter)))
+        if store is not None:
+            store[key] = (Q, q, A, b, z, s, lam)
+        return real(Q, q, A, b, z, s, lam, n_iter)
+    return leg
+
+
+def leg_histogram(launches: list) -> float:
+    """Log the recorded K1 launches (K, shape classes, iterations) and
+    return their summed bound in ms."""
+    from collections import Counter
+
+    ks = Counter(k for k, _nz, _nc, _it in launches)
+    shapes = Counter((nz, nc, it) for _k, nz, nc, it in launches)
+    bound = sum(leg_bound_ms(*x) for x in launches)
+    log(f"[legs]   {len(launches)} launches; K: " + ", ".join(
+        f"{k} x{n}" for k, n in sorted(ks.items())))
+    log("[legs]   (nz, nc, n_iter): " + ", ".join(
+        f"{c} x{n}" for c, n in sorted(shapes.items())))
+    small = sum(n for k, n in ks.items() if k <= 256) / max(1, len(launches))
+    log(f"[legs]   sum n_iter {sum(x[3] for x in launches)}, sum K*n_iter "
+        f"{sum(x[0] * x[3] for x in launches)}, share of launches with "
+        f"K <= 256 {small:.3f}; summed bound {bound:.4f} ms")
+    return bound
+
+
+def baseline_source(env=None) -> str | None:
+    """The absolute path of the other csrc/ipm_leg.cu that K1_BASELINE
+    names, or None when it is unset or empty; fails when it names no
+    file."""
+    src = (os.environ if env is None else env).get("K1_BASELINE", "").strip()
+    if not src:
+        return None
+    if not os.path.isfile(src):
+        fail(f"K1_BASELINE={src} is not a file")
+    return os.path.abspath(src)
+
+
+def baseline_lib(src: str, build_dir: str, nvcc_flags):
+    """Build another version of csrc/ipm_leg.cu (the same C interface)
+    into build_dir and load it, typed as ipm_leg._lib() types the
+    kernel's own library, so it can stand in for it."""
+    import ctypes
+    import shutil
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    out = os.path.join(build_dir, "libipm_leg_baseline.so")
+    os.makedirs(build_dir, exist_ok=True)
+    flags = [f for f in nvcc_flags if f not in ("-Xptxas", "-v")]
+    r = subprocess.run([nvcc, *flags, "-o", out, src],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        fail(f"the K1 baseline {src} does not build:\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(out)
+    for fn in (lib.ipm_leg_f64, lib.ipm_leg_f32):
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.ipm_leg_error_string.argtypes = [ctypes.c_int]
+    lib.ipm_leg_error_string.restype = ctypes.c_char_p
+    lib._ehm_typed = True
+    return lib
+
+
+def tree_outcomes(tree) -> dict:
+    """Cell (the bytes of its vertex matrix) -> what a build made of it:
+    ("split",), ("leaf", delta, certified) or ("empty",) (a leaf without
+    payload: certified infeasible on the whole cell)."""
+    out = {}
+    children = tree.children
+    for n in range(len(tree)):
+        key = tree.vertices[n].tobytes()
+        if children[n, 0] >= 0:
+            out[key] = ("split",)
+            continue
+        ld = tree.leaf_data[n]
+        out[key] = ("empty",) if ld is None else \
+            ("leaf", int(ld.delta_idx), bool(ld.certified))
+    return out
+
+
+def differing_cells(a: dict, b: dict) -> tuple[list, int]:
+    """Cells of both trees that one build split and the other closed (or
+    closed as different kinds), and the count of leaves both closed with
+    another commutation."""
+    both = a.keys() & b.keys()
+    diff = sorted(k for k in both if a[k][0] != b[k][0])
+    other_delta = sum(1 for k in both if a[k][0] == b[k][0] == "leaf"
+                      and a[k][1] != b[k][1])
+    return diff, other_delta
+
+
+class DecisionRecorder:
+    """Notes, while a build runs, every cell's certificate inputs and
+    verdicts (stage 1, stage 2) and every QP's convergence margin
+    max(r_p, r_d, mu) / tol (converged iff below 1), by wrapping
+    certify's two entry points and ipm.qp_solve; restored on exit.
+    The wrapper of qp_solve reads each result back, so a recorded
+    build is slower and is not timed."""
+
+    def __init__(self, certify, ipm):
+        self.certify, self.ipm = certify, ipm
+        self.cells: dict = {}
+        self.qps: dict = {}
+
+    @staticmethod
+    def qp_key(q, b) -> list:
+        """Per-row keys of a QP batch: its linear term and right-hand
+        side, rounded to 9 decimals (a point QP's theta, a joint QP's
+        cell and commutation live there)."""
+        import torch
+
+        x = np.round(torch.cat([q, b], 1).cpu().numpy(), 9)
+        return [bytes([q.shape[1]]) + r.tobytes() for r in x]
+
+    def __enter__(self):
+        import torch
+
+        s1, s2, qp = (self.certify.certify_stage1_batch,
+                      self.certify.certify_suboptimal_stage2,
+                      self.ipm.qp_solve)
+        self._real = (s1, s2, qp)
+
+        def stage1(verts, V, conv, grad, Vstar, dstar, eps_a, eps_r):
+            res = s1(verts, V, conv, grad, Vstar, dstar, eps_a, eps_r)
+            for i, r in enumerate(res):
+                self.cells[verts[i].tobytes()] = dict(
+                    s1=r.status, gap1=r.gap, conv=conv[i].copy(),
+                    dstar=dstar[i].copy(), V=V[i].copy())
+            return res
+
+        def stage2(sd, res, Vmin, eps_a, eps_r):
+            r = s2(sd, res, Vmin, eps_a, eps_r)
+            self.cells.setdefault(sd.verts.tobytes(), {}).update(
+                s2=r.status, gap2=r.gap, Vmin=dict(Vmin))
+            return r
+
+        def qp_solve(Q, q, A, b, n_iter=30, tol=1e-8, n_f32=0,
+                     warm_start=None):
+            sol = qp(Q, q, A, b, n_iter=n_iter, tol=tol, n_f32=n_f32,
+                     warm_start=warm_start)
+            m = torch.maximum(torch.maximum(sol.rp, sol.rd), sol.gap) / tol
+            for k, v in zip(self.qp_key(q, b), m.cpu().numpy()):
+                self.qps.setdefault(k, []).append(float(v))
+            return sol
+
+        self.certify.certify_stage1_batch = stage1
+        self.certify.certify_suboptimal_stage2 = stage2
+        self.ipm.qp_solve = qp_solve
+        return self
+
+    def __exit__(self, *exc):
+        (self.certify.certify_stage1_batch,
+         self.certify.certify_suboptimal_stage2,
+         self.ipm.qp_solve) = self._real
+        return False
+
+
+def explain_cell(key: bytes, p: int, outs: tuple, recs: tuple,
+                 eps_a: float, point_key, simplex_key) -> list[str]:
+    """Lines naming why two builds (baseline, kernel) decided one cell
+    (of a p-dimensional tree) differently: each build's verdicts and gap
+    against eps_a, the (vertex, commutation) point QPs whose convergence
+    differs, and the commutations whose stage-2 bound differs, each with
+    every recorded margin of its QP in both builds (all digits: the
+    threshold is 1).  point_key(vertex, d) and simplex_key(verts, d)
+    give a QP's recorder key."""
+    verts = np.frombuffer(key, dtype=np.float64).reshape(p + 1, p).copy()
+    ca, cb = (r.cells.get(key, {}) for r in recs)
+
+    def margins(k):
+        return tuple("/".join(f"{v:.15g}" for v in r.qps.get(k, []))
+                     or "not recorded" for r in recs)
+    lines = [f"cell {np.array2string(verts.ravel(), precision=6)}: "
+             f"baseline {outs[0]}, kernel {outs[1]}"]
+    for name, c in (("baseline", ca), ("kernel", cb)):
+        g = c.get("gap2", c.get("gap1", np.inf))
+        lines.append(f"  {name}: stage 1 {c.get('s1')}, stage 2 "
+                     f"{c.get('s2')}, gap {g!r} = eps_a x "
+                     f"{g / eps_a if np.isfinite(g) else g!r}")
+    if "conv" in ca and "conv" in cb:
+        for i, d in zip(*np.nonzero(ca["conv"] != cb["conv"])):
+            ma, mb = margins(point_key(verts[i], int(d)))
+            lines.append(
+                f"  vertex {i} commutation {d}: converged "
+                f"{bool(ca['conv'][i, d])} / {bool(cb['conv'][i, d])}, V "
+                f"{float(ca['V'][i, d])!r} / {float(cb['V'][i, d])!r}; "
+                f"margins {ma} / "
+                f"{mb}")
+        # The vertex's best commutation (the first minimum of V over the
+        # converged ones) differs: both values in both builds, and how
+        # far apart the two are within each build (the decision's
+        # margin; 0 is an exact tie, which goes to the lower index).
+        for i in np.nonzero(ca["dstar"] != cb["dstar"])[0]:
+            da, db = int(ca["dstar"][i]), int(cb["dstar"][i])
+            ln = f"  vertex {i}: best commutation {da} / {db}"
+            if min(da, db) >= 0:
+                pair = [(float(c["V"][i, da]), float(c["V"][i, db]))
+                        for c in (ca, cb)]
+                rel = [(x - y) / abs(y) for x, y in pair]
+                ln += (f"; V[{da}], V[{db}] = {pair[0][0]!r}, "
+                       f"{pair[0][1]!r} / {pair[1][0]!r}, {pair[1][1]!r}; "
+                       f"(V[{da}] - V[{db}]) / |V[{db}]| = {rel[0]:.3g} / "
+                       f"{rel[1]:.3g}")
+            lines.append(ln)
+    va, vb = ca.get("Vmin", {}), cb.get("Vmin", {})
+    for d in sorted(va.keys() | vb.keys()):
+        a, b = va.get(d), vb.get(d)
+        if a is None or b is None or not (
+                a == b or abs(a - b) <= 1e-9 * max(1.0, abs(b))):
+            ma, mb = margins(simplex_key(verts, d))
+            lines.append(f"  commutation {d}: stage-2 bound {a!r} / {b!r}; "
+                         f"margins {ma} / {mb}")
+    return lines
+
+
+def raw_leg(fn, args, n_iter: int):
+    """(launch, outputs): a launcher of the f64 leg `fn` (a ctypes
+    function of ipm_leg.cu's C interface) on fixed inputs into fixed
+    outputs, for timing.  It skips the wrapper's checks and allocations,
+    so back-to-back launches keep the card busy even where a leg takes
+    only tens of microseconds; it counts no launches."""
+    import torch
+
+    q, b, z, s, lam = args[1], args[3], args[4], args[5], args[6]
+    outs = (torch.empty_like(z), torch.empty_like(s), torch.empty_like(lam))
+    ptrs = [t.data_ptr() for t in (*args, *outs)]
+    dims = (q.shape[0], q.shape[1], b.shape[1], int(n_iter))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*ptrs, *dims, stream)
+        if err:
+            fail(f"a timed K1 leg failed to launch (error {err})")
+    return launch, outs
+
+
+def ptxas_lines(name: str, report: str) -> list[str]:
+    """One line per kernel function of a ptxas -v report: registers,
+    stack frame and spill stores/loads (K1's template arguments read
+    back from the mangled name: dtype, NZ, ROWS)."""
+    import re
+
+    out, fn, frame = [], None, ""
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            # The name follows its length; the namespace before it
+            # holds the file name (ipm_leg_cu_...), not preceded by one.
+            mm = re.search(r"\d(ipm_leg_\w+?)I([fd])(?:Li(\d+)ELi(\d+)E)?E",
+                           m.group(1))
+            fn = m.group(1)
+            if mm:
+                dtype = "double" if mm.group(2) == "d" else "float"
+                args = (f", NZ={mm.group(3)}, ROWS={mm.group(4)}"
+                        if mm.group(3) else "")
+                fn = f"{mm.group(1)}<{dtype}{args}>"
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "registers" in ln and fn:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{name}: {fn}: {regs.group(1) if regs else '?'} "
+                       f"registers; {frame}")
+            fn, frame = None, ""
+    return out
+
+
+def build_ab(base, problem, cfg, prob, dev) -> None:
+    """Phase 10 (K1_BASELINE only): the flagship build with the baseline
+    kernel `base` and with this one.  Four unrecorded builds in turns
+    (baseline, kernel, kernel, baseline) give the build wall and each
+    kernel's tree; where the trees differ, one recorded build with each
+    explains every cell the two decide differently."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm, ipm_leg, oracle
+    from explicit_hybrid_mpc_tpu_torch.partition import certify, geometry
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+
+    real_lib = ipm_leg._lib
+
+    def run(which, recorder=None):
+        ipm_leg._lib = (lambda: base) if which == "baseline" else real_lib
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            if recorder is None:
+                res = build_partition(problem, cfg)
+            else:
+                with recorder:
+                    res = build_partition(problem, cfg)
+            torch.cuda.synchronize()
+        finally:
+            ipm_leg._lib = real_lib
+        wall = time.perf_counter() - t0
+        st = res.stats
+        log(f"[k1-ab] {which} build{' (recorded)' if recorder else ''} "
+            f"{wall:.2f} s: regions {st['regions']}, uncertified "
+            f"{st['uncertified']}, point solves {st['point_solves']}, "
+            f"simplex solves {st['simplex_solves']}, steps {st['steps']}")
+        if st["device_failures"] or st["truncated"]:
+            fail(f"the {which} build failed on the device or was truncated")
+        return tree_outcomes(res.tree), wall
+
+    walls: dict = {"baseline": [], "kernel": []}
+    outs: dict = {}
+    for which in ("baseline", "kernel", "kernel", "baseline"):
+        o, wall = run(which)
+        walls[which].append(wall)
+        if which in outs and o != outs[which]:
+            fail(f"two {which} builds gave different trees")
+        outs[which] = o
+    mb, mk = (sum(walls[w]) / 2 for w in ("baseline", "kernel"))
+    log(f"[k1-ab] build wall in turns: baseline "
+        f"{', '.join(f'{w:.2f}' for w in walls['baseline'])} s, kernel "
+        f"{', '.join(f'{w:.2f}' for w in walls['kernel'])} s; means "
+        f"{mb:.2f} / {mk:.2f} s = kernel/baseline {mk / mb:.3f}")
+    a, k = outs["baseline"], outs["kernel"]
+    diff, other = differing_cells(a, k)
+    log(f"[k1-ab] trees: {len(a.keys() & k.keys())} cells in both, "
+        f"{len(a.keys() - k.keys())} in the baseline's only, "
+        f"{len(k.keys() - a.keys())} in the kernel's only; {len(diff)} "
+        f"decided differently; {other} leaves closed with another "
+        "commutation")
+    if not diff:
+        return
+    recs = (DecisionRecorder(certify, ipm), DecisionRecorder(certify, ipm))
+    for which, rec in zip(("baseline", "kernel"), recs):
+        o, _ = run(which, rec)
+        if o != outs[which]:
+            log(f"[k1-ab] the recorded {which} build's tree differs from "
+                "its unrecorded builds'")
+
+    def point_key(v, d):
+        _Q, q, _A, b = oracle.point_qp(
+            prob, torch.as_tensor(v[None], device=dev),
+            torch.as_tensor([d], device=dev))
+        return DecisionRecorder.qp_key(q, b)[0]
+
+    def simplex_key(verts, d):
+        M = torch.as_tensor(geometry.barycentric_matrix(verts)[None],
+                            device=dev)
+        _Q, q, _A, b = oracle.simplex_min_qp(
+            prob, M, torch.as_tensor([d], device=dev))
+        return DecisionRecorder.qp_key(q, b)[0]
+
+    for key in diff[:20]:
+        for ln in explain_cell(key, problem.canonical.n_theta,
+                               (a[key], k[key]), recs, cfg.eps_a,
+                               point_key, simplex_key):
+            log(f"[k1-ab] {ln}")
 
 
 def serve_queries(tenants, lb, ub, n, rng):
@@ -284,9 +674,8 @@ def serve_phases(dev, res, table, rng, tmp: str) -> dict:
         bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
         bound_by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_S \
             else "operations"
-        # The plain version is itself the library yardstick: a
-        # composition of matmul, amin, where, argmax and gather.
-        k3[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+        # No single PyTorch call computes K3: no library yardstick.
+        k3[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                      bound_ms=bound_ms, bound_by=bound_by)
         log(f"[K3] B={B} over {TENANTS} tenants x {L} leaves: columns equal "
             f"on {n_clear} tie-free and {int(same.sum()) - n_clear} other "
@@ -296,7 +685,7 @@ def serve_phases(dev, res, table, rng, tmp: str) -> dict:
             f"launches bitwise equal; max |d val,u,cost| {err:.2e} "
             f"(relative to max(1, |value|): val {worst['val']:.2e}, u "
             f"{worst['u']:.2e}, cost {worst['cost']:.2e}); kernel "
-            f"{ms:.4f} ms, plain (= library) {plain_ms:.3f} ms, bound "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} GFLOP, "
             f"{nbytes / 1e6:.3f} MB)")
 
@@ -498,6 +887,7 @@ def main() -> int:
         print(f"chip_smoke: the repository's torch package is missing "
               f"({e}); run from the repository root", file=sys.stderr)
         return 3
+    base_src = baseline_source()
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -517,9 +907,8 @@ def main() -> int:
     log(f"[build] {len(built)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for name in built:
-        for ln in kernels.ptxas_report.get(name, "").splitlines():
-            if "registers" in ln or "error" in ln.lower():
-                log(f"[build] {name}: {ln.strip()}")
+        for ln in ptxas_lines(name, kernels.ptxas_report.get(name, "")):
+            log(f"[build] {ln}")
     rng = np.random.default_rng(SEED)
     problem = make("inverted_pendulum")
     can = problem.canonical
@@ -630,28 +1019,83 @@ def main() -> int:
             fail(f"K1 bare f32 leg is worse than plain ({err_k:.2e} vs "
                  f"{err_p:.2e})")
 
-    # K1 time at the main path's most frequent launch: the point class's
-    # two-phase first leg (the data does not change the work: no early
-    # exit).
+    # K1 at the launch shapes of the flagship build: each class's QPs as
+    # qp_solve hands them to the leg (equilibrated, from its cold start),
+    # sliced to K.  Where K1_BASELINE names another version of
+    # csrc/ipm_leg.cu, that kernel is built too and timed in turns with
+    # this one (baseline, kernel, kernel, baseline) on the same inputs.
+    legs = {}
+    real_cuda = ipm_leg.ipm_leg_cuda
+    for cname in ("point", "simplex_min", "farkas"):
+        qp, tol, _f = classes[cname]
+        ipm_leg.ipm_leg_cuda = record_legs(real_cuda, [], legs, cname)
+        try:
+            ipm.qp_solve(*qp, tol=tol, n_iter=1)
+        finally:
+            ipm_leg.ipm_leg_cuda = real_cuda
+    base = baseline_lib(base_src, kernels.BUILD_DIR, kernels.NVCC_FLAGS) \
+        if base_src else None
+    leg_f64 = ipm_leg._lib().ipm_leg_f64
+    log(f"[K1] sweep at the build's shapes, f64, device time of back-to-back "
+        "launches" + (f", against the baseline {base_src} in turns"
+                      if base else "") + f"; bounds at {PEAK_BYTES_S:.3g} B/s "
+        f"and {PEAK_F64_S:.3g} FLOP/s")
+    k1_entry = None
+    for label, cname, n_iter in K1_CLASSES:
+        full = legs[cname]
+        nz, nc = full[1].shape[1], full[3].shape[1]
+        for Kc in K1_SWEEP_K + ((4096,) if cname == "point"
+                                and n_iter == 12 else ()):
+            args = tuple(t[:Kc].contiguous() for t in full)
+            nbytes, flops = ipm_leg_cost(Kc, nz, nc, n_iter, 8)
+            bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F64_S)
+            reps = 50 if Kc <= 1024 else 20
+            new, new_out = raw_leg(leg_f64, args, n_iter)
+            if base:
+                old, old_out = raw_leg(base.ipm_leg_f64, args, n_iter)
+                b1 = cuda_time(old, reps)
+                m1, m2 = cuda_time(new, reps), cuda_time(new, reps)
+                b2 = cuda_time(old, reps)
+                ms, base_ms = (m1 + m2) / 2, (b1 + b2) / 2
+                # Relative gap on the QPs whose iterates stay bounded in
+                # both (infeasible ones diverge, each its own way).
+                outs = list(zip(new_out, old_out))
+                ok = torch.ones(Kc, dtype=torch.bool, device=dev)
+                for x, y in outs:
+                    ok &= (x.abs().amax(1) < 1e8) & (y.abs().amax(1) < 1e8)
+                err = max(float(((x - y).abs() / (1 + y.abs()))[ok].max())
+                          for x, y in outs) if ok.any() else 0.0
+                vs = (f"; baseline {base_ms:.4f} ms ({b1:.4f}/{b2:.4f}), "
+                      f"{base_ms / ms:.2f}x; kernel vs baseline {err:.1e} "
+                      f"relative on the {int(ok.sum())} bounded QPs")
+            else:
+                ms, vs = cuda_time(new, reps), ""
+            log(f"[K1]   {label} nz={nz} nc={nc} n_iter={n_iter} K={Kc}: "
+                f"kernel {ms:.4f} ms = {1e3 * ms / n_iter:.2f} us/iteration, "
+                f"bound {bound:.5f} ms{vs}")
+            if label == "point phase 1" and Kc == K1_MAIN_K:
+                plain_ms = cuda_time(
+                    lambda: ipm_leg.ipm_leg_torch(*args, n_iter=n_iter), 3,
+                    warmup=1)
+                k1_entry = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes" if nbytes / PEAK_BYTES_S
+                    > flops / PEAK_F64_S else "operations")
+                log(f"[K1]   (plain version at this cell {plain_ms:.3f} ms)")
+    # The cell of earlier measurements: 4,096 raw point QPs from the
+    # cold start z=0, s=lam=1, 12 iterations (kept for continuity).
+    Q, q, A, b = (t.contiguous() for t in classes["point"][0])
+    raw = (Q, q, A, b, torch.zeros_like(q), torch.ones_like(b),
+           torch.ones_like(b))
+    ms = cuda_time(raw_leg(leg_f64, raw, 12)[0], 20)
+    vs = ""
+    if base:
+        vs = (f", baseline "
+              f"{cuda_time(raw_leg(base.ipm_leg_f64, raw, 12)[0], 20):.4f} ms")
+    log(f"[K1] raw point QPs K={K} n_iter=12 (the earlier cell): "
+        f"kernel {ms:.4f} ms{vs}")
     ora = oracle.Oracle(problem, backend="cuda", two_phase=True,
                         warm_start=True)
-    p1 = ora.point_p1
-    Q, q, A, b = classes["point"][0]
-    z0 = torch.zeros_like(q)
-    s0 = torch.ones_like(b)
-    l0 = torch.ones_like(b)
-    leg_args = (Q.contiguous(), q.contiguous(), A.contiguous(),
-                b.contiguous(), z0, s0, l0)
-    k1_ms = cuda_time(lambda: ipm_leg.ipm_leg_cuda(*leg_args, n_iter=p1), 20)
-    k1_plain_ms = cuda_time(
-        lambda: ipm_leg.ipm_leg_torch(*leg_args, n_iter=p1), 3, warmup=1)
-    nbytes, flops = ipm_leg_cost(K, can.nz, can.nc, p1, 8)
-    k1_bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F64_S)
-    k1_bound_by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F64_S \
-        else "operations"
-    log(f"[K1] leg K={K} nz={can.nz} nc={can.nc} f64 n_iter={p1}: kernel "
-        f"{k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, bound "
-        f"{k1_bound_ms:.4f} ms ({k1_bound_by})")
     # Dispatch must only enqueue device work (the build pipeline certifies
     # one batch on the host while the next solves): under the sync-debug
     # mode "error" any host-device synchronization inside it raises.
@@ -683,9 +1127,14 @@ def main() -> int:
     ipm_leg.launches = 0
     locate.launches = 0
     cfg = PartitionConfig(problem="inverted_pendulum", eps_a=1e-2)
+    main_legs: list = []
+    ipm_leg.ipm_leg_cuda = record_legs(real_cuda, main_legs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = build_partition(problem, cfg)
+    try:
+        res = build_partition(problem, cfg)
+    finally:
+        ipm_leg.ipm_leg_cuda = real_cuda
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     table = export.export_leaves(res.tree)
@@ -718,6 +1167,10 @@ def main() -> int:
             or st["quarantined_cells"] != 0:
         fail("the build fell back from the device (failures/degrade/"
              "quarantine must all be 0)")
+    log("[legs] K1 launches of the build, recorded from ipm_leg_cuda:")
+    leg_histogram(main_legs)
+    if len(main_legs) != n_k1:
+        fail(f"{len(main_legs)} K1 launches recorded, {n_k1} counted")
     if n_k1 <= 0 or n_k2 <= 0:
         fail(f"a kernel of the main path never launched (ipm_leg {n_k1}, "
              f"locate {n_k2})")
@@ -810,13 +1263,18 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    prof_legs: list = []
+    ipm_leg.ipm_leg_cuda = record_legs(real_cuda, prof_legs)
     torch.cuda.synchronize()
     t_prof = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        build_partition(problem, cfg)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            build_partition(problem, cfg)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        ipm_leg.ipm_leg_cuda = real_cuda
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
@@ -832,14 +1290,34 @@ def main() -> int:
     else:
         log("[profile] the profiler recorded no device time: device busy "
             "share not measured")
+    # K1's own row: its summed device time in this build against the
+    # summed bound of the launches recorded in the same build.
+    k1_rows = [r for r in rows if "ipm_leg" in r[0]]
+    k1_us = sum(r[1] for r in k1_rows)
+    log("[profile] K1 launches of the profiled build:")
+    build_bound_ms = leg_histogram(prof_legs)
+    build_ms = k1_us / 1e3 if k1_rows else None
+    if k1_rows:
+        log(f"[profile] K1 (ipm_leg): {k1_us / 1e6:.4f} s of device time in "
+            f"{sum(r[2] for r in k1_rows)} launches ({len(prof_legs)} "
+            f"recorded) = {k1_us / busy_us:.3f} of the build's device time; "
+            f"{k1_us / 1e3 / build_bound_ms:.0f}x the summed bound "
+            f"{build_bound_ms:.4f} ms")
+    else:
+        log("[profile] K1's device time in the build: not measured (no "
+            "profiler row)")
+
+    # -- phase 10 (K1_BASELINE only): builds with the baseline kernel -----
+    if base:
+        build_ab(base, problem, cfg, prob, dev)
 
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
          "replaces": "explicit_hybrid_mpc_tpu/oracle/pallas_ipm.py:217",
-         "launches": n_k1, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
-         "bound_by": k1_bound_by, "library_ms": None},
+         "launches": n_k1, "max_abs_err": k1_err, **k1_entry,
+         "library_ms": None, "build_ms": build_ms,
+         "build_bound_ms": build_bound_ms},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",

@@ -8,27 +8,48 @@
 // column form of _chol_factor, forward/backward substitution for the
 // predictor and the corrector, fraction-to-boundary steps, and the
 // centering sigma = (mu_aff/mu)^3 -- with the shared leg constants
-// (ridge 1e-7 / 1e-10, slack floor 1e-8 / 1e-12) in float and double.
-// The plain torch version is ipm_leg_torch in oracle/ipm_leg.py.
+// (ridge 1e-7 / 1e-10, slack floor 1e-8 / 1e-12, Cholesky floor
+// 1e-30 / 1e-300) in float and double.  The plain torch version is
+// ipm_leg_torch in oracle/ipm_leg.py.
 //
-// Design.  One warp per QP.  A QP's operands (Q, A, b, q) and its
-// working set (KKT matrix, factor, nc-sized step vectors) live in
-// shared memory for the whole leg: device memory is read once (the
-// operands and the start) and written once (z, s, lam) per launch, and
-// all n_iter iterations run inside the launch.  The nc-wise work (r_p,
-// D, the step vectors, the fraction-to-boundary minima, mu) is spread
-// over the 32 lanes and reduced with shuffles; the KKT assembly
-// computes the lower triangle, entries over lanes; the Cholesky and
-// the two substitutions are column-serial with a lane per row (nz <=
-// 32), separated by __syncwarp.  Every QP depends only on its own
-// inputs -- no cross-QP reduction and no padding -- so a QP's result
-// is independent of which batch it was launched in.
+// What bounds it: neither bytes nor operations.  A QP moves ~3 KB and
+// does ~10^5 flops per leg at the pendulum's shapes (nz 5-8, nc 35-39),
+// and the offline build launches it at 8-2,048 QPs (mostly <= 256), so
+// the card is mostly empty and the time is the dependent chain of one
+// QP's iteration.  The design shortens that chain:
 //
-// What bounds it: neither bytes nor operations.  At the pendulum's
-// shapes (nz 5-8, nc 35-39) a QP moves ~3 KB and does ~10^5 flops per
-// leg; the leg is a chain of dependent warp-synchronous steps, so it
-// is latency-bound.  Making it fast (several QPs per warp, registers
-// instead of shared memory) is later work.
+//  - One warp per QP, one warp per block (small launches spread over
+//    every SM).  Lane l owns constraint rows l, l+32, ... (ROWS <= 4)
+//    and keeps their rows of A, b, s, lam, r_p, D = lam/s, 1/s, 1/lam
+//    and the step vectors in registers.
+//  - A'lam, A't and the lower triangle of A'DA are lane-local partial
+//    sums over the lane's own rows (independent FMAs), combined with mu
+//    in ONE warp reduction: a reduce-scatter butterfly (each of the 5
+//    __shfl_xor_sync stages halves the values a lane carries) and an
+//    all-gather through a small shared buffer, so every lane ends with
+//    every total.  A z and A dz are lane-local.
+//  - The Cholesky factor and the four triangular solves (predictor and
+//    corrector share the factor) run redundantly in every lane, in
+//    registers, unrolled for a compile-time NZ <= 8: no shuffle, no
+//    __syncwarp, no shared memory inside them.  Every lane holds the
+//    same sums bit for bit (addition commutes), so the lanes agree.
+//  - Reciprocals instead of divisions on the chain: 1/s and 1/lam once
+//    per row, the pivot as min(rsqrt(max(C_jj, 0)), 1/floor) (the
+//    reciprocal of the reference's max(sqrt(C_jj), floor)), which is
+//    also 1/L_jj for all four solves where the clamp is inactive, and
+//    sigma's mu_aff/mu as a product with 1/nc and 1/mu.  The only
+//    divisions left are the fraction-to-boundary ratios, independent
+//    across rows; their primal and dual minima each take two
+//    __reduce_min_sync on the bit patterns instead of 5 shuffles.
+//  - nz 9..32 takes the general path (ipm_leg_general): the first
+//    design, the QP's operands and factor in shared memory, lanes over
+//    rows of the KKT matrix.  nz is not padded to 8 (0 * NaN would
+//    leak NaN into live rows and change the sums).
+//
+// A QP depends only on its own inputs -- no cross-QP reduction, no
+// padding across QPs -- so its result is bitwise independent of K and
+// of its position in the batch.  All n_iter iterations run in one
+// launch; operands are read once and results written once.
 //
 // NaN semantics follow the JAX reference: max/min propagate NaN (a
 // diverging infeasible QP must stay non-finite so it classifies as
@@ -46,17 +67,17 @@ constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Leg;
 template <> struct Leg<float> {
-  static __device__ float reg() { return 1e-7f; }
-  static __device__ float tiny() { return 1e-8f; }
-  static __device__ float floor() { return 1e-30f; }
-  static __device__ float mu_floor() { return 1e-12f; }
+  static __device__ constexpr float reg() { return 1e-7f; }
+  static __device__ constexpr float tiny() { return 1e-8f; }
+  static __device__ constexpr float floor() { return 1e-30f; }
+  static __device__ constexpr float mu_floor() { return 1e-12f; }
   static __device__ float inf() { return __int_as_float(0x7f800000); }
 };
 template <> struct Leg<double> {
-  static __device__ double reg() { return 1e-10; }
-  static __device__ double tiny() { return 1e-12; }
-  static __device__ double floor() { return 1e-300; }
-  static __device__ double mu_floor() { return 1e-12; }
+  static __device__ constexpr double reg() { return 1e-10; }
+  static __device__ constexpr double tiny() { return 1e-12; }
+  static __device__ constexpr double floor() { return 1e-300; }
+  static __device__ constexpr double mu_floor() { return 1e-12; }
   static __device__ double inf() {
     return __longlong_as_double(0x7ff0000000000000ll);
   }
@@ -64,6 +85,10 @@ template <> struct Leg<double> {
 
 __device__ __forceinline__ float root(float a) { return sqrtf(a); }
 __device__ __forceinline__ double root(double a) { return ::sqrt(a); }
+__device__ __forceinline__ float rroot(float a) { return rsqrtf(a); }
+__device__ __forceinline__ double rroot(double a) { return ::rsqrt(a); }
+__device__ __forceinline__ float recip(float a) { return __frcp_rn(a); }
+__device__ __forceinline__ double recip(double a) { return __drcp_rn(a); }
 
 template <typename T> __device__ __forceinline__ bool is_nan(T a) {
   return a != a;
@@ -83,6 +108,319 @@ template <typename T> __device__ __forceinline__ T warp_min(T v) {
   for (int o = 16; o > 0; o >>= 1) v = pmin(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
+
+// Min over the warp of values that are >= +0, +inf or NaN (the
+// fraction-to-boundary ratios): their bit patterns order as unsigned
+// integers, so two __reduce_min_sync (high word, then low word among
+// the lanes that hold the least high word) find it; a NaN anywhere
+// gives NaN, as jnp.minimum does.
+__device__ __forceinline__ double warp_min_nonneg(double v) {
+  const unsigned long long b = __double_as_longlong(v);
+  const unsigned hi = __reduce_min_sync(kFull, unsigned(b >> 32));
+  const unsigned lo = __reduce_min_sync(
+      kFull, unsigned(b >> 32) == hi ? unsigned(b) : 0xffffffffu);
+  if (__any_sync(kFull, is_nan(v)))
+    return __longlong_as_double(0x7ff8000000000000ll);
+  return __longlong_as_double(
+      (long long)(((unsigned long long)hi << 32) | lo));
+}
+__device__ __forceinline__ float warp_min_nonneg(float v) {
+  const unsigned m = __reduce_min_sync(kFull, __float_as_uint(v));
+  if (__any_sync(kFull, is_nan(v))) return __int_as_float(0x7fc00000);
+  return __uint_as_float(m);
+}
+
+// -- the register-resident path, nz <= 8 ----------------------------------
+
+__host__ __device__ constexpr int ceil_pow2(int v) {
+  return v <= 1 ? 1 : 2 * ceil_pow2((v + 1) / 2);
+}
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v / 2);
+}
+// Values a lane carries into warp_allreduce for V totals: a power of
+// two up to 32, a multiple of 32 beyond (each stage halves it).
+__host__ __device__ constexpr int red_width(int v) {
+  return v <= 32 ? ceil_pow2(v) : 32 * ((v + 31) / 32);
+}
+// Packed lower triangle, row-major: (i, j), j <= i.
+__host__ __device__ constexpr int tri(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+// One stage of warp_allreduce (offset 16 >> ST), then the next.  The
+// stage index is a template argument so that every index into w is a
+// compile-time constant and w stays in registers.
+template <int ST, typename T, int W>
+__device__ __forceinline__ void reduce_stages(T (&w)[W], int lane) {
+  if constexpr (ST < 5) {
+    constexpr int o = 16 >> ST;
+    constexpr int halvings = W >= 32 ? 5 : ilog2(W);
+    if constexpr (ST < halvings) {
+      constexpr int h = W >> (ST + 1);
+      const bool up = lane & o;
+#pragma unroll
+      for (int i = 0; i < h; ++i) {
+        const T send = up ? w[i] : w[i + h];
+        const T keep = up ? w[i + h] : w[i];
+        w[i] = keep + __shfl_xor_sync(kFull, send, o);
+      }
+    } else {
+      w[0] += __shfl_xor_sync(kFull, w[0], o);
+    }
+    reduce_stages<ST + 1>(w, lane);
+  }
+}
+
+// Sum w[0..V) over the warp; every lane ends with the totals.  Each
+// __shfl_xor_sync stage sends half of what a lane carries to its
+// partner and keeps the sum of the other half (once a lane carries one
+// value, the remaining stages are a plain butterfly); the totals then
+// go through `buf` (W elements of shared memory) to every lane.  Each
+// total is formed in one fixed order, so every lane reads the same
+// bits, whatever the launch.  w[V..W) must be zero on entry.
+template <typename T, int V, int W>
+__device__ __forceinline__ void warp_allreduce(T (&w)[W], T* buf, int lane) {
+  reduce_stages<0>(w, lane);
+  constexpr int per = W >= 32 ? W / 32 : 1;
+  constexpr int group = W >= 32 ? 1 : 32 / W;
+  if ((lane & (group - 1)) == 0) {
+#pragma unroll
+    for (int i = 0; i < per; ++i) buf[(lane / group) * per + i] = w[i];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < V; ++i) w[i] = buf[i];
+  __syncwarp();
+}
+
+// In-place Cholesky of the packed lower triangle C (M + reg I) in the
+// reference's clamped column form; inv[j] = 1/L_jj for the solves.
+// Where the clamp is not active, L_jj = C_jj r with r = 1/sqrt(C_jj),
+// so 1/L_jj is r (to an ulp); otherwise (C_jj <= 0, inf or NaN) it is
+// the reciprocal of L_jj itself, which keeps the reference's inf/NaN.
+template <typename T, int NZ>
+__device__ __forceinline__ void chol(T (&C)[NZ * (NZ + 1) / 2],
+                                     T (&inv)[NZ]) {
+  const T inv_floor = T(1) / Leg<T>::floor();
+#pragma unroll
+  for (int j = 0; j < NZ; ++j) {
+    const T r = pmin(rroot(pmax(C[tri(j, j)], T(0))), inv_floor);
+#pragma unroll
+    for (int i = j; i < NZ; ++i) C[tri(i, j)] *= r;
+    inv[j] = r > T(0) && r < inv_floor ? r : recip(C[tri(j, j)]);
+#pragma unroll
+    for (int a = j + 1; a < NZ; ++a)
+#pragma unroll
+      for (int c = j + 1; c <= a; ++c)
+        C[tri(a, c)] -= C[tri(a, j)] * C[tri(c, j)];
+  }
+}
+
+// y <- L'^-1 L^-1 y, column-oriented as the reference (fwd_sub, bwd_sub).
+template <typename T, int NZ>
+__device__ __forceinline__ void cho_solve(const T (&L)[NZ * (NZ + 1) / 2],
+                                          const T (&inv)[NZ], T (&y)[NZ]) {
+#pragma unroll
+  for (int j = 0; j < NZ; ++j) {
+    const T d = y[j] * inv[j];
+#pragma unroll
+    for (int i = 0; i < NZ; ++i)
+      if (i != j) y[i] = y[i] - d * (i > j ? L[tri(i, j)] : T(0));
+    y[j] = d;
+  }
+#pragma unroll
+  for (int j = NZ - 1; j >= 0; --j) {
+    const T d = y[j] * inv[j];
+#pragma unroll
+    for (int i = 0; i < NZ; ++i)
+      if (i != j) y[i] = y[i] - d * (i < j ? L[tri(j, i)] : T(0));
+    y[j] = d;
+  }
+}
+
+template <typename T, int NZ, int ROWS>
+__global__ void __launch_bounds__(32)
+ipm_leg_fixed(const T* __restrict__ Qg, const T* __restrict__ qg,
+              const T* __restrict__ Ag, const T* __restrict__ bg,
+              const T* __restrict__ zin, const T* __restrict__ s_in,
+              const T* __restrict__ l_in, T* __restrict__ zout,
+              T* __restrict__ sout, T* __restrict__ lout, int nc,
+              int n_iter) {
+  constexpr int TRI = NZ * (NZ + 1) / 2;
+  constexpr int V1 = TRI + 2 * NZ + 1;  // A'DA, A'lam, A't, mu
+  constexpr int W1 = red_width(V1);
+  constexpr int W2 = red_width(NZ);     // A't of the corrector
+  __shared__ T Qs[NZ * NZ + NZ];        // Q, then q (broadcast reads)
+  __shared__ T buf[W1];
+  const int lane = threadIdx.x;
+  const long long k = blockIdx.x;
+
+  for (int i = lane; i < NZ * NZ; i += 32) Qs[i] = Qg[k * NZ * NZ + i];
+  if (lane < NZ) Qs[NZ * NZ + lane] = qg[k * NZ + lane];
+  T z[NZ];
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) z[c] = zin[k * NZ + c];
+  T A[ROWS][NZ], b[ROWS], s[ROWS], lam[ROWS];
+  bool ok[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int row = lane + 32 * r;
+    ok[r] = row < nc;
+    const long long o = k * nc + row;
+#pragma unroll
+    for (int c = 0; c < NZ; ++c) A[r][c] = ok[r] ? Ag[o * NZ + c] : T(0);
+    b[r] = ok[r] ? bg[o] : T(0);
+    s[r] = ok[r] ? s_in[o] : T(1);
+    lam[r] = ok[r] ? l_in[o] : T(1);
+  }
+  __syncwarp();
+
+  const T reg = Leg<T>::reg(), tiny = Leg<T>::tiny(), inf = Leg<T>::inf();
+  const T nc_t = T(nc), inv_nc = recip(nc_t);
+  for (int it = 0; it < n_iter; ++it) {
+    // Residuals, scalings and every partial sum of the iteration start.
+    T is[ROWS], il[ROWS], D[ROWS], rp[ROWS];
+    T w[W1];
+#pragma unroll
+    for (int i = 0; i < W1; ++i) w[i] = T(0);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      s[r] = pmax(s[r], tiny);
+      lam[r] = pmax(lam[r], tiny);
+      is[r] = recip(s[r]);
+      il[r] = recip(lam[r]);
+      D[r] = lam[r] * is[r];
+      T az = 0;
+#pragma unroll
+      for (int c = 0; c < NZ; ++c) az += A[r][c] * z[c];
+      rp[r] = az + s[r] - b[r];
+      if (ok[r]) {
+        const T sl = s[r] * lam[r];
+        const T t = D[r] * rp[r] - sl * is[r];  // r_c = s lam (predictor)
+        T DA[NZ];
+#pragma unroll
+        for (int c = 0; c < NZ; ++c) DA[c] = D[r] * A[r][c];
+#pragma unroll
+        for (int i = 0; i < NZ; ++i)
+#pragma unroll
+          for (int c = 0; c <= i; ++c) w[tri(i, c)] += A[r][i] * DA[c];
+#pragma unroll
+        for (int c = 0; c < NZ; ++c) {
+          w[TRI + c] += A[r][c] * lam[r];
+          w[TRI + NZ + c] += A[r][c] * t;
+        }
+        w[TRI + 2 * NZ] += sl;
+      }
+    }
+    warp_allreduce<T, V1>(w, buf, lane);
+    const T mu = w[TRI + 2 * NZ] / nc_t;
+    const T inv_mu = recip(pmax(mu, Leg<T>::mu_floor()));
+    // r_d = Q z + q + A'lam;  C = Q + A'DA + reg I;  its factor.
+    T rd[NZ], L[TRI], inv[NZ], dz[NZ];
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) {
+      T acc = 0;
+#pragma unroll
+      for (int c = 0; c < NZ; ++c) acc += Qs[i * NZ + c] * z[c];
+      rd[i] = acc + Qs[NZ * NZ + i] + w[TRI + i];
+#pragma unroll
+      for (int c = 0; c <= i; ++c) {
+        const T v = Qs[i * NZ + c] + w[tri(i, c)];
+        L[tri(i, c)] = c == i ? v + reg : v;
+      }
+    }
+    chol<T, NZ>(L, inv);
+    // Predictor (affine scaling): rhs = -r_d - A'(D r_p - r_c/s).
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) dz[i] = -rd[i] - w[TRI + NZ + i];
+    cho_solve<T, NZ>(L, inv, dz);
+    T dsa[ROWS], dla[ROWS];
+    T mp = inf, md = inf;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      T adz = 0;
+#pragma unroll
+      for (int c = 0; c < NZ; ++c) adz += A[r][c] * dz[c];
+      const T rc = s[r] * lam[r];
+      dla[r] = D[r] * (adz + rp[r]) - rc * is[r];
+      dsa[r] = -(rc + s[r] * dla[r]) * il[r];
+      if (ok[r]) {
+        mp = pmin(mp, dsa[r] < T(0) ? -s[r] / dsa[r] : inf);
+        md = pmin(md, dla[r] < T(0) ? -lam[r] / dla[r] : inf);
+      }
+    }
+    mp = warp_min_nonneg(mp);
+    md = warp_min_nonneg(md);
+    T a_p = pmin(T(1), mp), a_d = pmin(T(1), md);
+    T aff = 0;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      if (ok[r]) aff += (s[r] + a_p * dsa[r]) * (lam[r] + a_d * dla[r]);
+    // sigma = (mu_aff / max(mu, floor))^3, mu_aff = sum / nc.
+    const T ratio = warp_sum(aff) * (inv_nc * inv_mu);
+    const T smu = ratio * ratio * ratio * mu;
+    // Corrector with centering: r_c = s lam + ds_a dl_a - sigma mu.
+    T rc[ROWS];
+    T w2[W2];
+#pragma unroll
+    for (int i = 0; i < W2; ++i) w2[i] = T(0);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      rc[r] = s[r] * lam[r] + dsa[r] * dla[r] - smu;
+      if (ok[r]) {
+        const T t = D[r] * rp[r] - rc[r] * is[r];
+#pragma unroll
+        for (int c = 0; c < NZ; ++c) w2[c] += A[r][c] * t;
+      }
+    }
+    warp_allreduce<T, NZ>(w2, buf, lane);
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) dz[i] = -rd[i] - w2[i];
+    cho_solve<T, NZ>(L, inv, dz);
+    T ds[ROWS], dl[ROWS];
+    mp = inf;
+    md = inf;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      T adz = 0;
+#pragma unroll
+      for (int c = 0; c < NZ; ++c) adz += A[r][c] * dz[c];
+      dl[r] = D[r] * (adz + rp[r]) - rc[r] * is[r];
+      ds[r] = -(rc[r] + s[r] * dl[r]) * il[r];
+      if (ok[r]) {
+        mp = pmin(mp, ds[r] < T(0) ? -s[r] / ds[r] : inf);
+        md = pmin(md, dl[r] < T(0) ? -lam[r] / dl[r] : inf);
+      }
+    }
+    mp = warp_min_nonneg(mp);
+    md = warp_min_nonneg(md);
+    a_p = pmin(T(1), T(0.995) * mp);
+    a_d = pmin(T(1), T(0.995) * md);
+#pragma unroll
+    for (int c = 0; c < NZ; ++c) z[c] = z[c] + a_p * dz[c];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      s[r] = s[r] + a_p * ds[r];
+      lam[r] = lam[r] + a_d * dl[r];
+    }
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < NZ; ++c) zout[k * NZ + c] = z[c];
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (ok[r]) {
+      const long long o = k * nc + lane + 32 * r;
+      sout[o] = s[r];
+      lout[o] = lam[r];
+    }
+  }
+}
+
+// -- the general path, 9 <= nz <= 32 --------------------------------------
 
 // Elements of shared memory one QP uses (see the carve-up below).
 __host__ __device__ inline int warp_elems(int nz, int nc) {
@@ -147,16 +485,16 @@ __device__ T frac_to_boundary(int lane, int nc, const T* v, const T* dv,
 }
 
 template <typename T>
-__global__ void ipm_leg_kernel(const T* __restrict__ Qg,
-                               const T* __restrict__ qg,
-                               const T* __restrict__ Ag,
-                               const T* __restrict__ bg,
-                               const T* __restrict__ zin,
-                               const T* __restrict__ s_in,
-                               const T* __restrict__ l_in,
-                               T* __restrict__ zout, T* __restrict__ sout,
-                               T* __restrict__ lout, int K, int nz, int nc,
-                               int n_iter, int warps) {
+__global__ void ipm_leg_general(const T* __restrict__ Qg,
+                                const T* __restrict__ qg,
+                                const T* __restrict__ Ag,
+                                const T* __restrict__ bg,
+                                const T* __restrict__ zin,
+                                const T* __restrict__ s_in,
+                                const T* __restrict__ l_in,
+                                T* __restrict__ zout, T* __restrict__ sout,
+                                T* __restrict__ lout, int K, int nz, int nc,
+                                int n_iter, int warps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -285,6 +623,25 @@ __global__ void ipm_leg_kernel(const T* __restrict__ Qg,
   }
 }
 
+// -- launch ----------------------------------------------------------------
+
+template <typename T, int NZ>
+int launch_fixed(const T* Q, const T* q, const T* A, const T* b, const T* z,
+                 const T* s, const T* lam, T* zo, T* so, T* lo, int K, int nc,
+                 int n_iter, cudaStream_t st) {
+  const int rows = (nc + 31) / 32;
+  if (rows <= 1)
+    ipm_leg_fixed<T, NZ, 1><<<K, 32, 0, st>>>(Q, q, A, b, z, s, lam, zo, so,
+                                              lo, nc, n_iter);
+  else if (rows <= 2)
+    ipm_leg_fixed<T, NZ, 2><<<K, 32, 0, st>>>(Q, q, A, b, z, s, lam, zo, so,
+                                              lo, nc, n_iter);
+  else
+    ipm_leg_fixed<T, NZ, 4><<<K, 32, 0, st>>>(Q, q, A, b, z, s, lam, zo, so,
+                                              lo, nc, n_iter);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const T* Q, const T* q, const T* A, const T* b, const T* z,
            const T* s, const T* lam, T* zo, T* so, T* lo, int K, int nz,
@@ -292,17 +649,29 @@ int launch(const T* Q, const T* q, const T* A, const T* b, const T* z,
   if (K <= 0) return 0;
   if (nz < 1 || nz > kMaxNz || nc < 1 || nc > kMaxNc)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nz) {
+#define EHM_FIXED(N)                                                        \
+  case N:                                                                   \
+    return launch_fixed<T, N>(Q, q, A, b, z, s, lam, zo, so, lo, K, nc,     \
+                              n_iter, st);
+    EHM_FIXED(1) EHM_FIXED(2) EHM_FIXED(3) EHM_FIXED(4)
+    EHM_FIXED(5) EHM_FIXED(6) EHM_FIXED(7) EHM_FIXED(8)
+#undef EHM_FIXED
+    default:
+      break;
+  }
   const size_t per_warp = (size_t)warp_elems(nz, nc) * sizeof(T);
   // Up to 4 QPs (warps) per block, within the 227 KB a block may use.
   int warps = 4;
   while (warps > 1 && per_warp * warps > 200 * 1024) warps >>= 1;
   const size_t smem = per_warp * warps;
   cudaError_t err = cudaFuncSetAttribute(
-      ipm_leg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ipm_leg_general<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (K + warps - 1) / warps;
-  ipm_leg_kernel<T><<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
+  ipm_leg_general<T><<<blocks, 32 * warps, smem, st>>>(
       Q, q, A, b, z, s, lam, zo, so, lo, K, nz, nc, n_iter, warps);
   return (int)cudaGetLastError();
 }

@@ -28,8 +28,9 @@ from explicit_hybrid_mpc_tpu_torch import kernels
 #: after, to show the build went through the kernel.
 launches = 0
 
-#: Compiled shape limits of the CUDA kernel (one lane per row of the
-#: KKT matrix; operands in shared memory).
+#: Compiled shape limits of the CUDA kernel (nz <= 8 runs its
+#: register-resident path, larger nz its shared-memory path; up to 4
+#: constraint rows a lane).
 MAX_NZ = 32
 MAX_NC = 128
 

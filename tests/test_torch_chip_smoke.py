@@ -1,0 +1,187 @@
+"""Torch port: the parts of chip_smoke.py that run without a GPU.
+
+The script itself needs a CUDA device; here it must refuse to run, and
+its helpers for K1's launch record, bounds and the ptxas report are
+checked on synthetic inputs."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
+
+def test_refuses_to_run_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+
+
+def test_record_legs_notes_each_launch_and_passes_it_through():
+    launches, store = [], {}
+    calls = []
+
+    def real(*a):
+        calls.append(a)
+        return "out"
+    leg = chip_smoke.record_legs(real, launches, store, "point")
+    Q, q, A, b = (torch.zeros(3, 5, 5), torch.zeros(3, 5),
+                  torch.zeros(3, 35, 5), torch.zeros(3, 35))
+    st = (torch.zeros(3, 5), torch.ones(3, 35), torch.ones(3, 35))
+    assert leg(Q, q, A, b, *st, 12) == "out"
+    assert launches == [(3, 5, 35, 12)]
+    assert store["point"][0] is Q and len(calls) == 1 and calls[0][-1] == 12
+
+
+def test_leg_histogram_sums_the_bounds_of_the_launches():
+    launches = [(8, 5, 35, 12), (1024, 5, 35, 12), (256, 8, 39, 18),
+                (2048, 8, 38, 30)]
+    total = chip_smoke.leg_histogram(launches)
+    assert total == pytest.approx(
+        sum(chip_smoke.leg_bound_ms(*x) for x in launches))
+    # The bound grows with the work: K and iterations.
+    assert chip_smoke.leg_bound_ms(16, 5, 35, 12) \
+        > chip_smoke.leg_bound_ms(8, 5, 35, 12)
+    assert chip_smoke.leg_bound_ms(8, 5, 35, 18) \
+        > chip_smoke.leg_bound_ms(8, 5, 35, 12)
+
+
+def test_baseline_source_reads_k1_baseline(tmp_path):
+    assert chip_smoke.baseline_source({}) is None
+    assert chip_smoke.baseline_source({"K1_BASELINE": "  "}) is None
+    src = tmp_path / "ipm_leg.cu"
+    src.write_text("// another version\n")
+    assert chip_smoke.baseline_source({"K1_BASELINE": str(src)}) \
+        == str(src)
+    with pytest.raises(SystemExit):
+        chip_smoke.baseline_source({"K1_BASELINE": str(tmp_path / "no.cu")})
+
+
+def test_bound_uses_the_cards_float64_peak():
+    """The f64 bound divides by the card's highest f64 rate (its FP64
+    tensor cores), never by a lower one."""
+    assert chip_smoke.PEAK_F64_S == 67e12
+    nbytes, flops = chip_smoke.ipm_leg_cost(1 << 20, 5, 35, 12, 8)
+    assert chip_smoke.leg_bound_ms(1 << 20, 5, 35, 12) == pytest.approx(
+        1e3 * max(nbytes / 3.35e12, flops / 67e12))
+
+
+def _di_build(eps_a, recorder=None):
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    kw = {"N": 3, "theta_box": 1.5}
+    cfg = PartitionConfig(problem="double_integrator", backend="cpu",
+                          problem_args=tuple(sorted(kw.items())),
+                          eps_a=eps_a, batch_simplices=64, max_depth=20)
+    prob = make("double_integrator", **kw)
+    if recorder is None:
+        return prob, build_partition(prob, cfg)
+    with recorder:
+        return prob, build_partition(prob, cfg)
+
+
+def test_tree_diff_names_the_deciding_test():
+    """Two builds that differ only in eps_a: the recorders see every
+    cell, the diff finds the cells one split and the other closed, and
+    each explanation gives both gaps against eps_a; the same build twice
+    gives no differing cell, and the wrappers are restored."""
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm, oracle
+    from explicit_hybrid_mpc_tpu_torch.partition import certify, geometry
+
+    real = (certify.certify_stage1_batch, ipm.qp_solve)
+    recs = (chip_smoke.DecisionRecorder(certify, ipm),
+            chip_smoke.DecisionRecorder(certify, ipm))
+    prob, loose = _di_build(0.5, recs[0])
+    _, tight = _di_build(0.3, recs[1])
+    assert (certify.certify_stage1_batch, ipm.qp_solve) == real
+    a, b = (chip_smoke.tree_outcomes(r.tree) for r in (loose, tight))
+    assert len(a) == len(loose.tree) and len(recs[0].cells) == len(a)
+    assert sum(v[0] == "leaf" for v in a.values()) \
+        == loose.stats["regions"]
+    assert chip_smoke.differing_cells(
+        a, chip_smoke.tree_outcomes(_di_build(0.5)[1].tree)) == ([], 0)
+    diff, _ = chip_smoke.differing_cells(a, b)
+    assert diff and all(a[k][0] == "leaf" and b[k][0] == "split"
+                        for k in diff)
+    dp = oracle.to_device(prob.canonical, torch.device("cpu"))
+
+    def point_key(v, d):
+        _Q, q, _A, bb = oracle.point_qp(
+            dp, torch.as_tensor(v[None]), torch.as_tensor([d]))
+        return chip_smoke.DecisionRecorder.qp_key(q, bb)[0]
+
+    def simplex_key(vs, d):
+        M = torch.as_tensor(geometry.barycentric_matrix(vs)[None])
+        _Q, q, _A, bb = oracle.simplex_min_qp(dp, M, torch.as_tensor([d]))
+        return chip_smoke.DecisionRecorder.qp_key(q, bb)[0]
+    # The cell's vertex QPs were solved (and recorded) by the build,
+    # under the keys explain_cell looks up.
+    verts = np.frombuffer(diff[0], dtype=np.float64).reshape(3, 2).copy()
+    assert all(point_key(v, 0) in recs[0].qps for v in verts)
+    lines = chip_smoke.explain_cell(diff[0], 2, (a[diff[0]], b[diff[0]]),
+                                    recs, 0.5, point_key, simplex_key)
+    assert "baseline ('leaf'" in lines[0] and "kernel ('split',)" in lines[0]
+    assert lines[1].startswith("  baseline: stage 1 ") \
+        and "eps_a x" in lines[1] and lines[2].startswith("  kernel: ")
+
+
+def test_explain_cell_shows_a_tie_in_a_vertex_argmin():
+    """A vertex whose two best commutations tie in one build and not in
+    the other: both values, both builds, and the tie's margin."""
+    import types
+
+    import numpy as np
+
+    verts = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+    V = np.array([[1.0, 3.0], [1.5, 3.0], [2.0, 2.0]])
+    Vk = V.copy()
+    Vk[2, 1] = np.nextafter(2.0, 0.0)
+    cell = dict(s1="pending", conv=np.ones((3, 2), dtype=bool))
+    recs = tuple(types.SimpleNamespace(qps={}, cells={verts.tobytes(): {
+        **cell, "s2": s2, "gap2": g, "dstar": np.array(ds), "V": v,
+        "Vmin": {}}}) for s2, g, ds, v in (
+            ("certified", 0.25, [0, 0, 0], V),
+            ("split", 0.75, [0, 0, 1], Vk)))
+    lines = chip_smoke.explain_cell(verts.tobytes(), 2, (("leaf", 0, True),
+                                                        ("split",)),
+                                    recs, 0.5, None, None)
+    assert "certified, gap 0.25 = eps_a x 0.5" in lines[1]
+    assert "split, gap 0.75 = eps_a x 1.5" in lines[2]
+    assert len(lines) == 4 and lines[3].startswith(
+        "  vertex 2: best commutation 0 / 1; V[0], V[1] = 2.0, 2.0 / 2.0, "
+        "1.9999999999999998; (V[0] - V[1]) / |V[1]| = 0 / 1.11e-16")
+
+
+def test_ptxas_lines_name_the_template_arguments():
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__x_"
+        "10_ipm_leg_cu_d315ipm_leg_fixedIdLi8ELi2EEEvPKT_S3_S3_S3_S3_S3_S3_"
+        "PS1_S4_S4_ii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN...",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 240 registers, used 0 barriers, 1088 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__x_"
+        "10_ipm_leg_cu_d315ipm_leg_generalIfEEvPKT_S3_iiiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN...",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 104 registers, used 0 barriers"])
+    lines = chip_smoke.ptxas_lines("ipm_leg", report)
+    assert lines == [
+        "ipm_leg: ipm_leg_fixed<double, NZ=8, ROWS=2>: 240 registers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ipm_leg: ipm_leg_general<float>: 104 registers; "
+        "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads"]

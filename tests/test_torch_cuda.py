@@ -33,15 +33,22 @@ def _qps(rng, K, nz, nc, dtype, dev):
     return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrs]
 
 
-@pytest.mark.parametrize("nz,nc", [(5, 35), (8, 39), (32, 128)])
-def test_ipm_leg_kernel_matches_plain(gpu, nz, nc):
+#: (nz, nc) of the leg tests: both sides of the kernel's register path
+#: (nz <= 8) and its general path, and the register path at one (nc <=
+#: 32), two (nc <= 64) and four (nc <= 128) constraint rows a lane.
+_SHAPES = [(1, 7), (5, 35), (5, 70), (8, 39), (8, 128), (9, 70), (32, 128)]
+
+
+@pytest.mark.parametrize("K", [1, 8, 257, 2048])
+@pytest.mark.parametrize("nz,nc", _SHAPES)
+def test_ipm_leg_kernel_matches_plain(gpu, nz, nc, K):
     """f64: kernel against plain to 1e-9 relative (summation order
     only).  f32: both are float32 approximations of the float64
     iterates, their worst rows are the QPs float32 resolves poorly on
     either side; the kernel's worst error against them is held to 4x
     the plain version's, plus 1e-4."""
-    Q, q, A, b = _qps(np.random.default_rng(nz), 257, nz, nc,
-                      torch.float64, gpu)
+    Q, q, A, b = _qps(np.random.default_rng(nz * 10_000 + nc * 100 + K), K,
+                      nz, nc, torch.float64, gpu)
     st = (torch.zeros_like(q), torch.ones_like(b), torch.ones_like(b))
     before = ipm_leg.launches
     kern = ipm_leg.ipm_leg(Q, q, A, b, *st, n_iter=4)
@@ -57,6 +64,92 @@ def test_ipm_leg_kernel_matches_plain(gpu, nz, nc):
     err_k = rel(ipm_leg.ipm_leg(*f32, n_iter=4))
     err_p = rel(ipm_leg.ipm_leg_torch(*f32, n_iter=4))
     assert err_k <= 4 * err_p + 1e-4
+
+
+@pytest.mark.parametrize("nz,nc", [(5, 35), (5, 70), (8, 39), (8, 128),
+                                   (9, 70)])
+def test_ipm_leg_result_does_not_depend_on_the_batch(gpu, nz, nc):
+    """A QP's result is bitwise the same launched alone, in its batch,
+    and at another offset inside a larger batch of other QPs."""
+    rng = np.random.default_rng(nz * 1000 + nc)
+    mine = _qps(rng, 40, nz, nc, torch.float64, gpu)
+    other = _qps(rng, 300, nz, nc, torch.float64, gpu)
+
+    def start(t):
+        return (torch.zeros_like(t[1]), torch.ones_like(t[3]),
+                torch.ones_like(t[3]))
+
+    def leg(t):
+        return ipm_leg.ipm_leg_cuda(*t, *start(t), n_iter=6)
+    batch = leg(mine)
+    alone = [leg([x[k:k + 1].contiguous() for x in mine]) for k in (0, 17)]
+    mixed = leg([torch.cat([o[:123], m, o[123:]]) for o, m in zip(other,
+                                                                   mine)])
+    torch.cuda.synchronize()
+    for j, k in enumerate((0, 17)):
+        for a, b in zip(alone[j], batch):
+            assert torch.equal(a[0], b[k])
+    for a, b in zip(mixed, batch):
+        assert torch.equal(a[123:163], b)
+
+
+def test_ipm_leg_nan_and_infeasible_qps(gpu):
+    """A NaN in q comes back non-finite from the kernel and the plain
+    version alike; a QP whose feasible set is empty comes back not
+    converged and not feasible from qp_solve on the card, as on the
+    CPU."""
+    Q, q, A, b = _qps(np.random.default_rng(3), 6, 5, 35, torch.float64, gpu)
+    q[2, 1] = float("nan")
+    st = (torch.zeros_like(q), torch.ones_like(b), torch.ones_like(b))
+    for z, _s, _lam in (ipm_leg.ipm_leg_cuda(Q, q, A, b, *st, n_iter=5),
+                        ipm_leg.ipm_leg_torch(Q, q, A, b, *st, n_iter=5)):
+        assert not bool(torch.isfinite(z[2]).all())
+        assert bool(torch.isfinite(z[[0, 1, 3, 4, 5]]).all())
+    # z_0 <= -1 and -z_0 <= -1: no z satisfies both.
+    Q, q, A, b = _qps(np.random.default_rng(4), 8, 5, 35, torch.float64, gpu)
+    A[:4, :2] = 0.0
+    A[:4, 0, 0], A[:4, 1, 0] = 1.0, -1.0
+    b[:4, :2] = -1.0
+    cpu = ipm.qp_solve(*(t.cpu() for t in (Q, q, A, b)), n_iter=30)
+    card = ipm.qp_solve(Q, q, A, b, n_iter=30)
+    assert not bool(cpu.converged[:4].any() or cpu.feasible[:4].any())
+    assert torch.equal(card.converged.cpu(), cpu.converged)
+    assert torch.equal(card.feasible.cpu(), cpu.feasible)
+
+
+def _tree_signature(res):
+    """Node-for-node structural identity (as in test_torch_build.py)."""
+    tree = res.tree
+    leaves = tree.converged_leaves()
+    return (res.stats["regions"], res.stats["tree_nodes"],
+            res.stats["uncertified"], res.stats["semi_explicit"],
+            tuple(tree.vertices[n].tobytes() for n in range(len(tree))),
+            tuple(tree.leaf_data[n].delta_idx for n in leaves),
+            tuple(bool(tree.leaf_data[n].certified) for n in leaves))
+
+
+def test_tier1_build_on_the_card_is_the_cpu_build(gpu):
+    """The tier-1 double-integrator build through the kernel is
+    node-for-node the port's CPU build (which test_torch_build.py holds
+    to the JAX package)."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+
+    kw = {"N": 3, "theta_box": 1.5}
+    res = {}
+    for backend in ("cuda", "cpu"):
+        before = ipm_leg.launches
+        res[backend] = build_partition(
+            make("double_integrator", **kw),
+            PartitionConfig(problem="double_integrator", backend=backend,
+                            problem_args=tuple(sorted(kw.items())),
+                            eps_a=0.5, batch_simplices=64, max_depth=20))
+        launched = ipm_leg.launches - before
+        assert launched > 0 if backend == "cuda" else launched == 0
+    assert res["cuda"].stats["device_failures"] == 0
+    assert not res["cuda"].stats["truncated"]
+    assert _tree_signature(res["cuda"]) == _tree_signature(res["cpu"])
 
 
 def test_ipm_leg_wrapper_rejects_what_the_kernel_cannot_take(gpu):
