@@ -15,7 +15,14 @@ phase exits non-zero.  The second-to-last line
 of standard output is the kernels JSON object (each kernel's launches,
 error against its plain version, its time, the plain version's time, a
 library yardstick where one exists and the bound the card allows); the
-last line is {"ok": true, "device": {...}}.
+last line is {"ok": true, "device": {...}}.  A launch is one wrapper
+call: for locate it is two kernels when the leaves are split across
+blocks (its entry's "splits" > 1), the split scan and the merge.
+arena_eval's entry is at the serving run's most frequent batch size
+("rows"), its error the largest over every size it was held to its
+plain version at (the sweep's and that one), and its "profiled_*"
+keys come from a second, shorter serving run under torch.profiler
+(the timed run's p50/p99 are taken without the profiler).
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -30,6 +37,18 @@ turns (baseline, kernel, kernel, baseline) for the build wall, then one
 recorded build with each for a cell-by-cell diff of the two trees that
 names, for every cell the two builds decide differently, the test that
 decided it and how far from its threshold it sat.
+
+    K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
+        python3 chip_smoke.py
+
+likewise builds the parents of csrc/locate.cu and csrc/arena_eval.cu
+(each with the parent's own C interface, from the tree before their
+redesign) and times each in turns with this tree's kernel on the same
+buffers, by CUDA-graph replay: phase 5's K2 sweep (8,192 and 65,536
+queries), phase 7's K3 sweep (1 to 65,536 rows at the serving mix) and
+K3 at the serving run's most frequent batch size.  It then also
+requires K2's leaves and scores and K3's records to be bitwise the
+parent's on every input of those sweeps.
 """
 
 from __future__ import annotations
@@ -73,6 +92,10 @@ K1_MAIN_K = 1024
 QUERIES = 65536
 SEED = 0
 
+#: K2's sweep (queries per launch) and K3's (rows per launch).
+K2_SWEEP_B = (8192, QUERIES)
+K3_SWEEP_B = (1, 4, 16, 64, 256, QUERIES)
+
 #: The serving run: tenants of the flagship table in one arena (plus a
 #: spare extent for the delta publish's two-epoch handoff), closed-loop
 #: client threads, requests in all, the scheduler's micro-batch cap
@@ -84,6 +107,9 @@ REQUESTS = 20_000
 MAX_BATCH = 256
 MAX_WAIT_US = 2000.0
 OUTSIDE_FRAC = 0.05
+
+#: Requests of the second, profiled serving run (K3's device time).
+PROFILED_REQUESTS = 5_000
 
 
 def log(*a) -> None:
@@ -107,6 +133,31 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_time(fn, reps: int) -> float:
+    """Mean milliseconds per call of `fn` (which launches on the current
+    stream) replayed from one CUDA graph of `reps` calls, by CUDA
+    events: the device's time per launch, without the host's cost of
+    launching (which paces back-to-back launches of kernels that take
+    only microseconds)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -166,40 +217,57 @@ def leg_histogram(launches: list) -> float:
     return bound
 
 
-def baseline_source(env=None) -> str | None:
-    """The absolute path of the other csrc/ipm_leg.cu that K1_BASELINE
-    names, or None when it is unset or empty; fails when it names no
-    file."""
-    src = (os.environ if env is None else env).get("K1_BASELINE", "").strip()
+def baseline_source(env=None, var: str = "K1_BASELINE") -> str | None:
+    """The absolute path of the other kernel source that `var`
+    (K1_BASELINE, K2_BASELINE or K3_BASELINE) names, or None when it is
+    unset or empty; fails when it names no file."""
+    src = (os.environ if env is None else env).get(var, "").strip()
     if not src:
         return None
     if not os.path.isfile(src):
-        fail(f"K1_BASELINE={src} is not a file")
+        fail(f"{var}={src} is not a file")
     return os.path.abspath(src)
 
 
-def baseline_lib(src: str, build_dir: str, nvcc_flags):
-    """Build another version of csrc/ipm_leg.cu (the same C interface)
-    into build_dir and load it, typed as ipm_leg._lib() types the
-    kernel's own library, so it can stand in for it."""
+def _ctypes_sigs():
+    """The C interface of each kernel's parent, the tree before its
+    redesign: argument types by function name."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return {
+        "ipm_leg": {"ipm_leg_f64": [P] * 10 + [I] * 4 + [P],
+                    "ipm_leg_f32": [P] * 10 + [I] * 4 + [P]},
+        "locate": {"locate_f32": [P, P, I, I, I, P, P, P]},
+        "arena_eval": {"arena_eval_f32": [P] * 5 + [I] * 4 + [P, P]},
+    }
+
+
+def baseline_lib(src: str, build_dir: str, nvcc_flags,
+                 name: str = "ipm_leg"):
+    """Build another version of csrc/<name>.cu -- its parent's source,
+    with the parent's C interface -- into build_dir and load it, typed
+    as that interface; logs its ptxas lines."""
     import ctypes
     import shutil
 
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    out = os.path.join(build_dir, "libipm_leg_baseline.so")
+    out = os.path.join(build_dir, f"lib{name}_baseline.so")
     os.makedirs(build_dir, exist_ok=True)
-    flags = [f for f in nvcc_flags if f not in ("-Xptxas", "-v")]
-    r = subprocess.run([nvcc, *flags, "-o", out, src],
+    r = subprocess.run([nvcc, *nvcc_flags, "-o", out, src],
                        capture_output=True, text=True, timeout=600)
     if r.returncode:
-        fail(f"the K1 baseline {src} does not build:\n{r.stdout}{r.stderr}")
+        fail(f"the {name} baseline {src} does not build:\n"
+             f"{r.stdout}{r.stderr}")
+    for ln in ptxas_lines(f"{name} baseline", r.stdout + r.stderr):
+        log(f"[build] {ln}")
     lib = ctypes.CDLL(out)
-    for fn in (lib.ipm_leg_f64, lib.ipm_leg_f32):
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.ipm_leg_error_string.argtypes = [ctypes.c_int]
-    lib.ipm_leg_error_string.restype = ctypes.c_char_p
+    for fn, argtypes in _ctypes_sigs()[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [ctypes.c_int]
+    err_fn.restype = ctypes.c_char_p
     lib._ehm_typed = True
     return lib
 
@@ -377,10 +445,95 @@ def raw_leg(fn, args, n_iter: int):
     return launch, outs
 
 
+def raw_k2(lib, th, bary, parent: bool):
+    """(launch, (leaf, score)): a launcher of the locate kernel `lib`
+    (this tree's locate.cu, or with `parent` its parent's C interface)
+    on fixed float32 queries into fixed outputs, for timing; it skips
+    the wrapper and counts no launches."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.online import locate
+
+    B, p = th.shape
+    L = bary.shape[0]
+    leaf = torch.empty(B, dtype=torch.int32, device=th.device)
+    score = torch.empty(B, dtype=torch.float32, device=th.device)
+    keep = [th, bary, leaf, score]
+    if parent:
+        args = (th.data_ptr(), bary.data_ptr(), B, L, p, leaf.data_ptr(),
+                score.data_ptr())
+    else:
+        splits, per = locate.plan_splits(B, L, torch.cuda.get_device_properties(
+            th.device).multi_processor_count)
+        parts = [torch.empty((splits, B), dtype=d, device=th.device)
+                 for d in (torch.int32, torch.float32)]
+        keep += parts
+        args = (th.data_ptr(), bary.data_ptr(), B, L, p, per, splits,
+                leaf.data_ptr(), score.data_ptr(), parts[0].data_ptr(),
+                parts[1].data_ptr())
+
+    def launch():
+        err = lib.locate_f32(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"a timed K2 launch failed (error {err})")
+    launch.keep = keep      # the buffers behind the pointers stay alive
+    return launch, (leaf, score)
+
+
+def raw_k3(lib, arena, buf, B: int, chunks: int, parent: bool):
+    """(launch, records): a launcher of the arena kernel `lib` (this
+    tree's arena_eval.cu, or with `parent` its parent's C interface) on
+    one packed batch `buf` (DeviceArena.pack_queries, on the device)
+    into fixed records, for timing; it skips the wrapper and counts no
+    launches."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+
+    pp1, C = arena.p + 1, arena.bary.shape[2]
+    q, ext, tiles = fused.split_queries(buf, B, pp1)
+    rec = torch.empty((B, fused.REC_HEAD + arena.n_u), dtype=torch.int32,
+                      device=buf.device)
+    keep = [buf, rec]
+    tensors = (arena.bary.data_ptr(), arena.U.data_ptr(), arena.V.data_ptr())
+    if parent:
+        args = (q.data_ptr(), ext.data_ptr(), *tensors, B, C, pp1 - 1,
+                arena.n_u, rec.data_ptr())
+    else:
+        cnt, part = fused.Scratch(buf.device).take(tiles.shape[0], chunks)
+        keep += [cnt, part]
+        args = (q.data_ptr(), tiles.data_ptr(), tiles.shape[0], chunks,
+                *tensors, B, C, pp1 - 1, arena.n_u, cnt.data_ptr(),
+                part.data_ptr(), rec.data_ptr())
+
+    def launch():
+        err = lib.arena_eval_f32(*args,
+                                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"a timed K3 launch failed (error {err})")
+    launch.keep = keep      # the buffers behind the pointers stay alive
+    return launch, rec
+
+
+def in_turns(new, old, reps: int) -> tuple[float, float | None, str]:
+    """(kernel ms, baseline ms, log text): `new` timed alone, or with a
+    baseline `old` in turns (baseline, kernel, kernel, baseline), each
+    by graph_time."""
+    if old is None:
+        return graph_time(new, reps), None, ""
+    b1 = graph_time(old, reps)
+    m1, m2 = graph_time(new, reps), graph_time(new, reps)
+    b2 = graph_time(old, reps)
+    ms, base_ms = (m1 + m2) / 2, (b1 + b2) / 2
+    return ms, base_ms, (f"; baseline {base_ms:.4f} ms ({b1:.4f}/{b2:.4f}), "
+                         f"{base_ms / ms:.2f}x")
+
+
 def ptxas_lines(name: str, report: str) -> list[str]:
     """One line per kernel function of a ptxas -v report: registers,
-    stack frame and spill stores/loads (K1's template arguments read
-    back from the mangled name: dtype, NZ, ROWS)."""
+    stack frame and spill stores/loads (template arguments read back
+    from the mangled name: K1's dtype, NZ, ROWS; K2's and K3's K =
+    p+1)."""
     import re
 
     out, fn, frame = [], None, ""
@@ -389,14 +542,19 @@ def ptxas_lines(name: str, report: str) -> list[str]:
         if m:
             # The name follows its length; the namespace before it
             # holds the file name (ipm_leg_cu_...), not preceded by one.
-            mm = re.search(r"\d(ipm_leg_\w+?)I([fd])(?:Li(\d+)ELi(\d+)E)?E",
-                           m.group(1))
             fn = m.group(1)
+            mm = re.search(r"\d(ipm_leg_\w+?)I([fd])(?:Li(\d+)ELi(\d+)E)?E",
+                           fn)
+            mk = re.search(r"\d(locate_kernel|locate_merge|arena_eval_kernel)"
+                           r"(?:ILi(\d+)EE)?", fn)
             if mm:
                 dtype = "double" if mm.group(2) == "d" else "float"
                 args = (f", NZ={mm.group(3)}, ROWS={mm.group(4)}"
                         if mm.group(3) else "")
                 fn = f"{mm.group(1)}<{dtype}{args}>"
+            elif mk:
+                fn = mk.group(1) + (f"<K={mk.group(2)}>" if mk.group(2)
+                                    else "")
         elif "stack frame" in ln:
             frame = ln.strip()
         elif "registers" in ln and fn:
@@ -522,12 +680,14 @@ def arena_eval_cost(ext, B, pp1, n_u) -> tuple[float, float]:
     return nbytes, flops
 
 
-def serve_phases(dev, res, table, rng, tmp: str) -> dict:
+def serve_phases(dev, res, table, rng, tmp: str, base_k3=None,
+                 k3_src: str | None = None) -> dict:
     """Phases 6-8: the flagship table served to TENANTS tenants from one
     device arena, the arena kernel against its plain version, and a
     closed-loop serving run with a mid-traffic delta hot swap and a
-    bitwise torn-read audit.  Returns the kernel's entry of the kernels
-    line."""
+    bitwise torn-read audit.  `base_k3`: the parent's arena kernel
+    (K3_BASELINE), timed in turns and held bitwise.  Returns the
+    kernel's entry of the kernels line."""
     import os
     import threading
 
@@ -593,26 +753,45 @@ def serve_phases(dev, res, table, rng, tmp: str) -> dict:
     def rel(a, b):
         return (a - b).abs() / b.abs().clamp(min=1)
 
-    k3 = {}
-    k3_err = 0.0
-    for B in (MAX_BATCH, QUERIES):
+    def k3_bound(buf, B):
+        # (bound ms, by, bytes, flops) of one launch on a packed batch.
+        nbytes, flops = arena_eval_cost(
+            buf[3 * B * pp1:3 * B * pp1 + 2 * B].reshape(B, 2), B, pp1, n_u)
+        return (1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S),
+                "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_S
+                else "operations", nbytes, flops)
+
+    def k3_batch(exts_, B):
+        # B rows of the serving mix, NaN rows every max(16, B // 4) from
+        # row 7 (clamped, never served), packed as the arena packs a
+        # batch -- its launch plan included -- and uploaded.
         names, th, out = serve_queries(tenants, lb, ub, B, rng)
-        # A few rows carry a NaN coordinate: clamped, and never served.
         nan = np.zeros(B, dtype=bool)
-        nan[7::B // 4] = True
+        nan[7::max(16, B // 4)] = True
         th[nan, np.arange(B)[nan] % p] = np.nan
-        buf, _ = arena.pack_queries(exts, names, th)
-        args = (arena.bary, arena.U, arena.V,
-                *fused.split_queries(torch.as_tensor(buf).to(dev), B, pp1))
-        rk = fused.arena_eval_cuda(*args)
-        rk2 = fused.arena_eval_cuda(*args)
+        buf, _, chunks = arena.pack_queries(exts_, names, th)
+        return buf, torch.as_tensor(buf).to(dev), chunks, out, nan
+
+    def most(t):
+        return float(t.max()) if t.numel() else 0.0
+
+    scratch = fused.Scratch(dev)
+
+    def check_k3(B, bufd, chunks, out, nan):
+        # K3 through its wrapper with the batch's own plan, twice, held
+        # against its plain version on the same input.  Returns the
+        # records and the largest |d val|, |d u|, |d cost|.
+        q, e, tiles = fused.split_queries(bufd, B, pp1)
+        args = (arena.bary, arena.U, arena.V, q, e)
+        plan = fused.Plan(chunks, tiles, B)
+        rk = fused.arena_eval_cuda(*args, plan, scratch)
+        rk2 = fused.arena_eval_cuda(*args, plan, scratch)
         rp = fused.arena_eval_torch(*args)
         torch.cuda.synchronize()
         if not torch.equal(rk, rk2):
             fail(f"K3 B={B}: two launches on the same input differ")
         kv, kc, ku, kcost, kcl = fused.unpack(rk)
         pv, pc, pu, pcost, pcl = fused.unpack(rp)
-        e = args[4]
         if not bool(((kc >= e[:, 0]) & (kc < e[:, 1])).all()):
             fail(f"K3 B={B}: a row won a column outside its extent")
         if not torch.equal(kcl, pcl):
@@ -653,96 +832,148 @@ def serve_phases(dev, res, table, rng, tmp: str) -> dict:
         # kernel's column is held to 1e-5 of the plain maximum.
         same = (kc == pc) & fin
         diff = torch.nonzero((kc != pc) & fin)[:, 0]
-        gap = rel(score_at(args[3], diff, kc[diff].long()), pv[diff]) \
-            if diff.numel() else torch.zeros(1, device=dev)
-        worst = {"val": float(rel(kv, pv)[fin].max()),
-                 "u": float(rel(ku, pu)[same].max()),
-                 "cost": float(rel(kcost, pcost)[same].max()),
-                 "tie": float(gap.max())}
+        gap = rel(score_at(q, diff, kc[diff].long()), pv[diff])
+        worst = {"val": most(rel(kv, pv)[fin]),
+                 "u": most(rel(ku, pu)[same]),
+                 "cost": most(rel(kcost, pcost)[same]), "tie": most(gap)}
         if not max(worst.values()) <= 1e-5:
             fail(f"K3 B={B}: relative differences {worst} (> 1e-5)")
-        err = max(float((kv - pv)[fin].abs().max()),
-                  float((ku - pu)[same].abs().max()),
-                  float((kcost - pcost)[same].abs().max()))
+        err = max(most((kv - pv)[fin].abs()), most((ku - pu)[same].abs()),
+                  most((kcost - pcost)[same].abs()))
+        log(f"[K3] B={B} ({tiles.shape[0]} tiles x {chunks} chunks) against "
+            f"the plain version: columns equal on {n_clear} tie-free and "
+            f"{int(same.sum()) - n_clear} other finite rows, {diff.numel()} "
+            f"differ within {worst['tie']:.2e} of the plain maximum; "
+            f"{int(kcl.sum())} clamped ({int(nan.sum())} NaN rows unserved "
+            f"on both); two launches bitwise equal; max |d val,u,cost| "
+            f"{err:.2e} (relative to max(1, |value|): val "
+            f"{worst['val']:.2e}, u {worst['u']:.2e}, cost "
+            f"{worst['cost']:.2e})")
+        return rk, err
+
+    # Each size: the wrapper against the plain version (above), then K3
+    # through its C interface on the same buffers, timed by graph replay
+    # (the wrapper's host work would pace microsecond launches); its
+    # records equal the wrapper's on every row, and with K3_BASELINE the
+    # parent's kernel runs in turns and its records must be bitwise the
+    # same.
+    log(f"[K3] sweep over {TENANTS} tenants x {L} leaves at the serving mix "
+        f"(tenants round-robin, {OUTSIDE_FRAC:.0%} outside the box), device "
+        "time by graph replay" + (f", against the baseline {k3_src} in "
+                                  "turns" if base_k3 else ""))
+    k3_err = 0.0
+    for Bs in K3_SWEEP_B:
+        buf, bufd, chunks, out, nan = k3_batch(exts, Bs)
+        rk, err = check_k3(Bs, bufd, chunks, out, nan)
         k3_err = max(k3_err, err)
-        reps = 200 if B == MAX_BATCH else 10
-        ms = cuda_time(lambda: fused.arena_eval_cuda(*args), reps)
-        plain_ms = cuda_time(lambda: fused.arena_eval_torch(*args), 3,
-                             warmup=1)
-        nbytes, flops = arena_eval_cost(buf[3 * B * pp1:].reshape(B, 2),
-                                        B, pp1, n_u)
-        bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
-        bound_by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_S \
-            else "operations"
-        # No single PyTorch call computes K3: no library yardstick.
-        k3[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                     bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[K3] B={B} over {TENANTS} tenants x {L} leaves: columns equal "
-            f"on {n_clear} tie-free and {int(same.sum()) - n_clear} other "
-            f"finite rows, {diff.numel()} differ within "
-            f"{worst['tie']:.2e} of the plain maximum; {int(kcl.sum())} "
-            f"clamped ({int(nan.sum())} NaN rows unserved on both); two "
-            f"launches bitwise equal; max |d val,u,cost| {err:.2e} "
-            f"(relative to max(1, |value|): val {worst['val']:.2e}, u "
-            f"{worst['u']:.2e}, cost {worst['cost']:.2e}); kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} GFLOP, "
-            f"{nbytes / 1e6:.3f} MB)")
+        new, nrec = raw_k3(fused._lib(), arena, bufd, Bs, chunks, False)
+        new()
+        torch.cuda.synchronize()
+        if not torch.equal(nrec, rk):
+            fail(f"K3 B={Bs}: the raw launch and the wrapper's differ")
+        old = None
+        if base_k3:
+            old, orec = raw_k3(base_k3, arena, bufd, Bs, chunks, True)
+            old()
+            torch.cuda.synchronize()
+            if not torch.equal(nrec, orec):
+                fail(f"K3 B={Bs}: records differ bitwise from the "
+                     f"baseline's on {int((nrec != orec).any(1).sum())} of "
+                     f"{Bs} rows")
+        ms, _base_ms, vs = in_turns(new, old, 200 if Bs <= MAX_BATCH else 10)
+        bound_ms, bound_by, _nb, _fl = k3_bound(buf, Bs)
+        log(f"[K3]   B={Bs}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}){vs}"
+            + ("; records bitwise equal to the baseline's on every row"
+               if base_k3 else ""))
 
     # -- phase 8: the serving run -------------------------------------------
+    names, th, out = serve_queries(tenants, lb, ub, REQUESTS, rng)
+
+    def drive(sched_, n, mid=None):
+        # Requests 0..n-1 from CLIENTS closed-loop threads through sched_;
+        # mid() runs on this thread once half of them are answered.
+        # Returns (results, latencies s, submit times, wall s).
+        results = [None] * n
+        t_sub, lat = np.zeros(n), np.zeros(n)
+        errors: list[str] = []
+        lock = threading.Lock()
+        done = [0]
+        halfway = threading.Event()
+
+        def client(c):
+            for j in range(c, n, CLIENTS):
+                t0 = time.perf_counter()
+                try:
+                    r = sched_.submit(names[j], th[j]).result(60.0)[0]
+                except BaseException as e:  # noqa: BLE001 -- counted, fails
+                    with lock:
+                        errors.append(f"request {j}: {e!r}")
+                    continue
+                lat[j] = time.perf_counter() - t0
+                t_sub[j] = t0
+                results[j] = r
+                with lock:
+                    done[0] += 1
+                    if done[0] == n // 2:
+                        halfway.set()
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CLIENTS)]
+        t_run = time.perf_counter()
+        for t in threads:
+            t.start()
+        if mid is not None:
+            if not halfway.wait(600.0):
+                fail("the serving run did not reach half its requests")
+            mid()
+        for t in threads:
+            t.join()
+        sched_.close()
+        run_s = time.perf_counter() - t_run
+        dropped = sum(r is None for r in results)
+        if errors or dropped:
+            fail(f"serving run: {len(errors)} errored, {dropped} dropped "
+                 f"requests ({errors[:3]})")
+        return results, lat, t_sub, run_s
+
+    real_pack = arena.pack_queries
+
+    def recording(batches):
+        # The arena's packing, noting every batch's rows and extents on
+        # the host (reading them back from the device would synchronize):
+        # a copy of 2 x rows int32 words a batch.
+        def pack(exts_, names_, thetas_, clamp=True):
+            out_ = real_pack(exts_, names_, thetas_, clamp)
+            nb_ = len(thetas_)
+            batches.append((nb_, out_[0][3 * nb_ * pp1:3 * nb_ * pp1 + 2 * nb_]
+                            .reshape(nb_, 2).copy()))
+            return out_
+        return pack
+
     fb = FallbackPolicy(lb, ub, mode="clamp", obs=o)
     sched = ArenaScheduler(arena, max_batch=MAX_BATCH,
                            max_wait_us=MAX_WAIT_US, fallback=fb, obs=o)
-    names, th, out = serve_queries(tenants, lb, ub, REQUESTS, rng)
-    results = [None] * REQUESTS
-    t_sub = np.zeros(REQUESTS)
-    lat = np.zeros(REQUESTS)
-    errors: list[str] = []
-    lock = threading.Lock()
-    done = [0]
-    halfway = threading.Event()
+    sw = {}
 
-    def client(c):
-        for j in range(c, REQUESTS, CLIENTS):
-            t0 = time.perf_counter()
-            try:
-                r = sched.submit(names[j], th[j]).result(60.0)[0]
-            except BaseException as e:  # noqa: BLE001 -- counted, fails
-                with lock:
-                    errors.append(f"request {j}: {e!r}")
-                continue
-            lat[j] = time.perf_counter() - t0
-            t_sub[j] = t0
-            results[j] = r
-            with lock:
-                done[0] += 1
-                if done[0] == REQUESTS // 2:
-                    halfway.set()
+    def swap():
+        sw["e_v1"] = arena.extent("t0")
+        t_sw = time.perf_counter()
+        arena.publish_delta("t0", "v2", d2_dir, v1_dir)
+        sw["t_flip"] = time.perf_counter()
+        sw["us"] = (sw["t_flip"] - t_sw) * 1e6
 
-    threads = [threading.Thread(target=client, args=(c,))
-               for c in range(CLIENTS)]
+    batches: list = []
+    arena.pack_queries = recording(batches)
     fused.launches = 0
-    t_run = time.perf_counter()
-    for t in threads:
-        t.start()
-    if not halfway.wait(600.0):
-        fail("the serving run did not reach half its requests")
-    e_v1 = arena.extent("t0")
-    t_sw = time.perf_counter()
-    arena.publish_delta("t0", "v2", d2_dir, v1_dir)
-    t_flip = time.perf_counter()
-    swap_us = (t_flip - t_sw) * 1e6
-    for t in threads:
-        t.join()
-    sched.close()
-    run_s = time.perf_counter() - t_run
+    try:
+        results, lat, t_sub, run_s = drive(sched, REQUESTS, swap)
+    finally:
+        del arena.pack_queries
     n_launch = fused.launches
-    drained = arena.wait_retired(e_v1, 30.0)
+    t_flip, swap_us = sw["t_flip"], sw["us"]
+    drained = arena.wait_retired(sw["e_v1"], 30.0)
 
-    dropped = sum(r is None for r in results)
-    if errors or dropped:
-        fail(f"serving run: {len(errors)} errored, {dropped} dropped "
-             f"requests ({errors[:3]})")
     if n_launch != sched.n_batches or n_launch <= 0:
         fail(f"arena_eval launched {n_launch} times for "
              f"{sched.n_batches} scheduler batches")
@@ -838,9 +1069,100 @@ def serve_phases(dev, res, table, rng, tmp: str) -> dict:
         f"{n_clamp}, unserved {n_unserved} (reconciled with "
         f"account_kernel); resident {arena.stats()['resident_bytes']} "
         "bytes")
+    from collections import Counter
+
+    def batch_bound_ms(bs):
+        return sum(1e3 * max(nb_ / PEAK_BYTES_S, fl_ / PEAK_F32_S)
+                   for nb_, fl_ in (arena_eval_cost(e_, b, pp1, n_u)
+                                    for b, e_ in bs))
+
+    if len(batches) != n_launch:
+        fail(f"{len(batches)} batches packed, {n_launch} launches counted")
+    hist = Counter(b for b, _ in batches)
+    rows = hist.most_common(1)[0][0]
+    log(f"[batches] {len(batches)} launches of the serving run, rows: "
+        + ", ".join(f"{b} x{n}" for b, n in sorted(hist.items())))
+    log(f"[batches] most frequent {rows} rows, mean "
+        f"{sum(b for b, _ in batches) / len(batches):.2f}; summed bound "
+        f"{batch_bound_ms(batches):.4f} ms")
+
+    # K3's device time while serving: a second run of PROFILED_REQUESTS of
+    # the same requests (no swap) under torch.profiler, kept apart from
+    # the timed run so that the profiler's cost stays out of its p50/p99.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sched_p = ArenaScheduler(arena, max_batch=MAX_BATCH,
+                             max_wait_us=MAX_WAIT_US,
+                             fallback=FallbackPolicy(lb, ub, mode="clamp"))
+    prof_batches: list = []
+    arena.pack_queries = recording(prof_batches)
+    launch0 = fused.launches
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as sprof:
+            _res, _lat, _ts, prof_s = drive(sched_p, PROFILED_REQUESTS)
+    finally:
+        del arena.pack_queries
+    prof_launches = fused.launches - launch0
+    if prof_launches != len(prof_batches):
+        fail(f"{len(prof_batches)} batches packed, {prof_launches} launches "
+             "counted in the profiled run")
+    prof_bound_ms = batch_bound_ms(prof_batches)
+    prows = [(e.key, e.self_device_time_total, e.count)
+             for e in sprof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    k3_rows = [r for r in prows if "arena_eval_kernel" in r[0]]
+    prof_ms = sum(r[1] for r in k3_rows) / 1e3 if k3_rows else None
+    if k3_rows:
+        busy_ms = sum(r[1] for r in prows) / 1e3
+        log(f"[profile] K3 (arena_eval) in a profiled serving run of "
+            f"{PROFILED_REQUESTS} requests: {prof_ms:.4f} ms of device time "
+            f"in {sum(r[2] for r in k3_rows)} launches "
+            f"({1e3 * prof_ms / prof_launches:.2f} us a launch), "
+            f"{prof_ms / prof_bound_ms:.1f}x their summed bound "
+            f"{prof_bound_ms:.4f} ms; device busy {busy_ms:.2f} ms of the "
+            f"{1e3 * prof_s:.0f} ms run (idle "
+            f"{1 - busy_ms / 1e3 / prof_s:.4f})")
+    else:
+        log("[profile] K3's device time while serving: not measured (the "
+            "profiler recorded no device time)")
+
+    # K3 at the run's most frequent batch size, the kernels line's cell:
+    # against its plain version, then timed.
+    exts = {n: arena.extent(n) for n in tenants}
+    buf, bufd, chunks, out_m, nan_m = k3_batch(exts, rows)
+    rk, err = check_k3(rows, bufd, chunks, out_m, nan_m)
+    k3_err = max(k3_err, err)
+    new, nrec = raw_k3(fused._lib(), arena, bufd, rows, chunks, False)
+    new()
+    torch.cuda.synchronize()
+    if not torch.equal(nrec, rk):
+        fail(f"K3 B={rows}: the raw launch and the wrapper's differ")
+    old = None
+    if base_k3:
+        old, orec = raw_k3(base_k3, arena, bufd, rows, chunks, True)
+        old()
+        torch.cuda.synchronize()
+        if not torch.equal(nrec, orec):
+            fail(f"K3 B={rows}: records differ bitwise from the baseline's")
+    ms, _base_ms, vs = in_turns(new, old, 200)
+    # The same launches back to back from Python, by events: the host's
+    # pace, which graph replay leaves out.
+    b2b_ms = cuda_time(new, 200)
+    q, e, _tiles = fused.split_queries(bufd, rows, pp1)
+    plain_ms = cuda_time(
+        lambda: fused.arena_eval_torch(arena.bary, arena.U, arena.V, q, e),
+        20)
+    bound_ms, bound_by, nbytes, flops = k3_bound(buf, rows)
+    log(f"[K3] B={rows} (the run's most frequent batch): kernel {ms:.4f} ms "
+        f"by graph replay ({b2b_ms:.4f} ms a launch back to back from "
+        f"Python), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by}: {flops / 1e9:.5f} GFLOP, {nbytes / 1e6:.3f} MB){vs}")
     # Where a batch's time goes: one CLIENTS-row batch (the run's mean
-    # batch) through arena.evaluate on this thread -- packing, one put,
-    # the launch and one device-to-host copy -- and the kernel alone.
+    # batch) through arena.evaluate on this thread -- packing (the launch
+    # plan included), one put, the launch and one device-to-host copy --
+    # and the packing and the plan alone.
     nb, thb = names[:CLIENTS], th[:CLIENTS]
     for _ in range(5):
         arena.evaluate(nb, thb)
@@ -848,22 +1170,32 @@ def serve_phases(dev, res, table, rng, tmp: str) -> dict:
     for _ in range(200):
         arena.evaluate(nb, thb)
     ev_us = (time.perf_counter() - t0) / 200 * 1e6
-    buf, _ = arena.pack_queries({n: arena.extent(n) for n in tenants}, nb,
-                                thb)
-    args = (arena.bary, arena.U, arena.V,
-            *fused.split_queries(torch.as_tensor(buf).to(dev), CLIENTS, pp1))
-    kb_ms = cuda_time(lambda: fused.arena_eval_cuda(*args), 200)
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        pbuf, _, _ = arena.pack_queries(exts, nb, thb)
+    pack_us = (time.perf_counter() - t0) / 2000 * 1e6
+    ext_b = pbuf[3 * CLIENTS * pp1:3 * CLIENTS * pp1 + 2 * CLIENTS] \
+        .reshape(CLIENTS, 2)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        fused.plan_batch(ext_b, n_sm)
+    plan_us = (time.perf_counter() - t0) / 2000 * 1e6
     cycle_ms = 1e3 * run_s / sched.n_batches
     log(f"[serve] batch cycle {cycle_ms:.3f} ms = {MAX_WAIT_US / 1e3:.1f} "
         f"ms deadline + host work; one {CLIENTS}-row arena.evaluate "
-        f"{ev_us:.0f} us host wall, its kernel {1e3 * kb_ms:.1f} us "
-        f"(device busy about {kb_ms / cycle_ms:.4f} of the run)")
+        f"{ev_us:.0f} us host wall, its pack_queries {pack_us:.1f} us of "
+        f"which plan_batch {plan_us:.1f} us; the kernel at {rows} rows "
+        f"{1e3 * ms:.1f} us")
     o.close()
     return {"name": "arena_eval", "route": "cuda",
             "source": "explicit_hybrid_mpc_tpu_torch/csrc/arena_eval.cu",
             "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:266",
-            "launches": n_launch, "max_abs_err": k3_err,
-            **k3[MAX_BATCH]}
+            "launches": n_launch, "max_abs_err": k3_err, "rows": rows,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "profiled_launches": prof_launches, "profiled_ms": prof_ms,
+            "profiled_bound_ms": prof_bound_ms}
 
 
 def main() -> int:
@@ -888,6 +1220,8 @@ def main() -> int:
               f"({e}); run from the repository root", file=sys.stderr)
         return 3
     base_src = baseline_source()
+    k2_src = baseline_source(var="K2_BASELINE")
+    k3_src = baseline_source(var="K3_BASELINE")
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -903,12 +1237,22 @@ def main() -> int:
         f"python {sys.version.split()[0]} allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    built = kernels.build()
-    log(f"[build] {len(built)} kernels built in "
+    # The baselines' nvcc runs start beside the kernels' own.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(3) as pool:
+        bases = {name: pool.submit(baseline_lib, src, kernels.BUILD_DIR,
+                                   kernels.NVCC_FLAGS, name)
+                 for name, src in (("ipm_leg", base_src), ("locate", k2_src),
+                                   ("arena_eval", k3_src)) if src}
+        built = kernels.build()
+        bases = {name: f.result() for name, f in bases.items()}
+    log(f"[build] {len(built)} kernels and {len(bases)} baselines built in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for name in built:
         for ln in ptxas_lines(name, kernels.ptxas_report.get(name, "")):
             log(f"[build] {ln}")
+    base_k2, base_k3 = bases.get("locate"), bases.get("arena_eval")
     rng = np.random.default_rng(SEED)
     problem = make("inverted_pendulum")
     can = problem.canonical
@@ -1033,8 +1377,7 @@ def main() -> int:
             ipm.qp_solve(*qp, tol=tol, n_iter=1)
         finally:
             ipm_leg.ipm_leg_cuda = real_cuda
-    base = baseline_lib(base_src, kernels.BUILD_DIR, kernels.NVCC_FLAGS) \
-        if base_src else None
+    base = bases.get("ipm_leg")
     leg_f64 = ipm_leg._lib().ipm_leg_f64
     log(f"[K1] sweep at the build's shapes, f64, device time of back-to-back "
         "launches" + (f", against the baseline {base_src} in turns"
@@ -1220,13 +1563,76 @@ def main() -> int:
     k2_err = float((ks - ps).abs().max())
     if k2_err > 1e-5:
         fail(f"K2 scores differ by {k2_err:.2e} (> 1e-5)")
-    k2_ms = cuda_time(lambda: locate.locate_cuda(ltable.bary, inner), 10)
+    # NaN queries (either coordinate, or both): every leaf scores NaN and
+    # NaN ranks first, so leaf 0, score NaN, never inside -- on the
+    # kernel, on the plain version and through evaluate.
+    nanq = inner[:256].clone()
+    nan_rows = torch.arange(3, 256, 37, device=dev)
+    nanq[nan_rows, nan_rows % 2] = float("nan")
+    nanq[nan_rows[::2]] = float("nan")
+    fin_rows = torch.ones(256, dtype=torch.bool, device=dev)
+    fin_rows[nan_rows] = False
+    nk = locate.locate_cuda(ltable.bary, nanq)
+    npl = locate.locate_torch(ltable.bary, nanq)
+    nev = locate.evaluate(ltable, dev_table, nanq)
+    for what, (lf, sc) in (("kernel", nk), ("plain", npl)):
+        if not (bool((lf[nan_rows] == 0).all())
+                and bool(torch.isnan(sc[nan_rows]).all())
+                and not bool(torch.isnan(sc[fin_rows]).any())):
+            fail(f"K2 ({what}): a NaN query is not leaf 0 with score NaN")
+    if bool(nev.inside[nan_rows].any()):
+        fail(f"K2: {int(nev.inside[nan_rows].sum())} NaN queries read inside")
+    if not torch.equal(nk[0][fin_rows], kl[:256][fin_rows]):
+        fail("K2: the finite rows beside NaN rows changed leaf")
+    log(f"[K2] {nan_rows.numel()} NaN queries (one coordinate or both): "
+        "leaf 0, score NaN, not inside, on the kernel and the plain "
+        "version; the finite rows beside them unchanged")
+    B = QUERIES
+    pp1 = can.n_theta + 1
+    bary = ltable.bary
+    th32 = inner.float().contiguous()
+
+    def k2_bound(b):
+        nbytes = 4.0 * (b * can.n_theta + L * pp1 * pp1 + 2 * b)
+        flops = 2.0 * b * L * pp1 * pp1
+        return (1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S),
+                "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_S
+                else "operations")
+
+    # K2 through its C interface on fixed buffers, against the parent's
+    # kernel in turns when K2_BASELINE names it (then also bitwise: leaf
+    # and score on every query, all finite here).
+    log(f"[K2] sweep on phase 5's interior queries, L={L}, device time by "
+        "graph replay" + (f", against the baseline {k2_src} in turns"
+                          if base_k2 else ""))
+    k2_ms = None
+    for Bs in K2_SWEEP_B:
+        th = th32[:Bs]
+        new, (nl, ns) = raw_k2(locate._lib(), th, bary, False)
+        old = None
+        if base_k2:
+            old, (ol, os_) = raw_k2(base_k2, th, bary, True)
+            new()
+            old()
+            torch.cuda.synchronize()
+            if not (torch.equal(nl, ol) and torch.equal(
+                    ns.view(torch.int32), os_.view(torch.int32))):
+                fail(f"K2 B={Bs}: leaves or scores differ bitwise from the "
+                     f"baseline on {int((nl != ol).sum())} leaves / "
+                     f"{int((ns.view(torch.int32) != os_.view(torch.int32)).sum())}"
+                     " scores")
+        ms, _base_ms, vs = in_turns(new, old, 20)
+        bound, by = k2_bound(Bs)
+        log(f"[K2]   B={Bs}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+            f"{bound / ms:.2f} of it){vs}"
+            + ("; leaves and scores bitwise equal to the baseline's"
+               if base_k2 else ""))
+        if Bs == B:
+            k2_ms = ms
     k2_plain_ms = cuda_time(
         lambda: locate.locate_torch(ltable.bary, inner), 3, warmup=1)
-    bary = ltable.bary
     th1_f = torch.cat([inner.float(), torch.ones_like(inner[:, :1]).float()],
                       1)
-    pp1 = can.n_theta + 1
 
     def library_locate():
         # One torch.matmul over every leaf row, then amin + argmax (the
@@ -1239,20 +1645,20 @@ def main() -> int:
         return out
 
     k2_lib_ms = cuda_time(library_locate, 3, warmup=1)
-    B = QUERIES
-    k2_bytes = 4.0 * (B * can.n_theta + L * pp1 * pp1 + 2 * B)
-    k2_flops = 2.0 * B * L * pp1 * pp1
-    k2_bound_ms = 1e3 * max(k2_bytes / PEAK_BYTES_S, k2_flops / PEAK_F32_S)
-    k2_bound_by = "bytes" if k2_bytes / PEAK_BYTES_S > \
-        k2_flops / PEAK_F32_S else "operations"
+    k2_bound_ms, k2_bound_by = k2_bound(B)
+    # One counted launch (one wrapper call) is two kernels when the leaves
+    # are split across blocks: locate_kernel, then locate_merge.
+    k2_splits = locate.plan_splits(B, L, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[0]
     log(f"[K2] B={B} L={L} p+1={pp1}: leaf ids equal, max |dscore| "
-        f"{k2_err:.2e}; kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
-        f"library {k2_lib_ms:.3f} ms, bound {k2_bound_ms:.4f} ms "
-        f"({k2_bound_by})")
+        f"{k2_err:.2e}; kernel {k2_ms:.4f} ms ({k2_splits} leaf splits: "
+        f"locate_kernel + locate_merge{'' if k2_splits > 1 else ' unused'}), "
+        f"plain {k2_plain_ms:.3f} ms, library {k2_lib_ms:.3f} ms, bound "
+        f"{k2_bound_ms:.4f} ms ({k2_bound_by})")
 
     # -- phases 6-8: multi-tenant serving through the arena kernel ---------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
-        k3_entry = serve_phases(dev, res, table, rng, tmp)
+        k3_entry = serve_phases(dev, res, table, rng, tmp, base_k3, k3_src)
 
     # -- phase 9: where the device time of a build goes --------------------
     # A second flagship build under torch.profiler (device activity
@@ -1323,7 +1729,8 @@ def main() -> int:
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",
          "launches": n_k2, "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-         "bound_by": k2_bound_by, "library_ms": k2_lib_ms},
+         "bound_by": k2_bound_by, "library_ms": k2_lib_ms,
+         "splits": k2_splits},
         k3_entry,
     ]}
     log(card)

@@ -32,6 +32,20 @@ def resolve(device: "str | torch.device | None" = None) -> torch.device:
     return dev
 
 
+#: SMs that a kernel's launch plan assumes without a CUDA device at hand
+#: (an H100 SXM's).
+DEFAULT_SMS = 132
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA `device`, DEFAULT_SMS for any other: what a
+    kernel's launch plan is made for."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return DEFAULT_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def to_device(a, device: torch.device,
               dtype: torch.dtype | None = None) -> torch.Tensor:
     """Host array -> tensor on `device` without blocking the host on the

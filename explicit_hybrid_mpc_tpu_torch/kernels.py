@@ -3,10 +3,11 @@
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ctypes -- no PyTorch headers, so a
 build takes seconds, not minutes.  Libraries land in ``build/kernels/``
-at the repository root (listed in .gitignore), named by the source's
-content hash, so an edited source is rebuilt and an unchanged one is
-reused.  Nothing here runs at import time: importing the package on a
-machine without ``nvcc`` or a GPU never touches the compiler.
+at the repository root (listed in .gitignore), named by the content hash
+of the source and of the headers beside it (csrc/*.cuh), so an edited
+source or header is rebuilt and an unchanged one is reused.  Nothing
+here runs at import time: importing the package on a machine without
+``nvcc`` or a GPU never touches the compiler.
 
     python -m explicit_hybrid_mpc_tpu_torch.kernels   # build all, print
                                                       # ptxas resource use
@@ -58,9 +59,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library of kernel `name`, named by the hash of its source and
+    of every header under csrc/ (a source may include any of them)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (SOURCES[name], *headers):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=None) -> dict[str, float]:

@@ -41,6 +41,14 @@ MAX_K = 8
 #: Query rows per chunk of the plain version's (chunk, L, p+1) tensor.
 _CHUNK_ELEMS = 1 << 26
 
+#: Launch plan of the CUDA kernel: queries per block (csrc/locate.cu,
+#: 128 threads x 4 queries; _lib checks it), the blocks per SM a plan aims
+#: at, and the fewest leaves a split of the table takes (measured on the
+#: H100 at the flagship table: 9 splits of 65,536 queries, 30 of 8,192).
+BLOCK_QUERIES = 512
+BLOCKS_PER_SM = 8
+MIN_SPLIT_LEAVES = 384
+
 
 class LocateTable(NamedTuple):
     """Leaf table staged for point location: bary (L, p+1, p+1) float32,
@@ -70,7 +78,9 @@ def _th1(thetas: torch.Tensor) -> torch.Tensor:
 def locate_torch(bary: torch.Tensor, thetas: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (leaf (B,) int32, score (B,) float32), computed on
-    the tensors' device in float32, in query chunks."""
+    the tensors' device in float32, in query chunks.  A NaN score ranks
+    first (torch.argmax's order): a query with a NaN coordinate scores
+    NaN at every leaf and gets leaf 0, score NaN, never inside."""
     th1 = _th1(thetas.to(torch.float32))
     L, pp1, _ = bary.shape
     B = th1.shape[0]
@@ -89,24 +99,45 @@ def locate_torch(bary: torch.Tensor, thetas: torch.Tensor
     return torch.cat(leaves), torch.cat(scores)
 
 
+def plan_splits(B: int, L: int, n_sm: int = device_lib.DEFAULT_SMS
+                ) -> tuple[int, int]:
+    """(splits, leaves per split) of the CUDA kernel's launch: the leaf
+    range is cut into contiguous splits, one block each per block of
+    BLOCK_QUERIES queries, so that about BLOCKS_PER_SM blocks per SM
+    run, no split under MIN_SPLIT_LEAVES leaves.  The splits cover
+    [0, L) exactly once."""
+    qblocks = max(1, -(-B // BLOCK_QUERIES))
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // qblocks))
+    splits = max(1, min(want, L // MIN_SPLIT_LEAVES))
+    per = -(-L // splits)
+    return (max(1, -(-L // per)) if L else 1), per
+
+
 def _lib():
     lib = kernels.library("locate")
     if not getattr(lib, "_ehm_typed", False):
         lib.locate_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p]
         lib.locate_f32.restype = ctypes.c_int
         lib.locate_error_string.argtypes = [ctypes.c_int]
         lib.locate_error_string.restype = ctypes.c_char_p
+        if lib.locate_block_queries() != BLOCK_QUERIES:
+            raise kernels.KernelError(
+                "locate: the kernel's queries per block differ from the "
+                "launch plan's BLOCK_QUERIES")
         lib._ehm_typed = True
     return lib
 
 
 def locate_cuda(bary: torch.Tensor, thetas: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; raises on anything it does not take.
-    Does not synchronize."""
+    """Launch the CUDA kernel (and, when the leaves are split across
+    blocks, its merge of the splits' partials); raises on anything it
+    does not take.  Does not synchronize."""
     dev = bary.device
     L, pp1, pp1b = bary.shape
     if not bary.is_cuda or bary.dtype != torch.float32 \
@@ -123,11 +154,20 @@ def locate_cuda(bary: torch.Tensor, thetas: torch.Tensor
     score = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return leaf, score
+    splits, per = plan_splits(B, L, device_lib.sm_count(dev))
+    part_leaf = part_score = None
+    if splits > 1:
+        part_leaf = torch.empty((splits, B), dtype=torch.int32, device=dev)
+        part_score = torch.empty((splits, B), dtype=torch.float32,
+                                 device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.locate_f32(th.data_ptr(), bary.data_ptr(), B, L, p,
-                             leaf.data_ptr(), score.data_ptr(), stream)
+        err = lib.locate_f32(
+            th.data_ptr(), bary.data_ptr(), B, L, p, per, splits,
+            leaf.data_ptr(), score.data_ptr(),
+            None if part_leaf is None else part_leaf.data_ptr(),
+            None if part_score is None else part_score.data_ptr(), stream)
     if err != 0:
         raise kernels.KernelError("locate: CUDA launch failed: "
                            + lib.locate_error_string(err).decode())

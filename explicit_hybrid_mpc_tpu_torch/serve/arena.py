@@ -177,6 +177,8 @@ class DeviceArena:
         self.V = torch.zeros((pp1, capacity_cols), **f32)
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
+        self._n_sm = device_lib.sm_count(self.device)
+        self._scratch = fused.Scratch(self.device)
         self._ms = None
         if self._obs.enabled:
             m = self._obs.metrics
@@ -473,19 +475,25 @@ class DeviceArena:
     # -- evaluation --------------------------------------------------------
 
     def pack_queries(self, exts: dict, names, thetas: np.ndarray,
-                     clamp: bool = True) -> tuple[np.ndarray, np.ndarray]:
+                     clamp: bool = True
+                     ) -> tuple[np.ndarray, np.ndarray, int]:
         """Host side of one launch: ONE int32 buffer holding the float32
-        query planes [th1; lb1; ub1] (3, B, p+1) and then the (B, 2)
-        absolute column extents (``fused.split_queries`` views it), and
-        each row's extent start.  `exts` maps every row's name to its
+        query planes [th1; lb1; ub1] (3, B, p+1), the (B, 2) absolute
+        column extents and the kernel's launch plan (its tiles;
+        ``fused.split_queries`` views it), each row's extent start, and
+        the plan's chunk count.  `exts` maps every row's name to its
         (leased) extent."""
         B, p = thetas.shape
         uniq, inv = np.unique(np.asarray(names, dtype=str),
                               return_inverse=True)
         ex = [exts[n] for n in uniq]
         starts = np.array([e.start for e in ex], dtype=np.int64)[inv]
+        ends = starts + np.array([e.n_leaves for e in ex],
+                                 dtype=np.int64)[inv]
+        chunks, tiles = fused.plan_batch(np.stack([starts, ends], 1),
+                                         self._n_sm)
         nq = 3 * B * (p + 1)
-        buf = np.empty(nq + 2 * B, dtype=np.int32)
+        buf = np.empty(nq + 2 * B + tiles.size, dtype=np.int32)
         q = buf[:nq].view(np.float32).reshape(3, B, p + 1)
         q[0, :, :p] = thetas.astype(np.float32)
         if clamp:
@@ -495,11 +503,11 @@ class DeviceArena:
             q[1, :, :p] = -_BIG
             q[2, :, :p] = _BIG
         q[:, :, p] = 1.0
-        ext = buf[nq:].reshape(B, 2)
+        ext = buf[nq:nq + 2 * B].reshape(B, 2)
         ext[:, 0] = starts
-        ext[:, 1] = starts + np.array([e.n_leaves for e in ex],
-                                      dtype=np.int64)[inv]
-        return buf, starts
+        ext[:, 1] = ends
+        buf[nq + 2 * B:] = tiles.ravel()
+        return buf, starts, chunks
 
     def evaluate(self, names, thetas: np.ndarray,
                  clamp: bool = True, tol: Optional[float] = None
@@ -524,11 +532,16 @@ class DeviceArena:
             raise ValueError(
                 f"{len(names)} controller names for {B} rows")
         with self.lease(names) as exts:
-            buf, starts = self.pack_queries(exts, names, thetas, clamp)
+            buf, starts, chunks = self.pack_queries(exts, names, thetas,
+                                                    clamp)
             with self._on_stream():
-                rec = fused.arena_eval(
-                    self.bary, self.U, self.V,
-                    *fused.split_queries(self._put(buf), B, p + 1))
+                q, ext, tiles = fused.split_queries(self._put(buf), B, p + 1)
+                with self._lock:
+                    # Every launch shares the scratch (ordered by the one
+                    # stream); the lock guards its growth.
+                    rec = fused.arena_eval(self.bary, self.U, self.V, q, ext,
+                                           fused.Plan(chunks, tiles, B),
+                                           self._scratch)
                 host = rec.cpu()       # waits for the kernel (rule 3)
             versions = {n: e.version for n, e in exts.items()}
             n_us = {n: e.n_u for n, e in exts.items()}

@@ -185,3 +185,40 @@ def test_ptxas_lines_name_the_template_arguments():
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ipm_leg: ipm_leg_general<float>: 104 registers; "
         "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads"]
+
+
+def test_baseline_source_reads_each_kernels_variable(tmp_path):
+    src = tmp_path / "locate.cu"
+    src.write_text("// the parent\n")
+    env = {"K2_BASELINE": str(src), "K3_BASELINE": ""}
+    assert chip_smoke.baseline_source(env, "K2_BASELINE") == str(src)
+    assert chip_smoke.baseline_source(env, "K3_BASELINE") is None
+    assert chip_smoke.baseline_source(env) is None
+    with pytest.raises(SystemExit):
+        chip_smoke.baseline_source({"K3_BASELINE": str(tmp_path / "x.cu")},
+                                   "K3_BASELINE")
+    # Each parent is typed with its own C interface.
+    sigs = chip_smoke._ctypes_sigs()
+    assert len(sigs["locate"]["locate_f32"]) == 8
+    assert len(sigs["arena_eval"]["arena_eval_f32"]) == 11
+
+
+def test_ptxas_lines_name_the_point_location_kernels():
+    def entry(name):
+        return [f"ptxas info    : Compiling entry function '{name}' for "
+                "'sm_90a'",
+                "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                "spill loads",
+                "ptxas info    : Used 56 registers, used 1 barriers, "
+                "12288 bytes smem"]
+    report = "\n".join(
+        entry("_ZN40_GLOBAL__N__a1b2c3d4_9_locate_cu_5e6f7a8b13locate_"
+              "kernelILi3EEEvPKfS2_iiiiPiPfS3_S4_")
+        + entry("_ZN40_GLOBAL__N__a1b2c3d4_9_locate_cu_5e6f7a8b12locate_"
+                "mergeEPKiPKfiiPiPf")
+        + entry("_ZN40_GLOBAL__N__a1b2c3d4_13_arena_eval_cu_5e6f7a8b17arena"
+                "_eval_kernelILi8EEEvPKfPKNS_4TileEPKiS2_S2_S2_iiiiPiPfS6_"
+                "S6_"))
+    assert [ln.split(":")[1].strip() for ln in
+            chip_smoke.ptxas_lines("k", report)] == [
+        "locate_kernel<K=3>", "locate_merge", "arena_eval_kernel<K=8>"]

@@ -242,6 +242,65 @@ def test_locate_kernel_matches_plain(gpu):
     assert res.u.shape == (3000, 1) and bool(torch.isfinite(res.u).all())
 
 
+def _random_table(rng, L, p=2):
+    from explicit_hybrid_mpc_tpu_torch.partition import geometry
+
+    V = rng.uniform(-1, 1, (L, p + 1, p))
+    return export.LeafTable(
+        bary_M=geometry.barycentric_matrices(V), U=rng.normal(size=(L, 3, 1)),
+        V=rng.normal(size=(L, 3)), delta=np.zeros(L, dtype=np.int64),
+        node_id=np.arange(L))
+
+
+@pytest.mark.parametrize("L", [1, 129, 11670])
+@pytest.mark.parametrize("B", [1, 5, 513, 8191])
+def test_locate_kernel_at_ragged_shapes(gpu, B, L):
+    """Batches that are no multiple of the 4 queries a thread holds or
+    of the 512 a block holds, tables of 1 leaf, of one tile and a bit
+    (129) and of the flagship's size (split across blocks): scores to
+    1e-5 of the plain version, the kernel's leaf a best leaf to 1e-5,
+    and the plain version's leaf wherever the best leaf clears the
+    runner-up by 1e-4."""
+    rng = np.random.default_rng(B * 100_000 + L)
+    lt = locate.stage(_random_table(rng, L), device=gpu)
+    th = torch.as_tensor(rng.uniform(-1, 1, (B, 2)), device=gpu)
+    leaf, score = locate.locate(lt, th)
+    pl, ps = locate.locate_torch(lt.bary, th)
+    assert float((score - ps).abs().max()) <= 1e-5
+    th1 = torch.cat([th.float(), torch.ones_like(th[:, :1]).float()], 1)
+    full = torch.einsum("lij,bj->bli", lt.bary, th1).amin(2)
+    chosen = full.gather(1, leaf.long()[:, None])[:, 0]
+    assert bool((chosen >= full.amax(1) - 1e-5).all())
+    top = full.topk(min(2, L), dim=1).values
+    clear = (top[:, 0] - top[:, -1] > 1e-4) if L > 1 else \
+        torch.ones(B, dtype=torch.bool, device=gpu)
+    assert torch.equal(leaf[clear], pl[clear])
+
+
+def test_locate_kernel_nan_queries(gpu):
+    """A NaN in either coordinate or both: every leaf scores NaN, NaN
+    ranks first, so leaf 0 with score NaN and not inside, on the kernel
+    as on the plain version; finite rows beside them are unaffected."""
+    rng = np.random.default_rng(5)
+    table = _random_table(rng, 3000)
+    lt = locate.stage(table, device=gpu)
+    th = rng.uniform(-1, 1, (1100, 2))
+    nan_rows = np.arange(3, 1100, 97)
+    th[nan_rows, nan_rows % 3 % 2] = np.nan
+    th[nan_rows[::3]] = np.nan
+    tt = torch.as_tensor(th, device=gpu)
+    for leaf, score in (locate.locate(lt, tt),
+                        locate.locate_torch(lt.bary, tt)):
+        assert leaf[nan_rows].tolist() == [0] * len(nan_rows)
+        assert bool(torch.isnan(score[nan_rows]).all())
+        assert int(torch.isnan(score).sum()) == len(nan_rows)
+    res = locate.evaluate(lt, evaluator.stage(table, device=gpu), tt)
+    assert not bool(res.inside[nan_rows].any())
+    fin = np.setdiff1d(np.arange(1100), nan_rows)
+    alone, _ = locate.locate(lt, tt[fin])
+    assert torch.equal(alone, locate.locate(lt, tt)[0][fin])
+
+
 # -- the fused serving kernel (csrc/arena_eval.cu) -------------------------
 
 
@@ -303,7 +362,8 @@ def _arena_inputs(gpu, rng, sizes, B, n_u=2):
 
 @pytest.mark.parametrize("sizes,B", [((0, 37, 1000), 300),
                                      ((11, 128, 129, 5000), 4096),
-                                     ((1,), 1)])
+                                     ((1,), 1)] + [
+    ((0, 1, 37, 1000, 5000), B) for B in (1, 16, 257, 4096)])
 def test_arena_eval_kernel_matches_plain(gpu, sizes, B):
     """Empty, one-tile and multi-tile extents, rows outside the box,
     rows with a NaN coordinate: column, clamped and served exact
@@ -319,7 +379,8 @@ def test_arena_eval_kernel_matches_plain(gpu, sizes, B):
     nan_rows = torch.arange(1, B, 97, device=gpu)
     args[3][0, nan_rows, (nan_rows % 2)] = float("nan")
     before = fused.launches
-    rec = fused.arena_eval(*args)
+    rec = fused.arena_eval(*args, fused.make_plan(ext, gpu),
+                           fused.Scratch(gpu))
     torch.cuda.synchronize()
     assert fused.launches == before + 1
     ref = fused.arena_eval_torch(*args)
@@ -342,13 +403,87 @@ def test_arena_eval_kernel_matches_plain(gpu, sizes, B):
 def test_arena_eval_kernel_is_deterministic(gpu):
     from explicit_hybrid_mpc_tpu_torch.online import fused
 
-    args, _ = _arena_inputs(gpu, np.random.default_rng(9), (300, 2000), 2048)
-    a = fused.arena_eval_cuda(*args)
-    b = fused.arena_eval_cuda(*args)
+    args, ext = _arena_inputs(gpu, np.random.default_rng(9), (300, 2000),
+                              2048)
+    sc = fused.Scratch(gpu)
+    plan = fused.make_plan(ext, gpu)
+    a = fused.arena_eval_cuda(*args, plan, sc)
+    b = fused.arena_eval_cuda(*args, plan, sc)
     # A row's answer does not depend on the batch it rides in.
     c = fused.arena_eval_cuda(*args[:3], args[3][:, 100:164].contiguous(),
-                              args[4][100:164].contiguous())
+                              args[4][100:164].contiguous(),
+                              fused.make_plan(ext[100:164], gpu), sc)
     assert torch.equal(a, b) and torch.equal(a[100:164], c)
+
+
+def _plan(ext, chunks, gpu):
+    """A launch plan with the chunk count forced."""
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+
+    return fused.make_plan(ext, gpu)._replace(chunks=chunks)
+
+
+@pytest.mark.parametrize("B", [1, 16, 257])
+def test_arena_eval_record_does_not_depend_on_batch_or_chunking(gpu, B):
+    """Bitwise: each row's record is the same alone (one row, one
+    tile), inside the batch, under 1, 7 and 64 column chunks, with the
+    rows shuffled, and in a second launch -- NaN, clamped and
+    empty-extent rows included."""
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+
+    rng = np.random.default_rng(B + 3)
+    args, ext = _arena_inputs(gpu, rng, (0, 1, 37, 1000, 5000), B)
+    args[3][0, torch.arange(0, B, 5, device=gpu), 0] = float("nan")
+    sc = fused.Scratch(gpu)
+    whole = [fused.arena_eval_cuda(*args, _plan(ext, k, gpu), sc)
+             for k in (1, 7, 64, 64)]
+    for r in whole[1:]:
+        assert torch.equal(whole[0], r)
+    assert torch.equal(whole[0], fused.arena_eval_cuda(
+        *args, fused.make_plan(ext, gpu), sc))
+    sh = rng.permutation(B)
+    sht = torch.as_tensor(sh, device=gpu)
+    shuffled = fused.arena_eval_cuda(
+        *args[:3], args[3][:, sht].contiguous(), args[4][sht].contiguous(),
+        fused.make_plan(ext[sh], gpu), sc)
+    assert torch.equal(shuffled, whole[0][sht])
+    for b in rng.choice(B, min(B, 12), replace=False):
+        for k in (1, 5):
+            alone = fused.arena_eval_cuda(
+                *args[:3], args[3][:, b:b + 1].contiguous(),
+                args[4][b:b + 1].contiguous(), _plan(ext[b:b + 1], k, gpu),
+                sc)
+            assert torch.equal(alone[0], whole[0][b])
+
+
+def test_arena_eval_kernel_rejects_a_bad_plan(gpu):
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+
+    args, ext = _arena_inputs(gpu, np.random.default_rng(1), (40, 300), 20)
+    plan = _plan(ext, 3, gpu)
+    sc = fused.Scratch(gpu)
+    for bad in (plan._replace(chunks=0), plan._replace(chunks=65),
+                plan._replace(tiles=plan.tiles[:, :-1].contiguous()),
+                plan._replace(tiles=plan.tiles.long()),
+                plan._replace(tiles=plan.tiles.cpu()),
+                plan._replace(rows=19)):
+        with pytest.raises(ValueError):
+            fused.arena_eval_cuda(*args, bad, sc)
+    with pytest.raises(ValueError):
+        fused.arena_eval_cuda(*args, plan, fused.Scratch("cpu"))
+    with pytest.raises(ValueError):
+        fused.arena_eval(*args)                    # no plan, no scratch
+    # A tile whose row ids lie past the batch is skipped; every other
+    # row keeps its record.
+    good = fused.arena_eval_cuda(*args, plan, sc)
+    tiles = plan.tiles.clone()
+    skipped = tiles[0, 4:4 + int(tiles[0, 0])].long()
+    tiles[0, 4:4 + int(tiles[0, 0])] += 20
+    rec = fused.arena_eval_cuda(*args, plan._replace(tiles=tiles), sc)
+    torch.cuda.synchronize()
+    keep = torch.ones(20, dtype=torch.bool, device=gpu)
+    keep[skipped] = False
+    assert torch.equal(rec[keep], good[keep])
 
 
 def test_device_arena_on_the_card(gpu):

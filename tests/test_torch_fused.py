@@ -289,7 +289,8 @@ def test_records_and_dispatch(buffers):
     assert val.dtype == u.dtype == cost.dtype == torch.float32
     assert clamped.dtype == torch.bool and u.shape == (len(names), N_U)
     with pytest.raises(ValueError, match="CUDA"):
-        fused.arena_eval_cuda(*args)
+        fused.arena_eval_cuda(*args, fused.make_plan(ext, "cpu"),
+                              fused.Scratch("cpu"))
     with pytest.raises(TypeError):
         fused.arena_eval(args[0].double(), *args[1:])
     with pytest.raises(TypeError):
@@ -298,3 +299,84 @@ def test_records_and_dispatch(buffers):
         fused.arena_eval(args[0][:, :, :100], *args[1:])
     with pytest.raises(ValueError):
         fused.arena_eval(*args[:3], args[3][:, :5], args[4])
+
+
+def _check_plan(ext, chunks, tiles, C, n_sm=132):
+    B = len(ext)
+    assert tiles.dtype == np.int32 and tiles.shape[1] == fused.TILE_WORDS
+    assert 1 <= chunks <= fused.MAX_CHUNKS
+    seen = np.zeros(B, dtype=int)
+    for n, s, e, _unused, *rows in tiles:
+        assert 1 <= n <= fused.TILE_ROWS
+        rows = np.array(rows[:n])
+        seen[rows] += 1
+        assert (ext[rows] == (s, e)).all()
+        # The chunks cover the tile's extent (clipped to the arena) once.
+        cov = np.zeros(C, dtype=int)
+        for c0, c1 in fused.chunk_bounds(int(s), int(e), chunks, C):
+            assert c0 <= c1
+            cov[c0:c1] += 1
+        want = np.zeros(C, dtype=int)
+        want[max(s, 0):min(e, C)] = 1
+        assert np.array_equal(cov, want)
+    assert (seen == 1).all()
+    widest = max(int(np.maximum(tiles[:, 2] - tiles[:, 1], 0).max()), 1)
+    assert chunks == 1 or widest // chunks >= fused.MIN_CHUNK_COLS // 2
+    assert len(tiles) * chunks <= max(len(tiles),
+                                      2 * fused.BLOCKS_PER_SM * n_sm)
+
+
+@pytest.mark.parametrize("B", [1, 3, 16, 17, 257, 4099])
+def test_plan_batch_covers_every_row_and_column_once(B):
+    """Tiles hold rows of one extent, every row in exactly one tile; the
+    chunks of each tile cover its extent exactly once -- empty, one-
+    column and arena-clipped extents included -- for B = 1 and batch
+    sizes that are no multiple of the tile."""
+    rng = np.random.default_rng(B)
+    C = 12_000
+    table = np.array([(0, 0), (5, 6), (128, 11_670), (11_776, 11_900),
+                      (256, 256), (11_900, 12_500)])
+    ext = table[rng.integers(0, len(table), B)]
+    chunks, tiles = fused.plan_batch(ext)
+    _check_plan(ext, chunks, tiles, C)
+
+
+def test_plan_batch_fills_the_card_at_serving_batches():
+    """The serving run's batch (16 rows round-robin over 4 tenants of
+    11,670 columns) runs on 8 two-row tiles x 23 chunks of at least
+    MIN_CHUNK_COLS columns, not on 16 blocks; 256 rows in 4-row tiles on
+    no more than BLOCKS_PER_SM blocks per SM; 65,536 rows in full tiles
+    need no chunks; and a 1-column extent is one chunk."""
+    ext4 = np.array([(k * 11_776, k * 11_776 + 11_670) for k in range(4)])
+    chunks, tiles = fused.plan_batch(ext4[np.arange(16) % 4], 132)
+    assert len(tiles) == 8 and (tiles[:, 0] == 2).all()
+    assert chunks == -(-11_670 // fused.MIN_CHUNK_COLS)
+    chunks, tiles = fused.plan_batch(ext4[np.arange(256) % 4], 132)
+    assert len(tiles) == 64 and (tiles[:, 0] == 4).all()
+    assert 132 <= 64 * chunks <= fused.BLOCKS_PER_SM * 132
+    chunks, tiles = fused.plan_batch(ext4[np.arange(65_536) % 4], 132)
+    assert chunks == 1 and len(tiles) == 65_536 // fused.TILE_ROWS
+    assert (tiles[:, 0] == fused.TILE_ROWS).all()
+    assert fused.plan_batch(np.array([[7, 8]]))[0] == 1
+    assert fused.plan_batch(np.zeros((0, 2)))[1].shape == (0,
+                                                           fused.TILE_WORDS)
+
+
+def test_make_plan_is_plan_batchs_plan_for_the_batch():
+    """make_plan puts plan_batch's tiles on the device and names the
+    batch size the wrapper holds the launch to."""
+    ext = np.array([(0, 300), (300, 301), (0, 300)] * 5)
+    plan = fused.make_plan(ext, "cpu")
+    chunks, tiles = fused.plan_batch(ext)
+    assert plan.rows == 15 and plan.chunks == chunks
+    assert plan.tiles.dtype == torch.int32 and plan.tiles.is_contiguous()
+    assert np.array_equal(plan.tiles.numpy(), tiles)
+    assert fused.make_plan(ext[:1], "cpu").rows == 1
+
+
+def test_chunk_bounds_match_the_kernels_arithmetic():
+    assert fused.chunk_bounds(10, 10, 4, 100) == [(10, 10)] * 4
+    assert fused.chunk_bounds(10, 11, 3, 100) == [(10, 10), (10, 10),
+                                                  (10, 11)]
+    assert fused.chunk_bounds(-5, 500, 2, 100) == [(0, 50), (50, 100)]
+    assert fused.chunk_bounds(0, 11_670, 46, 12_000)[-1] == (11_416, 11_670)

@@ -159,3 +159,56 @@ def test_staging_defaults_to_the_gpu():
     assert leaf.tolist() == [0, 0, 0, 0]
     with pytest.raises(ValueError):
         locate.locate_cuda(lt.bary, torch.zeros(4, 2))
+
+
+def test_nan_queries_are_leaf_0_and_never_inside(pend):
+    """A theta with a NaN coordinate (either one, or both) locates to
+    leaf 0 and is not inside, in the JAX package (Pallas kernel in
+    interpret mode, and its evaluate) and in the port's plain version
+    (whose score is NaN: torch.argmax ranks NaN first, the order the
+    CUDA kernel follows); a finite row beside them gets the same leaf
+    and score from both."""
+    _prob, res, table = pend
+    th, _ids = _interior(res, table, 1, np.random.default_rng(3))
+    nan = np.nan
+    thetas = np.array([[nan, 0.1], [0.2, nan], [nan, nan], th[0]])
+    jt = _jax_table(table)
+    ref_leaf, ref_score = pallas_eval.locate(
+        pallas_eval.stage_pallas(jt), jnp.asarray(thetas), interpret=True)
+    ref_ev = pallas_eval.evaluate(pallas_eval.stage_pallas(jt),
+                                  jevaluator.stage(jt), jnp.asarray(thetas),
+                                  interpret=True)
+    lt = locate.stage(table, device=CPU)
+    leaf, score = locate.locate_torch(lt.bary, torch.as_tensor(thetas))
+    got = locate.evaluate(lt, evaluator.stage(table, device=CPU),
+                          torch.as_tensor(thetas))
+    for lf, ins in ((np.asarray(ref_leaf), np.asarray(ref_ev.inside)),
+                    (leaf.numpy(), got.inside.numpy())):
+        assert lf[:3].tolist() == [0, 0, 0]
+        assert not ins[:3].any() and ins[3]
+    assert np.isnan(score.numpy()[:3]).all()
+    assert leaf[3] == int(np.asarray(ref_leaf)[3])
+    np.testing.assert_allclose(score.numpy()[3], np.asarray(ref_score)[3],
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,L", [(1, 0), (1, 1), (5, 129), (513, 300),
+                                 (8192, 11670), (65536, 11670),
+                                 (3, 1_000_003)])
+def test_plan_splits_cover_the_leaves_once(B, L):
+    """The CUDA kernel's leaf splits: contiguous, every leaf in exactly
+    one, none under MIN_SPLIT_LEAVES leaves unless the table is smaller,
+    and about BLOCKS_PER_SM blocks per SM where the leaves allow."""
+    n_sm = 132
+    splits, per = locate.plan_splits(B, L, n_sm)
+    assert splits >= 1 and splits * per >= L and (splits - 1) * per < max(L, 1)
+    covered = np.zeros(L, dtype=int)
+    for s in range(splits):
+        covered[min(s * per, L):min(s * per + per, L)] += 1
+    assert (covered == 1).all()
+    assert splits == 1 or per >= locate.MIN_SPLIT_LEAVES
+    qblocks = -(-B // locate.BLOCK_QUERIES)
+    assert qblocks * splits <= max(qblocks, locate.BLOCKS_PER_SM * n_sm
+                                   + qblocks)
+    if L >= locate.MIN_SPLIT_LEAVES * 64 and qblocks < 64:
+        assert qblocks * splits >= locate.BLOCKS_PER_SM * n_sm

@@ -641,3 +641,39 @@ def test_serve_config_has_the_jax_fields_and_checks():
         with pytest.raises(NotImplementedError, match=item):
             config.ServeConfig(**{knob: val})
     assert config.ServeConfig().max_batch == 256
+
+
+def test_shuffled_tenant_order_answers_each_row_in_its_place(rng):
+    """A mixed batch in shuffled tenant order: each row's answer is its
+    own, in the caller's order, bitwise what the batch in tenant order
+    gives it; the launch plan packed with the batch groups rows of one
+    tenant into tiles of its extent and covers every row once."""
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+
+    arena = DeviceArena(p=2, n_u=1, capacity_cols=640, device="cpu")
+    tabs = {n: _synthetic_table(rng, L=30 + 7 * k)
+            for k, n in enumerate(("a", "b", "c"))}
+    for n, t in tabs.items():
+        arena.publish(n, "v1", t, *_BOX)
+    names = [n for n in ("a", "b", "c") for _ in range(13)]
+    th = np.concatenate([_centroids(tabs[n])[:13] for n in ("a", "b", "c")])
+    th[::5] = rng.uniform(-2.0, 10.0, (len(th[::5]), 2))
+    base = arena.evaluate(names, th)
+    perm = rng.permutation(len(names))
+    sn = [names[i] for i in perm]
+    got = arena.evaluate(sn, th[perm])
+    for f in ("u", "cost", "leaf", "col", "served", "clamped"):
+        assert getattr(got, f).tobytes() == getattr(base, f)[perm].tobytes()
+    exts = {n: arena.extent(n) for n in tabs}
+    buf, starts, chunks = arena.pack_queries(exts, sn, th[perm])
+    q, ext, tiles = fused.split_queries(torch.as_tensor(buf), len(sn), 3)
+    assert np.array_equal(ext[:, 0].numpy(), starts)
+    covered = []
+    for n, s, e, _unused, *rows in tiles.tolist():
+        rows = rows[:n]
+        covered += rows
+        assert {sn[r] for r in rows} == {sn[rows[0]]}
+        ex = exts[sn[rows[0]]]
+        assert (s, e) == (ex.start, ex.start + ex.n_leaves)
+    assert sorted(covered) == list(range(len(sn)))
+    assert 1 <= chunks <= fused.MAX_CHUNKS
