@@ -10,7 +10,17 @@ multi-tenant serving of the flagship table to four tenants from one
 device arena (20,000 requests through the scheduler and the arena
 kernel, with a delta hot swap mid-traffic and a bitwise torn-read
 audit) -- with every kernel launch counted from zero just before each
-path, and checks the results against the plain references.  Any failed
+path, and checks the results against the plain references.  Phases
+11-13 then drive the single-controller paths: the closed loop
+(sim.simulator.compare on the flagship table, the explicit controller
+through the point-location kernel and the implicit one through the IPM
+leg, with both kernels counted from zero and each loop held step by
+step to a plain f64 reference, then `main --simulate` once); the
+`main serve` entry point (`serve --selftest 20000` on the card by
+default, ShardedDescent held to the f64 host evaluator, a hot swap
+under 16 submitting threads with a bitwise audit); and sharded
+descent at 1,474,560 synthetic leaves (flat against 8 shards, µs per
+query, CUDA kernels a batch, device-resident bytes).  Any failed
 phase exits non-zero.  The second-to-last line
 of standard output is the kernels JSON object (each kernel's launches,
 error against its plain version, its time, the plain version's time, a
@@ -22,7 +32,9 @@ arena_eval's entry is at the serving run's most frequent batch size
 ("rows"), its error the largest over every size it was held to its
 plain version at (the sweep's and that one), and its "profiled_*"
 keys come from a second, shorter serving run under torch.profiler
-(the timed run's p50/p99 are taken without the profiler).
+(the timed run's p50/p99 are taken without the profiler).  The
+ipm_leg and locate entries' "sim_launches" count the closed loop's
+launches (phase 11), from zero.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -110,6 +122,44 @@ OUTSIDE_FRAC = 0.05
 
 #: Requests of the second, profiled serving run (K3's device time).
 PROFILED_REQUESTS = 5_000
+
+#: Phase 11, the closed loop: steps of the flagship loop (from 0.8 *
+#: theta_ub, what `main --simulate` runs), the explicit controller's leaf
+#: tie (the plain version's winning score within this of the runner-up's),
+#: the implicit one's exact tie (two commutations' V this close), the
+#: steps of the `main --simulate` run on the tier-1 double integrator,
+#: and the keys of the JAX package's PREFIX.sim.json.
+SIM_T = 100
+SIM_LEAF_TIE = 1e-5
+SIM_V_TIE = 1e-12
+SIM_DI_T = 50
+SIM_DI_ARGS = ("-e", "double_integrator", "--problem-arg", "N=3",
+               "--problem-arg", "theta_box=1.5", "-a", "0.5", "--batch",
+               "64", "--max-depth", "20")
+SIM_JSON_KEYS = ("theta0", "explicit_cost", "implicit_cost", "cost_ratio",
+                 "explicit_us_per_step", "implicit_us_per_step",
+                 "online_speedup", "trajectories")
+
+#: Phase 12, the serve entry point: `serve --selftest` requests, in-box
+#: thetas held against the f64 host evaluator, and the hot swap's client
+#: threads and requests per client (one theta each).
+SERVE_SELFTEST = 20_000
+SERVE_HOLD = 8192
+SWAP_CLIENTS = 16
+SWAP_REQUESTS = 250
+
+#: Phase 13, the large partition (bench.py's large_l_metrics): a
+#: synthetic depth-11 tree over the unit box in p = 6 (720 Kuhn roots,
+#: the satellite's root layout), 1,474,560 leaves; the batch, the shard
+#: count, the timed repetitions, the queries held to the tree's exact law
+#: and, of those, the ones held to the brute f64 host evaluator.
+LARGE_P = 6
+LARGE_DEPTH = 11
+LARGE_B = 8192
+LARGE_SHARDS = 8
+LARGE_REPS = 10
+LARGE_HOLD = 4096
+LARGE_NP_HOLD = 32
 
 
 def log(*a) -> None:
@@ -1198,6 +1248,494 @@ def serve_phases(dev, res, table, rng, tmp: str, base_k3=None,
             "profiled_bound_ms": prof_bound_ms}
 
 
+def host_scores(table, theta: np.ndarray) -> np.ndarray:
+    """(L,) f64 containment margin of one theta in every leaf (host)."""
+    return (table.bary_M @ np.append(theta, 1.0)).min(axis=1)
+
+
+def host_eval(table, thetas: np.ndarray, tol: float = 1e-9,
+              chunk: int = 256) -> tuple:
+    """evaluator.evaluate_np over a batch, vectorized in query chunks:
+    (u, cost, inside) in f64 numpy on the host, the first best leaf."""
+    us, costs, ins = [], [], []
+    for lo in range(0, thetas.shape[0], chunk):
+        th1 = np.concatenate([thetas[lo:lo + chunk],
+                              np.ones((len(thetas[lo:lo + chunk]), 1))], 1)
+        lam = np.einsum("lij,bj->bli", table.bary_M, th1)
+        score = lam.min(axis=2)
+        leaf = np.argmax(score, axis=1)
+        lb = lam[np.arange(leaf.size), leaf]
+        us.append(np.einsum("bi,bin->bn", lb, table.U[leaf]))
+        costs.append((lb * table.V[leaf]).sum(axis=1))
+        ins.append(score[np.arange(leaf.size), leaf] >= -tol)
+    return np.concatenate(us), np.concatenate(costs), np.concatenate(ins)
+
+
+def device_profile(fn, dev) -> tuple[int | None, float | None]:
+    """(CUDA kernels launched, their summed device microseconds) of one
+    call of `fn`, by torch.profiler -- (None, None) on a CPU device or
+    when the profiler records no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        return None, None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    n = sum(e.count for e in rows)
+    if not n:
+        return None, None
+    return n, float(sum(e.self_device_time_total for e in rows))
+
+
+def closed_loop_phase(dev, problem, cfg, table, tmp: str) -> dict:
+    """Phase 11: the main path's last step.  simulator.compare on the
+    flagship table and the build's oracle configuration, on `dev`, the
+    explicit controller through K2 (kernel backend), from 0.8 *
+    theta_ub for SIM_T steps, with K1 and K2 counted from zero; both
+    loops held step by step to plain f64 references; then `main
+    --simulate` once on the tier-1 double integrator.  Returns the
+    phase's numbers."""
+    import contextlib
+    import io
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.online import evaluator, locate
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import make_oracle
+    from explicit_hybrid_mpc_tpu_torch.sim import simulator
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    ora = make_oracle(problem, cfg)
+    theta0 = 0.8 * problem.theta_ub
+    legs: list = []
+    real = ipm_leg.ipm_leg_cuda
+    ipm_leg.ipm_leg_cuda = record_legs(real, legs)
+    ipm_leg.launches = 0
+    locate.launches = 0
+    try:
+        cmp = simulator.compare(problem, table, ora, theta0, T=SIM_T,
+                                backend="kernel", device=dev)
+    finally:
+        ipm_leg.ipm_leg_cuda = real
+    n_k1, n_k2 = ipm_leg.launches, locate.launches
+    ex, im = cmp.explicit, cmp.implicit
+    log(f"[sim] flagship closed loop, T={SIM_T} from 0.8*theta_ub on "
+        f"{dev}: cost_ratio {cmp.cost_ratio:.6f} (explicit "
+        f"{ex.total_cost:.6f}, implicit {im.total_cost:.6f}); explicit "
+        f"{ex.mean_eval_us:.1f} us/step (median "
+        f"{1e6 * float(np.median(ex.eval_s)):.1f}), implicit "
+        f"{im.mean_eval_us:.1f} us/step (median "
+        f"{1e6 * float(np.median(im.eval_s)):.1f}), speedup "
+        f"{cmp.speedup:.1f}x; launches counted from zero: ipm_leg {n_k1}, "
+        f"locate {n_k2}")
+    if len(legs) != n_k1:
+        fail(f"closed loop: {len(legs)} K1 launches recorded, {n_k1} "
+             "counted")
+    if on_card and (n_k1 <= 0 or n_k2 <= 0):
+        fail(f"closed loop: a kernel of the path never launched (ipm_leg "
+             f"{n_k1}, locate {n_k2})")
+    if legs:
+        shapes: dict = {}
+        for k in legs:
+            shapes[k] = shapes.get(k, 0) + 1
+        log("[sim] K1 launches (K, nz, nc, n_iter) x count: " + ", ".join(
+            f"{k} x {n}" for k, n in sorted(shapes.items())))
+    if not (np.isfinite(ex.states).all() and np.isfinite(im.states).all()):
+        fail("closed loop: non-finite states")
+
+    # The explicit loop, step by step: at every theta it visited the f64
+    # host evaluator gives the same u (1e-9), except at leaf ties (the
+    # plain winning score within SIM_LEAF_TIE of the runner-up's, where a
+    # float32 score may pick either leaf); K2 at B = 1 against its plain
+    # version at the same thetas.
+    lt = locate.stage(table, device=dev)
+    ties = 0
+    inside_diff = []
+    worst = 0.0
+    for k, x in enumerate(ex.states[:-1]):
+        th = problem.theta_of_state(x)
+        s = host_scores(table, th)
+        second, best = np.partition(s, -2)[-2:]
+        kl, ks = locate.locate(lt, torch.as_tensor(th[None], device=dev))
+        pl_, ps = locate.locate_torch(lt.bary, torch.as_tensor(
+            th[None], device=dev))
+        if best - second < SIM_LEAF_TIE:
+            ties += 1
+            continue
+        if int(kl[0]) != int(pl_[0]) \
+                or abs(float(ks[0]) - float(ps[0])) > 1e-5:
+            fail(f"closed loop step {k}: K2 at B=1 gives leaf {int(kl[0])} "
+                 f"score {float(ks[0])}, its plain version {int(pl_[0])} "
+                 f"{float(ps[0])}")
+        err = float(np.abs(ex.inputs[k] - evaluator.evaluate_np(table, th))
+                    .max())
+        worst = max(worst, err)
+        if err > 1e-9:
+            fail(f"closed loop step {k}: explicit u differs from the f64 "
+                 f"host evaluator by {err:.2e}")
+        if bool(ex.inside[k]) != bool(best >= -1e-4):
+            inside_diff.append((k, float(best)))
+    log(f"[sim] explicit held at {SIM_T - ties}/{SIM_T} steps to the f64 "
+        f"host evaluator: max |du| {worst:.2e}; {ties} leaf-tie steps "
+        f"skipped; inside differs at {len(inside_diff)} steps "
+        f"{inside_diff[:5]}")
+    if any(abs(b + 1e-4) > 1e-5 for _k, b in inside_diff):
+        fail("closed loop: inside differs away from the tolerance edge")
+
+    # The implicit loop: at every theta it visited, K1's plain version on
+    # the same device gives the same dstar and u0 (1e-6) wherever both
+    # converged, except exact ties (two commutations' V within SIM_V_TIE).
+    th_i = np.stack([problem.theta_of_state(x) for x in im.states[:-1]])
+    ipm_leg.ipm_leg_cuda = ipm_leg.ipm_leg_torch
+    try:
+        ref = ora.solve_vertices(th_i)
+    finally:
+        ipm_leg.ipm_leg_cuda = real
+    kern = ora.solve_vertices(th_i)
+    vties = 0
+    worst = 0.0
+    for k in range(SIM_T):
+        dp, dk = int(ref.dstar[k]), int(kern.dstar[k])
+        if dp < 0 or dk < 0:
+            if (dp < 0) != (dk < 0) or bool(im.inside[k]) != (dp >= 0):
+                fail(f"implicit step {k}: feasibility differs (plain dstar "
+                     f"{dp}, kernel {dk}, loop inside {im.inside[k]})")
+            continue
+        tie = (dp != dk and abs(ref.V[k, dk] - ref.Vstar[k]) <= SIM_V_TIE)
+        if dp != dk and not tie:
+            fail(f"implicit step {k}: dstar {dk} on the kernel, {dp} on its "
+                 f"plain version (V {ref.V[k, dk]!r} vs {ref.Vstar[k]!r})")
+        vties += int(tie)
+        err = float(np.abs(im.inputs[k] - ref.u0[k, dk]).max())
+        worst = max(worst, err)
+        if err > 1e-6:
+            fail(f"implicit step {k}: u0 differs from K1's plain version "
+                 f"by {err:.2e}")
+    log(f"[sim] implicit held at {SIM_T} steps to K1's plain version on "
+        f"{dev}: dstar equal but {vties} exact ties, max |du0| {worst:.2e}")
+
+    # Where a step's time goes: one explicit and one implicit step (at
+    # theta0) under the profiler -- kernels launched and their device
+    # time against the step's host wall (these launches are not counted).
+    ectrl = simulator.ExplicitController(table, backend="kernel",
+                                         device=dev)
+    ictrl = simulator.ImplicitController(ora, device=dev)
+    for name, ctrl in (("explicit", ectrl), ("implicit", ictrl)):
+        walls = [ctrl(theta0)[1].eval_s for _ in range(20)]
+        n, us = device_profile(lambda: ctrl(theta0), dev)
+        log(f"[sim] one {name} step: host wall median "
+            f"{1e6 * float(np.median(walls)):.1f} us, {n} CUDA kernels, "
+            f"{us} us of device time")
+
+    # The entry point itself: `main --simulate` (and --artifacts-out) on
+    # the tier-1 double integrator, on the card by default.
+    out = os.path.join(tmp, "di")
+    argv = list(SIM_DI_ARGS) + ["-o", out, "--artifacts-out",
+                                os.path.join(tmp, "di.artifacts"),
+                                "--simulate", str(SIM_DI_T)]
+    if not on_card:
+        argv += ["--backend", "cpu"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = tmain.main(argv)
+    sim = json.load(open(f"{out}.sim.json"))
+    if rc != 0 or tuple(sorted(sim)) != tuple(sorted(SIM_JSON_KEYS)) \
+            or set(sim["trajectories"]) != {"explicit", "implicit"} \
+            or len(sim["trajectories"]["explicit"]["inputs"]) != SIM_DI_T:
+        fail(f"main --simulate: rc {rc}, sim.json keys {sorted(sim)}")
+    if not os.path.exists(os.path.join(tmp, "di.artifacts", "descent.npz")):
+        fail("main --artifacts-out wrote no descent.npz")
+    log(f"[sim] main -e double_integrator (tier-1) --artifacts-out "
+        f"--simulate {SIM_DI_T}: {time.perf_counter() - t0:.1f} s, sim.json "
+        f"has the JAX package's keys; cost_ratio {sim['cost_ratio']:.6f}, "
+        f"explicit {sim['explicit_us_per_step']:.1f} us/step, implicit "
+        f"{sim['implicit_us_per_step']:.1f} us/step")
+    log(f"[sim] (phase took {time.perf_counter() - t_phase:.1f} s)")
+    return {"sim_k1": n_k1, "sim_k2": n_k2,
+            "explicit_us": ex.mean_eval_us, "implicit_us": im.mean_eval_us}
+
+
+def serve_entry_phase(dev, problem, cfg, res, table, rng, tmp: str) -> None:
+    """Phase 12: the single-controller serving entry point.  `serve
+    --selftest` on the flagship artifact directory (on the card by
+    default), ShardedDescent held to the f64 host evaluator, and a hot
+    swap under 16 submitting threads with a bitwise audit."""
+    import contextlib
+    import io
+    import threading
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.online import evaluator, fused, locate
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import make_oracle
+    from explicit_hybrid_mpc_tpu_torch.serve import (ControllerRegistry,
+                                                     FallbackPolicy,
+                                                     RequestScheduler,
+                                                     registry)
+    from explicit_hybrid_mpc_tpu_torch.serve.cli import serve_main
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    art = os.path.join(tmp, "pend")
+    registry.save_artifacts(res.tree, res.roots, art)
+    argv = ["--artifacts", art, "--controller", "pend", "--selftest",
+            str(SERVE_SELFTEST)]
+    if not on_card:
+        argv += ["--backend", "cpu"]
+    ipm_leg.launches = locate.launches = fused.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main(argv)
+    wall = time.perf_counter() - t0
+    summ = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"[serve-cli] serve --selftest {SERVE_SELFTEST} on "
+        f"{'cuda (default)' if on_card else 'cpu'}: {wall:.2f} s, "
+        f"{json.dumps(summ)}; kernel launches ipm_leg {ipm_leg.launches}, "
+        f"locate {locate.launches}, arena_eval {fused.launches} (the "
+        "descent is plain torch)")
+    if rc != 0 or summ["requests"] != SERVE_SELFTEST \
+            or not summ["fallback_served"] > 0 \
+            or not np.isfinite([summ["p50_us"], summ["p99_us"]]).all():
+        fail(f"serve --selftest: rc {rc}, summary {summ}")
+
+    devices = [dev]
+    reg = ControllerRegistry()
+    v1 = reg.load_artifacts("pend", "v1", art, devices=devices)
+    srv = v1.server
+    lb, ub = problem.theta_lb, problem.theta_ub
+    th = rng.uniform(lb, ub, (SERVE_HOLD, problem.n_theta))
+    out = srv.evaluate(th)
+    u_r, c_r, in_r = host_eval(table, th)
+    for k in range(8):
+        if np.abs(evaluator.evaluate_np(table, th[k]) - u_r[k]).max() \
+                > 1e-12:
+            fail("host_eval disagrees with evaluator.evaluate_np")
+    if not np.array_equal(out.inside, in_r):
+        fail(f"ShardedDescent inside differs from the f64 host evaluator on "
+             f"{int((out.inside != in_r).sum())} of {SERVE_HOLD} thetas")
+    du = float(np.abs(out.u - u_r)[in_r].max())
+    dc = float(np.abs(out.cost - c_r)[in_r].max())
+    if du > 1e-9 or dc > 1e-9:
+        fail(f"ShardedDescent differs from the f64 host evaluator: |du| "
+             f"{du:.2e}, |dcost| {dc:.2e}")
+    batch = th[:MAX_BATCH]
+    n_l, us_l = device_profile(lambda: srv.evaluate(batch), dev)
+    log(f"[serve] ShardedDescent ({srv.n_shards} shard, cut depth "
+        f"{srv.cut_depth}, max_depth {srv.max_depth}) on {SERVE_HOLD} "
+        f"in-box thetas: inside equal to the f64 host evaluator "
+        f"({int(in_r.sum())} inside), max |du| {du:.2e}, |dcost| {dc:.2e}; "
+        f"one {MAX_BATCH}-row batch launches {n_l} CUDA kernels, "
+        f"{us_l} us of device time")
+
+    # Hot swap under load: v2's payloads are exactly 2x v1's, loaded from
+    # its own artifact directory while SWAP_CLIENTS threads submit.
+    v2_tree = res.tree.clone()
+    v2_tree._pl_inputs[:] *= 2.0
+    v2_tree._pl_costs[:] *= 2.0
+    art2 = os.path.join(tmp, "pend.v2")
+    registry.save_artifacts(v2_tree, res.roots, art2)
+    ora = make_oracle(problem, cfg)
+    fb = FallbackPolicy(*registry.root_box(srv), oracle=ora)
+    sched = RequestScheduler(reg, "pend", max_batch=MAX_BATCH,
+                             max_wait_us=MAX_WAIT_US, fallback=fb)
+    outs, errors = [], []
+    lock = threading.Lock()
+    half = threading.Barrier(SWAP_CLIENTS + 1)
+
+    def client(cid: int) -> None:
+        r = np.random.default_rng(1000 + cid)
+        for k in range(SWAP_REQUESTS):
+            if k == SWAP_REQUESTS // 2:
+                half.wait(120.0)
+            q = r.uniform(lb, ub)
+            try:
+                (res_k,) = sched.submit(q).result(120.0)
+            except Exception as e:  # noqa: BLE001 -- a drop IS a failure
+                errors.append(repr(e))
+                return
+            with lock:
+                outs.append((q, res_k))
+
+    ipm_leg.launches = 0
+    ts = [threading.Thread(target=client, args=(c,))
+          for c in range(SWAP_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    half.wait(120.0)
+    t_sw = time.perf_counter()
+    reg.load_artifacts("pend", "v2", art2, devices=devices)
+    swap_s = time.perf_counter() - t_sw
+    for t in ts:
+        t.join(300.0)
+    sched.close()
+    run_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in ts) or errors \
+            or len(outs) != SWAP_CLIENTS * SWAP_REQUESTS:
+        fail(f"hot swap: {len(outs)} of {SWAP_CLIENTS * SWAP_REQUESTS} "
+             f"answered, errors {errors[:3]}")
+    if not reg.wait_retired(v1, 30.0):
+        fail("hot swap: v1 did not retire")
+    seen = {r.version for _q, r in outs}
+    thetas = np.stack([q for q, _r in outs])
+    ref = srv.evaluate(thetas)
+    torn = skipped = 0
+    for k, (_q, r) in enumerate(outs):
+        if r.fallback not in (None, "clamp"):
+            skipped += 1
+            continue
+        s = 1.0 if r.version == "v1" else 2.0
+        if not (np.array_equal(r.u, s * ref.u[k])
+                and r.cost == s * float(ref.cost[k])):
+            torn += 1
+    lat = np.asarray([r.latency_s for _q, r in outs]) * 1e6
+    n_v2 = sum(1 for _q, r in outs if r.version == "v2")
+    log(f"[swap] {SWAP_CLIENTS} threads x {SWAP_REQUESTS} requests through "
+        f"RequestScheduler(max_batch={MAX_BATCH}, max_wait_us="
+        f"{MAX_WAIT_US:g}, fallback clamp + oracle on {ora.device}): "
+        f"{run_s:.2f} s, {sched.n_batches} batches, p50 "
+        f"{np.percentile(lat, 50):.0f} us, p99 {np.percentile(lat, 99):.0f} "
+        f"us; v2 loaded and published mid-traffic in {1e3 * swap_s:.1f} ms; "
+        f"versions {sorted(seen)} ({n_v2} v2 answers); 0 dropped, 0 errored; "
+        f"{torn} answers not bitwise their version's, {skipped} oracle or "
+        f"unserved rows not audited; fallback oracle re-solves "
+        f"{fb.n_oracle} (ipm_leg launches {ipm_leg.launches})")
+    if seen != {"v1", "v2"} or torn:
+        fail(f"hot swap: versions {sorted(seen)}, {torn} torn answers")
+    log(f"[serve-cli] (phase took {time.perf_counter() - t_phase:.1f} s)")
+
+
+def large_partition_phase(dev) -> None:
+    """Phase 13: sharded descent at a realistic size -- bench.py's
+    large-partition case: a synthetic p = LARGE_P, depth-LARGE_DEPTH tree
+    over the unit box, flat descent (one table) against ShardedDescent
+    (LARGE_SHARDS shards on the one device, Kuhn router), both held to
+    the tree's exact law and to the f64 host evaluator."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.online import (descent, evaluator,
+                                                      export, sharded)
+    from explicit_hybrid_mpc_tpu_torch.partition import geometry
+    from explicit_hybrid_mpc_tpu_torch.partition.synthetic import (
+        build_synthetic_tree)
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    p = LARGE_P
+    t0 = time.perf_counter()
+    tree, roots = build_synthetic_tree(p=p, depth=LARGE_DEPTH)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_large_") as td:
+        t0 = time.perf_counter()
+        export.write_leaf_table(tree, td)
+        export_s = time.perf_counter() - t0
+        table = export.load_leaf_table(td)
+        t0 = time.perf_counter()
+        dt = descent.export_descent(tree, roots, table, stage=False)
+        descent_s = time.perf_counter() - t0
+        del tree
+        L = table.n_leaves
+        log(f"[large] synthetic p={p} depth {LARGE_DEPTH}: {L} leaves, "
+            f"{len(roots)} roots, {dt.children.shape[0]} nodes, max_depth "
+            f"{dt.max_depth}; build {build_s:.1f} s, leaf-table export "
+            f"{export_s:.1f} s, descent export {descent_s:.1f} s")
+        qs = np.random.default_rng(5).uniform(0.0, 1.0, (LARGE_B, p))
+        m0 = torch.cuda.memory_allocated(dev) if on_card else 0
+        dt_dev = descent.stage_table(dt, dev)
+        lt = evaluator.stage(table, device=dev)
+        flat_bytes = sum(t.numel() * t.element_size() for t in lt) + sum(
+            getattr(dt_dev, k).numel() * getattr(dt_dev, k).element_size()
+            for k in descent._FIELDS)
+        q_dev = torch.as_tensor(qs, device=dev)
+
+        def flat():
+            return descent.evaluate_descent(dt_dev, lt, q_dev)
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(dev)
+        flat()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(LARGE_REPS):
+            out_f = flat()
+        sync()
+        flat_us = (time.perf_counter() - t0) / (LARGE_REPS * LARGE_B) * 1e6
+        n_flat, us_flat = device_profile(flat, dev)
+        router = geometry.kuhn_root_locator(np.zeros(p), np.ones(p))
+        t0 = time.perf_counter()
+        srv = sharded.shard_descent(dt, table, n_shards=LARGE_SHARDS,
+                                    devices=[dev], router=router)
+        shard_build_s = time.perf_counter() - t0
+        srv.evaluate(qs)
+        t0 = time.perf_counter()
+        for _ in range(LARGE_REPS):
+            out_s = srv.evaluate(qs)
+        shard_us = (time.perf_counter() - t0) / (LARGE_REPS * LARGE_B) * 1e6
+        n_shard, us_shard = device_profile(lambda: srv.evaluate(qs), dev)
+        nb = srv.device_bytes()
+        mem = torch.cuda.memory_allocated(dev) - m0 if on_card else 0
+        log(f"[large] B={LARGE_B} on {dev}: flat descent (one table, brute "
+            f"root scan) {flat_us:.4f} us/query, {n_flat} CUDA kernels and "
+            f"{us_flat} us of device time a batch; ShardedDescent "
+            f"({LARGE_SHARDS} shards, Kuhn router, "
+            f"cut depth {srv.cut_depth}, shard sizes min/max "
+            f"{min(srv.shard_sizes())}/{max(srv.shard_sizes())}) "
+            f"{shard_us:.4f} us/query (host wall incl. routing and the "
+            f"copy back), {n_shard} CUDA kernels and {us_shard} us of "
+            f"device time a batch; built in "
+            f"{shard_build_s:.1f} s")
+        log(f"[large] device-resident bytes: flat {flat_bytes} (leaf table "
+            f"{sum(t.numel() * t.element_size() for t in lt)}), sharded "
+            f"{nb['leaves'] + nb['descent']} (leaf tables {nb['leaves']}, "
+            f"descent arrays {nb['descent']}); allocated after both "
+            f"{mem} bytes")
+        # Held: the synthetic law is u = A theta, cost = sum(theta)
+        # (partition/synthetic.leaf_payload), reproduced exactly by the
+        # barycentric interpolation; and the brute f64 host evaluator on
+        # a few queries (it scores every leaf: about 0.1 s a query here).
+        sub = qs[:LARGE_HOLD]
+        A = (np.arange(1)[:, None] + 1.0) * (np.arange(p)[None, :] + 1.0)
+        u_law, c_law = sub @ A.T, sub.sum(axis=1)
+        u_np = np.stack([evaluator.evaluate_np(table, sub[k])
+                         for k in range(LARGE_NP_HOLD)])
+        for name, o in (("flat", out_f), ("sharded", out_s)):
+            u = o.u.cpu().numpy() if torch.is_tensor(o.u) else o.u
+            c = o.cost.cpu().numpy() if torch.is_tensor(o.cost) else o.cost
+            ins = o.inside.cpu().numpy() if torch.is_tensor(o.inside) \
+                else o.inside
+            du = float(np.abs(u[:LARGE_HOLD] - u_law).max())
+            dc = float(np.abs(c[:LARGE_HOLD] - c_law).max())
+            if not ins[:LARGE_HOLD].all() or du > 1e-9 or dc > 1e-9:
+                fail(f"large {name}: {int((~ins[:LARGE_HOLD]).sum())} "
+                     f"outside, |du| {du:.2e}, |dcost| {dc:.2e} against "
+                     "the tree's law")
+            dn = float(np.abs(u[:LARGE_NP_HOLD] - u_np).max())
+            if dn > 1e-9:
+                fail(f"large {name}: |du| {dn:.2e} against the f64 host "
+                     "evaluator")
+            log(f"[large] {name}: {LARGE_HOLD} queries inside, max |du| "
+                f"{du:.2e}, |dcost| {dc:.2e} against the tree's exact law; "
+                f"{LARGE_NP_HOLD} of them max |du| {dn:.2e} against the "
+                "f64 host evaluator")
+        del srv, dt_dev, lt, out_f, out_s
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"[large] (phase took {time.perf_counter() - t_phase:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -1717,20 +2255,27 @@ def main() -> int:
     if base:
         build_ab(base, problem, cfg, prob, dev)
 
+    # -- phases 11-13: the closed loop, the serve entry point, and sharded
+    # descent at a realistic size -------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_") as tmp:
+        sim = closed_loop_phase(dev, problem, cfg, table, tmp)
+        serve_entry_phase(dev, problem, cfg, res, table, rng, tmp)
+    large_partition_phase(dev)
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
          "replaces": "explicit_hybrid_mpc_tpu/oracle/pallas_ipm.py:217",
          "launches": n_k1, "max_abs_err": k1_err, **k1_entry,
          "library_ms": None, "build_ms": build_ms,
-         "build_bound_ms": build_bound_ms},
+         "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"]},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",
          "launches": n_k2, "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_lib_ms,
-         "splits": k2_splits},
+         "splits": k2_splits, "sim_launches": sim["sim_k2"]},
         k3_entry,
     ]}
     log(card)

@@ -1,17 +1,27 @@
-"""CLI entry point for the offline partition build (torch port).
+"""CLI entry point of the torch port: the offline partition build, and
+the ``serve`` subcommand.
 
     python -m explicit_hybrid_mpc_tpu_torch.main -e inverted_pendulum \\
-        -a 1e-2 --batch 256 -o build/pend --evaluate 65536
+        -a 1e-2 --batch 256 -o build/pend --evaluate 65536 \\
+        --artifacts-out build/pend.artifacts --simulate 100
+    python -m explicit_hybrid_mpc_tpu_torch.main serve \\
+        --artifacts build/pend.artifacts --selftest 4096
 
-Runs on the first CUDA device unless ``--backend cpu`` is given.
-Outputs under --output PREFIX: PREFIX.tree.pkl (the simplex tree),
-PREFIX.stats.json (build statistics), PREFIX.log.jsonl (per-step
-metrics).  ``--evaluate N`` then exports the leaf table, stages it on
-the build's device and evaluates the controller at N sampled thetas
-through the point-location kernel, printing the evaluation summary.
+Runs on the first CUDA device unless ``--backend cpu`` is given (the
+serve subcommand likewise: serve/cli.py).  Outputs under --output
+PREFIX: PREFIX.tree.pkl (the simplex tree), PREFIX.stats.json (build
+statistics), PREFIX.log.jsonl (per-step metrics).  ``--evaluate N``
+then exports the leaf table, stages it on the build's device and
+evaluates the controller at N sampled thetas through the
+point-location kernel, printing the evaluation summary.
+``--artifacts-out DIR`` exports the tree as a serving artifact
+directory (the ``serve --artifacts`` input).  ``--simulate T`` runs a
+T-step closed-loop explicit-vs-implicit comparison on the build's
+device (the explicit controller through the point-location kernel,
+the implicit one through the oracle) and writes PREFIX.sim.json.
 
-The JAX package's other surfaces (serve, serve-rebuild, rebuild,
---resume, --mesh, --simulate) exit with "not yet ported".
+The JAX package's other surfaces (serve-rebuild, rebuild, --resume,
+--mesh) exit with "not yet ported".
 """
 
 from __future__ import annotations
@@ -22,8 +32,8 @@ import os
 import sys
 import time
 
-_UNPORTED_COMMANDS = ("serve", "serve-rebuild", "rebuild")
-_UNPORTED_FLAGS = ("--resume", "--mesh", "--simulate")
+_UNPORTED_COMMANDS = ("serve-rebuild", "rebuild")
+_UNPORTED_FLAGS = ("--resume", "--mesh")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +67,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "evaluate the controller at N sampled thetas")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the --evaluate thetas")
+    p.add_argument("--artifacts-out", metavar="DIR", default=None,
+                   help="additionally export the built tree as a "
+                        "provenance-stamped serving artifact directory "
+                        "(serve/registry.save_artifacts layout; deploy "
+                        "with `main serve --artifacts DIR`)")
+    p.add_argument("--simulate", type=int, default=0, metavar="T",
+                   help="after the build, run a T-step closed-loop "
+                        "explicit-vs-implicit comparison on the build's "
+                        "device and write PREFIX.sim.json")
     return p
 
 
@@ -105,6 +124,12 @@ def evaluate_sampled(problem, tree, n: int, device, seed: int = 0) -> dict:
 def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        # The online serving runtime is a subcommand, dispatched before
+        # the build parser (whose -e/--example is required).
+        from explicit_hybrid_mpc_tpu_torch.serve.cli import serve_main
+
+        return serve_main(argv[1:])
     if argv and argv[0] in _UNPORTED_COMMANDS:
         raise SystemExit(f"{argv[0]}: not yet ported to the torch package "
                          "(see ROADMAP.md)")
@@ -141,7 +166,63 @@ def main(argv: list[str] | None = None) -> int:
         summary = evaluate_sampled(problem, res.tree, args.evaluate,
                                    oracle.device, seed=args.seed)
         print(json.dumps({"evaluate": summary}), file=sys.stderr)
+    if args.artifacts_out:
+        from explicit_hybrid_mpc_tpu_torch.serve.registry import (
+            save_artifacts)
+
+        save_artifacts(res.tree, res.roots, args.artifacts_out)
+        print(f"serving artifacts written to {args.artifacts_out}",
+              file=sys.stderr)
+    if args.simulate:
+        simulate_to(f"{prefix}.sim.json", problem, res.tree, oracle,
+                    args.simulate, cfg.algorithm == "feasible")
     return 0
+
+
+def simulate_to(path: str, problem, tree, oracle, T: int,
+                semi_explicit: bool) -> dict:
+    """The --simulate step: a T-step closed-loop explicit-vs-implicit
+    comparison from 0.8 * theta_ub on the oracle's device (explicit
+    controller through the point-location kernel), written to `path`
+    with the JAX package's sim.json keys; returns the written dict."""
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.online import export
+    from explicit_hybrid_mpc_tpu_torch.sim import simulator
+
+    table = export.export_leaves(tree)
+    theta0 = 0.8 * problem.theta_ub
+    # Feasibility-only partitions deploy semi-explicitly (the leaf fixes
+    # delta and a small convex QP runs online); hybrid builds carry
+    # semi-explicit BOUNDARY leaves, which the mask routes through the
+    # online fixed-delta QP.
+    semi_mask = export.semi_explicit_mask(tree, table)
+    cmp = simulator.compare(problem, table, oracle, theta0, T=T,
+                            backend="kernel", semi_explicit=semi_explicit,
+                            semi_mask=semi_mask, device=oracle.device)
+    sim_stats = {
+        "theta0": np.asarray(theta0).tolist(),
+        "explicit_cost": cmp.explicit.total_cost,
+        "implicit_cost": cmp.implicit.total_cost,
+        "cost_ratio": cmp.cost_ratio,
+        "explicit_us_per_step": cmp.explicit.mean_eval_us,
+        "implicit_us_per_step": cmp.implicit.mean_eval_us,
+        "online_speedup": cmp.speedup,
+        # Full trajectories, so a plot of the closed loop needs only
+        # this file.
+        "trajectories": {
+            label: {"states": np.asarray(r.states).tolist(),
+                    "inputs": np.asarray(r.inputs).tolist()}
+            for label, r in (("explicit", cmp.explicit),
+                             ("implicit", cmp.implicit))},
+    }
+    with open(path, "w") as f:
+        json.dump(sim_stats, f, indent=2)
+    # stderr keeps the compact summary; the trajectories live only in
+    # the file.
+    print(json.dumps({k: v for k, v in sim_stats.items()
+                      if k != "trajectories"}), file=sys.stderr)
+    return sim_stats
 
 
 if __name__ == "__main__":

@@ -115,11 +115,15 @@ def descend_from(table: DescentTable, thetas: torch.Tensor,
                  node: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Descend from per-query start nodes ((B,) int): max_depth rounds
     of hyperplane sign tests.  Returns (leaf-table row (B,) i32, tree
-    node (B,) i32)."""
+    node (B,) i32).  Every product here and in evaluate_rows is an
+    elementwise multiply-reduce, so a row's answer does not depend on
+    the batch it came in (a batched matmul's algorithm on the card may
+    change with the batch count); the serving path's bitwise audits
+    rely on that."""
     node = node.to(torch.int64)
     for _ in range(table.max_depth):
         ch = table.children[node].to(torch.int64)               # (B, 2)
-        h = (torch.einsum("bp,bp->b", table.normal[node], thetas)
+        h = (torch.sum(table.normal[node] * thetas, dim=1)
              - table.offset[node])
         nxt = torch.where(h <= 0, ch[:, 0], ch[:, 1])
         node = torch.where(ch[:, 0] == NO_CHILD, node, nxt)
@@ -151,9 +155,9 @@ def evaluate_rows(dev: DeviceLeafTable, thetas: torch.Tensor,
     safe = torch.clamp(row.to(torch.int64), min=0)
     th1 = torch.cat([thetas, torch.ones((B, 1), dtype=dev.bary_M.dtype,
                                         device=thetas.device)], dim=1)
-    lam = torch.einsum("bij,bj->bi", dev.bary_M[safe], th1)
-    u = torch.einsum("bi,bin->bn", lam, dev.U[safe])
-    cost = torch.einsum("bi,bi->b", lam, dev.V[safe])
+    lam = torch.sum(dev.bary_M[safe] * th1[:, None, :], dim=2)
+    u = torch.sum(lam[:, :, None] * dev.U[safe], dim=1)
+    cost = torch.sum(lam * dev.V[safe], dim=1)
     inside = (row >= 0) & (lam.amin(dim=-1) >= -tol)
     return EvalResult(u=u, cost=cost, leaf=safe, inside=inside)
 

@@ -1200,6 +1200,28 @@ class Oracle:
                                                self.point_n_iter), f64)
         return np.where(conv, V, _INF), conv, grad, u0, z, None, None
 
+    # -- fixed-commutation point solve (the semi-explicit ONLINE stage) ----
+
+    def solve_fixed(self, thetas: np.ndarray, delta_idx: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                               np.ndarray]:
+        """P_theta_delta at given (point, commutation) pairs.
+
+        The deployment-time query of the feasibility-only
+        ('feasible'/ECC) variant: the offline partition only fixes a
+        feasible commutation per leaf, and the online controller solves
+        this small fixed-delta convex QP at the current parameter (one
+        pair padded to a bucket of 8 through the IPM leg).
+
+        Returns (u0 (K, n_u), V (K,), converged (K,), z (K, nz)).
+        """
+        thetas = np.atleast_2d(np.asarray(thetas, dtype=np.float64))
+        if thetas.shape[0] == 0:
+            return (np.zeros((0, self.can.n_u)), np.zeros(0),
+                    np.zeros(0, dtype=bool), np.zeros((0, self.can.nz)))
+        V, conv, _grad, u0, z = self.solve_pairs(thetas, delta_idx)
+        return u0, V, conv, z
+
     # -- pointwise feasibility (phase-1) -----------------------------------
 
     def feasibility(self, thetas: np.ndarray,

@@ -1,5 +1,4 @@
-"""Deadline-aware mixed-tenant request scheduler: queue -> micro-batch
--> one fused launch.
+"""Deadline-aware request schedulers: queue -> micro-batch -> device.
 
 A stream of independent control queries (one state estimate each, or a
 small burst from a multi-plant client) must become DEVICE BATCHES to
@@ -12,17 +11,30 @@ query cannot sit in the queue waiting for friends forever:
   ``max_batch`` rows OR the oldest queued row has waited
   ``max_wait_us`` -- the deadline budget.
 
-The counterpart of the JAX package's serve/scheduler.py
-``ArenaScheduler``; its per-controller ``RequestScheduler`` (over the
-sharded descent evaluator) waits for that port slice (ROADMAP A12).
+Two front ends, the counterparts of the JAX package's
+serve/scheduler.py:
+
+- ``RequestScheduler`` serves ONE controller name of a
+  ``ControllerRegistry`` (serve/registry.py): every micro-batch runs
+  under one registry lease (one tree version, tagged on every result),
+  through the sharded descent evaluator (online/sharded.py, batches
+  padded to its power-of-two buckets), and its not-inside rows go
+  through ``FallbackPolicy.apply`` (clamp, optional budgeted oracle
+  re-solve) before results scatter back to tickets.
+- ``ArenaScheduler`` serves every tenant of a ``DeviceArena`` from one
+  queue, one fused kernel launch per mixed-tenant micro-batch.
+
 Demand capture, request tracing and SLO tracking (ROADMAP A14) are not
 ported: their hooks accept only None.
 
-Observability: ``serve.arena.*`` gauges and histograms, per-controller
-``serve.ctl.<name>.*`` counters, and the cross-controller
-``serve.requests`` / ``serve.batches`` aggregate counters; the worker
-flushes a metrics snapshot into the stream every ``METRICS_FLUSH_S``
-seconds of traffic.
+Observability: per-controller ``serve.ctl.<name>.*`` metrics (the
+request scheduler's latency histogram, queue-depth / batch-fill /
+rolling p99 / fallback-fraction gauges, request / batch / fallback
+counters), ``serve.arena.*`` gauges and histograms, and the
+cross-controller ``serve.requests`` / ``serve.batches`` aggregate
+counters; each worker flushes a metrics snapshot into the stream every
+``METRICS_FLUSH_S`` seconds of traffic, and each scheduler announces
+itself with a ``serve.replica`` event.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import numpy as np
 from explicit_hybrid_mpc_tpu_torch import config as config_mod
 from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
 from explicit_hybrid_mpc_tpu_torch.faults import injector as faults_inj
+from explicit_hybrid_mpc_tpu_torch.online.sharded import _bucket
 
 #: Rolling window (requests) behind the p99_us / fallback_frac
 #: gauges: large enough to smooth batch quantization, small enough that
@@ -60,17 +73,6 @@ METRICS_FLUSH_S = 2.0
 #: serve.batches): obs Counters are single-producer by contract, and
 #: several schedulers' threads share these two names.
 _AGG_LOCK = threading.Lock()
-
-#: Smallest padding bucket of the fill-fraction accounting (the JAX
-#: package's online/sharded.py _MIN_BUCKET).
-_MIN_BUCKET = 8
-
-
-def _bucket(n: int) -> int:
-    """Power-of-two padding >= n (online/sharded.py's bucket rule): the
-    denominator of the batch-fill fraction."""
-    return max(_MIN_BUCKET, 1 << max(0, (n - 1).bit_length()))
-
 
 def _prune_stale(lat_roll: deque, fb_roll: deque, now: float) -> None:
     """Drop rolling-window samples older than _ROLL_MAX_AGE_S (entries
@@ -140,27 +142,309 @@ class Ticket:
         return list(self._results)  # type: ignore[arg-type]
 
 
-class _ArenaPending:
-    """One queued submission with its controller route."""
+class _Pending:
+    """One queued submission (``key``: its controller route, where the
+    scheduler serves several); `done` rows already claimed by batches."""
 
-    __slots__ = ("ticket", "name", "thetas", "done")
+    __slots__ = ("ticket", "thetas", "key", "done")
 
-    def __init__(self, ticket: Ticket, name: str, thetas: np.ndarray):
+    def __init__(self, ticket: Ticket, thetas: np.ndarray,
+                 key: Optional[str] = None):
         self.ticket = ticket
-        self.name = name
         self.thetas = thetas
+        self.key = key
         self.done = 0
 
 
-def _unported(**hooks) -> None:
+def _unported(cls: str, **hooks) -> None:
     for name, hub in hooks.items():
         if hub is not None:
             raise NotImplementedError(
-                f"ArenaScheduler({name}=...) is not yet ported to the "
+                f"{cls}({name}=...) is not yet ported to the "
                 "torch package (ROADMAP A14)")
 
 
-class ArenaScheduler:
+class _MicroBatcher:
+    """The queue both schedulers share: submissions append under one
+    condition, a worker thread claims a micro-batch when ``max_batch``
+    rows are queued or the oldest has waited ``max_wait_us`` (the
+    deadline budget), serves it with the subclass's ``_serve``, fails
+    the batch's tickets if that raises, and flushes a metrics snapshot
+    every METRICS_FLUSH_S seconds of traffic; ``close()`` drains the
+    queue and stops the worker (no request is ever dropped by a clean
+    shutdown)."""
+
+    def _setup(self, max_batch: int, max_wait_us: float, obs) -> None:
+        if not config_mod.is_pow2(max_batch):
+            raise ValueError(f"max_batch must be a power of two, "
+                             f"got {max_batch}")
+        if max_wait_us <= 0:
+            raise ValueError("max_wait_us must be > 0")
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_us) * 1e-6
+        self._obs = obs if obs is not None else obs_lib.NOOP
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._queue: deque[_Pending] = deque()
+        self._queued_rows = 0
+        self._closed = False
+        self.n_requests = 0
+        self.n_batches = 0
+        self._lat_roll: deque = deque(maxlen=_ROLL_WINDOW)
+        self._fb_roll: deque = deque(maxlen=_ROLL_WINDOW)
+        self._fill_roll: deque[float] = deque(maxlen=64)
+        self._last_flush = time.perf_counter()
+        self._ms = None
+
+    def _start(self, name: str) -> None:
+        self._worker = threading.Thread(target=self._loop, name=name,
+                                        daemon=True)
+        self._worker.start()
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return self._queued_rows
+
+    def _collect(self) -> list[tuple[Ticket, int, Optional[str],
+                                     np.ndarray]]:
+        """Block until a flush condition holds, then claim up to
+        max_batch rows: [(ticket, row offset in ticket, key, rows)]."""
+        with self._cond:
+            while True:
+                if self._queue:
+                    oldest = self._queue[0].ticket.t_submit
+                    budget = oldest + self.max_wait_s \
+                        - time.perf_counter()
+                    if self._queued_rows >= self.max_batch \
+                            or budget <= 0 or self._closed:
+                        break
+                    self._cond.wait(timeout=budget)
+                elif self._closed:
+                    return []
+                else:
+                    self._cond.wait()
+            out = []
+            room = self.max_batch
+            while room and self._queue:
+                pend = self._queue[0]
+                take = min(room, pend.thetas.shape[0] - pend.done)
+                out.append((pend.ticket, pend.done, pend.key,
+                            pend.thetas[pend.done:pend.done + take]))
+                pend.done += take
+                room -= take
+                self._queued_rows -= take
+                if pend.done == pend.thetas.shape[0]:
+                    self._queue.popleft()
+            if self._ms:
+                self._ms["depth"].set(self._queued_rows)
+            return out
+
+    def _loop(self) -> None:
+        while True:
+            entries = self._collect()
+            if not entries:
+                return  # closed and drained
+            try:
+                self._serve(entries)
+            except BaseException as e:  # noqa: BLE001 -- scatter, don't die
+                for ticket, _off, _key, _rows in entries:
+                    ticket._fail(e)
+            # Periodic metrics snapshot into the stream: without it the
+            # serving SLO gauges reach the health rules only at close().
+            if self._ms:
+                now = time.perf_counter()
+                if now - self._last_flush >= METRICS_FLUSH_S:
+                    self._last_flush = now
+                    self._obs.flush_metrics()
+
+    def _serve(self, entries) -> None:
+        raise NotImplementedError
+
+    def _roll_gauges(self, now: float) -> None:
+        """The rolling p99 latency and fallback-fraction gauges, over
+        the last _ROLL_WINDOW requests no older than _ROLL_MAX_AGE_S."""
+        if not (self._ms and self._lat_roll):
+            return
+        _prune_stale(self._lat_roll, self._fb_roll, now)
+        if self._lat_roll:
+            lat_us = np.asarray([v for _t, v in self._lat_roll]) * 1e6
+            self._ms["p99"].set(float(np.percentile(lat_us, 99)))
+        if self._fb_roll:
+            self._ms["fb_frac"].set(
+                sum(v for _t, v in self._fb_roll) / len(self._fb_roll))
+
+    def close(self, timeout: Optional[float] = 30.0) -> None:
+        """Stop accepting, drain everything queued, join the worker.
+        A clean close never drops a request."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        self._worker.join(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class RequestScheduler(_MicroBatcher):
+    """Micro-batching front end over a ControllerRegistry entry.
+
+    One scheduler serves one controller name; run several for several
+    controllers (they share the registry and the obs handle).  Start
+    is implicit on construction; ``close()`` drains the queue and
+    stops the worker (no request is ever dropped by a clean
+    shutdown).  The worker thread evaluates on the device's default
+    stream, the stream the registry's servers were staged on."""
+
+    def __init__(self, registry, controller: str,
+                 max_batch: int = 256, max_wait_us: float = 2000.0,
+                 fallback=None, obs: "obs_lib.Obs | None" = None,
+                 demand=None, trace=None, slo=None):
+        self._setup(max_batch, max_wait_us, obs)
+        _unported("RequestScheduler", demand=demand, trace=trace, slo=slo)
+        self.registry = registry
+        self.controller = controller
+        self.fallback = fallback
+        if self._obs.enabled:
+            m = self._obs.metrics
+            ns = f"serve.ctl.{controller}"
+            self._ms = {
+                "req_s": m.histogram(f"{ns}.request_s"),
+                "batch_fill": m.histogram(f"{ns}.batch_fill"),
+                "depth": m.gauge(f"{ns}.queue_depth"),
+                "fill": m.gauge(f"{ns}.batch_fill_frac"),
+                "p99": m.gauge(f"{ns}.p99_us"),
+                "fb_frac": m.gauge(f"{ns}.fallback_frac"),
+                "requests": m.counter(f"{ns}.requests"),
+                "batches": m.counter(f"{ns}.batches"),
+                # Cumulative degraded-request count (any fallback tag):
+                # with .requests it gives the fallback SLO a
+                # counter-delta denominator.
+                "fallbacks": m.counter(f"{ns}.fallbacks"),
+                # Cross-controller aggregates, incremented under
+                # _AGG_LOCK (these two names are shared).
+                "requests_all": m.counter("serve.requests"),
+                "batches_all": m.counter("serve.batches"),
+            }
+            # Per-replica identity: binds the CONTROLLER name to this
+            # process's run id, host and pid.
+            from explicit_hybrid_mpc_tpu_torch.obs import clock
+
+            self._obs.event("serve.replica", controller=controller,
+                            run_id=clock.run_id(),
+                            host=socket.gethostname(),
+                            pid=os.getpid())
+        self._start(f"serve-{controller}")
+
+    # -- submission --------------------------------------------------------
+
+    def submit(self, theta: np.ndarray) -> Ticket:
+        """Enqueue ONE query (p,); Ticket.result() -> [ServeResult]."""
+        return self.submit_batch(np.atleast_2d(theta))
+
+    def submit_batch(self, thetas: np.ndarray) -> Ticket:
+        """Enqueue a small batch (k, p); rows may be split across
+        micro-batches (each row still evaluates on exactly one
+        version).  Large k is legal -- the scheduler chunks it.
+
+        Shape is validated HERE, against the submitting caller: a
+        malformed submission must raise on its own thread, not poison
+        the np.concatenate of a micro-batch it shares with other
+        clients' healthy rows."""
+        thetas = np.atleast_2d(np.asarray(thetas, dtype=np.float64))
+        if thetas.ndim != 2:
+            raise ValueError(f"thetas must be (k, p), got shape "
+                             f"{thetas.shape}")
+        # Queried per submit, not cached: the width is a
+        # publish-enforced invariant of the controller name, so this
+        # can only transition None -> p when the controller is first
+        # published.
+        p = self.registry.param_dim(self.controller)
+        if p is not None and thetas.shape[1] != p:
+            raise ValueError(
+                f"theta width {thetas.shape[1]} does not match "
+                f"controller {self.controller!r} parameter dim {p}")
+        t = Ticket(thetas.shape[0])
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("scheduler is closed")
+            self._queue.append(_Pending(t, thetas))
+            self._queued_rows += thetas.shape[0]
+            self.n_requests += thetas.shape[0]
+            if self._ms:
+                self._ms["requests"].inc(thetas.shape[0])
+                with _AGG_LOCK:
+                    self._ms["requests_all"].inc(thetas.shape[0])
+                self._ms["depth"].set(self._queued_rows)
+            self._cond.notify()
+        return t
+
+    # -- worker ------------------------------------------------------------
+
+    def _serve(self, entries) -> None:
+        thetas = np.concatenate([rows for _t, _o, _k, rows in entries])
+        B = thetas.shape[0]
+        fill = B / min(_bucket(B), self.max_batch)
+        self._fill_roll.append(fill)
+        self.n_batches += 1
+        # The lease is a context manager: release runs in its finally,
+        # so ANY raise below -- evaluator error, fallback error, or an
+        # injected serve.batch crash -- drains the ref and a retiring
+        # version can still retire.
+        with self.registry.lease(self.controller) as ver:
+            faults_inj.fire("serve.batch", label=self.controller)
+            srv = ver.server
+            # Heartbeat context for the evaluator's serve.eval event.
+            hb = getattr(srv, "heartbeat", None)
+            if hb is not None:
+                hb["queue_depth"] = self.queue_depth()
+                hb["batch_fill_frac"] = round(
+                    sum(self._fill_roll) / len(self._fill_roll), 4)
+            res = srv.evaluate(thetas)
+            if self.fallback is not None:
+                res, tags = self.fallback.apply(
+                    thetas, res, srv, controller=self.controller)
+            else:
+                tags = [None] * B
+        now = time.perf_counter()
+        version = ver.version
+        if self._ms:
+            self._ms["batches"].inc()
+            with _AGG_LOCK:
+                self._ms["batches_all"].inc()
+            self._ms["batch_fill"].observe(fill)
+            self._ms["fill"].set(
+                sum(self._fill_roll) / len(self._fill_roll))
+            n_fb = sum(1 for t in tags if t is not None)
+            if n_fb:
+                self._ms["fallbacks"].inc(n_fb)
+        lo = 0
+        for ticket, off, _key, rows in entries:
+            k = rows.shape[0]
+            lat = now - ticket.t_submit
+            results = [
+                ServeResult(u=np.array(res.u[lo + i]),
+                            cost=float(res.cost[lo + i]),
+                            leaf=int(res.leaf[lo + i]),
+                            inside=bool(res.inside[lo + i]),
+                            version=version,
+                            fallback=tags[lo + i],
+                            latency_s=lat)
+                for i in range(k)]
+            self._lat_roll.extend([(now, lat)] * k)
+            self._fb_roll.extend(
+                [(now, 0 if t is None else 1)
+                 for t in tags[lo:lo + k]])
+            if self._ms:
+                self._ms["req_s"].observe(lat, n=k)
+            ticket._fill(off, results)
+            lo += k
+        self._roll_gauges(now)
+
+
+class ArenaScheduler(_MicroBatcher):
     """Mixed-tenant micro-batching front end over a DeviceArena.
 
     ONE queue for all tenants: requests for different controllers pack
@@ -191,30 +475,11 @@ class ArenaScheduler:
                  max_wait_us: float = 2000.0, fallback=None,
                  obs: "obs_lib.Obs | None" = None, demand=None,
                  trace=None, slo=None):
-        if not config_mod.is_pow2(max_batch):
-            raise ValueError(f"max_batch must be a power of two, "
-                             f"got {max_batch}")
-        if max_wait_us <= 0:
-            raise ValueError("max_wait_us must be > 0")
-        _unported(demand=demand, trace=trace, slo=slo)
+        self._setup(max_batch, max_wait_us, obs)
+        _unported("ArenaScheduler", demand=demand, trace=trace, slo=slo)
         self.arena = arena
-        self.max_batch = int(max_batch)
-        self.max_wait_s = float(max_wait_us) * 1e-6
         self.fallback = fallback
-        self._obs = obs if obs is not None else obs_lib.NOOP
-        self._lock = threading.Lock()
-        self._cond = threading.Condition(self._lock)
-        self._queue: deque[_ArenaPending] = deque()
-        self._queued_rows = 0
-        self._closed = False
-        self.n_requests = 0
-        self.n_batches = 0
-        self._lat_roll: deque = deque(maxlen=_ROLL_WINDOW)
-        self._fb_roll: deque = deque(maxlen=_ROLL_WINDOW)
-        self._fill_roll: deque[float] = deque(maxlen=64)
         self._mix_roll: deque[int] = deque(maxlen=64)
-        self._last_flush = time.perf_counter()
-        self._ms = None
         self._ctl_ms: dict[str, dict] = {}
         if self._obs.enabled:
             m = self._obs.metrics
@@ -235,9 +500,7 @@ class ArenaScheduler:
                             run_id=clock.run_id(),
                             host=socket.gethostname(),
                             pid=os.getpid())
-        self._worker = threading.Thread(
-            target=self._loop, name="serve-arena", daemon=True)
-        self._worker.start()
+        self._start("serve-arena")
 
     def _ctl(self, name: str) -> Optional[dict]:
         """Lazily minted per-controller counters (worker thread only)."""
@@ -279,7 +542,7 @@ class ArenaScheduler:
         with self._cond:
             if self._closed:
                 raise RuntimeError("scheduler is closed")
-            self._queue.append(_ArenaPending(t, controller, thetas))
+            self._queue.append(_Pending(t, thetas, controller))
             self._queued_rows += thetas.shape[0]
             self.n_requests += thetas.shape[0]
             if self._ms:
@@ -289,61 +552,7 @@ class ArenaScheduler:
             self._cond.notify()
         return t
 
-    def queue_depth(self) -> int:
-        with self._lock:
-            return self._queued_rows
-
     # -- worker ------------------------------------------------------------
-
-    def _collect(self) -> list[tuple[Ticket, int, str, np.ndarray]]:
-        """Block until a flush condition holds, then claim up to
-        max_batch rows: [(ticket, row offset in ticket, controller,
-        rows)]."""
-        with self._cond:
-            while True:
-                if self._queue:
-                    oldest = self._queue[0].ticket.t_submit
-                    budget = oldest + self.max_wait_s \
-                        - time.perf_counter()
-                    if self._queued_rows >= self.max_batch \
-                            or budget <= 0 or self._closed:
-                        break
-                    self._cond.wait(timeout=budget)
-                elif self._closed:
-                    return []
-                else:
-                    self._cond.wait()
-            out = []
-            room = self.max_batch
-            while room and self._queue:
-                pend = self._queue[0]
-                take = min(room, pend.thetas.shape[0] - pend.done)
-                out.append((pend.ticket, pend.done, pend.name,
-                            pend.thetas[pend.done:pend.done + take]))
-                pend.done += take
-                room -= take
-                self._queued_rows -= take
-                if pend.done == pend.thetas.shape[0]:
-                    self._queue.popleft()
-            if self._ms:
-                self._ms["depth"].set(self._queued_rows)
-            return out
-
-    def _loop(self) -> None:
-        while True:
-            entries = self._collect()
-            if not entries:
-                return  # closed and drained
-            try:
-                self._serve(entries)
-            except BaseException as e:  # noqa: BLE001 -- scatter, don't die
-                for ticket, _off, _name, _rows in entries:
-                    ticket._fail(e)
-            if self._ms:
-                now = time.perf_counter()
-                if now - self._last_flush >= METRICS_FLUSH_S:
-                    self._last_flush = now
-                    self._obs.flush_metrics()
 
     def _serve(self, entries) -> None:
         thetas = np.concatenate([rows for _t, _o, _n, rows in entries])
@@ -409,28 +618,4 @@ class ArenaScheduler:
                 self._ms["req_s"].observe(lat, n=k)
             ticket._fill(off, results)
             lo += k
-        if self._ms and self._lat_roll:
-            _prune_stale(self._lat_roll, self._fb_roll, now)
-            if self._lat_roll:
-                lat_us = np.asarray(
-                    [v for _t, v in self._lat_roll]) * 1e6
-                self._ms["p99"].set(float(np.percentile(lat_us, 99)))
-            if self._fb_roll:
-                self._ms["fb_frac"].set(
-                    sum(v for _t, v in self._fb_roll)
-                    / len(self._fb_roll))
-
-    # -- lifecycle ---------------------------------------------------------
-
-    def close(self, timeout: Optional[float] = 30.0) -> None:
-        """Stop accepting, drain everything queued, join the worker."""
-        with self._cond:
-            self._closed = True
-            self._cond.notify_all()
-        self._worker.join(timeout)
-
-    def __enter__(self) -> "ArenaScheduler":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()
+        self._roll_gauges(now)

@@ -120,10 +120,10 @@ def test_cli_builds_and_evaluates_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "--artifacts", "x"], ["rebuild", "--from", "x"],
+    ["serve-rebuild", "--revisions", "3"], ["rebuild", "--from", "x"],
     ["serve-rebuild"], ["-e", "double_integrator", "--resume", "x.ckpt"],
     ["-e", "double_integrator", "--mesh", "2"],
-    ["-e", "double_integrator", "--simulate", "10"]])
+    ["-e", "double_integrator", "--resume=x.ckpt"]])
 def test_cli_unported_surfaces_exit(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         tmain.main(argv)

@@ -222,3 +222,72 @@ def test_ptxas_lines_name_the_point_location_kernels():
     assert [ln.split(":")[1].strip() for ln in
             chip_smoke.ptxas_lines("k", report)] == [
         "locate_kernel<K=3>", "locate_merge", "arena_eval_kernel<K=8>"]
+
+
+# -- phases 11-13 (the closed loop, the serve entry point, the large
+# partition), rehearsed on the CPU at a tiny size -------------------------
+
+
+def test_host_eval_is_evaluate_np_over_a_batch():
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.online import evaluator, export
+    from explicit_hybrid_mpc_tpu_torch.partition.synthetic import (
+        build_synthetic_tree)
+
+    tree, _roots = build_synthetic_tree(p=2, depth=5, n_u=2)
+    table = export.export_leaves(tree)
+    th = np.random.default_rng(0).uniform(-0.2, 1.2, (300, 2))
+    u, cost, inside = chip_smoke.host_eval(table, th, chunk=64)
+    for k in range(0, 300, 17):
+        np.testing.assert_allclose(u[k], evaluator.evaluate_np(table, th[k]),
+                                   rtol=0, atol=1e-12)
+        s = chip_smoke.host_scores(table, th[k])
+        assert inside[k] == (s.max() >= -1e-9)
+    inb = ((th >= 0) & (th <= 1)).all(axis=1)
+    assert np.array_equal(inside, inb)
+    np.testing.assert_allclose(cost[inb], th[inb].sum(axis=1), atol=1e-12)
+    assert chip_smoke.device_profile(lambda: None,
+                                     torch.device("cpu")) == (None, None)
+
+
+def test_new_phases_rehearse_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phases 11-13 end to end on the CPU at a tiny size (the kernels'
+    plain versions): they hold their results to the f64 references and
+    print their lines; only the launch counts need the card."""
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.online import export
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    for k, v in dict(SIM_T=12, SIM_DI_T=5, SERVE_SELFTEST=300,
+                     SERVE_HOLD=256, SWAP_CLIENTS=3, SWAP_REQUESTS=20,
+                     LARGE_DEPTH=2, LARGE_B=256, LARGE_HOLD=128,
+                     LARGE_NP_HOLD=4, LARGE_REPS=1, MAX_BATCH=64).items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    dev = torch.device("cpu")
+    problem = make("inverted_pendulum", N=2)
+    cfg = PartitionConfig(problem="inverted_pendulum",
+                          problem_args=(("N", 2),), eps_a=0.5,
+                          backend="cpu", batch_simplices=64, max_depth=14)
+    res = build_partition(problem, cfg)
+    table = export.export_leaves(res.tree)
+    sim = chip_smoke.closed_loop_phase(dev, problem, cfg, table,
+                                       str(tmp_path))
+    chip_smoke.serve_entry_phase(dev, problem, cfg, res, table,
+                                 np.random.default_rng(0), str(tmp_path))
+    chip_smoke.large_partition_phase(dev)
+    out = capsys.readouterr().out
+    assert sim["sim_k1"] == sim["sim_k2"] == 0   # plain versions here
+    assert sim["explicit_us"] > 0 and sim["implicit_us"] > 0
+    for tag in ("[sim] explicit held at", "[sim] implicit held at",
+                "sim.json has the JAX package's keys",
+                "[serve-cli] serve --selftest 300", "[serve] ShardedDescent",
+                "[sim] one explicit step", "[sim] one implicit step",
+                "0 answers not bitwise", "[large] flat: 128 queries inside",
+                "[large] sharded: 128 queries inside"):
+        assert tag in out, tag
+    assert "FAIL" not in out

@@ -531,3 +531,179 @@ def test_device_arena_raises_when_the_kernel_cannot_load(gpu, monkeypatch):
     with pytest.raises(kernels.KernelError):
         arena.evaluate("a", np.ones((4, 2)))
     assert arena.stats()["retiring"] == 0 and arena.extent("a")._refs == 0
+
+
+# -- the single-controller serving path and the closed loop on the card -----
+
+
+def _synthetic_server(dev, p=3, depth=6, n_u=2, scale=1.0, n_shards=4,
+                      router=False):
+    from explicit_hybrid_mpc_tpu_torch.online import descent, sharded
+    from explicit_hybrid_mpc_tpu_torch.partition import geometry
+    from explicit_hybrid_mpc_tpu_torch.partition.synthetic import (
+        build_synthetic_tree)
+
+    tree, roots = build_synthetic_tree(p=p, depth=depth, n_u=n_u)
+    if scale != 1.0:
+        tree._pl_inputs[:] *= scale
+        tree._pl_costs[:] *= scale
+    table = export.export_leaves(tree)
+    dt = descent.export_descent(tree, roots, table, stage=False)
+    rt = geometry.kuhn_root_locator(np.zeros(p), np.ones(p)) \
+        if router else None
+    return sharded.shard_descent(dt, table, n_shards=n_shards,
+                                 devices=[dev], router=rt)
+
+
+@pytest.mark.parametrize("router", [False, True])
+def test_sharded_descent_on_the_card_matches_the_cpu(gpu, router):
+    """The same f64 descent and interpolation on both devices: rows,
+    nodes and inside equal, u / cost to 1e-12; devices=None is the
+    card."""
+    from explicit_hybrid_mpc_tpu_torch.online import sharded
+
+    g = _synthetic_server(gpu, router=router)
+    c = _synthetic_server(torch.device("cpu"), router=router)
+    assert all(d.type == "cuda" for d in g.devices)
+    th = np.random.default_rng(7).uniform(-0.1, 1.1, (3000, 3))
+    a, b = g.evaluate(th), c.evaluate(th)
+    assert np.array_equal(a.leaf, b.leaf)
+    assert np.array_equal(a.inside, b.inside) and not a.inside.all()
+    np.testing.assert_allclose(a.u, b.u, atol=1e-12)
+    np.testing.assert_allclose(a.cost, b.cost, atol=1e-12)
+    for x, y in zip(g.locate(th), c.locate(th)):
+        assert np.array_equal(x, y)
+    from explicit_hybrid_mpc_tpu_torch.online import descent
+    from explicit_hybrid_mpc_tpu_torch.partition.synthetic import (
+        build_synthetic_tree)
+
+    tree, roots = build_synthetic_tree(p=2, depth=4)
+    table = export.export_leaves(tree)
+    dflt = sharded.shard_descent(descent.export_descent(
+        tree, roots, table, stage=False), table, n_shards=2)
+    assert all(d.type == "cuda" for d in dflt.devices)
+
+
+def test_request_scheduler_on_the_card_with_a_hot_swap(gpu):
+    """16 threads submit while v2 (payloads exactly 2x v1's) is published:
+    nothing drops, every answer is bitwise its version's."""
+    import threading
+
+    from explicit_hybrid_mpc_tpu_torch.serve import (ControllerRegistry,
+                                                     RequestScheduler)
+
+    v1s, v2s = (_synthetic_server(gpu, scale=s) for s in (1.0, 2.0))
+    reg = ControllerRegistry()
+    v1 = reg.publish("c", "v1", v1s)
+    sched = RequestScheduler(reg, "c", max_batch=64, max_wait_us=500.0)
+    outs, errors = [], []
+    lock = threading.Lock()
+    half = threading.Barrier(17)
+
+    def client(cid):
+        r = np.random.default_rng(cid)
+        for k in range(60):
+            if k == 30:
+                half.wait(30.0)
+            th = r.uniform(0, 1, (2, 3))
+            try:
+                res = sched.submit_batch(th).result(30.0)
+            except Exception as e:  # noqa: BLE001 -- a drop IS a failure
+                errors.append(e)
+                return
+            with lock:
+                outs.extend(zip(th, res))
+
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(16)]
+    for t in ts:
+        t.start()
+    half.wait(30.0)
+    reg.publish("c", "v2", v2s)
+    for t in ts:
+        t.join(60.0)
+    sched.close()
+    assert not any(t.is_alive() for t in ts) and not errors
+    assert len(outs) == 16 * 60 * 2
+    assert reg.wait_retired(v1, 10.0)
+    assert {r.version for _t, r in outs} == {"v1", "v2"}
+    ref = v1s.evaluate(np.stack([t for t, _r in outs]))
+    for k, (_t, r) in enumerate(outs):
+        s = 1.0 if r.version == "v1" else 2.0
+        assert np.array_equal(r.u, s * ref.u[k])
+        assert r.cost == s * float(ref.cost[k])
+
+
+def test_closed_loop_on_the_card_matches_the_cpu(gpu):
+    """The DI closed loop (N=3, theta_box=1.5, eps_a=0.05) on the card
+    against the CPU: the explicit controller through K2 against K2's
+    plain version (float32 location, f64 interpolation: inputs 1e-9 on
+    the same leaves), the implicit one through K1 against the plain leg
+    (1e-6)."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.sim import simulator
+
+    prob = make("double_integrator", N=3, theta_box=1.5)
+    res = build_partition(prob, PartitionConfig(
+        problem="double_integrator", eps_a=0.05, backend="cpu",
+        batch_simplices=64))
+    table = export.export_leaves(res.tree)
+    theta0 = np.array([-1.2, 0.8])
+    k1, k2 = ipm_leg.launches, locate.launches
+    g = simulator.compare(prob, table, oracle.Oracle(prob, backend="cuda"),
+                          theta0, T=25, device=gpu)
+    assert locate.launches - k2 == 25 + 1      # the steps and the warm call
+    assert ipm_leg.launches > k1
+    c = simulator.compare(prob, table, oracle.Oracle(prob, backend="cpu"),
+                          theta0, T=25, device="cpu")
+    np.testing.assert_allclose(g.explicit.inputs, c.explicit.inputs,
+                               atol=1e-9)
+    np.testing.assert_allclose(g.implicit.inputs, c.implicit.inputs,
+                               atol=1e-6)
+    assert np.array_equal(g.explicit.inside, c.explicit.inside)
+    assert g.cost_ratio < 1.05
+
+
+def test_fallback_oracle_resolve_on_the_card(gpu):
+    """FallbackPolicy.apply's budgeted re-solve through a CUDA oracle
+    (K1): a hole row gets the point MICP's u0 and V*, as the CPU oracle
+    gives them (1e-6)."""
+    from explicit_hybrid_mpc_tpu_torch.online import descent, sharded
+    from explicit_hybrid_mpc_tpu_torch.partition import geometry
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import LeafData, Tree
+    from explicit_hybrid_mpc_tpu_torch.serve import FallbackPolicy
+
+    t = Tree(p=1, n_u=1)
+    r = t.add_root(np.array([[0.0], [1.0]]))
+    left, right, i, j, _ = geometry.bisect(t.vertices[r])
+    li, _ri = t.split(r, left, right, (i, j))
+    t.set_leaf(li, LeafData(delta_idx=0, vertex_inputs=np.ones((2, 1)),
+                            vertex_costs=np.zeros(2)))
+    table = export.export_leaves(t)
+    srv = sharded.shard_descent(descent.export_descent(
+        t, [r], table, stage=False), table, n_shards=2, granularity=1,
+        devices=[gpu])
+    prob = make("double_integrator", N=3)
+
+    class OnLine:
+        """The DI oracle along theta = (x, 0.2)."""
+
+        def __init__(self, backend):
+            self.o = oracle.Oracle(prob, backend=backend)
+
+        def solve_vertices(self, th):
+            return self.o.solve_vertices(
+                np.concatenate([th, np.full_like(th, 0.2)], axis=1))
+
+    thetas = np.array([[0.25], [0.75], [0.9]])
+    before = ipm_leg.launches
+    fb = FallbackPolicy(np.zeros(1), np.ones(1), oracle=OnLine("cuda"),
+                        max_oracle_frac=1.0)
+    got, tags = fb.apply(thetas, srv.evaluate(thetas), srv)
+    assert ipm_leg.launches > before
+    assert tags == [None, "oracle", "oracle"] and got.inside.all()
+    ref = OnLine("cpu").solve_vertices(thetas[1:])
+    np.testing.assert_allclose(
+        got.u[1:], ref.u0[np.arange(2), ref.dstar], atol=1e-6)
+    np.testing.assert_allclose(got.cost[1:], ref.Vstar, rtol=1e-6)

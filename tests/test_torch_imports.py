@@ -49,6 +49,13 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "serve.fallback", "serve.registry",
                                  "lifecycle.delta", "online.fused",
                                  "online.descent", "online.locate",
-                                 "kernels", "oracle.ipm_leg"])
+                                 "kernels", "oracle.ipm_leg",
+                                 "serve.cli", "online.sharded",
+                                 "parallel.mesh", "partition.synthetic",
+                                 "sim.simulator", "main",
+                                 "problems.mass_spring",
+                                 "problems.satellite",
+                                 "problems.satellite_soc",
+                                 "problems.quadrotor"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

@@ -28,7 +28,16 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [("double_integrator", {}),
          ("double_integrator", {"N": 3, "theta_box": 1.5}),
          ("inverted_pendulum", {}),
-         ("inverted_pendulum", {"N": 2})]
+         ("inverted_pendulum", {"N": 2}),
+         ("mass_spring", {}),
+         ("satellite", {}),
+         ("satellite", {"axes": 1, "N": 3}),
+         ("satellite_soc", {}),
+         ("quadrotor", {})]
+
+#: Every problem of the JAX package's registry.
+ALL_PROBLEMS = ["double_integrator", "inverted_pendulum", "mass_spring",
+                "quadrotor", "satellite", "satellite_soc"]
 
 
 def _fields(can) -> dict:
@@ -66,9 +75,36 @@ def test_canonical_from_arrays_carries_the_reference_unchanged():
 
 
 def test_registry_lists_the_ported_problems():
-    assert names() == ["double_integrator", "inverted_pendulum"]
+    from explicit_hybrid_mpc_tpu.problems.registry import names as jax_names
+
+    assert names() == jax_names() == ALL_PROBLEMS
     with pytest.raises(KeyError):
-        make("quadrotor")
+        make("no_such_problem")
+
+
+@pytest.mark.parametrize("name", ALL_PROBLEMS)
+def test_every_problem_matches_the_jax_package(name):
+    """Dims, box, root splits, plant and cost agree with the JAX
+    package on the same inputs (the canonical arrays above bitwise)."""
+    a, b = jax_make(name), make(name)
+    assert (a.n_theta, a.n_u) == (b.n_theta, b.n_u)
+    np.testing.assert_array_equal(a.theta_lb, b.theta_lb)
+    np.testing.assert_array_equal(a.theta_ub, b.theta_ub)
+    assert getattr(a, "root_splits", None) == getattr(b, "root_splits", None)
+    th = 0.3 * a.theta_lb + 0.2 * a.theta_ub
+    x = b.state_of_theta(th)
+    np.testing.assert_array_equal(x, a.state_of_theta(th))
+    u = np.full(b.n_u, 0.1)
+    np.testing.assert_array_equal(b.plant_step(x, u), a.plant_step(x, u))
+    assert b.stage_cost(x, u) == a.stage_cost(x, u)
+
+
+@pytest.mark.parametrize("kw", [{}, {"N": 3}])
+def test_satellite_soc_cones_are_the_jax_packages(kw):
+    got = make("satellite_soc", **kw).soc_cones()
+    ref = jax_make("satellite_soc", **kw).soc_cones()
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.tobytes() == r.tobytes()
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

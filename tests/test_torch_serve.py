@@ -12,6 +12,7 @@ another order); bitwise within the port (the torn-read audit)."""
 import json
 import os
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -31,12 +32,16 @@ from explicit_hybrid_mpc_tpu.serve import DeviceArena as JaxArena
 from explicit_hybrid_mpc_tpu.serve import registry as jregistry
 from explicit_hybrid_mpc_tpu_torch import config, obs
 from explicit_hybrid_mpc_tpu_torch.lifecycle import delta
-from explicit_hybrid_mpc_tpu_torch.online import descent, evaluator, export
+from explicit_hybrid_mpc_tpu_torch.online import (descent, evaluator, export,
+                                                  sharded)
 from explicit_hybrid_mpc_tpu_torch.partition import geometry
-from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+from explicit_hybrid_mpc_tpu_torch.partition.synthetic import (
+    build_synthetic_tree)
+from explicit_hybrid_mpc_tpu_torch.partition.tree import LeafData, Tree
 from explicit_hybrid_mpc_tpu_torch.serve import (ArenaFull, ArenaScheduler,
+                                                 ControllerRegistry,
                                                  DeviceArena, FallbackPolicy,
-                                                 registry)
+                                                 RequestScheduler, registry)
 
 torch.set_num_threads(1)
 
@@ -677,3 +682,469 @@ def test_shuffled_tenant_order_answers_each_row_in_its_place(rng):
         assert (s, e) == (ex.start, ex.start + ex.n_leaves)
     assert sorted(covered) == list(range(len(sn)))
     assert 1 <= chunks <= fused.MAX_CHUNKS
+
+
+# -- the single-controller path: registry, RequestScheduler, fallback, CLI ----
+#
+# The JAX package's tests/test_serve.py cases, on the port's
+# ShardedDescent servers on the CPU (tests/test_torch_sharded.py holds
+# those servers to the JAX package's).
+
+
+def _server(obs_h=None, scale=1.0, depth=6, max_bucket=None, p=2, n_u=2,
+            **box):
+
+    tree, roots = build_synthetic_tree(p=p, depth=depth, n_u=n_u, **box)
+    if scale != 1.0:
+        tree._pl_inputs[:] *= scale
+        tree._pl_costs[:] *= scale
+    table = export.export_leaves(tree)
+    dt = descent.export_descent(tree, roots, table, stage=False)
+    return sharded.shard_descent(dt, table, n_shards=2, obs=obs_h,
+                                 max_bucket=max_bucket, devices=[CPU])
+
+
+@pytest.fixture(scope="module")
+def servers():
+    """(v1, v2) servers over the same geometry; v2 payloads are exactly
+    2x v1's, so v2 results are bitwise 2x v1 results."""
+    return _server(), _server(scale=2.0)
+
+
+def test_request_scheduler_micro_batches_and_heartbeat(servers, rng):
+
+    srv1, _ = servers
+    o = obs.Obs("jsonl")
+    reg = ControllerRegistry(obs=o)
+    reg.publish("c", "v1", _server(obs_h=o))
+    with RequestScheduler(reg, "c", max_batch=32, max_wait_us=1500.0,
+                          obs=o) as sched:
+        thetas = rng.uniform(0, 1, size=(200, 2))
+        results = [t.result(30.0)[0]
+                   for t in [sched.submit(th) for th in thetas]]
+    assert all(r.ok and r.version == "v1" for r in results)
+    assert sched.n_batches < 200 and sched.n_requests == 200
+    ref = srv1.evaluate(thetas)
+    for i, r in enumerate(results):
+        assert np.array_equal(r.u, ref.u[i])
+        assert r.cost == float(ref.cost[i])
+    evs = [rec for rec in o.sink.records if rec.get("name") == "serve.eval"]
+    assert evs and all("queue_depth" in e and "batch_fill_frac" in e
+                       for e in evs)
+    assert any(rec.get("name") == "serve.replica"
+               and rec.get("controller") == "c" for rec in o.sink.records)
+    snap = o.metrics.snapshot()
+    assert snap["counters"]["serve.ctl.c.requests"] == 200
+    assert snap["counters"]["serve.requests"] == 200
+    assert snap["counters"]["serve.ctl.c.batches"] == sched.n_batches
+    assert snap["gauges"]["serve.ctl.c.p99_us"] > 0
+    assert "serve.p99_us" not in snap["gauges"]
+    assert "serve.ctl.c.request_s" in snap["histograms"]
+    o.close()
+
+
+def test_request_scheduler_deadline_split_and_close(servers, rng):
+    """A lone query flushes on the deadline; a submission larger than
+    max_batch spans micro-batches; close() drains; submit after close
+    raises."""
+
+    srv1, _ = servers
+    reg = ControllerRegistry()
+    reg.publish("c", "v1", srv1)
+    with RequestScheduler(reg, "c", max_batch=256,
+                          max_wait_us=2000.0) as sched:
+        (r,) = sched.submit(np.array([0.3, 0.4])).result(10.0)
+    assert r.ok
+    sched = RequestScheduler(reg, "c", max_batch=16, max_wait_us=500.0)
+    thetas = rng.uniform(0, 1, size=(70, 2))
+    t = sched.submit_batch(thetas)
+    sched.close()
+    results = t.result(1.0)
+    assert len(results) == 70 and all(r.ok for r in results)
+    ref = srv1.evaluate(thetas)
+    assert all(np.array_equal(results[i].u, ref.u[i]) for i in range(70))
+    assert sched.n_batches >= 5
+    with pytest.raises(RuntimeError):
+        sched.submit(thetas[0])
+
+
+def test_request_scheduler_validation_and_unported_hooks(servers, rng):
+
+    srv1, _ = servers
+    reg = ControllerRegistry()
+    reg.publish("c", "v1", srv1)
+    with pytest.raises(ValueError):
+        RequestScheduler(reg, "c", max_batch=48)
+    with pytest.raises(ValueError):
+        RequestScheduler(reg, "c", max_wait_us=0.0)
+    for hook in ("demand", "trace", "slo"):
+        with pytest.raises(NotImplementedError, match="A14"):
+            RequestScheduler(reg, "c", **{hook: object()})
+    # A wrong-width submission raises on its submitter and never poisons
+    # the co-batched healthy rows.
+    with RequestScheduler(reg, "c", max_batch=32,
+                          max_wait_us=50_000.0) as sched:
+        good = sched.submit_batch(rng.uniform(0, 1, size=(3, 2)))
+        with pytest.raises(ValueError, match="parameter dim"):
+            sched.submit(np.array([0.1, 0.2, 0.3]))
+        with pytest.raises(ValueError, match=r"\(k, p\)"):
+            sched.submit_batch(np.zeros((2, 2, 2)))
+        assert all(r.ok for r in good.result(30.0))
+
+
+def test_request_scheduler_flushes_metrics_while_serving(servers, rng,
+                                                         monkeypatch):
+    from explicit_hybrid_mpc_tpu_torch.serve import scheduler as sched_mod
+
+    monkeypatch.setattr(sched_mod, "METRICS_FLUSH_S", 0.0)
+    srv1, _ = servers
+    o = obs.Obs("jsonl")
+    reg = ControllerRegistry(obs=o)
+    reg.publish("c", "v1", srv1)
+    sched = RequestScheduler(reg, "c", max_batch=8, max_wait_us=500.0,
+                             obs=o)
+    for t in [sched.submit(th) for th in rng.uniform(0, 1, (40, 2))]:
+        t.result(30.0)
+    snaps = [r for r in o.sink.records if r.get("kind") == "metrics"]
+    assert any("serve.ctl.c.p99_us" in (s.get("gauges") or {})
+               for s in snaps)
+    sched.close()
+    o.close()
+
+
+def test_publish_rejects_param_dim_change():
+
+    reg = ControllerRegistry()
+    reg.publish("c", "v1", _server(p=2))
+    assert reg.param_dim("c") == 2
+    with pytest.raises(ValueError, match="parameter dim 3"):
+        reg.publish("c", "v2", _server(p=3, depth=4))
+    assert reg.active_version("c") == "v1" and reg.param_dim("c") == 2
+    reg.publish("c", "v2", _server(p=2, depth=5))
+    reg.publish("c3", "v1", _server(p=3, depth=4))
+    assert reg.param_dim("c3") == 3
+    assert reg.controllers() == ["c", "c3"]
+    assert reg.param_dim("nope") is None
+
+
+def test_registry_publish_lease_retire(servers):
+
+    srv1, srv2 = servers
+    o = obs.Obs("jsonl")
+    reg = ControllerRegistry(obs=o)
+    with pytest.raises(KeyError):
+        with reg.lease("nope"):
+            pass
+    v1 = reg.publish("c", "v1", srv1)
+    assert reg.active_version("c") == "v1"
+    with reg.lease("c") as ver:
+        assert ver is v1 and v1.in_flight == 1
+        reg.publish("c", "v2", srv2)
+        assert v1.state == "retiring"
+        assert reg.active_version("c") == "v2"
+    assert reg.wait_retired(v1, 5.0) and v1.state == "retired"
+    names = [r["name"] for r in o.sink.records]
+    assert names.count("serve.swap") == 2 and "serve.retired" in names
+    swap = [r for r in o.sink.records if r["name"] == "serve.swap"][-1]
+    assert swap["from_version"] == "v1" and swap["to_version"] == "v2"
+    assert o.metrics.snapshot()["counters"]["serve.swaps"] == 2
+    o.close()
+
+
+def test_wait_retired_times_out_with_a_lease_leak_event(servers):
+
+    srv1, srv2 = servers
+    o = obs.Obs("jsonl")
+    reg = ControllerRegistry(obs=o)
+    v1 = reg.publish("c", "v1", srv1)
+    cm = reg.lease("c")
+    cm.__enter__()
+    reg.publish("c", "v2", srv2)
+    assert not reg.wait_retired(v1, 0.05)
+    ev = [r for r in o.sink.records if r["name"] == "health.lease_leak"]
+    assert ev and ev[0]["value"] == 1
+    cm.__exit__(None, None, None)
+    assert reg.wait_retired(v1, 1.0)
+    o.close()
+
+
+def test_request_scheduler_hot_swap_has_no_torn_reads(servers):
+    """Submitters racing a hot swap observe only complete-v1 or
+    complete-v2 results (v2 payloads are exactly 2x v1's, so any mix is
+    a bitwise mismatch), and nothing drops."""
+
+    srv1, srv2 = servers
+    reg = ControllerRegistry()
+    v1 = reg.publish("c", "v1", srv1)
+    sched = RequestScheduler(reg, "c", max_batch=32, max_wait_us=800.0)
+    stop = threading.Event()
+    swapped = threading.Event()
+    errors, outs = [], []
+    lock = threading.Lock()
+
+    def client(cid):
+        r = np.random.default_rng(cid)
+        while not stop.is_set():
+            th = r.uniform(0, 1, size=(3, 2))
+            try:
+                res = sched.submit_batch(th).result(10.0)
+            except Exception as e:  # noqa: BLE001 -- a drop IS a failure
+                errors.append(e)
+                return
+            with lock:
+                outs.extend(zip(th, res))
+                n = len(outs)
+            if n > 150 and not swapped.is_set():
+                swapped.set()
+                reg.publish("c", "v2", srv2)
+            if swapped.is_set() and sum(
+                    1 for _t, x in outs[-40:] if x.version == "v2") >= 30:
+                stop.set()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60.0)
+    sched.close()
+    assert not any(t.is_alive() for t in threads)
+    assert not errors
+    assert reg.wait_retired(v1, 5.0)
+    assert {r.version for _t, r in outs} == {"v1", "v2"}
+    thetas = np.stack([t for t, _r in outs])
+    ref = srv1.evaluate(thetas)
+    for k, (_t, r) in enumerate(outs):
+        scale = 1.0 if r.version == "v1" else 2.0
+        assert np.array_equal(r.u, scale * ref.u[k]), (k, r.version)
+        assert r.cost == scale * float(ref.cost[k])
+
+
+def test_fallback_clamp_outside_box_on_a_sharded_server(servers):
+    srv1, _ = servers
+    o = obs.Obs("jsonl")
+    lb, ub = registry.root_box(srv1)
+    np.testing.assert_allclose(lb, 0.0, atol=1e-12)
+    np.testing.assert_allclose(ub, 1.0, atol=1e-12)
+    fb = FallbackPolicy(lb, ub, obs=o)
+    thetas = np.array([[0.5, 0.5], [1.4, 0.5], [-0.2, 2.0]])
+    res = srv1.evaluate(thetas)
+    assert list(res.inside) == [True, False, False]
+    patched, tags = fb.apply(thetas, res, srv1)
+    assert tags == [None, "clamp", "clamp"] and patched.inside.all()
+    ref = srv1.evaluate(np.clip(thetas, lb, ub))
+    np.testing.assert_array_equal(patched.u, ref.u)
+    c = o.metrics.snapshot()["counters"]
+    assert (c["serve.fallback.outside_box"], c["serve.fallback.clamp"],
+            c["serve.fallback.requests"]) == (2, 2, 2)
+    assert c.get("serve.fallback.hole", 0) == 0
+    o.close()
+
+
+def test_fallback_box_follows_the_leased_server():
+    srv2 = _server(depth=5, lb=[0.0, 0.0], ub=[2.0, 2.0])
+    fb = FallbackPolicy(np.zeros(2), np.ones(2))
+    theta = np.array([[2.5, 0.5]])
+    res = srv2.evaluate(theta)
+    assert not res.inside[0]
+    patched, tags = fb.apply(theta, res, srv2)
+    assert tags == ["clamp"] and patched.inside[0]
+    np.testing.assert_array_equal(
+        patched.u, srv2.evaluate(np.array([[2.0, 0.5]])).u)
+    lb, ub = fb.box(object())
+    assert np.array_equal(lb, np.zeros(2)) and np.array_equal(ub, np.ones(2))
+
+
+class _Sol(NamedTuple):
+    dstar: np.ndarray
+    u0: np.ndarray
+    Vstar: np.ndarray
+
+
+class _FakeOracle:
+    """solve_vertices stand-in: one commutation, u = 7 * theta."""
+
+    def __init__(self):
+        self.n_calls = 0
+
+    def solve_vertices(self, thetas):
+        self.n_calls += thetas.shape[0]
+        K = thetas.shape[0]
+        return _Sol(np.zeros(K, dtype=np.int64), 7.0 * thetas[:, None, :],
+                    thetas.sum(axis=1))
+
+
+class _MissOracle:
+    """solve_vertices stand-in that finds NO valid commutation."""
+
+    def solve_vertices(self, thetas):
+        K = thetas.shape[0]
+        return _Sol(np.full(K, -1, dtype=np.int64),
+                    np.full((K, 1, thetas.shape[1]), np.nan),
+                    np.full(K, np.inf))
+
+
+def _hole_server():
+
+    t = Tree(p=1, n_u=1)
+    r = t.add_root(np.array([[0.0], [1.0]]))
+    left, right, i, j, _ = geometry.bisect(t.vertices[r])
+    li, _ri = t.split(r, left, right, (i, j))
+
+    t.set_leaf(li, LeafData(delta_idx=0, vertex_inputs=np.ones((2, 1)),
+                            vertex_costs=np.zeros(2)))
+    table = export.export_leaves(t)
+    dt = descent.export_descent(t, [r], table, stage=False)
+    return sharded.shard_descent(dt, table, n_shards=2, granularity=1,
+                                 devices=[CPU])
+
+
+def test_fallback_hole_routes_to_the_budgeted_oracle():
+    """In-box holes cannot be clamp-served: the oracle answers a bounded
+    fraction, the rest are unserved."""
+    srv = _hole_server()
+    o = obs.Obs("jsonl")
+    oracle = _FakeOracle()
+    fb = FallbackPolicy(np.zeros(1), np.ones(1), oracle=oracle,
+                        max_oracle_frac=0.5, obs=o)
+    thetas = np.array([[0.25], [0.30], [0.75], [0.80]])
+    patched, tags = fb.apply(thetas, srv.evaluate(thetas), srv)
+    assert tags == [None, None, "oracle", "oracle"]
+    np.testing.assert_allclose(patched.u[2:], 7.0 * thetas[2:])
+    assert patched.inside.all()
+    c = o.metrics.snapshot()["counters"]
+    assert c["serve.fallback.hole"] == 2 and c["serve.fallback.oracle"] == 2
+    thetas2 = np.array([[0.9], [0.95], [0.85]])
+    _p2, tags2 = fb.apply(thetas2, srv.evaluate(thetas2), srv)
+    assert tags2.count("unserved") >= 2
+    assert oracle.n_calls <= int(0.5 * fb.n_seen)
+    assert fb.n_oracle == oracle.n_calls == fb.oracle_spent("default")
+    o.close()
+
+
+def test_fallback_budgeted_oracle_is_the_ports_oracle():
+    """The re-solve through the port's own Oracle (K1's plain version on
+    the CPU) answers a hole with the point MICP's u and V*."""
+    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    srv = _hole_server()
+    prob = make("double_integrator", N=3)
+
+    class _P1:
+        """The DI oracle at theta = (x, 0.2): a 1-D query space."""
+
+        def __init__(self):
+            self.o = Oracle(prob, backend="cpu")
+
+        def solve_vertices(self, th):
+            return self.o.solve_vertices(
+                np.concatenate([th, np.full_like(th, 0.2)], axis=1))
+
+    fb = FallbackPolicy(np.zeros(1), np.ones(1), oracle=_P1(),
+                        max_oracle_frac=1.0)
+    thetas = np.array([[0.75]])
+    patched, tags = fb.apply(thetas, srv.evaluate(thetas), srv)
+    ref = Oracle(prob, backend="cpu").solve_vertices(np.array([[0.75, 0.2]]))
+    assert tags == ["oracle"] and patched.inside[0]
+    np.testing.assert_allclose(patched.u[0], ref.u0[0, ref.dstar[0]],
+                               atol=1e-12)
+    assert patched.cost[0] == ref.Vstar[0]
+
+
+def test_fallback_oracle_miss_leaves_the_row_untouched():
+    srv = _hole_server()
+    fb = FallbackPolicy(np.zeros(1), np.ones(1), oracle=_MissOracle(),
+                        max_oracle_frac=1.0)
+    thetas = np.array([[0.75]])
+    res = srv.evaluate(thetas)
+    patched, tags = fb.apply(thetas, res, srv)
+    assert tags == ["unserved"] and not patched.inside[0]
+    np.testing.assert_array_equal(patched.u, res.u)
+    np.testing.assert_array_equal(patched.cost, res.cost)
+
+
+def test_fallback_off_mode_passthrough(servers):
+    srv1, _ = servers
+    fb = FallbackPolicy(np.zeros(2), np.ones(2), mode="off")
+    thetas = np.array([[2.0, 2.0]])
+    patched, tags = fb.apply(thetas, srv1.evaluate(thetas), srv1)
+    assert tags == [None] and not patched.inside[0]
+
+
+# -- the serve CLI ------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_artifacts(tmp_path_factory):
+    """A serving artifact directory written by the JAX package."""
+    from explicit_hybrid_mpc_tpu.partition.synthetic import (
+        build_synthetic_tree as jbuild)
+
+    tree, roots = jbuild(p=2, depth=5, n_u=1)
+    d = str(tmp_path_factory.mktemp("cli") / "artifacts")
+    jregistry.save_artifacts(tree, roots, d)
+    return d
+
+
+def test_serve_cli_selftest_summary_has_the_jax_keys(jax_artifacts, capsys):
+    from explicit_hybrid_mpc_tpu.main import main as jmain
+    from explicit_hybrid_mpc_tpu_torch.main import main as tmain
+
+    argv = ["serve", "--artifacts", jax_artifacts, "--controller", "t",
+            "--shards", "2", "--max-batch", "16", "--selftest", "64"]
+    assert jmain(argv) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tmain(argv + ["--backend", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) == set(ref)
+    assert got["requests"] == ref["requests"] == 64
+    assert got["controller"] == "t" and got["version"] == "v1"
+    assert got["p99_us"] is not None
+    # The same seeded queries: the same rows fall back.
+    assert got["fallback_served"] == ref["fallback_served"] > 0
+    assert got["fallback_seen"] == ref["fallback_seen"] == 64
+
+
+def test_serve_cli_stdin_jsonl(jax_artifacts, capsys, monkeypatch):
+    """JSONL on stdin: one result line per query, an error record for a
+    malformed line (the loop keeps serving), a summary on stderr."""
+    import io
+
+    from explicit_hybrid_mpc_tpu_torch.serve.cli import serve_main
+
+    lines = ['{"theta": [0.25, 0.5]}', "", "[0.5, 0.125]", "not json",
+             "[0.1, 0.2, 0.3]", '{"theta": [2.0, 0.5]}']
+    monkeypatch.setattr("sys.stdin", io.StringIO("\n".join(lines) + "\n"))
+    assert serve_main(["--artifacts", jax_artifacts, "--backend", "cpu",
+                       "--max-wait-us", "100"]) == 0
+    cap = capsys.readouterr()
+    out = [json.loads(x) for x in cap.out.strip().splitlines()]
+    assert len(out) == 5
+    assert out[0]["inside"] and out[0]["fallback"] is None
+    assert out[0]["version"] == "v1" and len(out[0]["u"]) == 1
+    # leaf_payload's law u = theta_0 + 2 theta_1, exact by interpolation.
+    np.testing.assert_allclose(out[0]["u"], [1.25], atol=1e-12)
+    np.testing.assert_allclose(out[1]["u"], [0.75], atol=1e-12)
+    assert "error" in out[2] and "JSONDecodeError" in out[2]["error"]
+    assert "error" in out[3] and "parameter dim" in out[3]["error"]
+    assert out[4]["fallback"] == "clamp" and out[4]["inside"]
+    summ = json.loads(cap.err.strip().splitlines()[-1])
+    assert summ["requests"] == 3 and summ["p50_us"] is not None
+
+
+def test_serve_cli_defaults_to_the_gpu(jax_artifacts):
+    """The port's serve CLI defaults to --backend cuda and raises a clear
+    error without a GPU (the JAX package's defaults to cpu)."""
+    from explicit_hybrid_mpc_tpu_torch.serve.cli import (build_serve_parser,
+                                                         serve_main)
+
+    assert build_serve_parser().parse_args(
+        ["--artifacts", "x"]).backend == "cuda"
+    with pytest.raises(SystemExit, match="--backend cpu"):
+        serve_main(["--artifacts", jax_artifacts, "--selftest", "4"])
+    with pytest.raises(NotImplementedError, match="A14"):
+        serve_main(["--artifacts", jax_artifacts, "--backend", "cpu",
+                    "--demand", "on"])
+    with pytest.raises(SystemExit):
+        serve_main(["--artifacts", jax_artifacts, "--backend", "cpu",
+                    "--max-batch", "48"])
