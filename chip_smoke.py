@@ -20,8 +20,12 @@ step to a plain f64 reference, then `main --simulate` once); the
 default, ShardedDescent held to the f64 host evaluator, a hot swap
 under 16 submitting threads with a bitwise audit); and sharded
 descent at 1,474,560 synthetic leaves (flat against 8 shards, µs per
-query, CUDA kernels a batch, device-resident bytes).  Any failed
-phase exits non-zero.  The second-to-last line
+query, CUDA kernels a batch, device-resident bytes).  Phase 14 builds
+the quadrotor's and the satellite's published sub-boxes through the
+build CLI's main() on the card, held to the JAX package's region counts
+and through the point-location kernel to the f64 host evaluator, and
+holds the IPM leg's large path (nz > 32 or nc > 128, the quadrotor's
+QPs) against its plain version.  Any failed phase exits non-zero.  The second-to-last line
 of standard output is the kernels JSON object (each kernel's launches,
 error against its plain version, its time, the plain version's time, a
 library yardstick where one exists and the bound the card allows); the
@@ -34,7 +38,11 @@ plain version at (the sweep's and that one), and its "profiled_*"
 keys come from a second, shorter serving run under torch.profiler
 (the timed run's p50/p99 are taken without the profiler).  The
 ipm_leg and locate entries' "sim_launches" count the closed loop's
-launches (phase 11), from zero.
+launches (phase 11), from zero; the ipm_leg entry's "large" object is
+phase 14's: the large path's time, bound and plain time at the
+quadrotor build's most frequent K, its errors against the plain
+version, the timed cells, and the quadrotor build's K1 launches and
+device time against their summed bound.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -160,6 +168,39 @@ LARGE_SHARDS = 8
 LARGE_REPS = 10
 LARGE_HOLD = 4096
 LARGE_NP_HOLD = 32
+
+#: Phase 14, other problems: the published sub-box configurations of the
+#: quadrotor and the satellite (artifacts/configs_cpu_r5.json rows "5b"
+#: and "4c"), built through `python -m explicit_hybrid_mpc_tpu_torch.main`
+#: at their full horizons in f64 (the quadrotor's cpu_precision_hint):
+#: (name, argv, reference regions, --artifacts-out).  The reference counts
+#: are the JAX package's on the CPU at today's defaults
+#: (PartitionConfig(problem=..., problem_args=..., eps_a=1.0, eps_r=0.1,
+#: backend="cpu"), every other field at its default): quadrotor 1,208
+#: regions, 2,392 nodes, 3,136 oracle solves; satellite 7,744 regions,
+#: 14,768 nodes, 7,155 solves; 0 uncertified in both.  Exact ties in a
+#: vertex's best commutation can move a few regions, hence 2%.
+OTHER_BUILDS = (
+    ("quadrotor", ("-e", "quadrotor", "-r", "0.1", "-a", "1",
+                   "--problem-arg", 'param="pv"', "--problem-arg",
+                   "pos_box=0.4", "--problem-arg", "vel_box=0.2"),
+     1208, True),
+    ("satellite", ("-e", "satellite", "-r", "0.1", "-a", "1",
+                   "--problem-arg", "axes=3", "--problem-arg",
+                   "omega_box=0.03", "--problem-arg", "h_box=0.3"),
+     7744, False))
+OTHER_UNCERTIFIED_MAX = 5
+OTHER_EVALUATE = QUERIES
+#: Thetas of each table held to the f64 host evaluator through K2.
+OTHER_HOLD = 4096
+#: K1's large path against its plain version: the quadrotor's point and
+#: elastic simplex-min shapes (with every large shape the build
+#: launched), at these K and the build's most frequent K.
+K1_LARGE_SHAPES = ((60, 360), (65, 366))
+K1_LARGE_K = (8, 64, 256)
+#: QPs a call of the plain version at the large shapes (it materializes
+#: K x nc x nz x nz products).
+K1_PLAIN_CHUNK = 128
 
 
 def log(*a) -> None:
@@ -1736,6 +1777,276 @@ def large_partition_phase(dev) -> None:
     log(f"[large] (phase took {time.perf_counter() - t_phase:.1f} s)")
 
 
+def plain_leg(args, n_iter: int):
+    """ipm_leg_torch over a batch in chunks of K1_PLAIN_CHUNK QPs (each
+    QP's iterations depend on its own inputs only)."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    K = args[0].shape[0]
+    outs = [ipm_leg.ipm_leg_torch(*(t[i:i + K1_PLAIN_CHUNK] for t in args),
+                                  n_iter=n_iter)
+            for i in range(0, K, K1_PLAIN_CHUNK)]
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
+
+
+def rel_err(xs, ys) -> float:
+    """Largest |x - y| / (1 + |y|) over paired tensors, in f64."""
+    return max(float(((x.double() - y).abs() / (1 + y.abs())).max())
+               for x, y in zip(xs, ys))
+
+
+def random_qps(rng, K: int, nz: int, nc: int, dev):
+    """K well-conditioned random QPs (Q = W W' + I) in f64 on `dev`, with
+    the cold start z = 0, s = lam = 1."""
+    import torch
+
+    W = rng.normal(size=(K, nz, nz))
+    arrs = [W @ W.transpose(0, 2, 1) + np.eye(nz), rng.normal(size=(K, nz)),
+            rng.normal(size=(K, nc, nz)), np.abs(rng.normal(size=(K, nc)))
+            + 0.5]
+    Q, q, A, b = (torch.as_tensor(a, device=dev) for a in arrs)
+    return (Q, q, A, b, torch.zeros_like(q), torch.ones_like(b),
+            torch.ones_like(b))
+
+
+def hold_table(dev, tree, problem, seed: int, name: str) -> None:
+    """K2 on a built table against the f64 host evaluator, as phase 4:
+    OTHER_HOLD sampled thetas through locate.evaluate on `dev`; leaf ids,
+    inside and u (1e-9) equal on the tie-free queries (inside the host's
+    leaf by 1e-5 and ahead of the runner-up leaf by 1e-5)."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.online import evaluator, export, locate
+
+    table = export.export_leaves(tree)
+    th = np.random.default_rng(seed).uniform(
+        problem.theta_lb, problem.theta_ub, (OTHER_HOLD, problem.n_theta))
+    res = locate.evaluate(locate.stage(table, device=dev),
+                          evaluator.stage(table, device=dev),
+                          torch.as_tensor(th, device=dev))
+    u_h, _c_h, in_h = host_eval(table, th)
+    best, second, leaf_h = [], [], []
+    for lo in range(0, len(th), 256):
+        sc = np.stack([host_scores(table, t) for t in th[lo:lo + 256]])
+        top = np.partition(sc, -2, axis=1)
+        best.append(top[:, -1])
+        second.append(top[:, -2])
+        leaf_h.append(sc.argmax(axis=1))
+    best, second = np.concatenate(best), np.concatenate(second)
+    leaf_h = np.concatenate(leaf_h)
+    clear = (best > 1e-5) & (best - second > 1e-5)
+    leaf_k = res.leaf.long().cpu().numpy()
+    u_k = res.u.cpu().numpy()
+    if not np.isfinite(u_k).all():
+        fail(f"{name}: non-finite u from the online path")
+    if not np.array_equal(leaf_k[clear], leaf_h[clear]):
+        fail(f"{name}: K2 leaf ids differ from the f64 host evaluator on "
+             f"{int((leaf_k != leaf_h)[clear].sum())} tie-free queries")
+    du = float(np.abs(u_k - u_h)[clear].max()) if clear.any() else 0.0
+    if du > 1e-9:
+        fail(f"{name}: online u differs from the f64 host evaluator by "
+             f"{du:.2e}")
+    ins = res.inside.cpu().numpy()
+    if not np.array_equal(ins[clear], in_h[clear]):
+        fail(f"{name}: inside differs on "
+             f"{int((ins != in_h)[clear].sum())} tie-free queries")
+    log(f"[other] {name}: K2 (p={problem.n_theta}, {table.n_leaves} "
+        f"leaves) on {int(clear.sum())}/{OTHER_HOLD} tie-free thetas: leaf "
+        f"ids and inside equal to the f64 host evaluator, max |du| "
+        f"{du:.2e}")
+
+
+def other_problems_phase(dev, tmp: str) -> dict:
+    """Phase 14: the quadrotor's and the satellite's published sub-box
+    builds through the build CLI's main() on `dev` (OTHER_BUILDS), each
+    with its online evaluation, K1 and K2 counted from zero and K1's
+    launches recorded; the quadrotor's under torch.profiler for K1's
+    device time.  Each build is held to the reference's regions (2%),
+    uncertified, not truncated, no device failure, and its table through
+    K2 to the f64 host evaluator.  Then K1's large path against its
+    plain version at the quadrotor's shapes (f64 to 1e-9 relative, f32
+    as phase 2), timed by CUDA events.  Returns the kernels line's
+    ipm_leg "large" object."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.online import locate
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    real = ipm_leg.ipm_leg_cuda
+    quad_legs: list = []
+    quad_ms = None
+    for name, args, ref_regions, artifacts in OTHER_BUILDS:
+        out = os.path.join(tmp, name)
+        argv = [*args, "--evaluate", str(OTHER_EVALUATE), "-o", out]
+        if artifacts:
+            argv += ["--artifacts-out", out + ".artifacts"]
+        if not on_card:
+            argv += ["--backend", "cpu"]
+        legs: list = []
+        ipm_leg.ipm_leg_cuda = record_legs(real, legs)
+        ipm_leg.launches = locate.launches = 0
+        err = io.StringIO()
+        prof = None
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                if on_card and artifacts:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        rc = tmain.main(argv)
+                        torch.cuda.synchronize()
+                else:
+                    rc = tmain.main(argv)
+        finally:
+            ipm_leg.ipm_leg_cuda = real
+        wall = time.perf_counter() - t0
+        n_k1, n_k2 = ipm_leg.launches, locate.launches
+        st = json.load(open(out + ".stats.json"))
+        ev = [json.loads(ln)["evaluate"] for ln in err.getvalue().splitlines()
+              if ln.startswith('{"evaluate"')]
+        log(f"[other] main {' '.join(args)} --evaluate {OTHER_EVALUATE} on "
+            f"{dev}: {wall:.1f} s{' under the profiler' if prof else ''}; "
+            f"regions {st['regions']} (reference {ref_regions}), "
+            f"uncertified {st['uncertified']}, tree nodes "
+            f"{st['tree_nodes']}, max_depth {st['max_depth']}, steps "
+            f"{st['steps']}, oracle solves {st['oracle_solves']}, truncated "
+            f"{st['truncated']}, device failures {st['device_failures']}, "
+            f"degraded {st['device_degraded']}; launches counted from zero: "
+            f"ipm_leg {n_k1}, locate {n_k2}")
+        if ev:
+            log(f"[other] {name} online: {ev[0]['queries']} queries over "
+                f"{ev[0]['leaves']} leaves in {1e3 * ev[0]['wall_s']:.2f} ms"
+                f", inside {ev[0]['inside_frac']:.4f}")
+        if rc != 0 or not ev or not ev[0]["u_finite"]:
+            fail(f"{name}: main returned {rc}, evaluate summary {ev}")
+        if st["device_failures"] != 0 or st["device_degraded"] is not False \
+                or st["quarantined_cells"] != 0:
+            fail(f"{name}: the build fell back from the device")
+        if st["truncated"]:
+            fail(f"{name}: the build was truncated")
+        if abs(st["regions"] - ref_regions) > 0.02 * ref_regions:
+            fail(f"{name}: regions {st['regions']} not within 2% of the "
+                 f"reference {ref_regions}")
+        if st["uncertified"] > OTHER_UNCERTIFIED_MAX:
+            fail(f"{name}: uncertified {st['uncertified']} > "
+                 f"{OTHER_UNCERTIFIED_MAX}")
+        if len(legs) != n_k1:
+            fail(f"{name}: {len(legs)} K1 launches recorded, {n_k1} counted")
+        if on_card and (n_k1 <= 0 or n_k2 <= 0):
+            fail(f"{name}: a kernel of the path never launched (ipm_leg "
+                 f"{n_k1}, locate {n_k2})")
+        if artifacts and not os.path.exists(
+                os.path.join(out + ".artifacts", "descent.npz")):
+            fail(f"{name}: --artifacts-out wrote no descent.npz")
+        if legs:
+            log(f"[legs] {name}: K1 launches of the build, recorded from "
+                "ipm_leg_cuda:")
+            leg_histogram(legs)
+        if name == "quadrotor":
+            quad_legs = legs
+            if on_card and not any(nz > ipm_leg.GENERAL_MAX_NZ
+                                   for _k, nz, _nc, _it in legs):
+                fail("quadrotor: no K1 launch with nz > "
+                     f"{ipm_leg.GENERAL_MAX_NZ} (the large path)")
+            if prof is not None:
+                rows = [e for e in prof.key_averages()
+                        if "ipm_leg" in e.key and e.self_device_time_total]
+                quad_ms = (sum(e.self_device_time_total for e in rows) / 1e3
+                           if rows else None)
+        problem = make(args[args.index("-e") + 1], **tmain._parse_problem_args(
+            [v for k, v in zip(args, args[1:]) if k == "--problem-arg"]))
+        hold_table(dev, Tree.load(out + ".tree.pkl"), problem, SEED + 14,
+                   name)
+
+    # K1's large path at the quadrotor's shapes against its plain
+    # version on the same inputs: f64 to 1e-9 relative, f32 within 4x
+    # the plain f32 version's error against the f64 iterates plus 1e-4
+    # (as phase 2), 4 iterations from the cold start; then timed at the
+    # build's iteration count for the shape by CUDA events.
+    hist = Counter((nz, nc, it) for _k, nz, nc, it in quad_legs
+                   if nz > ipm_leg.GENERAL_MAX_NZ
+                   or nc > ipm_leg.GENERAL_MAX_NC)
+    k_main = (Counter(k for k, *_ in quad_legs).most_common(1)[0][0]
+              if quad_legs else max(K1_LARGE_K))
+    iters = {}
+    for (nz, nc, it), _n in hist.most_common():
+        iters.setdefault((nz, nc), it)
+    cells = sorted({*K1_LARGE_SHAPES, *iters})
+    ks = sorted({*K1_LARGE_K, k_main})
+    g = np.random.default_rng(SEED + 15)
+    err64 = err32 = 0.0
+    timed = []
+    main_cell = None
+    for nz, nc in cells:
+        n_iter = iters.get((nz, nc), 18)
+        for K in ks:
+            args = random_qps(g, K, nz, nc, dev)
+            truth = plain_leg(args, 4)
+            e64 = rel_err(ipm_leg.ipm_leg(*args, n_iter=4), truth)
+            a32 = tuple(t.float() for t in args)
+            e_k = rel_err(ipm_leg.ipm_leg(*a32, n_iter=4), truth)
+            e_p = rel_err(plain_leg(a32, 4), truth)
+            if not e64 <= 1e-9:
+                fail(f"K1 large path nz={nz} nc={nc} K={K}: f64 differs "
+                     f"from plain by {e64:.2e} (> 1e-9 relative)")
+            if not e_k <= 4 * e_p + 1e-4:
+                fail(f"K1 large path nz={nz} nc={nc} K={K}: f32 worse than "
+                     f"plain ({e_k:.2e} vs {e_p:.2e})")
+            err64, err32 = max(err64, e64), max(err32, e_k)
+            nbytes, flops = ipm_leg_cost(K, nz, nc, n_iter, 8)
+            bound = leg_bound_ms(K, nz, nc, n_iter)
+            ms = (cuda_time(raw_leg(ipm_leg._lib().ipm_leg_f64, args,
+                                    n_iter)[0], 10) if on_card else None)
+            cell = {"nz": nz, "nc": nc, "K": K, "n_iter": n_iter, "ms": ms,
+                    "bound_ms": bound}
+            timed.append(cell)
+            log(f"[K1-large] nz={nz} nc={nc} K={K} n_iter={n_iter}: f64 vs "
+                f"plain {e64:.2e} (limit 1e-9); f32 vs the f64 iterates: "
+                f"kernel {e_k:.2e}, plain {e_p:.2e}; kernel "
+                + (f"{ms:.4f} ms = {1e3 * ms / n_iter:.1f} us/iteration, "
+                   f"{bound / ms:.4f} of the bound" if ms else "not measured")
+                + f"; bound {bound:.5f} ms ("
+                + ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F64_S
+                   else "operations") + ")")
+            if (nz, nc) == K1_LARGE_SHAPES[0] and K == k_main:
+                main_cell = (args, n_iter, cell,
+                             "bytes" if nbytes / PEAK_BYTES_S
+                             > flops / PEAK_F64_S else "operations")
+    args, n_iter, cell, by = main_cell
+    plain_ms = (cuda_time(lambda: plain_leg(args, n_iter), 2, warmup=1)
+                if on_card else None)
+    build_bound = sum(leg_bound_ms(*x) for x in quad_legs)
+    n_large = sum(1 for x in quad_legs if x[1] > ipm_leg.GENERAL_MAX_NZ
+                  or x[2] > ipm_leg.GENERAL_MAX_NC)
+    log(f"[K1-large] at nz={cell['nz']} nc={cell['nc']} K={cell['K']} (the "
+        f"quadrotor build's most frequent K) n_iter={n_iter}: plain version "
+        + (f"{plain_ms:.2f} ms" if plain_ms else "not measured")
+        + f"; the quadrotor build: {len(quad_legs)} K1 launches, {n_large} "
+        "on the large path, device time "
+        + (f"{quad_ms:.2f} ms" if quad_ms is not None else "not measured")
+        + f" against a summed bound of {build_bound:.4f} ms")
+    log(f"[other] (phase took {time.perf_counter() - t_phase:.1f} s)")
+    return {"nz": cell["nz"], "nc": cell["nc"], "K": cell["K"],
+            "n_iter": n_iter, "ms": cell["ms"], "plain_ms": plain_ms,
+            "bound_ms": cell["bound_ms"], "bound_by": by,
+            "max_rel_err_f64": err64, "max_rel_err_f32": err32,
+            "launches": len(quad_legs), "large_launches": n_large,
+            "build_ms": quad_ms, "build_bound_ms": build_bound,
+            "cells": timed}
+
+
 def main() -> int:
     import torch
 
@@ -1868,30 +2179,18 @@ def main() -> int:
     g = np.random.default_rng(SEED + 1)
     for nz, nc in sorted({(qp[0].shape[-1], qp[3].shape[-1])
                           for qp, _tol, _f in classes.values()}):
-        W = g.normal(size=(K, nz, nz))
-        rq = [W @ W.transpose(0, 2, 1) + np.eye(nz), g.normal(size=(K, nz)),
-              g.normal(size=(K, nc, nz)),
-              np.abs(g.normal(size=(K, nc))) + 0.5]
         # f64: kernel against plain to 1e-9 relative (observed 1e-13
         # to 2e-12: summation order only).  f32: both are float32
         # approximations of the float64 iterates, and their gap is
         # dominated by the few random QPs float32 resolves poorly, on
         # either side; the kernel's worst error against the float64
         # plain result is held to 4x the plain version's, plus 1e-4.
-        a64 = [torch.as_tensor(x, dtype=torch.float64, device=dev)
-               for x in rq]
-        st = (torch.zeros_like(a64[1]), torch.ones_like(a64[3]),
-              torch.ones_like(a64[3]))
-        truth = ipm_leg.ipm_leg_torch(*a64, *st, n_iter=4)
-
-        def rel(xs, ys):
-            return max(float(((x.double() - y).abs() / (1 + y.abs())).max())
-                       for x, y in zip(xs, ys))
-        err64 = rel(ipm_leg.ipm_leg_cuda(*a64, *st, n_iter=4), truth)
+        a64 = random_qps(g, K, nz, nc, dev)
+        truth = ipm_leg.ipm_leg_torch(*a64, n_iter=4)
+        err64 = rel_err(ipm_leg.ipm_leg_cuda(*a64, n_iter=4), truth)
         a32 = [t.float() for t in a64]
-        st32 = tuple(t.float() for t in st)
-        err_k = rel(ipm_leg.ipm_leg_cuda(*a32, *st32, n_iter=4), truth)
-        err_p = rel(ipm_leg.ipm_leg_torch(*a32, *st32, n_iter=4), truth)
+        err_k = rel_err(ipm_leg.ipm_leg_cuda(*a32, n_iter=4), truth)
+        err_p = rel_err(ipm_leg.ipm_leg_torch(*a32, n_iter=4), truth)
         log(f"[K1] bare leg nz={nz} nc={nc}, 4 iterations on random QPs: "
             f"f64 kernel vs plain {err64:.2e} (limit 1e-9); f32 vs the "
             f"f64 iterates: kernel {err_k:.2e}, plain {err_p:.2e}")
@@ -2262,13 +2561,18 @@ def main() -> int:
         serve_entry_phase(dev, problem, cfg, res, table, rng, tmp)
     large_partition_phase(dev)
 
+    # -- phase 14: the other problems' published sub-boxes -----------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
+        k1_large = other_problems_phase(dev, tmp)
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
          "replaces": "explicit_hybrid_mpc_tpu/oracle/pallas_ipm.py:217",
          "launches": n_k1, "max_abs_err": k1_err, **k1_entry,
          "library_ms": None, "build_ms": build_ms,
-         "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"]},
+         "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
+         "large": k1_large},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",

@@ -45,6 +45,22 @@
 //    design, the QP's operands and factor in shared memory, lanes over
 //    rows of the KKT matrix.  nz is not padded to 8 (0 * NaN would
 //    leak NaN into live rows and change the sums).
+//  - Every larger shape (nz > 32 or nc > 128; the quadrotor's QPs are
+//    nz 60-65, nc 360-366) takes the large path (ipm_leg_large): one
+//    block of 256 threads per QP.  There a QP does ~2 MFLOP an
+//    iteration and A alone is 190 KB in f64, so the work is the
+//    assembly of A'DA (nc nz (nz+1)/2 FMAs, ~80% of it) and the bound
+//    is operations.  The packed factor and the nc-long vectors live in
+//    shared memory; A streams from global memory (L2) in chunks of 16
+//    rows, each chunk staged with D*A beside it, and every thread sums
+//    its own entries of A'DA, A'lam and A't over the chunk; a warp per
+//    row forms the row products A z and A dz.  The Cholesky is
+//    right-looking in shared memory (two barriers a column), the
+//    substitutions one barrier a column with thread i holding y_i.
+//    Every sum runs in a fixed order (rows in order for each entry, a
+//    fixed tree across threads), so a QP's result does not depend on
+//    its batch.  Its ceiling is the shared memory of one block
+//    (large_elems) and one thread per variable (nz <= 256).
 //
 // A QP depends only on its own inputs -- no cross-QP reduction, no
 // padding across QPs -- so its result is bitwise independent of K and
@@ -61,8 +77,13 @@
 
 namespace {
 
+// The register and general paths take nz <= kMaxNz, nc <= kMaxNc;
+// the large path everything else, within its own ceiling.
 constexpr int kMaxNz = 32;
 constexpr int kMaxNc = 128;
+constexpr int kLargeThreads = 256;
+constexpr int kLargeRows = 16;                // rows of A in a chunk
+constexpr long long kMaxSmem = 232448;        // 227 KB, one block
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Leg;
@@ -623,6 +644,285 @@ __global__ void ipm_leg_general(const T* __restrict__ Qg,
   }
 }
 
+// -- the large path, nz > 32 or nc > 128 ----------------------------------
+
+// Elements of shared memory the large path uses for one QP (see the
+// carve-up in ipm_leg_large).
+__host__ __device__ inline long long large_elems(int nz, int nc) {
+  return (long long)nz * (nz + 1) / 2 + 5LL * nz +
+         2LL * kLargeRows * nz + 11LL * nc + kLargeThreads + 2;
+}
+
+// (i, j), j <= i, of packed lower-triangle index e (the inverse of tri).
+__device__ __forceinline__ void untri(int e, int& i, int& j) {
+  int r = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
+  while (r * (r + 1) / 2 > e) --r;
+  while ((r + 1) * (r + 2) / 2 <= e) ++r;
+  i = r;
+  j = e - r * (r + 1) / 2;
+}
+
+// Sum (or NaN-propagating min) of one value per thread over the block,
+// in a fixed tree order; every thread gets the result.  red holds
+// kLargeThreads elements; the call begins and ends with a barrier.
+template <typename T, bool MIN>
+__device__ __forceinline__ T block_reduce(T v, T* red) {
+  const int t = threadIdx.x;
+  __syncthreads();
+  red[t] = v;
+  __syncthreads();
+#pragma unroll
+  for (int o = kLargeThreads / 2; o > 0; o >>= 1) {
+    if (t < o) red[t] = MIN ? pmin(red[t], red[t + o]) : red[t] + red[t + o];
+    __syncthreads();
+  }
+  const T r = red[0];
+  __syncthreads();
+  return r;
+}
+
+// y <- L'^-1 L^-1 y for the packed factor L; thread i < nz holds y_i in
+// `y` and leaves x_i in out[i].  Column-oriented as the reference
+// (fwd_sub, bwd_sub), including its explicit zero outside the
+// triangle; the pivot's quotient goes through two alternating slots
+// of `bc`, one barrier a column.
+template <typename T>
+__device__ void large_solve(int nz, const T* L, T y, T* bc, T* out) {
+  const int i = threadIdx.x;
+  int step = 0;
+  for (int j = 0; j < nz; ++j, ++step) {
+    if (i == j) bc[step & 1] = y / L[tri(j, j)];
+    __syncthreads();
+    const T d = bc[step & 1];
+    if (i < nz) y = i == j ? d : y - d * (i > j ? L[tri(i, j)] : T(0));
+  }
+  for (int j = nz - 1; j >= 0; --j, ++step) {
+    if (i == j) bc[step & 1] = y / L[tri(j, j)];
+    __syncthreads();
+    const T d = bc[step & 1];
+    if (i < nz) y = i == j ? d : y - d * (i < j ? L[tri(j, i)] : T(0));
+  }
+  if (i < nz) out[i] = y;
+  __syncthreads();
+}
+
+// The step of one right-hand side from dz (shared): a warp per row,
+//   dlam = D (A dz + r_p) - r_c/s,   ds = -(r_c + s dlam)/lam.
+template <typename T>
+__device__ void large_steps(int nz, int nc, const T* __restrict__ A,
+                            const T* dz, const T* rp, const T* D,
+                            const T* s, const T* lam, const T* rc, T* ds,
+                            T* dl) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < nc; i += kLargeThreads / 32) {
+    const T* Ai = A + (long long)i * nz;
+    T acc = 0;
+    for (int c = lane; c < nz; c += 32) acc += Ai[c] * dz[c];
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      const T dli = D[i] * (acc + rp[i]) - rc[i] / s[i];
+      dl[i] = dli;
+      ds[i] = -(rc[i] + s[i] * dli) / lam[i];
+    }
+  }
+  __syncthreads();
+}
+
+// alpha = min(1, tau * min_{dv<0} -v/dv) over the block, NaN-propagating.
+template <typename T>
+__device__ T large_ftb(int nc, const T* v, const T* dv, T tau, T* red) {
+  const T inf = Leg<T>::inf();
+  T m = inf;
+  for (int i = threadIdx.x; i < nc; i += kLargeThreads)
+    m = pmin(m, dv[i] < T(0) ? -v[i] / dv[i] : inf);
+  return pmin(T(1), tau * block_reduce<T, true>(m, red));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLargeThreads)
+ipm_leg_large(const T* __restrict__ Qg, const T* __restrict__ qg,
+              const T* __restrict__ Ag, const T* __restrict__ bg,
+              const T* __restrict__ zin, const T* __restrict__ s_in,
+              const T* __restrict__ l_in, T* __restrict__ zout,
+              T* __restrict__ sout, T* __restrict__ lout, int nz, int nc,
+              int n_iter) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NT = kLargeThreads, NW = NT / 32, R = kLargeRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long k = blockIdx.x;
+  const T* __restrict__ Q = Qg + k * nz * nz;
+  const T* __restrict__ q = qg + k * nz;
+  const T* __restrict__ A = Ag + k * nc * nz;
+  const int ntri = nz * (nz + 1) / 2;
+
+  // L: the packed lower triangle of A'DA, then of C = Q + A'DA + reg I,
+  // then its factor; wl, wt: A'lam and A't (contiguous after L, so one
+  // loop zeroes all three).
+  T* L = reinterpret_cast<T*>(smem_raw);
+  T* wl = L + ntri;
+  T* wt = wl + nz;
+  T* z = wt + nz;
+  T* rd = z + nz;
+  T* dz = rd + nz;
+  T* As = dz + nz;       // R rows of A
+  T* DAs = As + R * nz;  // the same rows times D
+  T* b = DAs + R * nz;
+  T* s = b + nc;
+  T* lam = s + nc;
+  T* rp = lam + nc;
+  T* D = rp + nc;
+  T* rc = D + nc;
+  T* tmp = rc + nc;
+  T* dsa = tmp + nc;
+  T* dla = dsa + nc;
+  T* ds = dla + nc;
+  T* dl = ds + nc;
+  T* red = dl + nc;      // NT: reductions, the factor's column, A't partials
+  T* bc = red + NT;      // 2: the substitutions' broadcast slots
+
+  const T reg = Leg<T>::reg(), tiny = Leg<T>::tiny();
+  const T nc_t = T(nc);
+  for (int i = tid; i < nz; i += NT) z[i] = zin[k * nz + i];
+  for (int i = tid; i < nc; i += NT) {
+    b[i] = bg[k * nc + i];
+    s[i] = s_in[k * nc + i];
+    lam[i] = l_in[k * nc + i];
+  }
+
+  for (int it = 0; it < n_iter; ++it) {
+    __syncthreads();
+    for (int i = tid; i < nc; i += NT) {
+      s[i] = pmax(s[i], tiny);
+      lam[i] = pmax(lam[i], tiny);
+    }
+    for (int e = tid; e < ntri + 2 * nz; e += NT) L[e] = T(0);
+    __syncthreads();
+    // One pass over A: r_p = A z + s - b, D = lam/s, the predictor's
+    // r_c = s lam and t = D r_p - r_c/s, row by row; A'DA, A'lam and
+    // A't summed chunk by chunk, each entry over the rows in order.
+    for (int c0 = 0; c0 < nc; c0 += R) {
+      const int rows = min(R, nc - c0);
+      const T* Ac = A + (long long)c0 * nz;
+      for (int e = tid; e < rows * nz; e += NT) As[e] = Ac[e];
+      __syncthreads();
+      for (int r = warp; r < rows; r += NW) {
+        T acc = 0;
+        for (int c = lane; c < nz; c += 32) acc += As[r * nz + c] * z[c];
+        acc = warp_sum(acc);
+        if (lane == 0) {
+          const int i = c0 + r;
+          const T rpi = acc + s[i] - b[i];
+          const T Di = lam[i] / s[i];
+          const T rci = s[i] * lam[i];
+          rp[i] = rpi;
+          D[i] = Di;
+          rc[i] = rci;
+          tmp[i] = Di * rpi - rci / s[i];
+        }
+      }
+      __syncthreads();
+      for (int e = tid; e < rows * nz; e += NT)
+        DAs[e] = D[c0 + e / nz] * As[e];
+      __syncthreads();
+      for (int e = tid; e < ntri + 2 * nz; e += NT) {
+        T acc = L[e];
+        if (e < ntri) {
+          int i, j;
+          untri(e, i, j);
+          for (int r = 0; r < rows; ++r) acc += As[r * nz + i] * DAs[r * nz + j];
+        } else {
+          const int c = e < ntri + nz ? e - ntri : e - ntri - nz;
+          const T* v = (e < ntri + nz ? lam : tmp) + c0;
+          for (int r = 0; r < rows; ++r) acc += As[r * nz + c] * v[r];
+        }
+        L[e] = acc;
+      }
+      __syncthreads();
+    }
+    T part = 0;
+    for (int i = tid; i < nc; i += NT) part += s[i] * lam[i];
+    const T mu = block_reduce<T, false>(part, red) / nc_t;
+    // r_d = Q z + q + A'lam;  C = Q + A'DA + reg I.
+    for (int i = tid; i < nz; i += NT) {
+      T acc = 0;
+      for (int c = 0; c < nz; ++c) acc += Q[i * nz + c] * z[c];
+      rd[i] = acc + q[i] + wl[i];
+    }
+    for (int e = tid; e < ntri; e += NT) {
+      int i, j;
+      untri(e, i, j);
+      const T v = Q[i * nz + j] + L[e];
+      L[e] = i == j ? v + reg : v;
+    }
+    __syncthreads();
+    // Cholesky in the clamped column form: d = sqrt(max(C_jj, 0)),
+    // column j = C[:, j] / max(d, floor) (into red), then the rank-1
+    // downdate of the trailing lower triangle.
+    for (int j = 0; j < nz; ++j) {
+      const T dd = pmax(root(pmax(L[tri(j, j)], T(0))), Leg<T>::floor());
+      for (int i = j + tid; i < nz; i += NT) red[i] = L[tri(i, j)] / dd;
+      __syncthreads();
+      for (int i = j + tid; i < nz; i += NT) L[tri(i, j)] = red[i];
+      const int m = nz - j - 1;
+      for (int e = tid; e < m * (m + 1) / 2; e += NT) {
+        int a, c;
+        untri(e, a, c);
+        a += j + 1;
+        c += j + 1;
+        L[tri(a, c)] -= red[a] * red[c];
+      }
+      __syncthreads();
+    }
+    // Predictor (affine scaling): rhs = -r_d - A'(D r_p - r_c/s).
+    large_solve(nz, L, tid < nz ? -rd[tid] - wt[tid] : T(0), bc, dz);
+    large_steps(nz, nc, A, dz, rp, D, s, lam, rc, dsa, dla);
+    T a_p = large_ftb(nc, s, dsa, T(1), red);
+    T a_d = large_ftb(nc, lam, dla, T(1), red);
+    part = 0;
+    for (int i = tid; i < nc; i += NT)
+      part += (s[i] + a_p * dsa[i]) * (lam[i] + a_d * dla[i]);
+    const T mu_aff = block_reduce<T, false>(part, red) / nc_t;
+    const T ratio = mu_aff / pmax(mu, Leg<T>::mu_floor());
+    const T smu = ratio * ratio * ratio * mu;
+    // Corrector with centering: r_c = s lam + ds_a dl_a - sigma mu;
+    // A't summed by G = NT / nz groups of rows, then the groups in order.
+    for (int i = tid; i < nc; i += NT) {
+      rc[i] = s[i] * lam[i] + dsa[i] * dla[i] - smu;
+      tmp[i] = D[i] * rp[i] - rc[i] / s[i];
+    }
+    __syncthreads();
+    const int G = NT / nz;
+    if (tid < G * nz) {
+      const int g = tid / nz, c = tid - g * nz;
+      T acc = 0;
+      for (int i = g; i < nc; i += G) acc += A[(long long)i * nz + c] * tmp[i];
+      red[tid] = acc;
+    }
+    __syncthreads();
+    T y = 0;
+    if (tid < nz) {
+      T w = 0;
+      for (int g = 0; g < G; ++g) w += red[g * nz + tid];
+      y = -rd[tid] - w;
+    }
+    large_solve(nz, L, y, bc, dz);
+    large_steps(nz, nc, A, dz, rp, D, s, lam, rc, ds, dl);
+    a_p = large_ftb(nc, s, ds, T(0.995), red);
+    a_d = large_ftb(nc, lam, dl, T(0.995), red);
+    for (int i = tid; i < nz; i += NT) z[i] = z[i] + a_p * dz[i];
+    for (int i = tid; i < nc; i += NT) {
+      s[i] = s[i] + a_p * ds[i];
+      lam[i] = lam[i] + a_d * dl[i];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nz; i += NT) zout[k * nz + i] = z[i];
+  for (int i = tid; i < nc; i += NT) {
+    sout[k * nc + i] = s[i];
+    lout[k * nc + i] = lam[i];
+  }
+}
+
 // -- launch ----------------------------------------------------------------
 
 template <typename T, int NZ>
@@ -647,9 +947,20 @@ int launch(const T* Q, const T* q, const T* A, const T* b, const T* z,
            const T* s, const T* lam, T* zo, T* so, T* lo, int K, int nz,
            int nc, int n_iter, void* stream) {
   if (K <= 0) return 0;
-  if (nz < 1 || nz > kMaxNz || nc < 1 || nc > kMaxNc)
-    return (int)cudaErrorInvalidValue;
+  if (nz < 1 || nc < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (nz > kMaxNz || nc > kMaxNc) {
+    const long long smem = large_elems(nz, nc) * (long long)sizeof(T);
+    if (nz > kLargeThreads || smem > kMaxSmem)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        ipm_leg_large<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ipm_leg_large<T><<<K, kLargeThreads, (size_t)smem, st>>>(
+        Q, q, A, b, z, s, lam, zo, so, lo, nz, nc, n_iter);
+    return (int)cudaGetLastError();
+  }
   switch (nz) {
 #define EHM_FIXED(N)                                                        \
   case N:                                                                   \
@@ -696,8 +1007,17 @@ int ipm_leg_f32(const float* Q, const float* q, const float* A,
                        stream);
 }
 
+// The general path's limits (larger shapes take the large path), and
+// the large path's: threads a block, rows a chunk, shared memory a
+// block, and the bytes of shared memory it takes for one QP.
 int ipm_leg_max_nz() { return kMaxNz; }
 int ipm_leg_max_nc() { return kMaxNc; }
+int ipm_leg_large_threads() { return kLargeThreads; }
+int ipm_leg_large_rows() { return kLargeRows; }
+long long ipm_leg_max_smem() { return kMaxSmem; }
+long long ipm_leg_large_smem(int nz, int nc, int itemsize) {
+  return large_elems(nz, nc) * itemsize;
+}
 
 const char* ipm_leg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -4,13 +4,23 @@ the ``serve`` subcommand.
     python -m explicit_hybrid_mpc_tpu_torch.main -e inverted_pendulum \\
         -a 1e-2 --batch 256 -o build/pend --evaluate 65536 \\
         --artifacts-out build/pend.artifacts --simulate 100
+    python -m explicit_hybrid_mpc_tpu_torch.main -e quadrotor -r 0.1 -a 1 \\
+        --problem-arg param='"pv"' --problem-arg pos_box=0.4 \\
+        --problem-arg vel_box=0.2 -o build/quad --checkpoint-every 5
+    python -m explicit_hybrid_mpc_tpu_torch.main -e quadrotor \\
+        -o build/quad2 --resume build/quad.ckpt.pkl
     python -m explicit_hybrid_mpc_tpu_torch.main serve \\
         --artifacts build/pend.artifacts --selftest 4096
 
 Runs on the first CUDA device unless ``--backend cpu`` is given (the
-serve subcommand likewise: serve/cli.py).  Outputs under --output
-PREFIX: PREFIX.tree.pkl (the simplex tree), PREFIX.stats.json (build
-statistics), PREFIX.log.jsonl (per-step metrics).  ``--evaluate N``
+serve subcommand likewise: serve/cli.py).  The build flags are the JAX
+package's, with its defaults and its tolerance rule (``-a`` defaults to
+1e-2, or to 0 when ``-r`` is given); ``config_from_args`` maps them to
+the PartitionConfig.  Outputs under --output PREFIX: PREFIX.tree.pkl
+(the simplex tree), PREFIX.stats.json (build statistics),
+PREFIX.log.jsonl (per-step metrics), PREFIX.ckpt.pkl with
+``--checkpoint-every K`` (resume with ``--resume``: the snapshot's
+solver settings, this run's budget and output paths).  ``--evaluate N``
 then exports the leaf table, stages it on the build's device and
 evaluates the controller at N sampled thetas through the
 point-location kernel, printing the evaluation summary.
@@ -20,20 +30,65 @@ T-step closed-loop explicit-vs-implicit comparison on the build's
 device (the explicit controller through the point-location kernel,
 the implicit one through the oracle) and writes PREFIX.sim.json.
 
-The JAX package's other surfaces (serve-rebuild, rebuild, --resume,
---mesh) exit with "not yet ported".
+The JAX package's other surfaces (the serve-rebuild and rebuild
+subcommands, and the flags in _UNPORTED_FLAGS) exit with "not yet
+ported" and the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
 import time
 
 _UNPORTED_COMMANDS = ("serve-rebuild", "rebuild")
-_UNPORTED_FLAGS = ("--resume", "--mesh")
+
+#: Build flags of the JAX package whose modules are not ported yet:
+#: flag -> the ROADMAP item that brings it.
+_UNPORTED_FLAGS = {
+    "--mesh": "A7 (parallel/mesh.py)",
+    "--prune-rows": "A4 (oracle/prune.py)",
+    "--shard-frontier": "A7 (partition/shard.py)",
+    "--shard-dir": "A7 (partition/shard.py)",
+    "--shard-timeout": "A7 (partition/shard.py)",
+    "--rebuild-from": "A5 (partition/rebuild.py)",
+    "--from": "A5 (partition/rebuild.py)",
+    "--strict-provenance": "A5 (partition/rebuild.py)",
+    "--profile": "A3 (torch.profiler capture)",
+    "--profile-steps": "A3 (torch.profiler capture)",
+    "--auto-profile": "A3 (obs/profiling.py)",
+    "--recorder": "A8 (obs/recorder.py)",
+    "--recorder-dir": "A8 (obs/recorder.py)",
+    "--health-rule": "A8 (obs/health.py)",
+    "--obs-per-process": "A8 (obs/fleet.py)",
+    "--recompile-guard": "A9 (recompile guard)",
+}
+
+#: PartitionConfig fields that belong to one run, not to the partition
+#: being built: a resumed build takes them from its own command line and
+#: every other field from the snapshot (budget, outputs, pipelining,
+#: diagnostics, recovery -- none of them changes a solved value).
+_RUN_SCOPED = (
+    "log_path", "prefetch_solves", "pipeline_depth", "speculate",
+    "dedup_window", "max_steps", "checkpoint_every", "checkpoint_path",
+    "profile_path", "profile_steps", "obs", "obs_path", "obs_per_process",
+    "auto_profile", "obs_recorder", "recorder_dir", "health_rules",
+    "recompile_guard", "solve_timeout_s", "oracle_retry_attempts",
+    "oracle_retry_backoff_s", "device_failure_cap", "fault_plan",
+    "shard_frontier", "shard_dir", "shard_timeout_s", "async_certify")
+
+#: Solver fields a resumed build takes from the snapshot; a command-line
+#: value that differs is reported and ignored.
+_SOLVER_FIELDS = (
+    "problem", "problem_args", "eps_a", "eps_r", "algorithm", "backend",
+    "precision", "ipm_point_schedule", "ipm_rescue_iters", "ipm_two_phase",
+    "ipm_phase1_iters", "ipm_phase1_iters_point",
+    "ipm_phase1_iters_simplex", "warm_start_tree", "ipm_kernel",
+    "batch_simplices", "max_depth", "semi_explicit_boundary_depth",
+    "prune_rows")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,9 +97,16 @@ def build_parser() -> argparse.ArgumentParser:
         description="approximate explicit hybrid MPC on CUDA: offline "
                     "partition build and online evaluation")
     p.add_argument("-e", "--example", required=True,
-                   help="benchmark problem name")
-    p.add_argument("-a", "--eps-a", type=float, default=1e-2,
-                   help="absolute suboptimality tolerance eps_a")
+                   help="benchmark problem name (see --list)")
+    p.add_argument("-a", "--eps-a", type=float, default=None,
+                   help="absolute suboptimality tolerance eps_a "
+                        "(default 1e-2, or 0 when -r is given)")
+    p.add_argument("-r", "--eps-r", type=float, default=None,
+                   help="relative suboptimality tolerance eps_r")
+    p.add_argument("--algorithm", choices=("suboptimal", "feasible"),
+                   default="suboptimal",
+                   help="fully-explicit eps-suboptimal partition vs "
+                        "semi-explicit feasibility-only variant")
     p.add_argument("--backend", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--precision", choices=("f64", "mixed"), default="f64",
                    help="IPM iteration precision: pure float64 vs "
@@ -57,6 +119,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=256,
                    help="frontier simplices per device step")
     p.add_argument("--max-depth", type=int, default=40)
+    p.add_argument("--boundary-depth", type=int, default=None,
+                   metavar="D", help="close mixed-feasibility simplices "
+                   "at depth >= D as semi-explicit boundary leaves "
+                   "(online fixed-delta QP) instead of splitting to "
+                   "--max-depth")
+    p.add_argument("--no-two-phase", action="store_true",
+                   help="disable the two-phase early-exit IPM cohort "
+                   "(run the full fixed schedule on every QP)")
+    p.add_argument("--phase1-iters", type=int, default=None, metavar="N",
+                   help="f64 iterations in the cohort's first phase "
+                   "(default: 2/5 of each class's f64 schedule)")
+    p.add_argument("--phase1-iters-point", type=int, default=None,
+                   metavar="N", help="per-class override of "
+                   "--phase1-iters for the point-class programs only")
+    p.add_argument("--phase1-iters-simplex", type=int, default=None,
+                   metavar="N", help="per-class override of "
+                   "--phase1-iters for the joint elastic-simplex "
+                   "programs only")
+    p.add_argument("--no-warm-start", action="store_true",
+                   help="disable tree warm-starts (cold-start every "
+                   "child-vertex QP)")
+    p.add_argument("--pipeline-depth", type=int, default=None,
+                   metavar="N", help="frontier batches planned and "
+                   "dispatched ahead of the committing step (default 2; "
+                   "0 = synchronous; the tree is the same at any depth)")
+    p.add_argument("--no-speculate", action="store_true",
+                   help="disable speculative child dispatch")
+    p.add_argument("--dedup-window", type=int, default=None, metavar="K",
+                   help="max in-flight vertices tracked for cross-batch "
+                   "solve dedup (default 8192)")
+    p.add_argument("--async-certify", action="store_true",
+                   help="a background waiter resolves in-flight "
+                   "lookahead programs while the host certifies (the "
+                   "tree is the same)")
+    p.add_argument("--max-steps", type=int, default=10_000)
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                   help="snapshot frontier+tree to PREFIX.ckpt.pkl every "
+                   "K steps")
+    p.add_argument("--resume", metavar="CKPT",
+                   help="resume a build from a checkpoint file")
+    p.add_argument("--solve-timeout", type=float, default=None,
+                   metavar="S", help="watchdog timeout per oracle "
+                   "attempt (faults/policy.py)")
+    p.add_argument("--fault-plan", metavar="PLAN.json", default=None,
+                   help="deterministic fault-injection plan "
+                   "(faults/plan.py; chaos testing only)")
+    p.add_argument("--obs", choices=("off", "jsonl", "full"),
+                   default="off",
+                   help="observability mode: 'jsonl' streams spans and "
+                   "metrics to PREFIX.obs.jsonl")
+    p.add_argument("--obs-path", metavar="FILE", default=None,
+                   help="override the obs stream path "
+                   "(default PREFIX.obs.jsonl)")
     p.add_argument("--problem-arg", action="append", default=[],
                    metavar="K=V", help="problem constructor overrides, "
                    "e.g. --problem-arg N=5")
@@ -76,6 +191,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after the build, run a T-step closed-loop "
                         "explicit-vs-implicit comparison on the build's "
                         "device and write PREFIX.sim.json")
+    p.add_argument("--list", action="store_true",
+                   help="list registered problems and exit")
     return p
 
 
@@ -90,6 +207,60 @@ def _parse_problem_args(pairs: list[str]) -> dict:
         except json.JSONDecodeError:
             out[k] = v
     return out
+
+
+def config_from_args(args: argparse.Namespace):
+    """The PartitionConfig of a fresh build from parsed build flags, as
+    the JAX package's CLI builds it from the same flags."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+
+    problem_args = _parse_problem_args(args.problem_arg)
+    prefix = args.output
+    eps_a = args.eps_a if args.eps_a is not None else (
+        1e-2 if args.eps_r is None else 0.0)
+    return PartitionConfig(
+        problem=args.example,
+        problem_args=tuple(sorted(problem_args.items())), eps_a=eps_a,
+        eps_r=args.eps_r if args.eps_r is not None else 0.0,
+        algorithm=args.algorithm, backend=args.backend,
+        batch_simplices=args.batch, max_depth=args.max_depth,
+        semi_explicit_boundary_depth=args.boundary_depth,
+        ipm_two_phase=not args.no_two_phase,
+        ipm_phase1_iters=args.phase1_iters,
+        ipm_phase1_iters_point=args.phase1_iters_point,
+        ipm_phase1_iters_simplex=args.phase1_iters_simplex,
+        warm_start_tree=not args.no_warm_start,
+        ipm_kernel=args.ipm_kernel,
+        **({"pipeline_depth": args.pipeline_depth}
+           if args.pipeline_depth is not None else {}),
+        speculate=not args.no_speculate,
+        **({"dedup_window": args.dedup_window}
+           if args.dedup_window is not None else {}),
+        max_steps=args.max_steps,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_path=(f"{prefix}.ckpt.pkl"
+                         if args.checkpoint_every else None),
+        log_path=f"{prefix}.log.jsonl",
+        precision=args.precision,
+        obs=args.obs,
+        obs_path=(args.obs_path or f"{prefix}.obs.jsonl"
+                  if args.obs != "off" else None),
+        solve_timeout_s=args.solve_timeout,
+        fault_plan=args.fault_plan,
+        async_certify=args.async_certify)
+
+
+def resumed_config(cfg, snap_cfg):
+    """The config a resumed build runs with: the snapshot's solver
+    settings (a command-line value that differs is reported on stderr
+    and ignored) and this run's run-scoped fields (_RUN_SCOPED)."""
+    for fld in _SOLVER_FIELDS:
+        cli_v, snap_v = getattr(cfg, fld), getattr(snap_cfg, fld)
+        if cli_v != snap_v:
+            print(f"resume: using snapshot {fld}={snap_v!r} (CLI value "
+                  f"{cli_v!r} ignored)", file=sys.stderr)
+    return dataclasses.replace(
+        snap_cfg, **{fld: getattr(cfg, fld) for fld in _RUN_SCOPED})
 
 
 def evaluate_sampled(problem, tree, n: int, device, seed: int = 0) -> dict:
@@ -133,31 +304,38 @@ def main(argv: list[str] | None = None) -> int:
     if argv and argv[0] in _UNPORTED_COMMANDS:
         raise SystemExit(f"{argv[0]}: not yet ported to the torch package "
                          "(see ROADMAP.md)")
-    for flag in _UNPORTED_FLAGS:
+    for flag, item in _UNPORTED_FLAGS.items():
         if any(a == flag or a.startswith(flag + "=") for a in argv):
             raise SystemExit(f"{flag}: not yet ported to the torch package "
-                             "(see ROADMAP.md)")
+                             f"(ROADMAP {item})")
     args = build_parser().parse_args(argv)
 
-    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make, names
+    if args.list:
+        print("\n".join(names()))
+        return 0
+
     from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
-        FrontierEngine, make_oracle)
-    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+        FrontierEngine, load_checkpoint, make_oracle)
     from explicit_hybrid_mpc_tpu_torch.utils.logging import RunLog
 
-    problem_args = _parse_problem_args(args.problem_arg)
     prefix = args.output
     os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
-    cfg = PartitionConfig(
-        problem=args.example,
-        problem_args=tuple(sorted(problem_args.items())),
-        eps_a=args.eps_a, backend=args.backend, precision=args.precision,
-        ipm_kernel=args.ipm_kernel, batch_simplices=args.batch,
-        max_depth=args.max_depth, log_path=f"{prefix}.log.jsonl")
+    cfg = config_from_args(args)
+    snapshot = None
+    if args.resume:
+        # load_checkpoint verifies the content checksum and falls back
+        # to the .prev generation on a torn file.
+        snapshot = load_checkpoint(args.resume)
+        cfg = resumed_config(cfg, snapshot["cfg"])
     problem = make(cfg.problem, **dict(cfg.problem_args))
     oracle = make_oracle(problem, cfg)
     log = RunLog(cfg.log_path, echo=True)
-    res = FrontierEngine(problem, oracle, cfg, log).run()
+    if snapshot is not None:
+        eng = FrontierEngine.resume(snapshot, problem, oracle, log, cfg=cfg)
+    else:
+        eng = FrontierEngine(problem, oracle, cfg, log)
+    res = eng.run()
     res.tree.save(f"{prefix}.tree.pkl")
     with open(f"{prefix}.stats.json", "w") as f:
         json.dump(res.stats, f, indent=2)

@@ -28,11 +28,37 @@ from explicit_hybrid_mpc_tpu_torch import kernels
 #: after, to show the build went through the kernel.
 launches = 0
 
-#: Compiled shape limits of the CUDA kernel (nz <= 8 runs its
-#: register-resident path, larger nz its shared-memory path; up to 4
-#: constraint rows a lane).
-MAX_NZ = 32
-MAX_NC = 128
+#: The CUDA kernel's three paths.  Up to GENERAL_MAX_NZ variables and
+#: GENERAL_MAX_NC constraints a QP runs on one warp: nz <= 8 in its
+#: register-resident path, larger nz in its shared-memory general path.
+#: Every larger shape (the quadrotor's nz 60-65, nc 360-366) runs the
+#: large path, one block of LARGE_THREADS threads per QP streaming A in
+#: chunks of LARGE_ROWS rows.  Its ceiling: one thread per variable
+#: (nz <= LARGE_THREADS) and the shared memory one block may use
+#: (large_smem_bytes <= MAX_SMEM_BYTES; in float64 at the quadrotor's
+#: nc 366 that is nz <= 188).  csrc/ipm_leg.cu holds the same numbers;
+#: _lib() checks them against the library.
+GENERAL_MAX_NZ = 32
+GENERAL_MAX_NC = 128
+LARGE_THREADS = 256
+LARGE_ROWS = 16
+MAX_SMEM_BYTES = 232_448
+
+
+def large_smem_bytes(nz: int, nc: int, itemsize: int) -> int:
+    """Shared memory of the large path for one QP: the packed factor,
+    five nz-vectors, a chunk of A and of D*A, eleven nc-vectors and the
+    block's reduction scratch."""
+    return itemsize * (nz * (nz + 1) // 2 + 5 * nz + 2 * LARGE_ROWS * nz
+                       + 11 * nc + LARGE_THREADS + 2)
+
+
+def kernel_takes(nz: int, nc: int, itemsize: int) -> bool:
+    """Whether one of the CUDA kernel's paths takes this QP shape."""
+    if nz <= GENERAL_MAX_NZ and nc <= GENERAL_MAX_NC:
+        return True
+    return (nz <= LARGE_THREADS
+            and large_smem_bytes(nz, nc, itemsize) <= MAX_SMEM_BYTES)
 
 _TINY = 1e-12
 
@@ -169,22 +195,37 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.ipm_leg_error_string.argtypes = [ctypes.c_int]
         lib.ipm_leg_error_string.restype = ctypes.c_char_p
+        for name in ("ipm_leg_max_smem", "ipm_leg_large_smem"):
+            getattr(lib, name).restype = ctypes.c_longlong
+        lib.ipm_leg_large_smem.argtypes = [ctypes.c_int] * 3
+        if (lib.ipm_leg_max_nz(), lib.ipm_leg_max_nc(),
+                lib.ipm_leg_large_threads(), lib.ipm_leg_large_rows(),
+                lib.ipm_leg_max_smem(),
+                lib.ipm_leg_large_smem(65, 366, 8)) != (
+                GENERAL_MAX_NZ, GENERAL_MAX_NC, LARGE_THREADS, LARGE_ROWS,
+                MAX_SMEM_BYTES, large_smem_bytes(65, 366, 8)):
+            raise kernels.KernelError(
+                "ipm_leg: the kernel's path limits differ from the "
+                "wrapper's (GENERAL_MAX_*, LARGE_*, MAX_SMEM_BYTES)")
         lib._ehm_typed = True
     return lib
 
 
 def ipm_leg_cuda(Q, q, A, b, z, s, lam, n_iter: int):
     """Launch the CUDA kernel on CUDA tensors; raises on anything it does
-    not take (device, dtype, shapes, contiguity, compiled limits) and on
-    a refused launch.  Does not synchronize."""
+    not take (device, dtype, shapes, contiguity, the large path's
+    ceiling) and on a refused launch.  Does not synchronize."""
     K, nz = q.shape
     nc = b.shape[-1]
     dtype = Q.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"ipm_leg: dtype {dtype} (expected float32/64)")
-    if nz > MAX_NZ or nc > MAX_NC:
-        raise ValueError(f"ipm_leg: nz={nz}, nc={nc} exceed the kernel's "
-                         f"compiled maxima nz<={MAX_NZ}, nc<={MAX_NC}")
+    if not kernel_takes(nz, nc, dtype.itemsize):
+        raise ValueError(
+            f"ipm_leg: nz={nz}, nc={nc} exceed the kernel's ceiling "
+            f"(large path: nz <= {LARGE_THREADS} and "
+            f"{large_smem_bytes(nz, nc, dtype.itemsize)} bytes of shared "
+            f"memory <= {MAX_SMEM_BYTES})")
     want = {"Q": (K, nz, nz), "q": (K, nz), "A": (K, nc, nz),
             "b": (K, nc), "z": (K, nz), "s": (K, nc), "lam": (K, nc)}
     args = {"Q": Q, "q": q, "A": A, "b": b, "z": z, "s": s, "lam": lam}

@@ -291,3 +291,67 @@ def test_new_phases_rehearse_on_the_cpu(tmp_path, monkeypatch, capsys):
                 "[large] sharded: 128 queries inside"):
         assert tag in out, tag
     assert "FAIL" not in out
+
+
+def test_other_problems_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
+                                                    capsys):
+    """Phase 14 on the CPU: the build CLI's argv with --backend cpu at
+    reduced configurations (their port CPU counts as the references),
+    each table held to the f64 host evaluator, and K1's large-path sweep
+    against the plain version at a small large-path shape.  The kernels
+    line's "large" object carries every key; its times need the card."""
+    builds = (
+        ("quadrotor", ("-e", "quadrotor", "-r", "0.1", "-a", "1",
+                       "--problem-arg", 'param="p"', "--problem-arg", "N=2",
+                       "--problem-arg", "pos_box=0.4"), 16, True),
+        ("satellite", ("-e", "satellite", "-r", "0.1", "-a", "1",
+                       "--problem-arg", "axes=1", "--problem-arg", "N=2"),
+         33, False))
+    for k, v in dict(OTHER_BUILDS=builds, OTHER_EVALUATE=512, OTHER_HOLD=256,
+                     K1_LARGE_SHAPES=((33, 129),), K1_LARGE_K=(2,)).items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    large = chip_smoke.other_problems_phase(torch.device("cpu"),
+                                            str(tmp_path))
+    out = capsys.readouterr().out
+    assert "FAIL" not in out
+    for tag in ("[other] main -e quadrotor", "regions 16 (reference 16)",
+                "regions 33 (reference 33)",
+                "[other] satellite: K2 (p=2, 33 leaves)",
+                "[K1-large] nz=33 nc=129 K=2"):
+        assert tag in out, tag
+    assert os.path.exists(str(tmp_path / "quadrotor.artifacts"))
+    assert set(large) == {"nz", "nc", "K", "n_iter", "ms", "plain_ms",
+                          "bound_ms", "bound_by", "max_rel_err_f64",
+                          "max_rel_err_f32", "launches", "large_launches",
+                          "build_ms", "build_bound_ms", "cells"}
+    # On the CPU nothing launches and no time is measured.
+    assert large["launches"] == 0 and large["ms"] is None
+    assert large["build_ms"] is None and large["plain_ms"] is None
+    assert large["max_rel_err_f64"] <= 1e-9
+    assert large["bound_ms"] == pytest.approx(
+        chip_smoke.leg_bound_ms(2, 33, 129, 18))
+
+
+def test_a_wrong_reference_fails_the_phase(tmp_path, monkeypatch):
+    builds = (("satellite", ("-e", "satellite", "-r", "0.1", "-a", "1",
+                             "--problem-arg", "axes=1", "--problem-arg",
+                             "N=2"), 100, False),)
+    for k, v in dict(OTHER_BUILDS=builds, OTHER_EVALUATE=64,
+                     OTHER_HOLD=64).items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    with pytest.raises(SystemExit):
+        chip_smoke.other_problems_phase(torch.device("cpu"), str(tmp_path))
+
+
+def test_plain_leg_in_chunks_is_the_whole_batch(monkeypatch):
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    args = chip_smoke.random_qps(np.random.default_rng(0), 5, 6, 20,
+                                 torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke, "K1_PLAIN_CHUNK", 2)
+    whole = ipm_leg.ipm_leg_torch(*args, n_iter=3)
+    for a, b in zip(chip_smoke.plain_leg(args, 3), whole):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)

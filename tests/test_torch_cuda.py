@@ -34,9 +34,21 @@ def _qps(rng, K, nz, nc, dtype, dev):
 
 
 #: (nz, nc) of the leg tests: both sides of the kernel's register path
-#: (nz <= 8) and its general path, and the register path at one (nc <=
-#: 32), two (nc <= 64) and four (nc <= 128) constraint rows a lane.
-_SHAPES = [(1, 7), (5, 35), (5, 70), (8, 39), (8, 128), (9, 70), (32, 128)]
+#: (nz <= 8) and its general path, the register path at one (nc <= 32),
+#: two (nc <= 64) and four (nc <= 128) constraint rows a lane, and the
+#: large path just past the general path's limits and at the
+#: quadrotor's point, Farkas and elastic simplex-min QPs.
+_SHAPES = [(1, 7), (5, 35), (5, 70), (8, 39), (8, 128), (9, 70), (32, 128),
+           (33, 129), (60, 360), (65, 365), (65, 366)]
+
+
+def _plain(args, n_iter):
+    """ipm_leg_torch in chunks of 128 QPs (at the large shapes it
+    materializes K x nc x nz x nz products)."""
+    K = args[0].shape[0]
+    outs = [ipm_leg.ipm_leg_torch(*(t[i:i + 128] for t in args),
+                                  n_iter=n_iter) for i in range(0, K, 128)]
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
 
 
 @pytest.mark.parametrize("K", [1, 8, 257, 2048])
@@ -54,7 +66,7 @@ def test_ipm_leg_kernel_matches_plain(gpu, nz, nc, K):
     kern = ipm_leg.ipm_leg(Q, q, A, b, *st, n_iter=4)
     torch.cuda.synchronize()
     assert ipm_leg.launches == before + 1
-    truth = ipm_leg.ipm_leg_torch(Q, q, A, b, *st, n_iter=4)
+    truth = _plain((Q, q, A, b, *st), 4)
 
     def rel(xs):
         return max(float(((x.double() - y).abs() / (1 + y.abs())).max())
@@ -62,12 +74,12 @@ def test_ipm_leg_kernel_matches_plain(gpu, nz, nc, K):
     assert rel(kern) <= 1e-9
     f32 = [t.float() for t in (Q, q, A, b, *st)]
     err_k = rel(ipm_leg.ipm_leg(*f32, n_iter=4))
-    err_p = rel(ipm_leg.ipm_leg_torch(*f32, n_iter=4))
+    err_p = rel(_plain(f32, 4))
     assert err_k <= 4 * err_p + 1e-4
 
 
 @pytest.mark.parametrize("nz,nc", [(5, 35), (5, 70), (8, 39), (8, 128),
-                                   (9, 70)])
+                                   (9, 70), (65, 366)])
 def test_ipm_leg_result_does_not_depend_on_the_batch(gpu, nz, nc):
     """A QP's result is bitwise the same launched alone, in its batch,
     and at another offset inside a larger batch of other QPs."""
@@ -93,12 +105,15 @@ def test_ipm_leg_result_does_not_depend_on_the_batch(gpu, nz, nc):
         assert torch.equal(a[123:163], b)
 
 
-def test_ipm_leg_nan_and_infeasible_qps(gpu):
+@pytest.mark.parametrize("nz,nc", [(5, 35), (65, 366)])
+def test_ipm_leg_nan_and_infeasible_qps(gpu, nz, nc):
     """A NaN in q comes back non-finite from the kernel and the plain
     version alike; a QP whose feasible set is empty comes back not
     converged and not feasible from qp_solve on the card, as on the
-    CPU."""
-    Q, q, A, b = _qps(np.random.default_rng(3), 6, 5, 35, torch.float64, gpu)
+    CPU (the register path, and the large path at the quadrotor's
+    elastic simplex-min shape)."""
+    Q, q, A, b = _qps(np.random.default_rng(3), 6, nz, nc, torch.float64,
+                      gpu)
     q[2, 1] = float("nan")
     st = (torch.zeros_like(q), torch.ones_like(b), torch.ones_like(b))
     for z, _s, _lam in (ipm_leg.ipm_leg_cuda(Q, q, A, b, *st, n_iter=5),
@@ -106,7 +121,8 @@ def test_ipm_leg_nan_and_infeasible_qps(gpu):
         assert not bool(torch.isfinite(z[2]).all())
         assert bool(torch.isfinite(z[[0, 1, 3, 4, 5]]).all())
     # z_0 <= -1 and -z_0 <= -1: no z satisfies both.
-    Q, q, A, b = _qps(np.random.default_rng(4), 8, 5, 35, torch.float64, gpu)
+    Q, q, A, b = _qps(np.random.default_rng(4), 8, nz, nc, torch.float64,
+                      gpu)
     A[:4, :2] = 0.0
     A[:4, 0, 0], A[:4, 1, 0] = 1.0, -1.0
     b[:4, :2] = -1.0
@@ -160,11 +176,51 @@ def test_ipm_leg_wrapper_rejects_what_the_kernel_cannot_take(gpu):
     with pytest.raises(ValueError):
         ipm_leg.ipm_leg_cuda(Q, q, A.transpose(1, 2).contiguous()
                              .transpose(1, 2), b, *st, n_iter=2)
-    big = _qps(np.random.default_rng(0), 2, 33, 10, torch.float64, gpu)
-    with pytest.raises(ValueError, match="maxima"):
-        ipm_leg.ipm_leg_cuda(*big, torch.zeros_like(big[1]),
-                             torch.ones_like(big[3]),
-                             torch.ones_like(big[3]), n_iter=2)
+    # Past the large path's ceiling: more variables than its block has
+    # threads, or more shared memory than one block may use (nz 200 at
+    # nc 366 in float64); the largest nz that fits at nc 366 launches.
+    for nz, dtype in ((ipm_leg.LARGE_THREADS + 1, torch.float32),
+                      (200, torch.float64)):
+        assert not ipm_leg.kernel_takes(nz, 366, dtype.itemsize)
+        big = _qps(np.random.default_rng(0), 2, nz, 366, dtype, gpu)
+        before = ipm_leg.launches
+        with pytest.raises(ValueError, match="ceiling"):
+            ipm_leg.ipm_leg_cuda(*big, torch.zeros_like(big[1]),
+                                 torch.ones_like(big[3]),
+                                 torch.ones_like(big[3]), n_iter=2)
+        assert ipm_leg.launches == before
+    top = max(n for n in range(1, 257) if ipm_leg.kernel_takes(n, 366, 8))
+    fit = _qps(np.random.default_rng(0), 2, top, 366, torch.float64, gpu)
+    z, s, lam = ipm_leg.ipm_leg_cuda(*fit, torch.zeros_like(fit[1]),
+                                     torch.ones_like(fit[3]),
+                                     torch.ones_like(fit[3]), n_iter=2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(z).all())
+
+
+def test_quadrotor_subbox_builds_on_the_card(gpu):
+    """The quadrotor sub-box of the CPU parity tests (test_torch_build.py
+    BUILDS["quadrotor"]: QPs nz 24-27, nc 144-147, the kernel's large
+    path) built on the card is node-for-node the port's CPU build."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+
+    kw = {"param": "p", "N": 4, "pos_box": 0.3}
+    res = {}
+    for backend in ("cuda", "cpu"):
+        before = ipm_leg.launches
+        res[backend] = build_partition(
+            make("quadrotor", **kw),
+            PartitionConfig(problem="quadrotor", backend=backend,
+                            problem_args=tuple(sorted(kw.items())),
+                            eps_a=0.1, eps_r=0.01))
+        launched = ipm_leg.launches - before
+        assert launched > 0 if backend == "cuda" else launched == 0
+    assert make("quadrotor", **kw).canonical.nc > ipm_leg.GENERAL_MAX_NC
+    assert res["cuda"].stats["device_failures"] == 0
+    assert not res["cuda"].stats["truncated"]
+    assert _tree_signature(res["cuda"]) == _tree_signature(res["cpu"])
 
 
 def test_qp_solve_on_the_card_matches_the_cpu(gpu):

@@ -99,21 +99,29 @@ def test_warm_start_gate_matches_the_reference(kw):
                                atol=1e-9)
 
 
-@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
-                                       (np.float32, 1e-5)],
-                         ids=["f64", "f32"])
-def test_plain_leg_matches_the_pallas_kernel(dtype, tol):
+#: (K, nz, nc, n_iter) of the bare-leg comparison: a small batch, and the
+#: quadrotor's elastic simplex-min QP (nz 65, nc 366), which the CUDA
+#: kernel runs on its large path.  Interpret mode traces the unrolled
+#: nz-step factor and substitutions (~45 s at nz 65 whatever n_iter),
+#: and the f32 gap between two summation orders grows with the
+#: iterations (~1e-5 by the 4th at this size), so the large case runs 3.
+_LEGS = {"small": (10, 8, 20, 4), "quadrotor": (3, 65, 366, 3)}
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ("small", np.float64, 1e-12), ("small", np.float32, 1e-5),
+    ("quadrotor", np.float64, 1e-12), ("quadrotor", np.float32, 1e-5)],
+    ids=["f64", "f32", "quadrotor-f64", "quadrotor-f32"])
+def test_plain_leg_matches_the_pallas_kernel(shape, dtype, tol):
     """ipm_leg_torch against pallas_ipm.solve_tiles (interpret mode) on
     the same equilibrated-free raw QPs and the same start."""
+    K, nz, nc, n_iter = _LEGS[shape]
     rng = np.random.default_rng(3)
-    Q, q, A, b = (a.astype(dtype) for a in _qp_batch(rng, K=10,
+    Q, q, A, b = (a.astype(dtype) for a in _qp_batch(rng, K=K, nz=nz, nc=nc,
                                                      infeasible_every=0))
-    K, nz = q.shape
-    nc = b.shape[1]
     z0 = np.zeros((K, nz), dtype)
     s0 = (np.abs(rng.normal(size=(K, nc))) + 1.0).astype(dtype)
     l0 = np.ones((K, nc), dtype)
-    n_iter = 4
     ref = pallas_ipm.solve_tiles(*map(jnp.asarray, (Q, q, A, b, z0, s0, l0)),
                                  n_iter=n_iter, interpret=True)
     got = ipm_leg.ipm_leg_torch(*_torch((Q, q, A, b, z0, s0, l0)),

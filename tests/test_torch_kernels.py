@@ -45,3 +45,42 @@ def test_library_path_follows_the_source_and_every_header(csrc, name,
     src.write_text(src.read_text() + "\n")
     assert kernels._lib_path(name) not in (before, touched)
 
+
+
+def test_ipm_leg_paths_take_every_shape_up_to_the_ceiling():
+    """Past the warp paths (nz 32, nc 128) the large path takes every
+    shape up to its ceiling, one thread a variable and 227 KB of shared
+    memory a block; the source declares the constants the wrapper
+    holds, and the wrapper refuses past the ceiling before it looks at
+    the device."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    for nz, nc in ((5, 35), (32, 128), (33, 129), (8, 200), (60, 360),
+                   (65, 365), (65, 366)):
+        for itemsize in (4, 8):
+            assert ipm_leg.kernel_takes(nz, nc, itemsize), (nz, nc)
+    assert ipm_leg.large_smem_bytes(65, 366, 8) == 70_672
+    assert max(n for n in range(1, 300)
+               if ipm_leg.kernel_takes(n, 366, 8)) == 188
+    assert not ipm_leg.kernel_takes(189, 366, 8)
+    assert ipm_leg.kernel_takes(256, 10, 4)
+    assert not ipm_leg.kernel_takes(257, 10, 4)
+    with open(os.path.join(kernels.CSRC, "ipm_leg.cu")) as f:
+        src = f.read()
+    for decl in (f"kMaxNz = {ipm_leg.GENERAL_MAX_NZ};",
+                 f"kMaxNc = {ipm_leg.GENERAL_MAX_NC};",
+                 f"kLargeThreads = {ipm_leg.LARGE_THREADS};",
+                 f"kLargeRows = {ipm_leg.LARGE_ROWS};",
+                 f"kMaxSmem = {ipm_leg.MAX_SMEM_BYTES};"):
+        assert decl in src, decl
+
+    def qps(nz, nc):
+        return (torch.zeros(1, nz, nz), torch.zeros(1, nz),
+                torch.zeros(1, nc, nz), torch.zeros(1, nc),
+                torch.zeros(1, nz), torch.ones(1, nc), torch.ones(1, nc))
+    with pytest.raises(ValueError, match="ceiling"):
+        ipm_leg.ipm_leg_cuda(*qps(257, 10), n_iter=2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ipm_leg.ipm_leg_cuda(*qps(65, 366), n_iter=2)
