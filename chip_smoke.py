@@ -25,7 +25,15 @@ the quadrotor's and the satellite's published sub-boxes through the
 build CLI's main() on the card, held to the JAX package's region counts
 and through the point-location kernel to the f64 host evaluator, and
 holds the IPM leg's large path (nz > 32 or nc > 128, the quadrotor's
-QPs) against its plain version.  Any failed phase exits non-zero.  The second-to-last line
+QPs) and its general path (the satellite's nz 24 / nc 96) against their
+plain version.  Phase 15 drives the warm rebuild and the rebuild
+service from phase 3's tree: `main rebuild --from` unchanged and at
+eps_a 9e-3 (held to the JAX package's region counts, the kept leaves'
+payloads bitwise, the tightened table through the point-location kernel
+to the f64 host evaluator), RebuildService over two drift revisions
+hot-swapping a ControllerRegistry under 16 submitting threads (no
+failure, no dropped request, no torn result), and `main serve-rebuild`
+once.  Any failed phase exits non-zero.  The second-to-last line
 of standard output is the kernels JSON object (each kernel's launches,
 error against its plain version, its time, the plain version's time, a
 library yardstick where one exists and the bound the card allows); the
@@ -42,7 +50,11 @@ launches (phase 11), from zero; the ipm_leg entry's "large" object is
 phase 14's: the large path's time, bound and plain time at the
 quadrotor build's most frequent K, its errors against the plain
 version, the timed cells, and the quadrotor build's K1 launches and
-device time against their summed bound.
+device time against their summed bound; its "general" object the
+general path's timed cells and the satellite build's launches on it.
+The "rebuild_*" keys count phase 15's unchanged rebuild (K1: launches,
+device time, summed bound) and its tightened rebuild's online batch
+(locate), from zero.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -201,6 +213,32 @@ K1_LARGE_K = (8, 64, 256)
 #: QPs a call of the plain version at the large shapes (it materializes
 #: K x nc x nz x nz products).
 K1_PLAIN_CHUNK = 128
+#: K1's general path (8 < nz <= 32, nc <= 128; the kernel's dispatch):
+#: the satellite 4c build's point QPs, timed at these K.
+K1_REGISTER_MAX_NZ = 8
+K1_GENERAL_SHAPE = (24, 96)
+K1_GENERAL_K = (64, 1024)
+
+#: Phase 15, the warm rebuild and the rebuild service, from phase 3's
+#: flagship tree.  The references are the JAX package's on the CPU at
+#: today's defaults (warm_rebuild from its own 11,670-region cold build):
+#: the unchanged rebuild 11,674 regions (58 uncertified, 62 leaves
+#: invalidated through knife-edge certificates); the rebuild at eps_a
+#: 9e-3, 13,106 regions; a cold build at 9e-3, 13,177 (printed beside).
+REBUILD_REF_REGIONS = 11674
+REBUILD_TIGHT_EPS = 9e-3
+REBUILD_TIGHT_REF_REGIONS = 13106
+REBUILD_TIGHT_COLD_REGIONS = 13177
+REBUILD_INVALID_MAX_FRAC = 0.01
+#: 15c: drift revisions of the flagship's u_max (a 2% walk) through
+#: RebuildService while SERVICE_CLIENTS threads submit flagship thetas.
+SERVICE_REVISIONS = 2
+SERVICE_CLIENTS = 16
+SERVICE_DRIFT_FRAC = 0.02
+#: 15d: `main serve-rebuild` at the tier-1 double integrator's size.
+SERVE_REBUILD_ARGS = ("-e", "double_integrator", "--problem-arg", "N=3",
+                      "--problem-arg", "theta_box=1.5", "-a", "0.5",
+                      "--batch", "64", "--revisions", "1")
 
 
 def log(*a) -> None:
@@ -1868,23 +1906,18 @@ def other_problems_phase(dev, tmp: str) -> dict:
     K2 to the f64 host evaluator.  Then K1's large path against its
     plain version at the quadrotor's shapes (f64 to 1e-9 relative, f32
     as phase 2), timed by CUDA events.  Returns the kernels line's
-    ipm_leg "large" object."""
-    import contextlib
-    import io
+    ipm_leg "large" object and (general_path_cells) its "general" one."""
     from collections import Counter
 
-    import torch
-
     from explicit_hybrid_mpc_tpu_torch import main as tmain
-    from explicit_hybrid_mpc_tpu_torch.online import locate
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
     from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
     from explicit_hybrid_mpc_tpu_torch.problems.registry import make
 
     t_phase = time.perf_counter()
     on_card = dev.type == "cuda"
-    real = ipm_leg.ipm_leg_cuda
     quad_legs: list = []
+    sat_legs: list = []
     quad_ms = None
     for name, args, ref_regions, artifacts in OTHER_BUILDS:
         out = os.path.join(tmp, name)
@@ -1893,29 +1926,10 @@ def other_problems_phase(dev, tmp: str) -> dict:
             argv += ["--artifacts-out", out + ".artifacts"]
         if not on_card:
             argv += ["--backend", "cpu"]
-        legs: list = []
-        ipm_leg.ipm_leg_cuda = record_legs(real, legs)
-        ipm_leg.launches = locate.launches = 0
-        err = io.StringIO()
-        prof = None
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stderr(err):
-                if on_card and artifacts:
-                    from torch.profiler import ProfilerActivity, profile
-
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        rc = tmain.main(argv)
-                        torch.cuda.synchronize()
-                else:
-                    rc = tmain.main(argv)
-        finally:
-            ipm_leg.ipm_leg_cuda = real
-        wall = time.perf_counter() - t0
-        n_k1, n_k2 = ipm_leg.launches, locate.launches
-        st = json.load(open(out + ".stats.json"))
-        ev = [json.loads(ln)["evaluate"] for ln in err.getvalue().splitlines()
-              if ln.startswith('{"evaluate"')]
+        rc, st, ev, wall, legs, n_k1, n_k2, prof = run_main(
+            argv, on_card, profiled=artifacts)
+        if rc != 0 or ev is None or not ev["u_finite"]:
+            fail(f"{name}: main returned {rc}, evaluate summary {ev}")
         log(f"[other] main {' '.join(args)} --evaluate {OTHER_EVALUATE} on "
             f"{dev}: {wall:.1f} s{' under the profiler' if prof else ''}; "
             f"regions {st['regions']} (reference {ref_regions}), "
@@ -1925,23 +1939,10 @@ def other_problems_phase(dev, tmp: str) -> dict:
             f"{st['truncated']}, device failures {st['device_failures']}, "
             f"degraded {st['device_degraded']}; launches counted from zero: "
             f"ipm_leg {n_k1}, locate {n_k2}")
-        if ev:
-            log(f"[other] {name} online: {ev[0]['queries']} queries over "
-                f"{ev[0]['leaves']} leaves in {1e3 * ev[0]['wall_s']:.2f} ms"
-                f", inside {ev[0]['inside_frac']:.4f}")
-        if rc != 0 or not ev or not ev[0]["u_finite"]:
-            fail(f"{name}: main returned {rc}, evaluate summary {ev}")
-        if st["device_failures"] != 0 or st["device_degraded"] is not False \
-                or st["quarantined_cells"] != 0:
-            fail(f"{name}: the build fell back from the device")
-        if st["truncated"]:
-            fail(f"{name}: the build was truncated")
-        if abs(st["regions"] - ref_regions) > 0.02 * ref_regions:
-            fail(f"{name}: regions {st['regions']} not within 2% of the "
-                 f"reference {ref_regions}")
-        if st["uncertified"] > OTHER_UNCERTIFIED_MAX:
-            fail(f"{name}: uncertified {st['uncertified']} > "
-                 f"{OTHER_UNCERTIFIED_MAX}")
+        log(f"[other] {name} online: {ev['queries']} queries over "
+            f"{ev['leaves']} leaves in {1e3 * ev['wall_s']:.2f} ms, inside "
+            f"{ev['inside_frac']:.4f}")
+        check_build(name, st, ref_regions, OTHER_UNCERTIFIED_MAX)
         if len(legs) != n_k1:
             fail(f"{name}: {len(legs)} K1 launches recorded, {n_k1} counted")
         if on_card and (n_k1 <= 0 or n_k2 <= 0):
@@ -1954,6 +1955,8 @@ def other_problems_phase(dev, tmp: str) -> dict:
             log(f"[legs] {name}: K1 launches of the build, recorded from "
                 "ipm_leg_cuda:")
             leg_histogram(legs)
+        if name == "satellite":
+            sat_legs = legs
         if name == "quadrotor":
             quad_legs = legs
             if on_card and not any(nz > ipm_leg.GENERAL_MAX_NZ
@@ -2037,6 +2040,7 @@ def other_problems_phase(dev, tmp: str) -> dict:
         "on the large path, device time "
         + (f"{quad_ms:.2f} ms" if quad_ms is not None else "not measured")
         + f" against a summed bound of {build_bound:.4f} ms")
+    general = general_path_cells(dev, sat_legs)
     log(f"[other] (phase took {time.perf_counter() - t_phase:.1f} s)")
     return {"nz": cell["nz"], "nc": cell["nc"], "K": cell["K"],
             "n_iter": n_iter, "ms": cell["ms"], "plain_ms": plain_ms,
@@ -2044,7 +2048,385 @@ def other_problems_phase(dev, tmp: str) -> dict:
             "max_rel_err_f64": err64, "max_rel_err_f32": err32,
             "launches": len(quad_legs), "large_launches": n_large,
             "build_ms": quad_ms, "build_bound_ms": build_bound,
-            "cells": timed}
+            "cells": timed}, general
+
+
+def general_path_cells(dev, sat_legs: list) -> dict:
+    """K1's general path (8 < nz <= 32, nc <= 128) at the satellite 4c
+    build's point shape (K1_GENERAL_SHAPE): against its plain version on
+    random QPs (f64 to 1e-9 relative, 4 iterations from the cold start),
+    then ms a launch by CUDA events at K1_GENERAL_K and the build's
+    iteration count for the shape, beside the bound; with the general-path
+    launches the satellite build made (`sat_legs`, recorded in phase 14).
+    Returns the kernels line's ipm_leg "general" object."""
+    from collections import Counter
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    on_card = dev.type == "cuda"
+    nz, nc = K1_GENERAL_SHAPE
+    gen_legs = [x for x in sat_legs if K1_REGISTER_MAX_NZ < x[1]
+                <= ipm_leg.GENERAL_MAX_NZ and x[2] <= ipm_leg.GENERAL_MAX_NC]
+    iters = Counter(it for _k, z, c, it in gen_legs if (z, c) == (nz, nc))
+    n_iter = iters.most_common(1)[0][0] if iters else 18
+    g = np.random.default_rng(SEED + 16)
+    cells, err64 = [], 0.0
+    for K in K1_GENERAL_K:
+        args = random_qps(g, K, nz, nc, dev)
+        e64 = rel_err(ipm_leg.ipm_leg(*args, n_iter=4), plain_leg(args, 4))
+        if not e64 <= 1e-9:
+            fail(f"K1 general path nz={nz} nc={nc} K={K}: f64 differs from "
+                 f"plain by {e64:.2e} (> 1e-9 relative)")
+        err64 = max(err64, e64)
+        nbytes, flops = ipm_leg_cost(K, nz, nc, n_iter, 8)
+        bound = leg_bound_ms(K, nz, nc, n_iter)
+        by = ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F64_S
+              else "operations")
+        ms = (cuda_time(raw_leg(ipm_leg._lib().ipm_leg_f64, args,
+                                n_iter)[0], 20) if on_card else None)
+        cells.append({"K": K, "ms": ms, "bound_ms": bound, "bound_by": by})
+        log(f"[K1-general] nz={nz} nc={nc} K={K} n_iter={n_iter}: f64 vs "
+            f"plain {e64:.2e} (limit 1e-9); kernel "
+            + (f"{ms:.4f} ms a launch = {1e3 * ms / n_iter:.2f} us/iteration, "
+               f"{bound / ms:.4f} of the bound" if ms else "not measured")
+            + f"; bound {bound:.5f} ms ({by})")
+    plain_ms = (cuda_time(lambda: plain_leg(args, n_iter), 2, warmup=1)
+                if on_card else None)
+    shapes = Counter((z, c) for _k, z, c, _it in gen_legs)
+    log(f"[K1-general] the satellite 4c build: {len(gen_legs)} K1 launches "
+        f"on the general path of {len(sat_legs)} (shapes "
+        + ", ".join(f"{k} x{n}" for k, n in sorted(shapes.items()))
+        + f"); plain version at K={K1_GENERAL_K[-1]}: "
+        + (f"{plain_ms:.2f} ms" if plain_ms else "not measured"))
+    return {"nz": nz, "nc": nc, "n_iter": n_iter, "cells": cells,
+            "plain_ms": plain_ms, "max_rel_err_f64": err64,
+            "launches": len(gen_legs)}
+
+
+def run_main(argv: list, on_card: bool, profiled: bool = False):
+    """`python -m explicit_hybrid_mpc_tpu_torch.main ARGV` in process, with
+    K1's and K2's launch counts from zero and K1's launches recorded
+    (and, `profiled` on the card, under torch.profiler): (rc, stats,
+    evaluate summary or None, wall s, K1 launches recorded, K1 count,
+    K2 count, the profiler or None)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.online import locate
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    out = argv[argv.index("-o") + 1]
+    real = ipm_leg.ipm_leg_cuda
+    legs: list = []
+    ipm_leg.ipm_leg_cuda = record_legs(real, legs)
+    ipm_leg.launches = locate.launches = 0
+    err = io.StringIO()
+    prof = None
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            if on_card and profiled:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    rc = tmain.main(argv)
+                    torch.cuda.synchronize()
+            else:
+                rc = tmain.main(argv)
+    finally:
+        ipm_leg.ipm_leg_cuda = real
+    wall = time.perf_counter() - t0
+    n_k1, n_k2 = ipm_leg.launches, locate.launches
+    st = json.load(open(out + ".stats.json")) if rc == 0 else {}
+    ev = [json.loads(ln)["evaluate"] for ln in err.getvalue().splitlines()
+          if ln.startswith('{"evaluate"')]
+    return rc, st, (ev[0] if ev else None), wall, legs, n_k1, n_k2, prof
+
+
+def check_build(name: str, st: dict, ref: int, unc_max: int) -> None:
+    """A build's (or rebuild's) stats against its reference: regions
+    within 2%, uncertified, not truncated, no fallback from the device."""
+    if st["device_failures"] != 0 or st["device_degraded"] is not False \
+            or st["quarantined_cells"] != 0:
+        fail(f"{name}: the build fell back from the device")
+    if st["truncated"]:
+        fail(f"{name}: the build was truncated")
+    if abs(st["regions"] - ref) > 0.02 * ref:
+        fail(f"{name}: regions {st['regions']} not within 2% of the "
+             f"reference {ref}")
+    if st["uncertified"] > unc_max:
+        fail(f"{name}: uncertified {st['uncertified']} > {unc_max}")
+
+
+def rebuild_phase(dev, problem, cfg, res, build_s: float, tmp: str) -> dict:
+    """Phase 15: the warm rebuild and the rebuild service on `dev`, with
+    phase 3's flagship result `res` (`problem` built with `cfg` in
+    `build_s` s) as the prior.
+
+    15a `main rebuild --from PRIOR` at the same eps (under torch.profiler
+    for K1's device time): held to the reference's regions, uncertified,
+    at most 1% of the prior's leaves invalidated, and every leaf whose
+    payload slot the rebuild kept bitwise the prior's.  15b the same at
+    eps_a 9e-3 with --evaluate, its table held through K2 to the f64 host
+    evaluator.  15c RebuildService over SERVICE_REVISIONS drift revisions
+    with a delta publish, hot-swapping a ControllerRegistry on `dev` while
+    SERVICE_CLIENTS threads submit: no failure, no drop, no torn result
+    (each bitwise a fresh load of its version's artifact).  15d `main
+    serve-rebuild` at the tier-1 double integrator's size.  Returns the
+    kernels line's rebuild counts."""
+    import contextlib
+    import io
+    import threading
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.lifecycle import (DriftSource,
+                                                         LifecycleConfig,
+                                                         RebuildService)
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+    from explicit_hybrid_mpc_tpu_torch.serve import registry
+    from explicit_hybrid_mpc_tpu_torch.serve.scheduler import (
+        RequestScheduler)
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    backend = [] if on_card else ["--backend", "cpu"]
+    # The prior's configuration as build flags (the rebuild's -a follows).
+    flags = ["-e", cfg.problem, "--batch", str(cfg.batch_simplices),
+             "--max-depth", str(cfg.max_depth), *backend]
+    for k, v in cfg.problem_args:
+        flags += ["--problem-arg", f"{k}={json.dumps(v)}"]
+    prior_path = os.path.join(tmp, "prior.tree.pkl")
+    res.tree.save(prior_path)
+
+    # -- 15a: the unchanged rebuild --------------------------------------
+    out_a = os.path.join(tmp, "unchanged")
+    rc, st, _ev, wall_a, legs, n_k1, _n_k2, prof = run_main(
+        ["rebuild", *flags, "-a", str(cfg.eps_a), "--from", prior_path,
+         "-o", out_a], on_card, profiled=True)
+    if rc != 0:
+        fail(f"main rebuild returned {rc}")
+    k1_ms = None
+    if prof is not None:
+        rows = [e for e in prof.key_averages()
+                if "ipm_leg" in e.key and e.self_device_time_total]
+        k1_ms = (sum(e.self_device_time_total for e in rows) / 1e3
+                 if rows else None)
+    n_leaves = st["rebuild_leaves_total"]
+    log(f"[rebuild] main rebuild --from the phase-3 tree on {dev} (eps_a "
+        f"{cfg.eps_a:g}, unchanged): {wall_a:.1f} s"
+        f"{' under the profiler' if prof is not None else ''} (phase 3's "
+        f"cold build {build_s:.1f} s); regions {st['regions']} (reference "
+        f"{REBUILD_REF_REGIONS}), uncertified {st['uncertified']}, truncated "
+        f"{st['truncated']}; leaves {n_leaves}: reused "
+        f"{st['rebuild_leaves_reused']}, invalidated "
+        f"{st['rebuild_leaves_invalidated']}, reuse_frac "
+        f"{st['rebuild_reuse_frac']}; recert_solves {st['recert_solves']}, "
+        f"subdivision_solves {st['subdivision_solves']}; sweep "
+        f"{st['sweep_wall_s']} s; provenance changed "
+        f"{st['provenance_changed']}")
+    bound_a = sum(leg_bound_ms(*x) for x in legs)
+    k1_a = n_k1
+    log(f"[rebuild] K1 in the rebuild, counted from zero: {n_k1} launches "
+        f"({len(legs)} recorded), device time "
+        + (f"{k1_ms:.2f} ms" if k1_ms is not None else "not measured")
+        + f" against a summed bound of {bound_a:.4f} ms")
+    if legs:
+        leg_histogram(legs)
+    check_build("unchanged rebuild", st, REBUILD_REF_REGIONS,
+                REF_UNCERTIFIED_MAX)
+    if st["rebuild_leaves_invalidated"] > REBUILD_INVALID_MAX_FRAC * n_leaves:
+        fail(f"unchanged rebuild invalidated "
+             f"{st['rebuild_leaves_invalidated']} of {n_leaves} leaves "
+             f"(> {REBUILD_INVALID_MAX_FRAC:.0%})")
+    if len(legs) != n_k1 or (on_card and n_k1 <= 0):
+        fail(f"unchanged rebuild: {len(legs)} K1 launches recorded, {n_k1} "
+             "counted (the sweep must run through the kernel)")
+    # Kept leaves: a kept leaf keeps its payload slot; an invalidated one
+    # loses it (a re-certified leaf gets a new slot at the end).
+    sa, sb = res.tree.__getstate__(), Tree.load(out_a + ".tree.pkl")\
+        .__getstate__()
+    ids = res.tree.converged_leaf_ids()
+    slot = sa["leaf_slot"][ids]
+    kept = sb["leaf_slot"][ids] == slot
+    ks = slot[kept]
+    same = (np.array_equal(sa["pl_delta"][ks], sb["pl_delta"][ks])
+            and np.array_equal(sa["pl_inputs"][ks], sb["pl_inputs"][ks])
+            and np.array_equal(sa["pl_costs"][ks], sb["pl_costs"][ks])
+            and np.array_equal(sa["leaf_flags"][ids[kept]],
+                               sb["leaf_flags"][ids[kept]]))
+    n_kept = int(kept.sum())
+    n_closed = int(np.sum(sa["children"][:, 0] < 0)) - ids.size
+    log(f"[rebuild] {n_kept} of the prior's {ids.size} payload leaves kept "
+        f"their slot, payloads (delta, inputs, costs, flags) "
+        f"{'bitwise' if same else 'NOT bitwise'} the prior's; with "
+        f"{n_closed} closed-infeasible leaves the rebuild reports "
+        f"{st['rebuild_leaves_reused']} reused")
+    if not same or not (n_kept <= st["rebuild_leaves_reused"]
+                        <= n_kept + n_closed):
+        fail("unchanged rebuild: a kept leaf's payload differs from the "
+             "prior's, or the kept count disagrees with the stats")
+
+    # -- 15b: eps_a 1e-2 -> 9e-3 ------------------------------------------
+    out_b = os.path.join(tmp, "tight")
+    rc, st, ev, wall_b, legs, n_k1, n_k2, _ = run_main(
+        ["rebuild", *flags, "-a", str(REBUILD_TIGHT_EPS), "--from",
+         prior_path, "-o", out_b, "--evaluate", str(QUERIES)], on_card)
+    if rc != 0 or ev is None or not ev["u_finite"]:
+        fail(f"main rebuild -a {REBUILD_TIGHT_EPS}: returned {rc}, "
+             f"evaluate summary {ev}")
+    log(f"[rebuild] main rebuild --from the phase-3 tree -a "
+        f"{REBUILD_TIGHT_EPS} --evaluate {QUERIES} on {dev}: {wall_b:.1f} s; "
+        f"regions {st['regions']} (reference's warm rebuild "
+        f"{REBUILD_TIGHT_REF_REGIONS}, its cold build "
+        f"{REBUILD_TIGHT_COLD_REGIONS}), uncertified {st['uncertified']}, "
+        f"truncated {st['truncated']}; reuse_frac {st['rebuild_reuse_frac']}"
+        f" (reused {st['rebuild_leaves_reused']}, invalidated "
+        f"{st['rebuild_leaves_invalidated']}); recert_solves "
+        f"{st['recert_solves']}, subdivision_solves "
+        f"{st['subdivision_solves']}; launches counted from zero: ipm_leg "
+        f"{n_k1}, locate {n_k2}; online {ev['queries']} queries over "
+        f"{ev['leaves']} leaves in {1e3 * ev['wall_s']:.2f} ms, inside "
+        f"{ev['inside_frac']:.4f}")
+    check_build("eps-tightened rebuild", st, REBUILD_TIGHT_REF_REGIONS,
+                REF_UNCERTIFIED_MAX)
+    if len(legs) != n_k1 or (on_card and (n_k1 <= 0 or n_k2 <= 0)):
+        fail(f"eps-tightened rebuild: a kernel never launched (ipm_leg "
+             f"{n_k1}, {len(legs)} recorded; locate {n_k2})")
+    k2_b = n_k2
+    hold_table(dev, Tree.load(out_b + ".tree.pkl"), problem, SEED + 17,
+               f"rebuild eps {REBUILD_TIGHT_EPS:g}")
+
+    # -- 15c: the service under load ----------------------------------------
+    devices = None if on_card else [torch.device("cpu")]
+    art0 = os.path.join(tmp, "v0")
+    registry.save_artifacts(res.tree, res.roots, art0)
+    reg = registry.ControllerRegistry()
+    reg.load_artifacts("pend", "v0", art0, devices=devices)
+    src = DriftSource(cfg.problem, problem_args=cfg.problem_args,
+                      controller="pend", eps_a=cfg.eps_a, drift_arg="u_max",
+                      drift_frac=SERVICE_DRIFT_FRAC,
+                      n_revisions=SERVICE_REVISIONS, seed=SEED)
+    svc = RebuildService(src, cfg, cfg=LifecycleConfig(
+        artifacts_root=os.path.join(tmp, "lc")), registry=reg,
+        prior={"pend": res})
+    src.gate = (lambda: len(svc.generations) + svc.n_failures
+                >= src.n_emitted)
+    sched = RequestScheduler(reg, "pend", max_batch=MAX_BATCH,
+                             max_wait_us=MAX_WAIT_US)
+    outs, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+    lb, ub = problem.theta_lb, problem.theta_ub
+
+    def client(cid: int) -> None:
+        r = np.random.default_rng(2000 + cid)
+        while not stop.is_set():
+            q = r.uniform(lb, ub)
+            try:
+                (res_k,) = sched.submit(q).result(120.0)
+            except Exception as e:  # noqa: BLE001 -- a drop IS a failure
+                errors.append(repr(e))
+                return
+            with lock:
+                outs.append((q, res_k))
+
+    ipm_leg.launches = 0
+    ts = [threading.Thread(target=client, args=(c,))
+          for c in range(SERVICE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    svc.start()
+    done = svc.wait_idle(timeout=600, target_generations=SERVICE_REVISIONS)
+    time.sleep(0.2)  # the last version serves too
+    stop.set()
+    for t in ts:
+        t.join(120.0)
+    sched.close()
+    svc.close()
+    run_s = time.perf_counter() - t0
+    n_k1 = ipm_leg.launches
+    summ = svc.summary()
+    gens = svc.generations
+    if not done or svc.worker_error is not None or svc.n_failures \
+            or len(gens) != SERVICE_REVISIONS:
+        fail(f"rebuild service: {len(gens)} generations, "
+             f"{svc.n_failures} failures, worker error {svc.worker_error}")
+    if any(t.is_alive() for t in ts) or errors:
+        fail(f"rebuild service: dropped requests {errors[:3]}")
+    dirs = {"v0": art0, **{g["version"]: g["artifact_dir"] for g in gens}}
+    torn = 0
+    for ver in dirs:
+        rows = [(q, r) for q, r in outs if r.version == ver]
+        if not rows:
+            continue
+        ref_reg = registry.ControllerRegistry()
+        ref_reg.load_artifacts("ref", ver, dirs[ver], devices=devices)
+        with ref_reg.lease("ref") as v:
+            ref = v.server.evaluate(np.stack([q for q, _r in rows]))
+        torn += sum(not np.array_equal(r.u, np.asarray(ref.u[j]))
+                    for j, (_q, r) in enumerate(rows))
+    seen = sorted({r.version for _q, r in outs})
+    lat = np.asarray([r.latency_s for _q, r in outs]) * 1e6
+    # A generation's swap: its staleness beyond its rebuild -- the delta
+    # or full publish, the artifact load and the registry's hot swap.
+    swap_ms = np.asarray([g["staleness_s"] - g["rebuild_wall_s"]
+                          for g in gens]) * 1e3
+    for g in gens:
+        log(f"[service]   generation {g['generation']} ({g['note']}): "
+            f"{g['version']} published {g['published']}, regions "
+            f"{g['regions']}, reuse_frac {g['reuse_frac']}, rebuild "
+            f"{g['rebuild_wall_s']} s, staleness {g['staleness_s']} s, "
+            f"subdivision_solves {g['subdivision_solves']}, recert_solves "
+            f"{g['recert_solves']}, bytes: delta {g['delta_bytes']}, full "
+            f"{g['full_bytes']}")
+    log(f"[service] RebuildService on {dev}: {len(gens)} generations, "
+        f"{svc.n_failures} failures in {run_s:.1f} s; staleness p50 "
+        f"{summ['staleness_p50_s']} s, p99 {summ['staleness_p99_s']} s; "
+        f"swap (staleness beyond the rebuild) p50 "
+        f"{np.percentile(swap_ms, 50):.0f} ms, p99 "
+        f"{np.percentile(swap_ms, 99):.0f} ms; "
+        f"delta bytes / full bytes {summ['delta_bytes_frac']}; "
+        f"{SERVICE_CLIENTS} threads, {len(outs)} requests through "
+        f"RequestScheduler(max_batch={MAX_BATCH}) across the swaps: p50 "
+        f"{np.percentile(lat, 50):.0f} us, p99 {np.percentile(lat, 99):.0f} "
+        f"us; versions served {seen}; 0 dropped; {torn} results not bitwise "
+        f"a fresh load of their version's artifact; ipm_leg launches {n_k1}")
+    if torn or seen != sorted(dirs):
+        fail(f"rebuild service: {torn} torn results, versions {seen} of "
+             f"{sorted(dirs)}")
+    if gens[-1]["published"] != "delta" or (on_card and n_k1 <= 0):
+        fail(f"rebuild service: last publish {gens[-1]['published']}, "
+             f"ipm_leg launches {n_k1}")
+
+    # -- 15d: the entry point ----------------------------------------------
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = tmain.main(["serve-rebuild", *SERVE_REBUILD_ARGS,
+                         "--artifacts-root", os.path.join(tmp, "lc_di"),
+                         *backend])
+    lines = out.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1]) if lines else {}
+    log(f"[serve-rebuild] main serve-rebuild {' '.join(SERVE_REBUILD_ARGS)} "
+        f"on {dev}: exit {rc} in {time.perf_counter() - t0:.1f} s; "
+        f"generations {summary.get('generations')}, failures "
+        f"{summary.get('failures')}, full publishes "
+        f"{summary.get('full_publishes')}")
+    if rc != 0 or summary.get("generations") != 1 \
+            or summary.get("failures") != 0:
+        fail(f"main serve-rebuild: exit {rc}, summary {summary}")
+    log(f"[rebuild] (phase took {time.perf_counter() - t_phase:.1f} s)")
+    return {"ipm_leg": {"rebuild_launches": k1_a, "rebuild_ms": k1_ms,
+                        "rebuild_bound_ms": bound_a},
+            "locate": {"rebuild_launches": k2_b}}
 
 
 def main() -> int:
@@ -2563,7 +2945,11 @@ def main() -> int:
 
     # -- phase 14: the other problems' published sub-boxes -----------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
-        k1_large = other_problems_phase(dev, tmp)
+        k1_large, k1_general = other_problems_phase(dev, tmp)
+
+    # -- phase 15: the warm rebuild and the rebuild service ----------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rebuild_") as tmp:
+        reb = rebuild_phase(dev, problem, cfg, res, build_s, tmp)
 
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
@@ -2572,14 +2958,15 @@ def main() -> int:
          "launches": n_k1, "max_abs_err": k1_err, **k1_entry,
          "library_ms": None, "build_ms": build_ms,
          "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
-         "large": k1_large},
+         "large": k1_large, "general": k1_general, **reb["ipm_leg"]},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",
          "launches": n_k2, "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_lib_ms,
-         "splits": k2_splits, "sim_launches": sim["sim_k2"]},
+         "splits": k2_splits, "sim_launches": sim["sim_k2"],
+         **reb["locate"]},
         k3_entry,
     ]}
     log(card)

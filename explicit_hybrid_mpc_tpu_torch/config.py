@@ -73,7 +73,7 @@ class PartitionConfig:
     # Mesh axis size for sharding the solve batch (None = all local devices).
     mesh_devices: Optional[int] = None
     # Profiler trace output directory (None disables).  Not yet ported:
-    # a non-None value raises (ROADMAP A14, torch.profiler capture).
+    # a non-None value raises (ROADMAP A2).
     profile_path: Optional[str] = None
     profile_steps: int = 5
     # IPM precision schedule: 'f64' (every iteration in float64) or
@@ -417,23 +417,21 @@ class PartitionConfig:
 
 
 #: Knobs whose modules wait for later port slices: (field, "is set"
-#: test, ROADMAP item).  Setting one raises instead of silently
-#: building without it.
+#: test, the ROADMAP item and the JAX package's module it waits for).
+#: Setting one raises instead of silently building without it.
 _UNPORTED = (
-    ("prune_rows", bool, "A9: oracle/prune.py"),
-    ("rebuild_from", lambda v: v is not None,
-     "A10: partition/rebuild.py"),
+    ("prune_rows", bool, "A3: oracle/prune.py"),
     ("mesh_devices", lambda v: v is not None,
-     "A11: parallel/mesh.py"),
-    ("shard_frontier", bool, "A11: partition/shard.py"),
-    ("obs_recorder", bool, "A14: obs/recorder.py"),
-    ("recorder_dir", lambda v: v is not None, "A14: obs/recorder.py"),
-    ("health_rules", bool, "A14: obs/health.py"),
-    ("auto_profile", bool, "A14: obs/profiling.py"),
+     "A4: parallel/mesh.py"),
+    ("shard_frontier", bool, "A4: partition/shard.py"),
+    ("obs_recorder", bool, "A5: obs/recorder.py"),
+    ("recorder_dir", lambda v: v is not None, "A5: obs/recorder.py"),
+    ("health_rules", bool, "A5: obs/health.py"),
+    ("auto_profile", bool, "A2: obs/profiling.py"),
     ("profile_path", lambda v: v is not None,
-     "A14: torch.profiler capture"),
+     "A2: the profiler capture of partition/frontier.py"),
     ("recompile_guard", lambda v: v != "off",
-     "A15: analysis/recompile_guard.py"),
+     "A6: analysis/recompile_guard.py"),
 )
 
 
@@ -475,7 +473,7 @@ class ServeConfig:
     # Observability mode/path, same semantics as PartitionConfig.obs.
     obs: str = "off"
     obs_path: Optional[str] = None
-    # Demand telemetry (ROADMAP A14: obs/demand.py).
+    # Demand telemetry (ROADMAP A5: obs/demand.py).
     demand: str = "off"
     demand_max_leaves: int = 4096
     demand_decay_s: float = 300.0
@@ -484,11 +482,11 @@ class ServeConfig:
     demand_subopt_eps: float = 0.0
     demand_snapshot_every_s: float = 30.0
     demand_dir: Optional[str] = None
-    # Request tracing (ROADMAP A14: obs/reqtrace.py).
+    # Request tracing (ROADMAP A2: obs/reqtrace.py).
     tracing: str = "off"
     trace_exemplar_k: int = 8
     trace_window_s: float = 30.0
-    # SLO engine (ROADMAP A14: obs/slo.py).
+    # SLO engine (ROADMAP A5: obs/slo.py).
     slo: str = "off"
     slo_goal: float = 0.999
     slo_p99_target_us: float = 50_000.0
@@ -529,14 +527,15 @@ class ServeConfig:
 
 
 #: Serving knobs whose modules wait for later port slices: (field,
-#: ROADMAP item).  Any value other than the default raises.
+#: the ROADMAP item and the JAX package's module it waits for).  Any
+#: value other than the default raises.
 _SERVE_UNPORTED = tuple(
-    [(f, "A14: obs/demand.py") for f in (
+    [(f, "A5: obs/demand.py") for f in (
         "demand", "demand_max_leaves", "demand_decay_s",
         "demand_reservoir", "demand_subopt_frac", "demand_subopt_eps",
         "demand_snapshot_every_s", "demand_dir")]
-    + [(f, "A14: obs/reqtrace.py") for f in (
+    + [(f, "A2: obs/reqtrace.py") for f in (
         "tracing", "trace_exemplar_k", "trace_window_s")]
-    + [(f, "A14: obs/slo.py") for f in (
+    + [(f, "A5: obs/slo.py") for f in (
         "slo", "slo_goal", "slo_p99_target_us", "slo_interval_s",
         "slo_dir")])

@@ -1,5 +1,5 @@
-"""CLI entry point of the torch port: the offline partition build, and
-the ``serve`` subcommand.
+"""CLI entry point of the torch port: the offline partition build, the
+warm ``rebuild``, and the ``serve`` and ``serve-rebuild`` subcommands.
 
     python -m explicit_hybrid_mpc_tpu_torch.main -e inverted_pendulum \\
         -a 1e-2 --batch 256 -o build/pend --evaluate 65536 \\
@@ -9,11 +9,18 @@ the ``serve`` subcommand.
         --problem-arg vel_box=0.2 -o build/quad --checkpoint-every 5
     python -m explicit_hybrid_mpc_tpu_torch.main -e quadrotor \\
         -o build/quad2 --resume build/quad.ckpt.pkl
+    python -m explicit_hybrid_mpc_tpu_torch.main rebuild \\
+        --from build/pend.tree.pkl -e inverted_pendulum -a 9e-3 \\
+        -o build/pend2
     python -m explicit_hybrid_mpc_tpu_torch.main serve \\
         --artifacts build/pend.artifacts --selftest 4096
+    python -m explicit_hybrid_mpc_tpu_torch.main serve-rebuild \\
+        -e double_integrator --problem-arg N=3 --revisions 1 \\
+        --artifacts-root build/lc
 
 Runs on the first CUDA device unless ``--backend cpu`` is given (the
-serve subcommand likewise: serve/cli.py).  The build flags are the JAX
+serve and serve-rebuild subcommands likewise: serve/cli.py,
+lifecycle/cli.py).  The build flags are the JAX
 package's, with its defaults and its tolerance rule (``-a`` defaults to
 1e-2, or to 0 when ``-r`` is given); ``config_from_args`` maps them to
 the PartitionConfig.  Outputs under --output PREFIX: PREFIX.tree.pkl
@@ -24,15 +31,19 @@ solver settings, this run's budget and output paths).  ``--evaluate N``
 then exports the leaf table, stages it on the build's device and
 evaluates the controller at N sampled thetas through the
 point-location kernel, printing the evaluation summary.
-``--artifacts-out DIR`` exports the tree as a serving artifact
-directory (the ``serve --artifacts`` input).  ``--simulate T`` runs a
-T-step closed-loop explicit-vs-implicit comparison on the build's
+``rebuild --from PRIOR`` (or ``--rebuild-from PRIOR`` on the build
+surface) is the incremental warm rebuild of partition/rebuild.py: the
+prior .tree.pkl or .ckpt.pkl is transferred, its leaves re-certified
+against this problem and eps, and only what the revision invalidated
+is subdivided; ``--strict-provenance`` refuses a prior without a
+provenance stamp.  ``--artifacts-out DIR`` exports the tree as a
+serving artifact directory (the ``serve --artifacts`` input).
+``--simulate T`` runs a T-step closed-loop explicit-vs-implicit comparison on the build's
 device (the explicit controller through the point-location kernel,
 the implicit one through the oracle) and writes PREFIX.sim.json.
 
-The JAX package's other surfaces (the serve-rebuild and rebuild
-subcommands, and the flags in _UNPORTED_FLAGS) exit with "not yet
-ported" and the ROADMAP item that brings them.
+The JAX package's flags in _UNPORTED_FLAGS exit with "not yet ported"
+and the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -44,27 +55,22 @@ import os
 import sys
 import time
 
-_UNPORTED_COMMANDS = ("serve-rebuild", "rebuild")
-
 #: Build flags of the JAX package whose modules are not ported yet:
-#: flag -> the ROADMAP item that brings it.
+#: flag -> the ROADMAP item and the JAX package's module it waits for.
 _UNPORTED_FLAGS = {
-    "--mesh": "A7 (parallel/mesh.py)",
-    "--prune-rows": "A4 (oracle/prune.py)",
-    "--shard-frontier": "A7 (partition/shard.py)",
-    "--shard-dir": "A7 (partition/shard.py)",
-    "--shard-timeout": "A7 (partition/shard.py)",
-    "--rebuild-from": "A5 (partition/rebuild.py)",
-    "--from": "A5 (partition/rebuild.py)",
-    "--strict-provenance": "A5 (partition/rebuild.py)",
-    "--profile": "A3 (torch.profiler capture)",
-    "--profile-steps": "A3 (torch.profiler capture)",
-    "--auto-profile": "A3 (obs/profiling.py)",
-    "--recorder": "A8 (obs/recorder.py)",
-    "--recorder-dir": "A8 (obs/recorder.py)",
-    "--health-rule": "A8 (obs/health.py)",
-    "--obs-per-process": "A8 (obs/fleet.py)",
-    "--recompile-guard": "A9 (recompile guard)",
+    "--mesh": "A4 (parallel/mesh.py)",
+    "--prune-rows": "A3 (oracle/prune.py)",
+    "--shard-frontier": "A4 (partition/shard.py)",
+    "--shard-dir": "A4 (partition/shard.py)",
+    "--shard-timeout": "A4 (partition/shard.py)",
+    "--profile": "A2 (the profiler capture of partition/frontier.py)",
+    "--profile-steps": "A2 (the profiler capture of partition/frontier.py)",
+    "--auto-profile": "A2 (obs/profiling.py)",
+    "--recorder": "A5 (obs/recorder.py)",
+    "--recorder-dir": "A5 (obs/recorder.py)",
+    "--health-rule": "A5 (obs/health.py)",
+    "--obs-per-process": "A5 (obs/fleet.py)",
+    "--recompile-guard": "A6 (analysis/recompile_guard.py)",
 }
 
 #: PartitionConfig fields that belong to one run, not to the partition
@@ -159,6 +165,18 @@ def build_parser() -> argparse.ArgumentParser:
                    "K steps")
     p.add_argument("--resume", metavar="CKPT",
                    help="resume a build from a checkpoint file")
+    p.add_argument("--rebuild-from", "--from", dest="rebuild_from",
+                   metavar="PRIOR", default=None,
+                   help="incremental warm rebuild (partition/rebuild.py"
+                        "): transfer PRIOR (.tree.pkl or .ckpt.pkl), "
+                        "bulk re-certify its leaves against THIS "
+                        "problem/eps, and subdivide only what the "
+                        "revision invalidated (the `rebuild` "
+                        "subcommand implies this flag)")
+    p.add_argument("--strict-provenance", action="store_true",
+                   help="refuse rebuild priors without a provenance "
+                        "stamp (legacy artifacts otherwise shim with a "
+                        "stats note)")
     p.add_argument("--solve-timeout", type=float, default=None,
                    metavar="S", help="watchdog timeout per oracle "
                    "attempt (faults/policy.py)")
@@ -247,6 +265,8 @@ def config_from_args(args: argparse.Namespace):
                   if args.obs != "off" else None),
         solve_timeout_s=args.solve_timeout,
         fault_plan=args.fault_plan,
+        rebuild_from=args.rebuild_from,
+        rebuild_strict_provenance=args.strict_provenance,
         async_certify=args.async_certify)
 
 
@@ -301,14 +321,31 @@ def main(argv: list[str] | None = None) -> int:
         from explicit_hybrid_mpc_tpu_torch.serve.cli import serve_main
 
         return serve_main(argv[1:])
-    if argv and argv[0] in _UNPORTED_COMMANDS:
-        raise SystemExit(f"{argv[0]}: not yet ported to the torch package "
-                         "(see ROADMAP.md)")
+    if argv and argv[0] == "serve-rebuild":
+        # The continuous rebuild daemon dispatches the same way: its
+        # flags are service-scoped, not the build parser's.
+        from explicit_hybrid_mpc_tpu_torch.lifecycle.cli import (
+            serve_rebuild_main)
+
+        return serve_rebuild_main(argv[1:])
+    # `rebuild` is sugar over the build surface: same parser, --from
+    # required.
+    rebuild_cmd = bool(argv) and argv[0] == "rebuild"
+    if rebuild_cmd:
+        argv = argv[1:]
     for flag, item in _UNPORTED_FLAGS.items():
         if any(a == flag or a.startswith(flag + "=") for a in argv):
             raise SystemExit(f"{flag}: not yet ported to the torch package "
                              f"(ROADMAP {item})")
     args = build_parser().parse_args(argv)
+    if rebuild_cmd and not args.rebuild_from:
+        raise SystemExit("rebuild: --from PRIOR (a .tree.pkl or "
+                         ".ckpt.pkl) is required")
+    if args.rebuild_from and args.resume:
+        raise SystemExit("--rebuild-from and --resume are exclusive: "
+                         "resume continues ONE build mid-flight, "
+                         "rebuild starts a NEW build from a prior "
+                         "tree's certificates")
 
     from explicit_hybrid_mpc_tpu_torch.problems.registry import make, names
     if args.list:
@@ -332,10 +369,22 @@ def main(argv: list[str] | None = None) -> int:
     oracle = make_oracle(problem, cfg)
     log = RunLog(cfg.log_path, echo=True)
     if snapshot is not None:
-        eng = FrontierEngine.resume(snapshot, problem, oracle, log, cfg=cfg)
+        res = FrontierEngine.resume(snapshot, problem, oracle, log,
+                                    cfg=cfg).run()
+    elif cfg.rebuild_from:
+        from explicit_hybrid_mpc_tpu_torch.partition.provenance import (
+            ProvenanceMismatch)
+        from explicit_hybrid_mpc_tpu_torch.partition.rebuild import (
+            RebuildError, warm_rebuild)
+
+        try:
+            res = warm_rebuild(
+                problem, cfg, cfg.rebuild_from, oracle=oracle, log=log,
+                strict_provenance=cfg.rebuild_strict_provenance)
+        except (RebuildError, ProvenanceMismatch) as e:
+            raise SystemExit(f"rebuild: {e}")
     else:
-        eng = FrontierEngine(problem, oracle, cfg, log)
-    res = eng.run()
+        res = FrontierEngine(problem, oracle, cfg, log).run()
     res.tree.save(f"{prefix}.tree.pkl")
     with open(f"{prefix}.stats.json", "w") as f:
         json.dump(res.stats, f, indent=2)

@@ -21,7 +21,7 @@ Instrumented layers: partition/frontier.py (per-step throughput,
 device_frac, backlog), oracle/oracle.py (solve-time histograms, IPM
 iteration counters).  The
 diagnostics built on top in the JAX package (flight recorder, health
-watchdog, SLO engine, fleet merging) are not yet ported (ROADMAP A14).
+watchdog, SLO engine, fleet merging) are not yet ported (ROADMAP A2/A5).
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ class Obs:
             if path and per_process:
                 raise NotImplementedError(
                     "per-process obs streams are not yet ported to the "
-                    "torch package (ROADMAP A14: obs/fleet.py)")
+                    "torch package (ROADMAP A5: obs/fleet.py)")
             self.sink = JsonlSink(path, echo=echo, base_t=base_t,
                                   schema_meta=True)
             self.metrics = MetricsRegistry()

@@ -8,7 +8,7 @@ merged on ``t`` alone.  The identity record every schema-v2 sink
 stamps (obs/sink.py) therefore carries a **clock anchor**: the wall
 clock (``time.time``) and the stream's own ``t``, captured at the same
 instant, so fleet tooling can map any record's stream time onto a
-shared wall axis (the merging itself is not yet ported, ROADMAP A14).
+shared wall axis (the merging itself is not yet ported, ROADMAP A5).
 
 Caveat the reader must keep in mind: wall clocks across HOSTS agree
 only as well as NTP does (typically ms, occasionally worse).  Within

@@ -358,11 +358,11 @@ class Oracle:
         if backend == "serial":
             raise NotImplementedError(
                 "backend='serial' is not yet ported to the torch package "
-                "(ROADMAP A9: oracle/bnb.py serial baseline)")
+                "(ROADMAP A1: oracle/bnb.py serial baseline)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded oracles are not yet ported to the torch "
-                "package (ROADMAP A11: parallel/mesh.py)")
+                "package (ROADMAP A4: parallel/mesh.py)")
         if backend not in ("cuda", "cpu"):
             raise ValueError(f"unknown backend {backend!r}")
         self.problem = problem

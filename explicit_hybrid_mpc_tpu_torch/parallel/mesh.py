@@ -2,7 +2,7 @@
 
 The counterpart of the JAX package's parallel/mesh.py, reduced to the
 one function the serving path needs.  The solve mesh (the batched
-oracle sharded over devices) is ROADMAP A11 and is not here.
+oracle sharded over devices) is ROADMAP A4 and is not here.
 """
 
 from __future__ import annotations

@@ -250,7 +250,7 @@ class FrontierEngine:
                       geometry.box_triangulation(
                           problem.theta_lb, problem.theta_ub,
                           getattr(problem, "root_splits", None))]
-        # Pod-scale sharded frontier: not yet ported (ROADMAP A11;
+        # Pod-scale sharded frontier: not yet ported (ROADMAP A4;
         # PartitionConfig rejects shard_frontier).  Every shard hook
         # below is a None-test.
         self._shard = None
@@ -356,7 +356,7 @@ class FrontierEngine:
         # checkpoints too (a slow checkpoint is not a stall).
         self._last_step_end: float | None = None
         # The flight recorder, in-build health monitor, auto-profiler
-        # and recompile sentinel are not yet ported (ROADMAP A14/A15;
+        # and recompile sentinel are not yet ported (ROADMAP A2/A5/A6;
         # PartitionConfig rejects their knobs): every hook below is a
         # None-test.
         self.recorder = None
@@ -1458,7 +1458,8 @@ class FrontierEngine:
         if self.cfg.profile_path:
             raise NotImplementedError(
                 "profile_path is not yet ported to the torch package "
-                "(ROADMAP A14: torch.profiler capture)")
+                "(ROADMAP A2: the profiler capture of "
+                "partition/frontier.py)")
         try:
             while self.frontier and self.steps < self.cfg.max_steps:
                 if (budget is not None
@@ -1879,8 +1880,21 @@ def build_partition(problem, cfg: PartitionConfig,
                     oracle: Oracle | None = None,
                     obs: "obs_lib.Obs | None" = None) -> PartitionResult:
     """One-call offline build: problem + config -> certified partition.
-    Runs on cfg.backend's device ('cuda' by default)."""
+    Runs on cfg.backend's device ('cuda' by default).
+
+    cfg.rebuild_from routes through the incremental warm rebuild
+    (partition/rebuild.py): the named prior tree/checkpoint is
+    transferred, bulk re-certified, and only invalidated leaves are
+    re-subdivided -- same result contract, fraction of the solves."""
     if oracle is None:
         oracle = make_oracle(problem, cfg)
+    if cfg.rebuild_from:
+        from explicit_hybrid_mpc_tpu_torch.partition.rebuild import (
+            warm_rebuild)
+
+        return warm_rebuild(
+            problem, cfg, cfg.rebuild_from, oracle=oracle, obs=obs,
+            log=RunLog(cfg.log_path, echo=False),
+            strict_provenance=cfg.rebuild_strict_provenance)
     log = RunLog(cfg.log_path, echo=False)
     return FrontierEngine(problem, oracle, cfg, log, obs=obs).run()

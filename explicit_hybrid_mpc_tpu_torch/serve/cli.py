@@ -71,7 +71,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--obs-path", metavar="FILE", default=None)
     p.add_argument("--demand", choices=("off", "on"), default="off",
                    help="demand telemetry (not yet ported: 'on' raises, "
-                        "ROADMAP A14)")
+                        "ROADMAP A5: obs/demand.py)")
     p.add_argument("--demand-dir", metavar="DIR", default=None,
                    help="demand snapshot root (not yet ported)")
     p.add_argument("--selftest", type=int, default=0, metavar="N",

@@ -24,7 +24,7 @@ serve/scheduler.py:
 - ``ArenaScheduler`` serves every tenant of a ``DeviceArena`` from one
   queue, one fused kernel launch per mixed-tenant micro-batch.
 
-Demand capture, request tracing and SLO tracking (ROADMAP A14) are not
+Demand capture, request tracing and SLO tracking (ROADMAP A5/A2) are not
 ported: their hooks accept only None.
 
 Observability: per-controller ``serve.ctl.<name>.*`` metrics (the
@@ -156,12 +156,18 @@ class _Pending:
         self.done = 0
 
 
+#: Scheduler hooks whose modules wait for later port slices: hook ->
+#: the ROADMAP item and the JAX package's module it waits for.
+_HOOK_ITEMS = {"demand": "A5: obs/demand.py", "trace": "A2: obs/reqtrace.py",
+               "slo": "A5: obs/slo.py"}
+
+
 def _unported(cls: str, **hooks) -> None:
     for name, hub in hooks.items():
         if hub is not None:
             raise NotImplementedError(
                 f"{cls}({name}=...) is not yet ported to the "
-                "torch package (ROADMAP A14)")
+                f"torch package (ROADMAP {_HOOK_ITEMS[name]})")
 
 
 class _MicroBatcher:

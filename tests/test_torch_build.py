@@ -131,8 +131,10 @@ def test_cli_builds_and_evaluates_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve-rebuild", "--revisions", "3"], ["rebuild", "--from", "x"],
-    ["serve-rebuild"], ["-e", "double_integrator", "--prune-rows"],
+    ["-e", "double_integrator", "--shard-frontier"],
+    ["-e", "double_integrator", "--profile", "x"],
+    ["-e", "double_integrator", "--health-rule", "stall_s=1"],
+    ["-e", "double_integrator", "--prune-rows"],
     ["-e", "double_integrator", "--mesh", "2"],
     ["-e", "double_integrator", "--recorder-dir=x"]])
 def test_cli_unported_surfaces_exit(argv):

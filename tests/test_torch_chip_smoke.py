@@ -308,17 +308,26 @@ def test_other_problems_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
                        "--problem-arg", "axes=1", "--problem-arg", "N=2"),
          33, False))
     for k, v in dict(OTHER_BUILDS=builds, OTHER_EVALUATE=512, OTHER_HOLD=256,
-                     K1_LARGE_SHAPES=((33, 129),), K1_LARGE_K=(2,)).items():
+                     K1_LARGE_SHAPES=((33, 129),), K1_LARGE_K=(2,),
+                     K1_GENERAL_SHAPE=(12, 40), K1_GENERAL_K=(2, 3)).items():
         monkeypatch.setattr(chip_smoke, k, v)
-    large = chip_smoke.other_problems_phase(torch.device("cpu"),
-                                            str(tmp_path))
+    large, general = chip_smoke.other_problems_phase(torch.device("cpu"),
+                                                     str(tmp_path))
     out = capsys.readouterr().out
     assert "FAIL" not in out
     for tag in ("[other] main -e quadrotor", "regions 16 (reference 16)",
                 "regions 33 (reference 33)",
                 "[other] satellite: K2 (p=2, 33 leaves)",
-                "[K1-large] nz=33 nc=129 K=2"):
+                "[K1-large] nz=33 nc=129 K=2",
+                "[K1-general] nz=12 nc=40 K=3 n_iter=18",
+                "[K1-general] the satellite 4c build: 0 K1 launches"):
         assert tag in out, tag
+    assert set(general) == {"nz", "nc", "n_iter", "cells", "plain_ms",
+                            "max_rel_err_f64", "launches"}
+    assert [c["K"] for c in general["cells"]] == [2, 3]
+    assert general["cells"][0]["ms"] is None and general["launches"] == 0
+    assert general["cells"][1]["bound_ms"] == pytest.approx(
+        chip_smoke.leg_bound_ms(3, 12, 40, 18))
     assert os.path.exists(str(tmp_path / "quadrotor.artifacts"))
     assert set(large) == {"nz", "nc", "K", "n_iter", "ms", "plain_ms",
                           "bound_ms", "bound_by", "max_rel_err_f64",
@@ -355,3 +364,67 @@ def test_plain_leg_in_chunks_is_the_whole_batch(monkeypatch):
     for a, b in zip(chip_smoke.plain_leg(args, 3), whole):
         assert a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def test_rebuild_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 15 on the CPU from a small pendulum prior (eps_a 0.5, the
+    tightened rebuild at 0.4; the port's CPU counts are the references):
+    `main rebuild` unchanged and tightened, the tightened table held to
+    the f64 host evaluator, the rebuild service over two drift revisions
+    under 3 submitting threads with the torn-result audit, and `main
+    serve-rebuild`."""
+    import dataclasses
+
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    problem = make("inverted_pendulum", N=2)
+    cfg = PartitionConfig(problem="inverted_pendulum",
+                          problem_args=(("N", 2),), eps_a=0.5,
+                          backend="cpu", batch_simplices=64, max_depth=14)
+    res = build_partition(problem, cfg)
+    same = warm_rebuild(problem, cfg, res.tree).stats["regions"]
+    tight = warm_rebuild(problem, dataclasses.replace(cfg, eps_a=0.4),
+                         res.tree).stats["regions"]
+    for k, v in dict(REBUILD_REF_REGIONS=same, REBUILD_TIGHT_EPS=0.4,
+                     REBUILD_TIGHT_REF_REGIONS=tight, QUERIES=512,
+                     OTHER_HOLD=256, SERVICE_CLIENTS=3,
+                     MAX_BATCH=64).items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    out = chip_smoke.rebuild_phase(torch.device("cpu"), problem, cfg, res,
+                                   1.0, str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in (f"regions {same} (reference {same})",
+                f"regions {tight} (reference's warm rebuild {tight}",
+                "payloads (delta, inputs, costs, flags) bitwise",
+                "[other] rebuild eps 0.4: K2",
+                "[service] RebuildService on cpu: 2 generations, 0 failures",
+                "0 dropped; 0 results not bitwise",
+                "[serve-rebuild] main serve-rebuild", "exit 0"):
+        assert tag in log, tag
+    # On the CPU nothing launches and no device time is measured.
+    assert out == {"ipm_leg": {"rebuild_launches": 0, "rebuild_ms": None,
+                               "rebuild_bound_ms": 0.0},
+                   "locate": {"rebuild_launches": 0}}
+
+
+def test_a_wrong_rebuild_reference_fails_the_phase(tmp_path, monkeypatch):
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    problem = make("double_integrator", N=3, theta_box=1.5)
+    cfg = PartitionConfig(problem="double_integrator",
+                          problem_args=(("N", 3), ("theta_box", 1.5)),
+                          eps_a=0.5, backend="cpu", batch_simplices=64)
+    res = build_partition(problem, cfg)
+    monkeypatch.setattr(chip_smoke, "REBUILD_REF_REGIONS",
+                        2 * res.stats["regions"])
+    with pytest.raises(SystemExit):
+        chip_smoke.rebuild_phase(torch.device("cpu"), problem, cfg, res,
+                                 1.0, str(tmp_path))

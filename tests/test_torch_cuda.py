@@ -763,3 +763,128 @@ def test_fallback_oracle_resolve_on_the_card(gpu):
     np.testing.assert_allclose(
         got.u[1:], ref.u0[np.arange(2), ref.dstar], atol=1e-6)
     np.testing.assert_allclose(got.cost[1:], ref.Vstar, rtol=1e-6)
+
+
+# -- the warm rebuild and the rebuild service on the card ---------------------
+
+_DI_ARGS = (("N", 3), ("theta_box", 1.5))
+
+
+def _di_cfg(backend, eps_a=0.3):
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+
+    return PartitionConfig(problem="double_integrator",
+                           problem_args=_DI_ARGS, eps_a=eps_a,
+                           backend=backend, batch_simplices=128)
+
+
+def test_unchanged_rebuild_on_the_card_is_the_prior(gpu):
+    """The tier-1 fixture of the rebuild tests, on the card: the sweep's
+    oracle queries launch the IPM leg kernel, and the unchanged rebuild
+    is bitwise its prior with no subdivision solve."""
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
+
+    problem = make("double_integrator", **dict(_DI_ARGS))
+    prior = build_partition(problem, _di_cfg("cuda"))
+    before = ipm_leg.launches
+    res = warm_rebuild(problem, _di_cfg("cuda"), prior.tree)
+    assert ipm_leg.launches > before
+    st = res.stats
+    assert st["subdivision_solves"] == 0 and st["recert_solves"] > 0
+    assert st["rebuild_reuse_frac"] == 1.0 and st["device_failures"] == 0
+    a, b = prior.tree.__getstate__(), res.tree.__getstate__()
+    for k in a:
+        if k != "provenance":
+            va, vb = a[k], b[k]
+            assert (np.array_equal(va, vb) if isinstance(va, np.ndarray)
+                    else va == vb), k
+
+
+def test_tightened_rebuild_on_the_card_is_the_cpu_rebuild(gpu):
+    """eps_a 0.3 -> 0.15 from the same fixture: the card's rebuilt tree
+    is node-for-node the port's CPU rebuild (which test_torch_rebuild.py
+    holds to the JAX package)."""
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
+
+    problem = make("double_integrator", **dict(_DI_ARGS))
+    res = {}
+    for backend in ("cuda", "cpu"):
+        prior = build_partition(problem, _di_cfg(backend))
+        res[backend] = warm_rebuild(problem, _di_cfg(backend, 0.15),
+                                    prior.tree)
+    for k in ("regions", "uncertified", "subdivision_solves",
+              "recert_solves", "rebuild_reuse_frac"):
+        assert res["cuda"].stats[k] == res["cpu"].stats[k], k
+    assert res["cuda"].stats["device_failures"] == 0
+    assert _tree_signature(res["cuda"]) == _tree_signature(res["cpu"])
+
+
+def test_rebuild_service_on_the_card_swaps_under_load(gpu, tmp_path):
+    """RebuildService with the build and the registry on the card: two
+    drift generations (full, then delta) swap in while 4 threads submit;
+    0 failures, 0 dropped, 0 torn (every result bitwise equal to a fresh
+    load of its version's artifact on the card)."""
+    import threading
+
+    from explicit_hybrid_mpc_tpu_torch.lifecycle import (DriftSource,
+                                                         LifecycleConfig,
+                                                         RebuildService)
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.serve.registry import (
+        ControllerRegistry)
+    from explicit_hybrid_mpc_tpu_torch.serve.scheduler import (
+        RequestScheduler)
+
+    cfg = _di_cfg("cuda")
+    prior = build_partition(make("double_integrator", **dict(_DI_ARGS)), cfg)
+    reg = ControllerRegistry()
+    src = DriftSource("double_integrator", problem_args=_DI_ARGS,
+                      controller="di", eps_a=0.3, drift_arg="u_max",
+                      drift_frac=0.05, n_revisions=2, seed=5)
+    svc = RebuildService(src, cfg, cfg=LifecycleConfig(
+        artifacts_root=str(tmp_path)), registry=reg, prior={"di": prior})
+    src.gate = (lambda: len(svc.generations) + svc.n_failures
+                >= src.n_emitted)
+    svc.start()
+    assert svc.wait_idle(timeout=300, target_generations=1)
+    sched = RequestScheduler(reg, "di", max_batch=32)
+    served, dropped = [], []
+    stop = threading.Event()
+
+    def load(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            th = rng.uniform(-1.4, 1.4, size=(4, 2))
+            try:
+                served.extend(zip(th, sched.submit_batch(th).result(30)))
+            except Exception as e:  # noqa: BLE001 -- a drop IS the verdict
+                dropped.append(e)
+
+    threads = [threading.Thread(target=load, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    assert svc.wait_idle(timeout=300, target_generations=2)
+    stop.set()
+    for t in threads:
+        t.join(60)
+        assert not t.is_alive()
+    sched.close()
+    svc.close()
+    assert svc.n_failures == 0 and not dropped and served
+    assert [g["published"] for g in svc.generations] == ["full", "delta"]
+    dirs = {g["version"]: g["artifact_dir"] for g in svc.generations}
+    torn = 0
+    for ver in {r.version for _th, r in served}:
+        rows = [(th, r) for th, r in served if r.version == ver]
+        ref_reg = ControllerRegistry()
+        ref_reg.load_artifacts("ref", ver, dirs[ver])
+        with ref_reg.lease("ref") as v:
+            ref = v.server.evaluate(np.stack([th for th, _ in rows]))
+        torn += sum(not np.array_equal(r.u, np.asarray(ref.u[j]))
+                    for j, (_th, r) in enumerate(rows) if r.fallback is None)
+    assert torn == 0

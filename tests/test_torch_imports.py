@@ -56,6 +56,8 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "problems.mass_spring",
                                  "problems.satellite",
                                  "problems.satellite_soc",
-                                 "problems.quadrotor"])
+                                 "problems.quadrotor",
+                                 "partition.rebuild", "lifecycle.revision",
+                                 "lifecycle.service", "lifecycle.cli"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

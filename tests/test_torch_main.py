@@ -48,6 +48,9 @@ ARGVS = {
     "recovery": [*_DI, "--obs", "jsonl", "--solve-timeout", "30",
                  "--fault-plan", "plan.json"],
     "obs_path": [*_DI, "--obs", "full", "--obs-path", "x.obs.jsonl"],
+    "rebuild_from": [*_DI, "--rebuild-from", "prior.tree.pkl",
+                     "--strict-provenance"],
+    "from_alias": [*_DI, "-a", "9e-3", "--from", "prior.ckpt.pkl"],
 }
 
 

@@ -163,7 +163,7 @@ def test_config_defaults_match_the_reference_except_backend():
 
 @pytest.mark.parametrize("field,value", [
     ("prune_rows", True), ("shard_frontier", True),
-    ("rebuild_from", "prior.tree.pkl"), ("obs_recorder", True),
+    ("recompile_guard", "raise"), ("obs_recorder", True),
     ("recorder_dir", "repro"), ("health_rules", (("stall_s", 1.0),)),
     ("auto_profile", True), ("recompile_guard", "warn"),
     ("profile_path", "trace"), ("mesh_devices", 2)])

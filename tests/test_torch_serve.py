@@ -500,8 +500,10 @@ def test_arena_scheduler_validation_and_unported_hooks(rng):
         ArenaScheduler(arena, max_batch=48)
     with pytest.raises(ValueError):
         ArenaScheduler(arena, max_wait_us=0.0)
-    for hook in ("demand", "trace", "slo"):
-        with pytest.raises(NotImplementedError, match="A14"):
+    for hook, item in (("demand", "A5: obs/demand.py"),
+                       ("trace", "A2: obs/reqtrace.py"),
+                       ("slo", "A5: obs/slo.py")):
+        with pytest.raises(NotImplementedError, match=item):
             ArenaScheduler(arena, **{hook: object()})
 
 
@@ -639,9 +641,10 @@ def test_serve_config_has_the_jax_fields_and_checks():
             config.ServeConfig(**bad)
         with pytest.raises(ValueError):
             jconfig.ServeConfig(**bad)
-    for knob, val, item in (("demand", "on", "A14"), ("tracing", "on", "A14"),
-                            ("slo", "on", "A14"),
-                            ("trace_exemplar_k", 4, "A14")):
+    for knob, val, item in (("demand", "on", "A5: obs/demand.py"),
+                            ("tracing", "on", "A2: obs/reqtrace.py"),
+                            ("slo", "on", "A5: obs/slo.py"),
+                            ("trace_exemplar_k", 4, "A2: obs/reqtrace.py")):
         jconfig.ServeConfig(**{knob: val})
         with pytest.raises(NotImplementedError, match=item):
             config.ServeConfig(**{knob: val})
@@ -777,8 +780,10 @@ def test_request_scheduler_validation_and_unported_hooks(servers, rng):
         RequestScheduler(reg, "c", max_batch=48)
     with pytest.raises(ValueError):
         RequestScheduler(reg, "c", max_wait_us=0.0)
-    for hook in ("demand", "trace", "slo"):
-        with pytest.raises(NotImplementedError, match="A14"):
+    for hook, item in (("demand", "A5: obs/demand.py"),
+                       ("trace", "A2: obs/reqtrace.py"),
+                       ("slo", "A5: obs/slo.py")):
+        with pytest.raises(NotImplementedError, match=item):
             RequestScheduler(reg, "c", **{hook: object()})
     # A wrong-width submission raises on its submitter and never poisons
     # the co-batched healthy rows.
@@ -1142,7 +1147,7 @@ def test_serve_cli_defaults_to_the_gpu(jax_artifacts):
         ["--artifacts", "x"]).backend == "cuda"
     with pytest.raises(SystemExit, match="--backend cpu"):
         serve_main(["--artifacts", jax_artifacts, "--selftest", "4"])
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A5: obs/demand.py"):
         serve_main(["--artifacts", jax_artifacts, "--backend", "cpu",
                     "--demand", "on"])
     with pytest.raises(SystemExit):
