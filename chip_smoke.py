@@ -33,7 +33,20 @@ payloads bitwise, the tightened table through the point-location kernel
 to the f64 host evaluator), RebuildService over two drift revisions
 hot-swapping a ControllerRegistry under 16 submitting threads (no
 failure, no dropped request, no torn result), and `main serve-rebuild`
-once.  Any failed phase exits non-zero.  The second-to-last line
+once.  Phase 16 drives the port's instruments from phase 3's result:
+the serial baseline (SerialBnB over Oracle(backend="serial"), one QP
+at a time in numpy on the host) against the card's oracle on 64 flagship thetas, `main --profile`
+(the trace must name the IPM leg's kernel among its device ops) and an
+auto-profile capture, phase 8's arena run and phase 12's
+RequestScheduler run with ServeConfig(tracing="on") (every ticket's
+stamps in order, the histograms' phase sums equal to their wall sums,
+results bitwise an untraced run's, p50/p99
+of every phase), and the rebuild service for one generation with obs
+on (GC pauses and the watcher's stalls beside the request p99).  One
+ContentionMonitor samples the host across the whole script; each
+phase is followed by its verdict (competing CPU share, contended), and
+the kernels line carries the whole run's summary under "host".  Any
+failed phase exits non-zero.  The second-to-last line
 of standard output is the kernels JSON object (each kernel's launches,
 error against its plain version, its time, the plain version's time, a
 library yardstick where one exists and the bound the card allows); the
@@ -239,6 +252,16 @@ SERVICE_DRIFT_FRAC = 0.02
 SERVE_REBUILD_ARGS = ("-e", "double_integrator", "--problem-arg", "N=3",
                       "--problem-arg", "theta_box=1.5", "-a", "0.5",
                       "--batch", "64", "--revisions", "1")
+
+#: Phase 16, the instruments: flagship thetas of the serial baseline
+#: (drawn from SEED + 18) and its V* bar (the JAX package's
+#: tests/test_bnb.py), the frontier steps the profiler captures, the
+#: trace ring's K, and the contention monitor's sampling interval.
+SERIAL_POINTS = 64
+SERIAL_RTOL, SERIAL_ATOL = 1e-6, 1e-8
+PROFILE_STEPS = 3
+TRACE_EXEMPLAR_K = 8
+HOST_INTERVAL_S = 1.0
 
 
 def log(*a) -> None:
@@ -2429,6 +2452,558 @@ def rebuild_phase(dev, problem, cfg, res, build_s: float, tmp: str) -> dict:
             "locate": {"rebuild_launches": k2_b}}
 
 
+class HostVerdict:
+    """One ContentionMonitor (obs/host.py) across the whole script,
+    sampling every HOST_INTERVAL_S, read phase by phase: `end(name)`
+    prints and returns the verdict over the samples taken since the
+    previous call (the competing-CPU share of the host: other
+    processes' busy jiffies over the host's capacity).  A host whose
+    /proc/stat counts no CPU time at all (a sandbox's synthetic procfs:
+    every field of its cpu line 0) cannot show other processes' load:
+    its verdicts read "not measured", not an uncontended 0."""
+
+    def __init__(self):
+        from explicit_hybrid_mpc_tpu_torch.obs import ContentionMonitor
+
+        self.mon = ContentionMonitor(interval_s=HOST_INTERVAL_S)
+        first = self.mon._reader()
+        self.blind = first is None or first[0] == 0
+        self.mon.start()
+        self._mark = 0
+
+    def end(self, name: str) -> str:
+        samples = self.mon._samples[self._mark:]
+        self._mark += len(samples)
+        if self.blind:
+            text = ("not measured (this host's /proc/stat counts no CPU "
+                    "time, so other processes' load cannot be seen)")
+        elif samples:
+            mean = float(np.mean(samples))
+            text = (f"competing_cpu_frac_mean {mean:.3f}, max "
+                    f"{max(samples):.3f}, contended "
+                    f"{mean > self.mon.threshold} ({len(samples)} samples)")
+        else:
+            text = "no sample (the phase was shorter than the interval)"
+        log(f"[host] {name}: {text}")
+        return text
+
+    def summary(self) -> dict:
+        """The monitor's summary, and whether the host's procfs could
+        show contention at all.  On a blind host the competing shares
+        and the verdict come from all-zero readings, not from a
+        measurement: they are null."""
+        out = {**self.mon.summary(), "procfs_counts_cpu": not self.blind}
+        if self.blind:
+            out.update(competing_cpu_frac_mean=None,
+                       competing_cpu_frac_max=None, contended=None)
+        return out
+
+
+def recorded_folds(tr) -> list:
+    """Record every fold call of the ReqTrace `tr` (its controller and
+    stamps) in the returned list; nothing when `tr` is None."""
+    folds: list = []
+    if tr is not None:
+        real_fold = tr.fold
+
+        def fold(controller, **kw):
+            folds.append((controller, kw))
+            real_fold(controller, **kw)
+        tr.fold = fold
+    return folds
+
+
+def traced_drive(submit, jobs, clients: int, tr=None):
+    """`jobs` (one list of (args...) per client) submitted from `clients`
+    closed-loop threads through `submit(*args)`; with a ReqTrace `tr`,
+    every fold call's stamps are recorded.  Returns (results in job
+    order per client, wall s, recorded folds)."""
+    import threading
+
+    folds = recorded_folds(tr)
+    results = [[None] * len(j) for j in jobs]
+    errors: list[str] = []
+
+    def client(c):
+        for k, args in enumerate(jobs[c]):
+            try:
+                (results[c][k],) = submit(*args).result(120.0)
+            except Exception as e:  # noqa: BLE001 -- a drop IS a failure
+                errors.append(repr(e))
+                return
+
+    ts = [threading.Thread(target=client, args=(c,))
+          for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600.0)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in ts) or errors:
+        fail(f"traced serving: {len(errors)} errored ({errors[:3]})")
+    return results, wall, folds
+
+
+def check_trace(name: str, tr, o, folds, n_requests: int) -> dict:
+    """Every ticket's stamps from the recorded fold calls: monotone (the
+    six phases, integer ns differences of them, then sum to its wall by
+    construction), every request folded once, the histograms' phase sums equal to their wall sums to
+    the nanosecond a ticket, and at most trace_exemplar_k exemplars per
+    controller (`o`: the hub's obs handle).  Returns {phase: per-ticket
+    ns array} plus the
+    batch-scoped phases' per-batch arrays under "batch"."""
+    from explicit_hybrid_mpc_tpu_torch.obs import reqtrace
+
+    phases = {p: [] for p in (*reqtrace.PHASES, "wall")}
+    batch = {p: [] for p in ("seal", "put", "launch", "fallback",
+                             "reply")}
+    seen_batches = set()
+    bad = 0
+    for _ctl, kw in folds:
+        st = (kw["seal"], kw["lease"], kw["eval0"], kw["eval1"],
+              kw["fb_end"], kw["done"])
+        if st not in seen_batches:   # a mixed batch folds per tenant
+            seen_batches.add(st)
+            for p, (a, b) in zip(batch, zip(st[:-1], st[1:])):
+                batch[p].append(b - a)
+        for (sub, enq), k, _tag in kw["rows"]:
+            stamps = (sub, enq, *st)
+            ph = (st[0] - sub, st[1] - st[0], st[2] - st[1],
+                  st[3] - st[2], st[4] - st[3], st[5] - st[4])
+            # The phases are differences of consecutive stamps, so they
+            # sum to the wall by construction; what can fail is the
+            # stamps' order (and, below, the hub's histograms).
+            if any(b < a for a, b in zip(stamps, stamps[1:])):
+                bad += 1
+            for _ in range(k):
+                for p, v in zip(reqtrace.PHASES, ph):
+                    phases[p].append(v)
+                phases["wall"].append(st[5] - sub)
+    n = len(phases["wall"])
+    snap = o.metrics.snapshot()["histograms"]
+    ctls = sorted({c for c, _kw in folds})
+    worst_ns = 0.0
+    for ctl in ctls:
+        pre = f"serve.ctl.{ctl}.phase."
+        h = {p: snap[f"{pre}{p}_us"] for p in (*reqtrace.PHASES, "wall")}
+        gap_us = abs(sum(h[p]["sum"] for p in reqtrace.PHASES)
+                     - h["wall"]["sum"])
+        worst_ns = max(worst_ns, 1e3 * gap_us / max(h["wall"]["count"], 1))
+        if len(tr.exemplars(ctl)) > tr.exemplar_k:
+            fail(f"{name}: {len(tr.exemplars(ctl))} exemplars for {ctl} "
+                 f"(> trace_exemplar_k {tr.exemplar_k})")
+    if bad or n != n_requests or not worst_ns <= 1.0:
+        fail(f"{name}: {bad} tickets whose stamps are not monotone, "
+             f"{n} of {n_requests} requests "
+             f"folded, histogram phase sums {worst_ns:.3f} ns a ticket from "
+             "the wall")
+    log(f"[trace] {name}: {n} tickets in {len(seen_batches)} batches; every "
+        f"ticket's stamps monotone (its six phases, differences of those "
+        f"stamps, sum to its wall by construction); histogram phase sums "
+        f"within {worst_ns:.4f} ns "
+        f"a ticket of the wall sums; exemplars <= {tr.exemplar_k} per "
+        "controller (" + ", ".join(f"{c} {len(tr.exemplars(c))}"
+                                   for c in ctls) + ")")
+    out = {p: np.asarray(v, dtype=np.int64) for p, v in phases.items()}
+    out["batch"] = {p: np.asarray(v, dtype=np.int64)
+                    for p, v in batch.items()}
+    return out
+
+
+def phase_table(name: str, ph: dict, verdict: str) -> None:
+    """p50 / p99 of every phase (µs) and its share of the mean wall."""
+    from explicit_hybrid_mpc_tpu_torch.obs import reqtrace
+
+    wall_mean = float(ph["wall"].mean())
+    parts = []
+    for p in (*reqtrace.PHASES, "wall"):
+        v = ph[p] / 1e3
+        parts.append(f"{p} p50 {np.percentile(v, 50):.1f} p99 "
+                     f"{np.percentile(v, 99):.1f}"
+                     + (f" ({float(ph[p].mean()) / wall_mean:.3f} of the "
+                        "mean wall)" if p != "wall" else ""))
+    log(f"[trace] {name} phases (us): " + "; ".join(parts)
+        + f" [host: {verdict}]")
+
+
+def observability_phase(dev, problem, cfg, res, table, tmp: str,
+                        host: HostVerdict) -> None:
+    """Phase 16: the port's instruments on `dev`, from phase 3's result.
+
+    16a the serial baseline (SerialBnB over Oracle(backend="serial"), one
+    QP at a time in numpy on the host) against the card's oracle (K1) on SERIAL_POINTS
+    flagship thetas: V* to the JAX package's bar, d* wherever the two best
+    commutations are apart by more than it, and the baseline's cost per
+    point over the card's.  16b `main --profile` at the flagship settings
+    (the trace names K1's kernel among its device ops; the build held as
+    phase 3's), then an engine armed with auto_profile captured through
+    its external trigger (the bundle holds no error).  16c phase 8's
+    arena run and phase 12's RequestScheduler run with
+    ServeConfig(tracing="on"): every ticket's stamps in order, the
+    histograms' phase sums within a nanosecond a ticket of their wall
+    sums, at most trace_exemplar_k exemplars per controller, every
+    result bitwise an untraced run's; p50/p99 of every phase, the arena
+    cycle's split and queue_frac.  16d 15c's service for one generation
+    with obs on: serve.host.gc_pause_us and serve.host.stall_us beside
+    the request p99 (the requests traced too).  Each part prints the
+    host's contention verdict over its own run."""
+    import dataclasses
+    import glob
+    import threading
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
+    from explicit_hybrid_mpc_tpu_torch.config import ServeConfig
+    from explicit_hybrid_mpc_tpu_torch.lifecycle import (DriftSource,
+                                                         LifecycleConfig,
+                                                         RebuildService)
+    from explicit_hybrid_mpc_tpu_torch.obs import histogram_row, profiling
+    from explicit_hybrid_mpc_tpu_torch.obs.reqtrace import (
+        trace_from_serve_config)
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+    from explicit_hybrid_mpc_tpu_torch.online.descent import load_descent
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg, oracle
+    from explicit_hybrid_mpc_tpu_torch.oracle.bnb import SerialBnB
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        FrontierEngine, make_oracle)
+    from explicit_hybrid_mpc_tpu_torch.serve import (ArenaScheduler,
+                                                     ControllerRegistry,
+                                                     DeviceArena,
+                                                     FallbackPolicy,
+                                                     RequestScheduler,
+                                                     registry)
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    backend = "cuda" if on_card else "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    lb, ub = problem.theta_lb, problem.theta_ub
+
+    # -- 16a: the serial baseline against the card -------------------------
+    thetas = np.random.default_rng(SEED + 18).uniform(
+        lb, ub, (SERIAL_POINTS, problem.n_theta))
+    bnb = SerialBnB(oracle.Oracle(problem, backend="serial"))
+    # measure() solves the first theta once untimed, then every theta
+    # timed: the timed solves' answers are kept for the checks below.
+    ser, real_solve = [], bnb.solve_point
+
+    def solve_point(th):
+        ser.append(real_solve(th))
+        return ser[-1]
+    bnb.solve_point = solve_point
+    ipm_leg.launches = 0
+    stats = bnb.measure(thetas)
+    ser = ser[1:]
+    n_serial_k1 = ipm_leg.launches
+    ora = oracle.Oracle(problem, backend=backend)
+    ora.wait_vertices(ora.dispatch_vertices(thetas))   # warm
+    sync()
+    ipm_leg.launches = 0
+    t0 = time.perf_counter()
+    sol = ora.wait_vertices(ora.dispatch_vertices(thetas))
+    sync()
+    card_s = time.perf_counter() - t0
+    n_card_k1 = ipm_leg.launches
+    verdict = host.end("phase 16a (serial baseline)")
+    V = np.array([v for v, _d, _n in ser])
+    d = np.array([dd for _v, dd, _n in ser])
+    fin = np.isfinite(sol.Vstar)
+    if not np.array_equal(np.isfinite(V), fin):
+        fail("serial baseline: finite V* on other thetas than the card's")
+    ok = np.isclose(V[fin], sol.Vstar[fin], rtol=SERIAL_RTOL,
+                    atol=SERIAL_ATOL)
+    Vs = np.sort(sol.V, axis=1)
+    with np.errstate(invalid="ignore"):
+        clear = fin & (Vs[:, 1] - Vs[:, 0]
+                       > SERIAL_ATOL + SERIAL_RTOL * np.abs(Vs[:, 0]))
+    d_bad = int((d[clear] != sol.dstar[clear]).sum())
+    v_err = float(np.max(np.abs(V[fin] - sol.Vstar[fin]))) if fin.any() \
+        else 0.0
+    card_pp = card_s / SERIAL_POINTS
+    log(f"[serial] SerialBnB(Oracle(backend='serial')).measure on "
+        f"{SERIAL_POINTS} flagship thetas (SEED + 18), on the CPU: "
+        f"s_per_point {stats['s_per_point']:.6f}, qp_per_point "
+        f"{stats['qp_per_point']:.3f}, pruned_per_point "
+        f"{stats['pruned_per_point']:.3f} of n_delta {stats['n_delta']} "
+        f"(ipm_leg launches {n_serial_k1}); the {backend} oracle's "
+        f"dispatch_vertices + wait_vertices on the batch {card_s:.6f} s = "
+        f"{card_pp:.6f} s a point (ipm_leg launches {n_card_k1}); baseline "
+        f"over the {backend} oracle {stats['s_per_point'] / card_pp:.1f}x "
+        f"[host: {verdict}]")
+    log(f"[serial] V* agrees on {int(ok.sum())} of {int(fin.sum())} "
+        f"finite thetas (rtol {SERIAL_RTOL:g}, atol {SERIAL_ATOL:g}; max "
+        f"|dV*| {v_err:.2e}); d* equal on {int(clear.sum()) - d_bad} of "
+        f"{int(clear.sum())} thetas whose two best commutations are apart "
+        "by more than that")
+    if not ok.all() or d_bad or n_serial_k1 != 0 \
+            or (on_card and n_card_k1 <= 0):
+        fail(f"serial baseline: {int((~ok).sum())} V* and {d_bad} d* differ "
+             f"from the {backend} oracle's; ipm_leg launches: serial "
+             f"{n_serial_k1}, {backend} {n_card_k1}")
+
+    # -- 16b: profiler capture -----------------------------------------------
+    pdir = os.path.join(tmp, "profile")
+    out = os.path.join(tmp, "profiled")
+    flags = ["-e", cfg.problem, "-a", str(cfg.eps_a), "--batch",
+             str(cfg.batch_simplices), "--max-depth", str(cfg.max_depth)]
+    for k, v in cfg.problem_args:
+        flags += ["--problem-arg", f"{k}={json.dumps(v)}"]
+    if not on_card:
+        flags += ["--backend", "cpu"]
+    rc, st, _ev, wall, _legs, n_k1, _n_k2, _p = run_main(
+        [*flags, "-o", out, "--profile", pdir, "--profile-steps",
+         str(PROFILE_STEPS)], on_card)
+    if rc != 0:
+        fail(f"main --profile returned {rc}")
+    check_build("the profiled build", st, REF_REGIONS, REF_UNCERTIFIED_MAX)
+    summ = profiling.summarize_trace(pdir, top_n=40)
+    dev_ops = summ.get("device_ops_ms", [])
+    k1_ops = [op for op in dev_ops if "ipm_leg_fixed" in op["name"]]
+    # torch.profiler's own range event spans the capture.
+    span = [op["total_ms"] for op in summ.get("top_ops_ms", [])
+            if op["name"].startswith("PyTorch Profiler")]
+    busy = (f"; device busy {sum(op['total_ms'] for op in dev_ops) / span[0]:.4f}"
+            f" of the {span[0]:.1f} ms capture" if span and dev_ops else "")
+    verdict = host.end("phase 16b (main --profile)")
+    log(f"[profile] main {' '.join(flags)} --profile DIR --profile-steps "
+        f"{PROFILE_STEPS} on {dev}: exit {rc} in {wall:.1f} s, regions "
+        f"{st['regions']}, uncertified {st['uncertified']}; ipm_leg "
+        f"launches {n_k1}; trace: {summ.get('trace_files')} file(s), "
+        f"{summ.get('events')} events, tracks {summ.get('tracks')}; device "
+        f"ops {sum(op['total_ms'] for op in dev_ops):.3f} ms in "
+        f"{len(dev_ops)} names, ipm_leg_fixed "
+        f"{sum(op['total_ms'] for op in k1_ops):.3f} ms{busy} "
+        f"[host: {verdict}]")
+    for op in dev_ops[:6]:
+        log(f"[profile]   device {op['total_ms']:9.3f} ms  {op['name'][:80]}")
+    for op in summ.get("top_ops_ms", [])[:6]:
+        log(f"[profile]   all    {op['total_ms']:9.3f} ms  {op['name'][:80]}")
+    if "error" in summ or (on_card and not k1_ops):
+        fail(f"the --profile trace does not name ipm_leg_fixed among its "
+             f"device ops: {summ.get('error') or [o['name'] for o in dev_ops]}")
+    ap_dir = os.path.join(tmp, "auto_profile")
+    os.makedirs(ap_dir, exist_ok=True)
+    cfg_ap = dataclasses.replace(
+        cfg, auto_profile=True, profile_steps=PROFILE_STEPS,
+        max_steps=2 * PROFILE_STEPS, obs="jsonl",
+        obs_path=os.path.join(ap_dir, "build.obs.jsonl"), log_path=None)
+    eng = FrontierEngine(problem, make_oracle(problem, cfg_ap), cfg_ap)
+    n_steps = eng.trigger_auto_profile("chip_smoke phase 16b")
+    t0 = time.perf_counter()
+    eng.run()
+    ap_s = time.perf_counter() - t0
+    bundles = sorted(glob.glob(os.path.join(ap_dir, "auto_profile_*.json")))
+    meta = json.load(open(bundles[0])) if len(bundles) == 1 else {}
+    ap_ops = meta.get("trace_summary", {}).get("device_ops_ms", [])
+    ap_k1 = [op for op in ap_ops if "ipm_leg_fixed" in op["name"]]
+    verdict = host.end("phase 16b (auto-profile)")
+    log(f"[profile] auto_profile engine: trigger_auto_profile -> {n_steps} "
+        f"steps, run of {eng.steps} steps in {ap_s:.1f} s; bundle "
+        f"{[os.path.basename(b) for b in bundles]}: captured_steps "
+        f"{meta.get('captured_steps')}, capture_wall_s "
+        f"{meta.get('capture_wall_s')}, error {meta.get('error')}, device "
+        f"ops {len(ap_ops)} names, ipm_leg_fixed "
+        f"{sum(op['total_ms'] for op in ap_k1):.3f} ms [host: {verdict}]")
+    if n_steps != PROFILE_STEPS or len(bundles) != 1 or "error" in meta \
+            or "error" in meta.get("trace_summary", {"error": 1}) \
+            or (on_card and not ap_k1):
+        meta.pop("trace_summary", None)
+        fail(f"auto-profile: {n_steps} steps, bundles {bundles}, {meta}")
+
+    # -- 16c: request tracing ------------------------------------------------
+    art = os.path.join(tmp, "pend")
+    registry.save_artifacts(res.tree, res.roots, art)
+    lb_c, ub_c = registry.root_box(load_descent(os.path.join(art,
+                                                             "descent.npz")))
+    tenants = [f"t{k}" for k in range(TENANTS)]
+    cols = 128 * -(-table.n_leaves // 128)
+    names, th, _outside = serve_queries(tenants, lb_c, ub_c, REQUESTS,
+                                        np.random.default_rng(SEED + 19))
+    arena_jobs = [[(names[j], th[j]) for j in range(c, REQUESTS, CLIENTS)]
+                  for c in range(CLIENTS)]
+    req_jobs = [[(q,) for q in np.random.default_rng(1000 + c).uniform(
+        lb, ub, (SWAP_REQUESTS, problem.n_theta))]
+        for c in range(SWAP_CLIENTS)]
+    trace_cfg = ServeConfig(tracing="on", trace_exemplar_k=TRACE_EXEMPLAR_K)
+    ora = make_oracle(problem, cfg)
+    runs = {}
+    for label in ("traced", "untraced"):
+        scfg = trace_cfg if label == "traced" else ServeConfig()
+        o = obs_lib.Obs("jsonl")
+        tr = trace_from_serve_config(scfg, obs=o)
+        arena = DeviceArena(p=res.tree.p, n_u=res.tree.n_u,
+                            capacity_cols=TENANTS * cols, device=dev)
+        for n in tenants:
+            arena.publish(n, "v1", table, lb_c, ub_c)
+        sched = ArenaScheduler(arena, max_batch=MAX_BATCH,
+                               max_wait_us=MAX_WAIT_US,
+                               fallback=FallbackPolicy(lb_c, ub_c,
+                                                       mode="clamp"),
+                               obs=o, trace=tr)
+        fused.launches = 0
+        a_res, a_wall, a_folds = traced_drive(sched.submit, arena_jobs,
+                                              CLIENTS, tr)
+        sched.close()
+        a_batches, n_k3 = sched.n_batches, fused.launches
+        a_verdict = host.end(f"phase 16c ({label} arena run)")
+        reg = ControllerRegistry()
+        reg.load_artifacts("pend", "v1", art, devices=[dev])
+        with reg.lease("pend") as ver:
+            box = registry.root_box(ver.server)
+        o2 = obs_lib.Obs("jsonl")
+        tr2 = trace_from_serve_config(scfg, obs=o2)
+        rsched = RequestScheduler(reg, "pend", max_batch=MAX_BATCH,
+                                  max_wait_us=MAX_WAIT_US,
+                                  fallback=FallbackPolicy(*box, oracle=ora),
+                                  obs=o2, trace=tr2)
+        r_res, r_wall, r_folds = traced_drive(rsched.submit, req_jobs,
+                                              SWAP_CLIENTS, tr2)
+        rsched.close()
+        r_verdict = host.end(f"phase 16c ({label} RequestScheduler run)")
+        runs[label] = dict(arena=a_res, req=r_res, a_wall=a_wall,
+                           r_wall=r_wall, a_batches=a_batches, n_k3=n_k3,
+                           r_batches=rsched.n_batches, tr=tr, tr2=tr2,
+                           o=o, o2=o2,
+                           a_folds=a_folds, r_folds=r_folds,
+                           a_verdict=a_verdict, r_verdict=r_verdict)
+        lat = np.asarray([r.latency_s for rows in a_res for r in rows]) * 1e6
+        rlat = np.asarray([r.latency_s for rows in r_res for r in rows]) * 1e6
+        log(f"[trace] {label} arena run: {REQUESTS} requests from {CLIENTS} "
+            f"clients over {TENANTS} tenants in {a_wall:.2f} s, "
+            f"{a_batches} batches ({n_k3} arena_eval launches), p50 "
+            f"{np.percentile(lat, 50):.1f} us, p99 "
+            f"{np.percentile(lat, 99):.1f} us [host: {a_verdict}]; "
+            f"RequestScheduler: {SWAP_CLIENTS} x {SWAP_REQUESTS} requests in "
+            f"{r_wall:.2f} s, {rsched.n_batches} batches, p50 "
+            f"{np.percentile(rlat, 50):.1f} us, p99 "
+            f"{np.percentile(rlat, 99):.1f} us [host: {r_verdict}]")
+    t, u = runs["traced"], runs["untraced"]
+    if t["tr"] is None or t["tr2"] is None or u["tr"] is not None:
+        fail("ServeConfig(tracing='on') did not give a trace hub")
+    if on_card and (t["n_k3"] != t["a_batches"] or t["n_k3"] <= 0):
+        fail(f"traced arena run: {t['n_k3']} arena_eval launches for "
+             f"{t['a_batches']} batches")
+
+    def same(a, b):
+        return (np.array_equal(a.u, b.u) and a.cost == b.cost
+                and (a.leaf, a.inside, a.version, a.fallback)
+                == (b.leaf, b.inside, b.version, b.fallback))
+
+    for kind, n_req in (("arena", REQUESTS),
+                        ("req", SWAP_CLIENTS * SWAP_REQUESTS)):
+        diff = sum(not same(a, b) for ra, rb in zip(t[kind], u[kind])
+                   for a, b in zip(ra, rb))
+        if diff:
+            fail(f"traced {kind} run: {diff} of {n_req} results differ from "
+                 "the untraced run's")
+    ph_a = check_trace("arena", t["tr"], t["o"], t["a_folds"], REQUESTS)
+    ph_r = check_trace("RequestScheduler", t["tr2"], t["o2"], t["r_folds"],
+                       SWAP_CLIENTS * SWAP_REQUESTS)
+    log(f"[trace] traced results bitwise the untraced runs' on all "
+        f"{REQUESTS} arena and {SWAP_CLIENTS * SWAP_REQUESTS} "
+        "RequestScheduler requests")
+    phase_table("arena", ph_a, t["a_verdict"])
+    phase_table("RequestScheduler", ph_r, t["r_verdict"])
+    cycle_us = 1e6 * t["a_wall"] / t["a_batches"]
+    bmean = {p: float(v.mean()) / 1e3 for p, v in ph_a["batch"].items()}
+    busy = sum(bmean.values())
+    log(f"[trace] arena batch cycle {cycle_us:.1f} us (run wall over "
+        f"{t['a_batches']} batches): the worker's batch "
+        + ", ".join(f"{p} {v:.1f}" for p, v in bmean.items())
+        + f" us = {busy:.1f} us ({busy / cycle_us:.3f} of the cycle); "
+        f"the rest, {cycle_us - busy:.1f} us, the worker waits for a flush "
+        f"(max_batch {MAX_BATCH} rows or the {MAX_WAIT_US:g} us deadline)")
+    log("[trace] queue_frac: arena "
+        + ", ".join(f"{c} {t['tr'].queue_frac(c):.4f}" for c in tenants)
+        + f"; RequestScheduler pend {t['tr2'].queue_frac('pend'):.4f}")
+    for ex in t["tr"].exemplars()[:2]:
+        log(f"[trace] slowest arena exemplar: {json.dumps(ex)}")
+
+    # -- 16d: the rebuild service's host forensics ---------------------------
+    devices = [dev]
+    reg = ControllerRegistry()
+    reg.load_artifacts("pend", "v0", art, devices=devices)
+    o = obs_lib.Obs("jsonl")
+    src = DriftSource(cfg.problem, problem_args=cfg.problem_args,
+                      controller="pend", eps_a=cfg.eps_a, drift_arg="u_max",
+                      drift_frac=SERVICE_DRIFT_FRAC, n_revisions=1, seed=SEED)
+    svc = RebuildService(src, cfg, cfg=LifecycleConfig(
+        artifacts_root=os.path.join(tmp, "lc")), registry=reg,
+        prior={"pend": res}, obs=o)
+    src.gate = (lambda: len(svc.generations) + svc.n_failures
+                >= src.n_emitted)
+    o2 = obs_lib.Obs("jsonl")
+    tr = trace_from_serve_config(trace_cfg, obs=o2)
+    folds = recorded_folds(tr)
+    sched = RequestScheduler(reg, "pend", max_batch=MAX_BATCH,
+                             max_wait_us=MAX_WAIT_US, obs=o2, trace=tr)
+    outs, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def client(cid: int) -> None:
+        r = np.random.default_rng(2000 + cid)
+        while not stop.is_set():
+            try:
+                (res_k,) = sched.submit(r.uniform(lb, ub)).result(120.0)
+            except Exception as e:  # noqa: BLE001 -- a drop IS a failure
+                errors.append(repr(e))
+                return
+            with lock:
+                outs.append(res_k)
+
+    ts = [threading.Thread(target=client, args=(c,))
+          for c in range(SERVICE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th_ in ts:
+        th_.start()
+    svc.start()
+    done = svc.wait_idle(timeout=600, target_generations=1)
+    time.sleep(0.2)  # the new version serves too
+    stop.set()
+    for th_ in ts:
+        th_.join(120.0)
+    sched.close()
+    svc.close()
+    run_s = time.perf_counter() - t0
+    verdict = host.end("phase 16d (rebuild service, obs on)")
+    gens = svc.generations
+    if not done or svc.worker_error is not None or svc.n_failures \
+            or len(gens) != 1 or errors or any(x.is_alive() for x in ts):
+        fail(f"16d: {len(gens)} generations, {svc.n_failures} failures, "
+             f"worker error {svc.worker_error}, dropped {errors[:3]}")
+    hists = o.metrics.snapshot()["histograms"]
+    rows = {k: histogram_row(hists[k]) for k in
+            ("serve.host.gc_pause_us", "serve.host.stall_us") if k in hists}
+    if "serve.host.stall_us" not in rows:
+        fail("16d: the service recorded no serve.host.stall_us")
+    lat = np.asarray([r.latency_s for r in outs]) * 1e6
+    ph = check_trace("requests during the rebuild", tr, o2, folds,
+                     len(outs))
+    g = gens[0]
+    log(f"[forensics] RebuildService, one u_max generation with obs on, "
+        f"{SERVICE_CLIENTS} threads through RequestScheduler: generation "
+        f"{g['version']} ({g['published']}) rebuilt in "
+        f"{g['rebuild_wall_s']} s, staleness {g['staleness_s']} s, run "
+        f"{run_s:.1f} s; {len(outs)} requests p50 "
+        f"{np.percentile(lat, 50):.0f} us, p99 "
+        f"{np.percentile(lat, 99):.0f} us, max {lat.max():.0f} us "
+        f"[host: {verdict}]")
+    for k, row in rows.items():
+        gc_sum = hists[k]["sum"]
+        log(f"[forensics]   {k}: count {row['count']}, sum "
+            f"{gc_sum / 1e3:.1f} ms, p50 {row['p50']:.0f} us, p99 "
+            f"{row['p99']:.0f} us, max {row['max']:.0f} us")
+    phase_table("requests during the rebuild", ph, verdict)
+    log(f"[observe] (phase took {time.perf_counter() - t_phase:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -2450,6 +3025,9 @@ def main() -> int:
         print(f"chip_smoke: the repository's torch package is missing "
               f"({e}); run from the repository root", file=sys.stderr)
         return 3
+    # One contention monitor across the whole script: each phase's
+    # timing lines are followed by the host's verdict over that phase.
+    host = HostVerdict()
     base_src = baseline_source()
     k2_src = baseline_source(var="K2_BASELINE")
     k3_src = baseline_source(var="K3_BASELINE")
@@ -2484,6 +3062,7 @@ def main() -> int:
         for ln in ptxas_lines(name, kernels.ptxas_report.get(name, "")):
             log(f"[build] {ln}")
     base_k2, base_k3 = bases.get("locate"), bases.get("arena_eval")
+    host.end("phase 1 (device, kernel build)")
     rng = np.random.default_rng(SEED)
     problem = make("inverted_pendulum")
     can = problem.canonical
@@ -2677,6 +3256,7 @@ def main() -> int:
     log("[dispatch] dispatch_vertices and dispatch_pairs enqueue without "
         "synchronizing (sync-debug mode 'error')")
     del ora
+    host.end("phase 2 (K1 against its plain version)")
 
     # -- phase 3: the main path (build, export, stage, evaluate) -----------
     # Warm the locate kernel (module load, first launch) on a throwaway
@@ -2743,6 +3323,7 @@ def main() -> int:
              f"{REF_REGIONS}")
     if st["uncertified"] > REF_UNCERTIFIED_MAX:
         fail(f"uncertified {st['uncertified']} > {REF_UNCERTIFIED_MAX}")
+    host.end("phase 3 (flagship build, online batch)")
 
     # -- phase 4: online results against the plain f64 evaluator -----------
     ref = evaluator.evaluate(dev_table, q_thetas)
@@ -2874,10 +3455,12 @@ def main() -> int:
         f"locate_kernel + locate_merge{'' if k2_splits > 1 else ' unused'}), "
         f"plain {k2_plain_ms:.3f} ms, library {k2_lib_ms:.3f} ms, bound "
         f"{k2_bound_ms:.4f} ms ({k2_bound_by})")
+    host.end("phases 4-5 (online check, K2)")
 
     # -- phases 6-8: multi-tenant serving through the arena kernel ---------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         k3_entry = serve_phases(dev, res, table, rng, tmp, base_k3, k3_src)
+    host.end("phases 6-8 (arena serving, K3)")
 
     # -- phase 9: where the device time of a build goes --------------------
     # A second flagship build under torch.profiler (device activity
@@ -2931,25 +3514,37 @@ def main() -> int:
     else:
         log("[profile] K1's device time in the build: not measured (no "
             "profiler row)")
+    host.end("phase 9 (profiled build)")
 
     # -- phase 10 (K1_BASELINE only): builds with the baseline kernel -----
     if base:
         build_ab(base, problem, cfg, prob, dev)
+        host.end("phase 10 (builds with the baseline kernel)")
 
     # -- phases 11-13: the closed loop, the serve entry point, and sharded
     # descent at a realistic size -------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_") as tmp:
         sim = closed_loop_phase(dev, problem, cfg, table, tmp)
+        host.end("phase 11 (closed loop)")
         serve_entry_phase(dev, problem, cfg, res, table, rng, tmp)
+        host.end("phase 12 (main serve, hot swap)")
     large_partition_phase(dev)
+    host.end("phase 13 (large partition)")
 
     # -- phase 14: the other problems' published sub-boxes -----------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
         k1_large, k1_general = other_problems_phase(dev, tmp)
+    host.end("phase 14 (other problems)")
 
     # -- phase 15: the warm rebuild and the rebuild service ----------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rebuild_") as tmp:
         reb = rebuild_phase(dev, problem, cfg, res, build_s, tmp)
+    host.end("phase 15 (warm rebuild, service)")
+
+    # -- phase 16: the serial baseline, profiler capture, request tracing
+    # and the rebuild service's host forensics ------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as tmp:
+        observability_phase(dev, problem, cfg, res, table, tmp, host)
 
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
@@ -2968,7 +3563,7 @@ def main() -> int:
          "splits": k2_splits, "sim_launches": sim["sim_k2"],
          **reb["locate"]},
         k3_entry,
-    ]}
+    ], "host": host.summary()}
     log(card)
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {

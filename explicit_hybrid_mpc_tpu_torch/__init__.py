@@ -7,7 +7,8 @@ leaf simplex, interpolate its vertex inputs) as the JAX package
 in CUDA C++ for Hopper (``csrc/``) beside a plain torch version of the
 same function.  Entry points run on the first CUDA device unless the
 caller asks for the CPU (``backend="cpu"``), where each kernel's plain
-version runs instead.
+version runs instead; ``backend="serial"`` is the host baseline (one
+QP per call, solved in numpy on the host), reached only by name.
 
 Numerical policy: float64 everywhere the interior-point method needs
 it, explicit ``dtype=torch.float64`` on every tensor (the global

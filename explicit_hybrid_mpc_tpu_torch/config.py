@@ -50,7 +50,10 @@ class PartitionConfig:
     algorithm: str = "suboptimal"
     # Oracle execution backend: 'cuda' (the first CUDA device; raises
     # when there is none -- a build never carries on on the CPU unasked)
-    # vs 'cpu' (the same solver with each kernel's plain torch version).
+    # vs 'cpu' (the same solver with each kernel's plain torch version)
+    # vs 'serial' (one point or pair per call, each QP solved in numpy
+    # on the host: the baseline, the stand-in for the reference's serial
+    # Gurobi oracle; chosen only by name).
     backend: str = "cuda"
     # Device-batch padding size for the frontier solve (static shape; the
     # frontier is packed/padded to this many simplices per step).
@@ -72,8 +75,9 @@ class PartitionConfig:
     log_path: Optional[str] = None
     # Mesh axis size for sharding the solve batch (None = all local devices).
     mesh_devices: Optional[int] = None
-    # Profiler trace output directory (None disables).  Not yet ported:
-    # a non-None value raises (ROADMAP A2).
+    # torch.profiler trace output directory (None disables).  The first
+    # `profile_steps` frontier steps are traced (Chrome trace JSON;
+    # obs/profiling.summarize_trace reads it).
     profile_path: Optional[str] = None
     profile_steps: int = 5
     # IPM precision schedule: 'f64' (every iteration in float64) or
@@ -240,7 +244,9 @@ class PartitionConfig:
     # the recorder's -- a sick long build self-captures the evidence
     # instead of burning the allocation.  At most one capture per run;
     # ignored while cfg.profile_path runs a manual trace (one active
-    # trace at a time).  Not yet ported: True raises.
+    # trace at a time).  The health monitor is not yet ported (ROADMAP
+    # A5), so only an external trigger
+    # (FrontierEngine.trigger_auto_profile) opens a capture today.
     auto_profile: bool = False
     # Flight recorder (obs/recorder.py): when True, solver anomalies --
     # cells still feasible-but-unconverged after the two-phase cohort
@@ -373,9 +379,9 @@ class PartitionConfig:
                 raise ValueError(f"{fld} must be >= 1 (or None to "
                                  "inherit ipm_phase1_iters / the auto "
                                  "split)")
-        if self.backend not in ("cuda", "cpu"):
+        if self.backend not in ("cuda", "cpu", "serial"):
             raise ValueError(f"unknown backend {self.backend!r} "
-                             "(expected 'cuda' or 'cpu')")
+                             "(expected 'cuda', 'cpu' or 'serial')")
         if self.ipm_kernel not in ("auto", "cuda", "torch"):
             raise ValueError(f"unknown ipm_kernel {self.ipm_kernel!r} "
                              "(expected 'auto', 'cuda', or 'torch')")
@@ -427,9 +433,6 @@ _UNPORTED = (
     ("obs_recorder", bool, "A5: obs/recorder.py"),
     ("recorder_dir", lambda v: v is not None, "A5: obs/recorder.py"),
     ("health_rules", bool, "A5: obs/health.py"),
-    ("auto_profile", bool, "A2: obs/profiling.py"),
-    ("profile_path", lambda v: v is not None,
-     "A2: the profiler capture of partition/frontier.py"),
     ("recompile_guard", lambda v: v != "off",
      "A6: analysis/recompile_guard.py"),
 )
@@ -444,7 +447,7 @@ class ServeConfig:
     none of them can change a served value -- only latency, batching,
     and degraded-mode behavior.  Validated eagerly so a bad deploy
     config dies at startup, not on the first oversized batch.  The
-    demand, tracing and SLO knobs belong to modules not yet ported: a
+    demand and SLO knobs belong to modules not yet ported: a
     non-default value raises NotImplementedError naming the ROADMAP
     item.
     """
@@ -482,7 +485,11 @@ class ServeConfig:
     demand_subopt_eps: float = 0.0
     demand_snapshot_every_s: float = 30.0
     demand_dir: Optional[str] = None
-    # Request tracing (ROADMAP A2: obs/reqtrace.py).
+    # Request tracing (obs/reqtrace.py): 'on' stamps every request and
+    # folds per-phase latency histograms (queue/seal/put/launch/
+    # fallback/reply, summing to request wall), the queue_frac gauge
+    # and a slowest-K exemplar ring per controller; 'off' costs one
+    # attribute test per batch.
     tracing: str = "off"
     trace_exemplar_k: int = 8
     trace_window_s: float = 30.0
@@ -518,6 +525,13 @@ class ServeConfig:
         if self.obs not in ("off", "jsonl", "full"):
             raise ValueError(f"unknown obs mode {self.obs!r} "
                              "(expected 'off', 'jsonl', or 'full')")
+        if self.tracing not in ("off", "on"):
+            raise ValueError(f"unknown tracing mode {self.tracing!r} "
+                             "(expected 'off' or 'on')")
+        if self.trace_exemplar_k < 1:
+            raise ValueError("trace_exemplar_k must be >= 1")
+        if self.trace_window_s <= 0:
+            raise ValueError("trace_window_s must be > 0")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         for fld, item in _SERVE_UNPORTED:
             if getattr(self, fld) != defaults[fld]:
@@ -534,8 +548,6 @@ _SERVE_UNPORTED = tuple(
         "demand", "demand_max_leaves", "demand_decay_s",
         "demand_reservoir", "demand_subopt_frac", "demand_subopt_eps",
         "demand_snapshot_every_s", "demand_dir")]
-    + [(f, "A2: obs/reqtrace.py") for f in (
-        "tracing", "trace_exemplar_k", "trace_window_s")]
     + [(f, "A5: obs/slo.py") for f in (
         "slo", "slo_goal", "slo_p99_target_us", "slo_interval_s",
         "slo_dir")])

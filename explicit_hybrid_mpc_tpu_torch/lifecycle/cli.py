@@ -13,8 +13,9 @@ byte ratio) and exits nonzero on any rebuild failure.
         --revisions 3 --artifacts-root build/lc --obs jsonl
 
 Rebuilds run, and the in-process registry serves, on the CUDA device
-unless ``--backend cpu`` is given.  The JAX package's CLI defaults to
-the CPU instead.
+unless ``--backend cpu`` (or ``serial``, the one-QP-per-call host
+baseline) is given.  The JAX package's CLI defaults to the CPU
+instead.
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=("cuda", "cpu", "serial"),
                    default="cuda",
                    help="rebuild and serving device: 'cuda' (default; "
-                        "raises without a GPU) or 'cpu'.  'serial' is "
-                        "not yet ported.  The JAX package's CLI defaults "
-                        "to cpu")
+                        "raises without a GPU), 'cpu', or 'serial' (the "
+                        "one-QP-per-call host baseline; serves on the "
+                        "CPU).  The JAX package's CLI defaults to cpu")
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--controller", default="default",
                    help="registry controller name rebuilt generations "
@@ -106,10 +107,6 @@ def serve_rebuild_main(argv: list[str] | None = None) -> int:
             "serve-rebuild: an unbounded drift walk (--revisions 0) "
             "needs --duration S (otherwise the daemon would rebuild "
             "for an arbitrary hour and exit)")
-    if args.backend == "serial":
-        raise SystemExit(
-            "serve-rebuild: backend='serial' is not yet ported to the torch "
-            "package (ROADMAP A1: oracle/bnb.py serial baseline)")
     import os
 
     from explicit_hybrid_mpc_tpu_torch import device as device_lib
@@ -117,7 +114,8 @@ def serve_rebuild_main(argv: list[str] | None = None) -> int:
     try:
         # Resolved before the daemon starts: without a GPU the default
         # exits here instead of failing every generation.
-        device_lib.resolve(args.backend)
+        device_lib.resolve("cpu" if args.backend == "serial"
+                           else args.backend)
     except RuntimeError as e:
         raise SystemExit(f"serve-rebuild: {e}")
 

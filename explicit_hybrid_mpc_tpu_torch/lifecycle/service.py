@@ -41,16 +41,18 @@ tests/test_torch_lifecycle.py pins it on a drift walk.
 Devices: every rebuild runs on ``build_cfg.backend``'s device (the
 CUDA device by default), and the registry serves each published
 generation on the same kind of device -- every CUDA device for a cuda
-build, the CPU for a cpu one.
+build, the CPU for a cpu or serial one.
+
+Host forensics (obs/reqtrace.py): with obs on, GC pauses
+(``serve.host.gc_pause_us``, GcPauseRecorder) and the watcher's sleep
+overshoot past ``poll_s`` (``serve.host.stall_us``, ReqTrace.note_stall)
+are recorded beside the ``lifecycle.*`` metrics, so a GC-stalled
+rebuild worker is attributed to the host, not to the rebuild.
 
 Not yet ported from the JAX package's service: the staleness SLO
 tracker (``LifecycleConfig.slo*``; ROADMAP A5: obs/slo.py) and the
 demand-ordered rebuild (``LifecycleConfig.demand_dir``; A5:
-obs/demand.py) -- setting either raises NotImplementedError -- and the
-host forensics an enabled obs handle turns on there (GC pauses and the
-watcher's sleep overshoot as ``serve.host.*``; A2: obs/reqtrace.py),
-which this service does not record: with obs on it emits the
-``lifecycle.*`` metrics and events only.
+obs/demand.py) -- setting either raises NotImplementedError.
 
 Failure containment: a failed rebuild/publish (solver error,
 provenance rejection, injected fault) leaves the PRIOR generation
@@ -247,7 +249,18 @@ class RebuildService:
         # Where the registry serves each generation: the build's kind
         # of device (None = every CUDA device; see the module docstring).
         self._serve_devices = ([torch.device("cpu")]
-                               if build_cfg.backend == "cpu" else None)
+                               if build_cfg.backend in ("cpu", "serial")
+                               else None)
+        # Host forensics (obs/reqtrace.py): GC pauses and watcher sleep
+        # overshoot are attributed to the HOST, so a GC-stalled rebuild
+        # worker stops blaming the rebuild.
+        self._gc_rec = None
+        self._host_trace = None
+        if self.obs.enabled:
+            from explicit_hybrid_mpc_tpu_torch.obs import reqtrace as rt_mod
+
+            self._gc_rec = rt_mod.GcPauseRecorder(obs=self.obs)
+            self._host_trace = rt_mod.ReqTrace(mode="on", obs=self.obs)
         # Inherit an env/cfg fault plan exactly like the frontier
         # engine does (the chaos surface for subprocess daemons).
         faults_inj.install_from_config(build_cfg, obs=self.obs)
@@ -268,6 +281,8 @@ class RebuildService:
         if self._started:
             return self
         self._started = True
+        if self._gc_rec is not None:
+            self._gc_rec.start()
         self._watcher.start()
         for w in self._workers:
             w.start()
@@ -283,6 +298,8 @@ class RebuildService:
             for w in self._workers:
                 w.join(timeout)
         self.source.close()
+        if self._gc_rec is not None:
+            self._gc_rec.stop()
         if self.obs.enabled:
             self.obs.flush_metrics()
 
@@ -357,7 +374,16 @@ class RebuildService:
                 self._enqueue(rev)
             with self._lock:
                 self._polling = False
+            t_sleep = time.perf_counter()
             time.sleep(self.cfg.poll_s)
+            if self._host_trace is not None:
+                # Sleep-overshoot stall probe (the scheduler flush-loop
+                # idiom): waking far past poll_s is host interference
+                # -- GC, preemption -- not rebuild work, and it lands
+                # in serve.host.stall_us instead of the staleness row.
+                over = time.perf_counter() - t_sleep - self.cfg.poll_s
+                if over > 0:
+                    self._host_trace.note_stall(int(over * 1e9))
 
     def _enqueue(self, rev: Revision) -> None:
         with self._cond:

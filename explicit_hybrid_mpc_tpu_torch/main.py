@@ -20,7 +20,9 @@ warm ``rebuild``, and the ``serve`` and ``serve-rebuild`` subcommands.
 
 Runs on the first CUDA device unless ``--backend cpu`` is given (the
 serve and serve-rebuild subcommands likewise: serve/cli.py,
-lifecycle/cli.py).  The build flags are the JAX
+lifecycle/cli.py); ``--backend serial`` is the host baseline (one
+point or pair per call, each QP solved in numpy on the host:
+oracle/host_qp.py), reached only by that name.  The build flags are the JAX
 package's, with its defaults and its tolerance rule (``-a`` defaults to
 1e-2, or to 0 when ``-r`` is given); ``config_from_args`` maps them to
 the PartitionConfig.  Outputs under --output PREFIX: PREFIX.tree.pkl
@@ -41,6 +43,12 @@ serving artifact directory (the ``serve --artifacts`` input).
 ``--simulate T`` runs a T-step closed-loop explicit-vs-implicit comparison on the build's
 device (the explicit controller through the point-location kernel,
 the implicit one through the oracle) and writes PREFIX.sim.json.
+``--profile DIR`` writes a torch.profiler Chrome trace of the first
+``--profile-steps`` frontier steps to DIR (CPU activity, plus the
+card's kernels on cuda); ``--auto-profile`` arms the bounded capture of
+obs/profiling.py, which only ``FrontierEngine.trigger_auto_profile``
+opens until the health monitor (its automatic trigger, ROADMAP A5) is
+ported: the command line warns that nothing will open it.
 
 The JAX package's flags in _UNPORTED_FLAGS exit with "not yet ported"
 and the ROADMAP item that brings them.
@@ -63,9 +71,6 @@ _UNPORTED_FLAGS = {
     "--shard-frontier": "A4 (partition/shard.py)",
     "--shard-dir": "A4 (partition/shard.py)",
     "--shard-timeout": "A4 (partition/shard.py)",
-    "--profile": "A2 (the profiler capture of partition/frontier.py)",
-    "--profile-steps": "A2 (the profiler capture of partition/frontier.py)",
-    "--auto-profile": "A2 (obs/profiling.py)",
     "--recorder": "A5 (obs/recorder.py)",
     "--recorder-dir": "A5 (obs/recorder.py)",
     "--health-rule": "A5 (obs/health.py)",
@@ -113,7 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default="suboptimal",
                    help="fully-explicit eps-suboptimal partition vs "
                         "semi-explicit feasibility-only variant")
-    p.add_argument("--backend", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--backend", choices=("cuda", "cpu", "serial"),
+                   default="cuda",
+                   help="'cuda' (default; raises without a GPU), 'cpu' "
+                        "(the kernels' plain versions) or 'serial' (the "
+                        "one-QP-per-call host baseline)")
     p.add_argument("--precision", choices=("f64", "mixed"), default="f64",
                    help="IPM iteration precision: pure float64 vs "
                         "f32-bulk + f64-polish (same tolerance)")
@@ -183,6 +192,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fault-plan", metavar="PLAN.json", default=None,
                    help="deterministic fault-injection plan "
                    "(faults/plan.py; chaos testing only)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the first "
+                        "--profile-steps frontier steps to DIR")
+    p.add_argument("--profile-steps", type=int, default=5)
     p.add_argument("--obs", choices=("off", "jsonl", "full"),
                    default="off",
                    help="observability mode: 'jsonl' streams spans and "
@@ -190,6 +203,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--obs-path", metavar="FILE", default=None,
                    help="override the obs stream path "
                    "(default PREFIX.obs.jsonl)")
+    p.add_argument("--auto-profile", action="store_true",
+                   help="bounded profiler capture (obs/profiling.py): "
+                        "--profile-steps frontier steps and a summarized "
+                        "auto_profile JSON bundle, opened by the "
+                        "engine's external trigger; nothing triggers it "
+                        "from the command line until the health monitor "
+                        "is ported (ROADMAP A5)")
     p.add_argument("--problem-arg", action="append", default=[],
                    metavar="K=V", help="problem constructor overrides, "
                    "e.g. --problem-arg N=5")
@@ -260,9 +280,11 @@ def config_from_args(args: argparse.Namespace):
                          if args.checkpoint_every else None),
         log_path=f"{prefix}.log.jsonl",
         precision=args.precision,
+        profile_path=args.profile, profile_steps=args.profile_steps,
         obs=args.obs,
         obs_path=(args.obs_path or f"{prefix}.obs.jsonl"
                   if args.obs != "off" else None),
+        auto_profile=args.auto_profile,
         solve_timeout_s=args.solve_timeout,
         fault_plan=args.fault_plan,
         rebuild_from=args.rebuild_from,
@@ -338,6 +360,15 @@ def main(argv: list[str] | None = None) -> int:
             raise SystemExit(f"{flag}: not yet ported to the torch package "
                              f"(ROADMAP {item})")
     args = build_parser().parse_args(argv)
+    if args.auto_profile:
+        # The JAX package's automatic trigger is the health monitor,
+        # whose rules the port still refuses (ROADMAP A5): from the
+        # command line the armed profiler is never opened.
+        print("--auto-profile: armed, but nothing in a command-line "
+              "build triggers it until the health monitor is ported "
+              "(ROADMAP A5: obs/health.py); a caller that drives "
+              "FrontierEngine opens it with trigger_auto_profile(reason)",
+              file=sys.stderr)
     if rebuild_cmd and not args.rebuild_from:
         raise SystemExit("rebuild: --from PRIOR (a .tree.pkl or "
                          ".ckpt.pkl) is required")

@@ -18,10 +18,13 @@ snapshots stream to ``obs_path`` (or stay in memory when no path);
 'full' -- jsonl plus device-trace annotations.
 
 Instrumented layers: partition/frontier.py (per-step throughput,
-device_frac, backlog), oracle/oracle.py (solve-time histograms, IPM
-iteration counters).  The
-diagnostics built on top in the JAX package (flight recorder, health
-watchdog, SLO engine, fleet merging) are not yet ported (ROADMAP A2/A5).
+device_frac, backlog), oracle/{oracle,bnb}.py (solve-time histograms,
+IPM iteration counters, the serial baseline's node counters),
+obs/host.py (competing-CPU gauges), obs/reqtrace.py (the serving
+schedulers' per-request phase decomposition and host forensics) and
+obs/profiling.py (torch.profiler capture summaries).  The diagnostics
+built on top in the JAX package (flight recorder, health watchdog, SLO
+engine, fleet merging) are not yet ported (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+from explicit_hybrid_mpc_tpu_torch.obs.host import (  # noqa: F401
+    ContentionMonitor)
 from explicit_hybrid_mpc_tpu_torch.obs.metrics import (  # noqa: F401
     DEFAULT_LATENCY_BOUNDS, Counter, Gauge, Histogram, MetricsRegistry,
     histogram_row, quantile)

@@ -183,7 +183,10 @@ class ShardedDescent:
                              f"{_MIN_BUCKET}, got {self.max_bucket}")
         # Extra fields merged into every serve.eval heartbeat event: the
         # request scheduler (serve/scheduler.py) writes its queue_depth /
-        # batch_fill_frac here.
+        # batch_fill_frac here -- and, with request tracing on
+        # (obs/reqtrace.py), the rolling queue_frac -- so stream
+        # consumers can alarm on serving stalls and queue-dominated
+        # tails.
         self.heartbeat: dict = {}
         # Serving observability: per-shard latency histograms, batch
         # sizes, routing counters, imbalance gauge.  NOOP by default --

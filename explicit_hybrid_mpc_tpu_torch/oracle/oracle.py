@@ -14,9 +14,13 @@ batched over a leading axis and run on the oracle's device:
   for the simplex form).
 
 Backends: 'cuda' (the first CUDA device; every IPM leg is one launch of
-the hand-written kernel, csrc/ipm_leg.cu) and 'cpu' (the same code with
-the kernel's plain torch version).  The serial baseline and the mesh
-are not yet ported.
+the hand-written kernel, csrc/ipm_leg.cu), 'cpu' (the same code with
+the kernel's plain torch version) and 'serial' (one point or one
+(point, commutation) pair per call, each QP solved in numpy on the host
+by oracle/host_qp.py: the baseline that oracle/bnb.py's branch-and-bound
+stand-in runs on, and that the benchmarks price the batched backends
+against).  'serial' is reached only by name: no 'cuda' oracle ever
+becomes one.  The mesh is not yet ported.
 
 Asynchrony: `dispatch_*` only enqueues device work -- host inputs go
 through pinned memory without blocking and no result is read back -- so
@@ -36,7 +40,7 @@ import torch
 from explicit_hybrid_mpc_tpu_torch import device as device_lib
 from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
 from explicit_hybrid_mpc_tpu_torch.faults import injector as faults_inj
-from explicit_hybrid_mpc_tpu_torch.oracle import ipm
+from explicit_hybrid_mpc_tpu_torch.oracle import host_qp, ipm
 from explicit_hybrid_mpc_tpu_torch.problems.base import CanonicalMPQP
 
 _INF = np.inf
@@ -327,7 +331,11 @@ class Oracle:
                  ipm_kernel: str = "auto",
                  obs: "obs_lib.Obs | None" = None,
                  mesh=None):
-        """backend: 'cuda' (raises without a CUDA device) or 'cpu'.
+        """backend: 'cuda' (raises without a CUDA device), 'cpu', or
+        'serial' (the one-QP-per-call host baseline: pinned to the CPU,
+        its QPs solved one at a time by oracle/host_qp.py whatever
+        ipm_kernel asks, two-phase and warm starts forced off, no
+        mesh; the batched simplex programs run the plain leg).
 
         precision: 'f64' = every IPM iteration in float64; 'mixed' =
         two-thirds of n_iter as float32 iterations + the remaining third
@@ -355,15 +363,14 @@ class Oracle:
         (dispatch_pairs(..., warm=...)) and return final duals/slacks
         from the point-class programs so the frontier can cache them as
         tree warm-start donors (cfg.warm_start_tree)."""
-        if backend == "serial":
-            raise NotImplementedError(
-                "backend='serial' is not yet ported to the torch package "
-                "(ROADMAP A1: oracle/bnb.py serial baseline)")
+        if mesh is not None and backend == "serial":
+            raise ValueError("backend='serial' is the one-solve-at-a-time "
+                             "baseline; it cannot shard over a mesh")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded oracles are not yet ported to the torch "
                 "package (ROADMAP A4: parallel/mesh.py)")
-        if backend not in ("cuda", "cpu"):
+        if backend not in ("cuda", "cpu", "serial"):
             raise ValueError(f"unknown backend {backend!r}")
         self.problem = problem
         self.can = problem.canonical
@@ -422,8 +429,10 @@ class Oracle:
                                    else int(phase1_iters_point))
         self.phase1_iters_simplex = (None if phase1_iters_simplex is None
                                      else int(phase1_iters_simplex))
-        self.two_phase = bool(two_phase)
-        self.warm_start = bool(warm_start)
+        # The serial baseline is the conservative fixed schedule: no
+        # cohort, no warm starts.
+        self.two_phase = bool(two_phase) and backend != "serial"
+        self.warm_start = bool(warm_start) and backend != "serial"
 
         def _split(n_f64: int,
                    override: int | None) -> tuple[int, int]:
@@ -482,11 +491,22 @@ class Oracle:
             self.stage2_phase1_first = (self.can.n_delta > 1
                                         if stage2_order == "auto"
                                         else stage2_order == "phase1_first")
-        self.device = device_lib.resolve(backend)
+        self.device = device_lib.resolve(
+            "cpu" if backend == "serial" else backend)
         # The IPM leg that runs (public: obs gauge, provenance): 'cuda'
-        # or 'torch'; raises for a request the device cannot honor.
-        self.ipm_kernel = ipm.resolve_kernel(ipm_kernel, self.device)
+        # or 'torch'; raises for a request the device cannot honor.  The
+        # serial baseline always runs the plain leg (one QP per call has
+        # no batch for a kernel to fill).
+        self.ipm_kernel = ipm.resolve_kernel(
+            "auto" if backend == "serial" else ipm_kernel, self.device)
         self.prob = to_device(self.can, self.device)
+        if backend == "serial":
+            # One point / one pair per call through the chunk loops
+            # below; each call runs the host programs on these arrays.
+            self.max_pairs_per_call = 1
+            self._host = DeviceProblem(*(
+                np.ascontiguousarray(getattr(self.can, k), dtype=np.float64)
+                for k in DeviceProblem._fields))
 
     def cpu_twin(self, problem) -> "Oracle":
         """CPU re-instantiation with identical solver semantics -- the
@@ -531,6 +551,8 @@ class Oracle:
     def _solve_points(self, thetas: torch.Tensor):
         """Grid program: 11 outputs when full-output (phase-1 cohort or
         warm-start donors), else the first 8."""
+        if self.backend == "serial":
+            return self._host_points(thetas)
         return _solve_points_grid(self.prob, thetas, self._point_leg1,
                                   self.point_n_f32)[:self._n_grid_out]
 
@@ -547,11 +569,64 @@ class Oracle:
                             warm=(zw, sw, lw, valid))
 
     def _solve_fixed(self, th, ds):
+        if self.backend == "serial":
+            return self._host_pairs(th, ds, self.point_n_iter,
+                                    self.point_n_f32)
         return _solve_pairs(self.prob, th, ds, self.point_n_iter,
                             self.point_n_f32)[:6]
 
     def _solve_rescue(self, th, ds):
+        if self.backend == "serial":
+            return self._host_pairs(th, ds, self.rescue_iter, 0)
         return _solve_pairs(self.prob, th, ds, self.rescue_iter, 0)[:6]
+
+    # -- the serial baseline's programs: one QP at a time on the host ------
+
+    def _pair_host(self, theta: np.ndarray, d: int, n_iter: int,
+                   n_f32: int):
+        """_solve_pairs for ONE (point, commutation) pair, in numpy:
+        (V, conv, feas, grad, u0, z)."""
+        h = self._host
+        q = h.f[d] + h.F[d] @ theta
+        b = h.w[d] + h.S[d] @ theta
+        z, lam, _s, obj, conv, feas = host_qp.qp_solve(
+            h.H[d], q, h.G[d], b, n_iter=n_iter, n_f32=n_f32)
+        Yth = h.Y[d] @ theta
+        V = (obj + np.sum(0.5 * theta * Yth) + np.sum(h.pvec[d] * theta)
+             + h.cconst[d])
+        grad = h.F[d].T @ z + Yth + h.pvec[d] - h.S[d].T @ lam
+        u0 = h.u_map[d] @ z + h.u_theta[d] @ theta + h.u_const[d]
+        return V, conv, feas, grad, u0, z
+
+    def _solve_pair_one(self, theta: np.ndarray, d: int):
+        """The single-pair program SerialBnB calls: one QP."""
+        return self._pair_host(np.asarray(theta, dtype=np.float64), int(d),
+                               self.point_n_iter, self.point_n_f32)
+
+    def _host_pairs(self, th, ds, n_iter: int, n_f32: int):
+        """The pair program's six outputs for a staged pair batch (one
+        pair per call under the serial cap), solved on the host."""
+        outs = [self._pair_host(t, int(d), n_iter, n_f32)
+                for t, d in zip(_np(th), _np(ds))]
+        return [torch.from_numpy(np.stack([np.asarray(o[k]) for o in outs]))
+                for k in range(6)]
+
+    def _host_points(self, thetas):
+        """The grid program's 8 outputs for a staged point batch (one
+        point per call under the serial cap): every commutation's QP at
+        each point, then reduce_deltas' first-minimum reduction."""
+        nd = self.can.n_delta
+        th = _np(thetas)
+        out = [[self._pair_host(t, d, self.point_n_iter, self.point_n_f32)
+                 for d in range(nd)] for t in th]
+        V, conv, feas, grad, u0, z = (
+            np.array([[np.asarray(o[k]) for o in row] for row in out])
+            for k in range(6))
+        Vval = np.where(conv, V, _INF)
+        dstar = np.argmin(Vval, axis=-1)
+        Vstar = np.take_along_axis(Vval, dstar[:, None], -1)[:, 0]
+        return [torch.from_numpy(a) for a in
+                (V, conv, feas, grad, u0, z, Vstar, dstar)]
 
     def _simplex_min(self, Ms, ds):
         it = self.simplex_p1 if self._simplex_cohort else self.n_iter
@@ -656,7 +731,10 @@ class Oracle:
     def max_points_per_call(self) -> int:
         """Point-batch cap per launch group: bounds the (points x
         commutations) grid to ~2^16 simultaneous QP solves (2^15 for
-        mixed precision) -- device memory for the per-cell KKT data."""
+        mixed precision) -- device memory for the per-cell KKT data.
+        One for the serial baseline."""
+        if self.backend == "serial":
+            return 1
         nd = max(1, self.can.n_delta)
         budget = 65536 if self.point_n_f32 == 0 else 32768
         cap = 1 << max(3, (budget // nd).bit_length() - 1)
@@ -682,7 +760,8 @@ class Oracle:
         faults_inj.fire("oracle.dispatch",
                         label="vertices:" + self._fault_role)
         # Solve counters increment at WAIT time, not here (a dispatched-
-        # but-never-consumed lookahead must not count).
+        # but-never-consumed lookahead must not count).  The serial
+        # backend's cap of one point runs one host program per point.
         cap = self.max_points_per_call
         chunks = []
         for lo in range(0, P, cap):
@@ -788,6 +867,7 @@ class Oracle:
         self.n_solves += K
         self.n_rescue_solves += K
         t0 = time.perf_counter()
+        # The serial cap keeps the one-QP-per-call contract here too.
         cap = self.max_pairs_per_call
         chunks = []
         for lo in range(0, K, cap):
@@ -805,10 +885,11 @@ class Oracle:
                    family: str = "pairs"):
         """Pad a (point, delta) pair batch to its power-of-two bucket and
         stage it on the device.  `family` names the program the batch
-        feeds for the bucket ledger."""
+        feeds for the bucket ledger.  A cap below 8 (the serial
+        baseline's 1) is honoured."""
         Kc = thetas.shape[0]
-        Kpad = max(8, min(self.max_pairs_per_call,
-                          1 << (Kc - 1).bit_length()))
+        Kpad = min(self.max_pairs_per_call,
+                   max(8, 1 << (Kc - 1).bit_length()))
         self._note_shape(family, Kpad)
         tpad = np.concatenate(
             [thetas, np.zeros((Kpad - Kc, thetas.shape[1]))])
@@ -1086,7 +1167,7 @@ class Oracle:
         tree-warm-start donor arrays aligned with the pair batch; each
         cell's start goes through the merit gate (valid only where
         `has` is set).  Ignored on oracles without the warm-capable
-        programs."""
+        programs (the serial one among them)."""
         thetas = np.atleast_2d(np.asarray(thetas, dtype=np.float64))
         K = thetas.shape[0]
         if K == 0:

@@ -3,6 +3,9 @@
 The counterpart of the JAX package's parallel/mesh.py, reduced to the
 one function the serving path needs.  The solve mesh (the batched
 oracle sharded over devices) is ROADMAP A4 and is not here.
+
+ContentionMonitor is re-exported here, as in the JAX package: it
+samples the host the devices share (obs/host.py).
 """
 
 from __future__ import annotations
@@ -10,6 +13,9 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+from explicit_hybrid_mpc_tpu_torch.obs.host import (  # noqa: F401
+    ContentionMonitor)
 
 
 def local_devices() -> list[torch.device]:

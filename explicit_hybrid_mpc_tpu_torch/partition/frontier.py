@@ -355,12 +355,32 @@ class FrontierEngine:
         # health monitor -- the auto-profile trigger.  Updated after
         # checkpoints too (a slow checkpoint is not a stall).
         self._last_step_end: float | None = None
-        # The flight recorder, in-build health monitor, auto-profiler
-        # and recompile sentinel are not yet ported (ROADMAP A2/A5/A6;
-        # PartitionConfig rejects their knobs): every hook below is a
-        # None-test.
+        # The flight recorder, in-build health monitor and recompile
+        # sentinel are not yet ported (ROADMAP A5/A6; PartitionConfig
+        # rejects their knobs): every hook below is a None-test.
         self.recorder = None
         self._health = None
+        # Bounded profiler capture (cfg.auto_profile; obs/profiling.py):
+        # armed here, triggered by the first critical health verdict
+        # (_poll_auto_profile; none until the health monitor is ported)
+        # or an external driver (trigger_auto_profile).  Mutually
+        # exclusive with a manual cfg.profile_path trace: one profiler
+        # runs at a time, and the manual capture IS the evidence the
+        # auto-capture exists to produce.
+        self._auto_prof = None
+        if getattr(self.cfg, "auto_profile", False) \
+                and not self.cfg.profile_path:
+            from explicit_hybrid_mpc_tpu_torch.obs.profiling import (
+                AutoProfiler)
+
+            out_dir = (getattr(self.cfg, "recorder_dir", None)
+                       or (os.path.dirname(
+                           getattr(self.cfg, "obs_path", None) or "")
+                           or "artifacts"))
+            self._auto_prof = AutoProfiler(
+                out_dir, steps=self.cfg.profile_steps,
+                device=self.oracle.device)
+        self._auto_prof_seen_events = 0
 
     def _health_device_failure(self, e: BaseException) -> None:
         """Record a device failure where every health consumer can see
@@ -1448,29 +1468,78 @@ class FrontierEngine:
                 every = int(self._health.rules["metrics_every_steps"])
                 if every > 0 and self.steps % every == 0:
                     self._health.feed(o.flush_metrics())
+        if self._auto_prof is not None:
+            self._poll_auto_profile()
         self._last_step_end = time.perf_counter()
+
+    def _poll_auto_profile(self) -> None:
+        """Advance an open auto-capture one step; open one when the
+        in-build health verdict turned CRITICAL since the last poll
+        (obs/profiling.py AutoProfiler; cfg.auto_profile)."""
+        ap = self._auto_prof
+        ap.on_step(self.obs)
+        if self._health is None or ap.active \
+                or ap.n_captures >= ap.max_captures:
+            return
+        evs = self._health.events
+        while self._auto_prof_seen_events < len(evs):
+            ev = evs[self._auto_prof_seen_events]
+            self._auto_prof_seen_events += 1
+            if ev.get("severity") == "critical":
+                ap.trigger(ev.get("name", "critical"),
+                           detail={"msg": ev.get("msg"),
+                                   "value": ev.get("value"),
+                                   "threshold": ev.get("threshold")},
+                           obs=self.obs, step=self.steps)
+                break
+
+    def trigger_auto_profile(self, reason: str) -> int:
+        """External capture trigger (a driver that wants the evidence
+        before it halts the build).  Returns how many more frontier
+        steps the caller should run to fill the capture window; 0 when
+        auto-profiling is not armed, already capturing, or the per-run
+        budget is spent."""
+        ap = self._auto_prof
+        if ap is None:
+            return 0
+        if ap.trigger(reason, obs=self.obs, step=self.steps):
+            return ap.steps
+        return 0
 
     # -- full run ----------------------------------------------------------
 
     def run(self) -> PartitionResult:
         t0 = time.perf_counter()
         budget = self.cfg.time_budget_s
+        prof = None
         if self.cfg.profile_path:
-            raise NotImplementedError(
-                "profile_path is not yet ported to the torch package "
-                "(ROADMAP A2: the profiler capture of "
-                "partition/frontier.py)")
+            # A torch.profiler trace of the first profile_steps frontier
+            # steps (the device's busy share and the host work around
+            # each launch are visible only at this level).
+            from explicit_hybrid_mpc_tpu_torch.obs import profiling
+
+            prof = profiling.start_trace(self.oracle.device)
+            self.log.emit(profiling=True, trace_dir=self.cfg.profile_path)
         try:
-            while self.frontier and self.steps < self.cfg.max_steps:
-                if (budget is not None
-                        and time.perf_counter() - t0 >= budget):
-                    self.log.emit(time_budget_hit=True, budget_s=budget)
-                    break
-                self.step()
-                if (self.cfg.checkpoint_every
-                        and self.steps % self.cfg.checkpoint_every == 0
-                        and self.cfg.checkpoint_path):
-                    self.save_checkpoint(self.cfg.checkpoint_path)
+            try:
+                while self.frontier and self.steps < self.cfg.max_steps:
+                    if (budget is not None
+                            and time.perf_counter() - t0 >= budget):
+                        self.log.emit(time_budget_hit=True,
+                                      budget_s=budget)
+                        break
+                    self.step()
+                    if prof is not None \
+                            and self.steps >= self.cfg.profile_steps:
+                        profiling.stop_trace(prof, self.cfg.profile_path)
+                        prof = None
+                    if (self.cfg.checkpoint_every
+                            and self.steps % self.cfg.checkpoint_every == 0
+                            and self.cfg.checkpoint_path):
+                        self.save_checkpoint(self.cfg.checkpoint_path)
+            finally:
+                if prof is not None:
+                    profiling.stop_trace(prof, self.cfg.profile_path)
             # Drop whatever the lookahead still has in flight (budget or
             # max_steps stop): the claims were never popped from the
             # frontier, so truncation stats stay exact, and unwaited
@@ -1491,6 +1560,10 @@ class FrontierEngine:
         build still ships its histograms -- the snapshot matters MOST
         for the run that died; external step loops (long_build)
         own their handle's lifecycle and close it themselves."""
+        if self._auto_prof is not None:
+            # Close a capture the run ended inside (frontier drained
+            # or halted mid-window); the summary bundle still lands.
+            self._auto_prof.finish(self.obs)
         if self.obs.enabled:
             self.obs.flush_metrics()
             if self._owns_obs:

@@ -24,8 +24,20 @@ serve/scheduler.py:
 - ``ArenaScheduler`` serves every tenant of a ``DeviceArena`` from one
   queue, one fused kernel launch per mixed-tenant micro-batch.
 
-Demand capture, request tracing and SLO tracking (ROADMAP A5/A2) are not
-ported: their hooks accept only None.
+Request tracing (obs/reqtrace.py): both schedulers optionally hold a
+``ReqTrace`` hub; with tracing off the hub is dropped at construction
+(``self.trace is None`` is the only off-path cost).  When on, tickets
+carry raw ``perf_counter_ns`` submit/enqueue stamps (``Ticket.t_ns``),
+the worker takes batch-scoped stamps at seal / lease / launch entry /
+launch return / fallback end / reply, and ONE ``fold`` call per
+(controller, micro-batch) turns them into the
+``serve.ctl.<name>.phase.*_us`` decomposition (summing to request wall
+by construction), the ``queue_frac`` gauge, and the slowest-K exemplar
+ring.  Stamps are raw clock reads on the hot path; all emission happens
+at the batch fold.
+
+Demand capture and SLO tracking (ROADMAP A5) are not ported: their
+hooks accept only None.
 
 Observability: per-controller ``serve.ctl.<name>.*`` metrics (the
 request scheduler's latency histogram, queue-depth / batch-fill /
@@ -107,15 +119,20 @@ class ServeResult:
 
 
 class Ticket:
-    """Caller-side handle for one submission (k rows)."""
+    """Caller-side handle for one submission (k rows).
 
-    __slots__ = ("_evt", "_results", "_error", "t_submit", "n")
+    ``t_ns`` is the tracing stamp pair ``(submit_ns, enqueue_ns)``
+    (raw perf_counter_ns, obs/reqtrace.py) -- None unless the
+    scheduler holds an enabled ReqTrace."""
+
+    __slots__ = ("_evt", "_results", "_error", "t_submit", "t_ns", "n")
 
     def __init__(self, n: int):
         self._evt = threading.Event()
         self._results: list[Optional[ServeResult]] = [None] * n
         self._error: Optional[BaseException] = None
         self.t_submit = time.perf_counter()
+        self.t_ns: Optional[tuple[int, int]] = None
         self.n = n
 
     def _fill(self, offset: int, results: list[ServeResult]) -> None:
@@ -158,8 +175,7 @@ class _Pending:
 
 #: Scheduler hooks whose modules wait for later port slices: hook ->
 #: the ROADMAP item and the JAX package's module it waits for.
-_HOOK_ITEMS = {"demand": "A5: obs/demand.py", "trace": "A2: obs/reqtrace.py",
-               "slo": "A5: obs/slo.py"}
+_HOOK_ITEMS = {"demand": "A5: obs/demand.py", "slo": "A5: obs/slo.py"}
 
 
 def _unported(cls: str, **hooks) -> None:
@@ -180,7 +196,8 @@ class _MicroBatcher:
     queue and stops the worker (no request is ever dropped by a clean
     shutdown)."""
 
-    def _setup(self, max_batch: int, max_wait_us: float, obs) -> None:
+    def _setup(self, max_batch: int, max_wait_us: float, obs,
+               trace) -> None:
         if not config_mod.is_pow2(max_batch):
             raise ValueError(f"max_batch must be a power of two, "
                              f"got {max_batch}")
@@ -189,6 +206,14 @@ class _MicroBatcher:
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_us) * 1e-6
         self._obs = obs if obs is not None else obs_lib.NOOP
+        # Request-trace hub (obs/reqtrace.py ReqTrace) or None: a hub
+        # that is off is dropped here, so off costs one attribute test.
+        self.trace = trace if trace is not None \
+            and getattr(trace, "enabled", False) else None
+        # Batch-seal stamp of the batch being served, and the deadline
+        # flush's sleep overshoot (traced only).
+        self._t_seal_ns = 0
+        self._stall_over_ns = 0
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._queue: deque[_Pending] = deque()
@@ -223,6 +248,12 @@ class _MicroBatcher:
                         - time.perf_counter()
                     if self._queued_rows >= self.max_batch \
                             or budget <= 0 or self._closed:
+                        # Sleep-overshoot stall probe: a deadline
+                        # flush that woke past its budget measures
+                        # host interference (GC, preemption) -- folded
+                        # into serve.host.stall_us.
+                        if budget < 0 and self.trace is not None:
+                            self._stall_over_ns = int(-budget * 1e9)
                         break
                     self._cond.wait(timeout=budget)
                 elif self._closed:
@@ -243,6 +274,8 @@ class _MicroBatcher:
                     self._queue.popleft()
             if self._ms:
                 self._ms["depth"].set(self._queued_rows)
+            if self.trace is not None:
+                self._t_seal_ns = time.perf_counter_ns()
             return out
 
     def _loop(self) -> None:
@@ -261,6 +294,8 @@ class _MicroBatcher:
                 now = time.perf_counter()
                 if now - self._last_flush >= METRICS_FLUSH_S:
                     self._last_flush = now
+                    if self.trace is not None:
+                        self.trace.flush()
                     self._obs.flush_metrics()
 
     def _serve(self, entries) -> None:
@@ -308,8 +343,8 @@ class RequestScheduler(_MicroBatcher):
                  max_batch: int = 256, max_wait_us: float = 2000.0,
                  fallback=None, obs: "obs_lib.Obs | None" = None,
                  demand=None, trace=None, slo=None):
-        self._setup(max_batch, max_wait_us, obs)
-        _unported("RequestScheduler", demand=demand, trace=trace, slo=slo)
+        self._setup(max_batch, max_wait_us, obs, trace)
+        _unported("RequestScheduler", demand=demand, slo=slo)
         self.registry = registry
         self.controller = controller
         self.fallback = fallback
@@ -373,12 +408,18 @@ class RequestScheduler(_MicroBatcher):
                 f"theta width {thetas.shape[1]} does not match "
                 f"controller {self.controller!r} parameter dim {p}")
         t = Ticket(thetas.shape[0])
+        # Raw clock reads only on the hot path (obs/reqtrace.py):
+        # submit before the lock, enqueue once queued.
+        t_sub_ns = time.perf_counter_ns() if self.trace is not None \
+            else 0
         with self._cond:
             if self._closed:
                 raise RuntimeError("scheduler is closed")
             self._queue.append(_Pending(t, thetas))
             self._queued_rows += thetas.shape[0]
             self.n_requests += thetas.shape[0]
+            if self.trace is not None:
+                t.t_ns = (t_sub_ns, time.perf_counter_ns())
             if self._ms:
                 self._ms["requests"].inc(thetas.shape[0])
                 with _AGG_LOCK:
@@ -395,11 +436,13 @@ class RequestScheduler(_MicroBatcher):
         fill = B / min(_bucket(B), self.max_batch)
         self._fill_roll.append(fill)
         self.n_batches += 1
+        tr = self.trace
         # The lease is a context manager: release runs in its finally,
         # so ANY raise below -- evaluator error, fallback error, or an
         # injected serve.batch crash -- drains the ref and a retiring
         # version can still retire.
         with self.registry.lease(self.controller) as ver:
+            ts_lease = time.perf_counter_ns() if tr is not None else 0
             faults_inj.fire("serve.batch", label=self.controller)
             srv = ver.server
             # Heartbeat context for the evaluator's serve.eval event.
@@ -408,12 +451,23 @@ class RequestScheduler(_MicroBatcher):
                 hb["queue_depth"] = self.queue_depth()
                 hb["batch_fill_frac"] = round(
                     sum(self._fill_roll) / len(self._fill_roll), 4)
+                if tr is not None:
+                    qf = tr.queue_frac(self.controller)
+                    if qf is not None:
+                        hb["queue_frac"] = round(qf, 4)
+            ts_eval0 = time.perf_counter_ns() if tr is not None else 0
+            # evaluate() returns host arrays: on the card it ends with
+            # the synchronizing device-to-host copy of every shard's
+            # results (online/sharded.py _read), so the launch phase
+            # stamped around it is the device round trip.
             res = srv.evaluate(thetas)
+            ts_eval1 = time.perf_counter_ns() if tr is not None else 0
             if self.fallback is not None:
                 res, tags = self.fallback.apply(
                     thetas, res, srv, controller=self.controller)
             else:
                 tags = [None] * B
+            ts_fb_end = time.perf_counter_ns() if tr is not None else 0
         now = time.perf_counter()
         version = ver.version
         if self._ms:
@@ -426,6 +480,7 @@ class RequestScheduler(_MicroBatcher):
             n_fb = sum(1 for t in tags if t is not None)
             if n_fb:
                 self._ms["fallbacks"].inc(n_fb)
+        trace_rows = [] if tr is not None else None
         lo = 0
         for ticket, off, _key, rows in entries:
             k = rows.shape[0]
@@ -445,9 +500,26 @@ class RequestScheduler(_MicroBatcher):
                  for t in tags[lo:lo + k]])
             if self._ms:
                 self._ms["req_s"].observe(lat, n=k)
+            if tr is not None and ticket.t_ns is not None:
+                trace_rows.append((
+                    ticket.t_ns, k,
+                    next((x for x in tags[lo:lo + k]
+                          if x is not None), None)))
             ticket._fill(off, results)
             lo += k
+        ts_done = time.perf_counter_ns() if tr is not None else 0
         self._roll_gauges(now)
+        # Trace fold: ONE call per micro-batch, after tickets are
+        # filled (attribution never sits between a result and its
+        # caller); the stamps above are raw clock reads only.
+        if tr is not None and trace_rows:
+            tr.fold(self.controller, seal=self._t_seal_ns,
+                    lease=ts_lease, eval0=ts_eval0, eval1=ts_eval1,
+                    fb_end=ts_fb_end, done=ts_done, rows=trace_rows,
+                    fill=fill, version=version,
+                    extent=getattr(srv, "n_leaves", None),
+                    stall_ns=self._stall_over_ns)
+            self._stall_over_ns = 0
 
 
 class ArenaScheduler(_MicroBatcher):
@@ -481,8 +553,8 @@ class ArenaScheduler(_MicroBatcher):
                  max_wait_us: float = 2000.0, fallback=None,
                  obs: "obs_lib.Obs | None" = None, demand=None,
                  trace=None, slo=None):
-        self._setup(max_batch, max_wait_us, obs)
-        _unported("ArenaScheduler", demand=demand, trace=trace, slo=slo)
+        self._setup(max_batch, max_wait_us, obs, trace)
+        _unported("ArenaScheduler", demand=demand, slo=slo)
         self.arena = arena
         self.fallback = fallback
         self._mix_roll: deque[int] = deque(maxlen=64)
@@ -545,12 +617,16 @@ class ArenaScheduler(_MicroBatcher):
                 f"arena parameter dim {self.arena.p}")
         self.arena.extent(controller)   # raises KeyError if unpublished
         t = Ticket(thetas.shape[0])
+        t_sub_ns = time.perf_counter_ns() if self.trace is not None \
+            else 0
         with self._cond:
             if self._closed:
                 raise RuntimeError("scheduler is closed")
             self._queue.append(_Pending(t, thetas, controller))
             self._queued_rows += thetas.shape[0]
             self.n_requests += thetas.shape[0]
+            if self.trace is not None:
+                t.t_ns = (t_sub_ns, time.perf_counter_ns())
             if self._ms:
                 with _AGG_LOCK:
                     self._ms["requests_all"].inc(thetas.shape[0])
@@ -570,17 +646,28 @@ class ArenaScheduler(_MicroBatcher):
         self._fill_roll.append(fill)
         self._mix_roll.append(len(set(names)))
         self.n_batches += 1
+        tr = self.trace
         faults_inj.fire("serve.batch", label="<arena>")
         mode_off = (self.fallback is not None
                     and self.fallback.mode == "off")
+        # Lease/put boundary stamps: arena.evaluate acquires the extent
+        # leases internally, so the put phase is the (near zero) gap
+        # between these two reads -- honest, not padded.
+        ts_lease = time.perf_counter_ns() if tr is not None else 0
+        ts_eval0 = time.perf_counter_ns() if tr is not None else 0
         # ONE launch for the whole mixed-tenant batch; arena.evaluate
-        # leases every involved extent across the device round trip.
+        # leases every involved extent across the device round trip and
+        # returns after its synchronizing device-to-host copy of the
+        # records (serve/arena.py, `host = rec.cpu()`), so the launch
+        # phase ends where the batch's results are on the host.
         res = self.arena.evaluate(names, thetas, clamp=not mode_off)
+        ts_eval1 = time.perf_counter_ns() if tr is not None else 0
         if self.fallback is not None:
             tags = self.fallback.account_kernel(res.clamped, res.served,
                                                 names=names)
         else:
             tags = [None] * B
+        ts_fb_end = time.perf_counter_ns() if tr is not None else 0
         now = time.perf_counter()
         if self._ms:
             with _AGG_LOCK:
@@ -591,6 +678,8 @@ class ArenaScheduler(_MicroBatcher):
                 sum(self._mix_roll) / len(self._mix_roll))
             if self.n_requests:
                 self._ms["lpr"].set(self.n_batches / self.n_requests)
+        trace_rows: "dict[str, list] | None" = \
+            {} if tr is not None else None
         lo = 0
         for ticket, off, name, rows in entries:
             k = rows.shape[0]
@@ -622,6 +711,26 @@ class ArenaScheduler(_MicroBatcher):
                  for t in tags[lo:lo + k]])
             if self._ms:
                 self._ms["req_s"].observe(lat, n=k)
+            if tr is not None and ticket.t_ns is not None:
+                trace_rows.setdefault(name, []).append((
+                    ticket.t_ns, k,
+                    next((x for x in tags[lo:lo + k]
+                          if x is not None), None)))
             ticket._fill(off, results)
             lo += k
+        ts_done = time.perf_counter_ns() if tr is not None else 0
         self._roll_gauges(now)
+        # Trace fold, grouped per tenant (phase histograms and
+        # exemplars are per-controller; batch-scoped stamps are shared
+        # -- the mixed batch attributes the same launch to every
+        # tenant riding it).
+        if tr is not None and trace_rows:
+            for name, rws in trace_rows.items():
+                ext = self.arena.extent(name)
+                tr.fold(name, seal=self._t_seal_ns, lease=ts_lease,
+                        eval0=ts_eval0, eval1=ts_eval1,
+                        fb_end=ts_fb_end, done=ts_done, rows=rws,
+                        fill=fill, version=res.versions[name],
+                        extent=getattr(ext, "n_leaves", None),
+                        stall_ns=self._stall_over_ns)
+                self._stall_over_ns = 0

@@ -132,7 +132,7 @@ def test_cli_builds_and_evaluates_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["-e", "double_integrator", "--shard-frontier"],
-    ["-e", "double_integrator", "--profile", "x"],
+    ["-e", "double_integrator", "--recompile-guard", "warn"],
     ["-e", "double_integrator", "--health-rule", "stall_s=1"],
     ["-e", "double_integrator", "--prune-rows"],
     ["-e", "double_integrator", "--mesh", "2"],

@@ -428,3 +428,81 @@ def test_a_wrong_rebuild_reference_fails_the_phase(tmp_path, monkeypatch):
     with pytest.raises(SystemExit):
         chip_smoke.rebuild_phase(torch.device("cpu"), problem, cfg, res,
                                  1.0, str(tmp_path))
+
+
+def test_observability_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
+                                                  capsys):
+    """Phase 16 on the CPU from a small pendulum build (the port's CPU
+    counts as the reference): the serial baseline held to the cpu
+    oracle, `main --profile` and the auto-profile bundle, the traced
+    arena and RequestScheduler runs (phase sums, exemplars, bitwise the
+    untraced runs) and the rebuild service's host forensics, each with
+    the host's verdict."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.online import export
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    problem = make("inverted_pendulum", N=2)
+    cfg = PartitionConfig(problem="inverted_pendulum",
+                          problem_args=(("N", 2),), eps_a=0.5,
+                          backend="cpu", batch_simplices=64, max_depth=14)
+    res = build_partition(problem, cfg)
+    table = export.export_leaves(res.tree)
+    for k, v in dict(REF_REGIONS=res.stats["regions"], SERIAL_POINTS=6,
+                     REQUESTS=300, CLIENTS=4, SWAP_CLIENTS=3,
+                     SWAP_REQUESTS=20, SERVICE_CLIENTS=3, MAX_BATCH=64,
+                     HOST_INTERVAL_S=0.05).items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    host = chip_smoke.HostVerdict()
+    chip_smoke.observability_phase(torch.device("cpu"), problem, cfg, res,
+                                   table, str(tmp_path), host)
+    summary = host.summary()
+    out = capsys.readouterr().out
+    assert "FAIL" not in out
+    for tag in ("[serial] SerialBnB(Oracle(backend='serial')).measure on 6",
+                "(ipm_leg launches 0)", "d* equal on",
+                "[profile] main -e inverted_pendulum", "exit 0",
+                "[profile] auto_profile engine: trigger_auto_profile -> 3",
+                "error None", "[trace] arena: 300 tickets",
+                "[trace] RequestScheduler: 60 tickets",
+                "traced results bitwise the untraced runs'",
+                "[trace] arena phases (us): queue p50",
+                "[trace] arena batch cycle", "[trace] queue_frac: arena t0",
+                "[forensics] RebuildService, one u_max generation",
+                "serve.host.stall_us: count", "[host] phase 16a",
+                "[host] phase 16d", "[observe] (phase took"):
+        assert tag in out, tag
+    assert {"cpu_count", "loadavg_end", "procfs_counts_cpu"} <= set(summary)
+
+
+def test_host_verdict_reads_each_phase_s_own_samples(monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke, "HOST_INTERVAL_S", 60.0)
+    host = chip_smoke.HostVerdict()
+    host.blind = False
+    host.mon._samples.extend([0.01, 0.02])
+    assert "mean 0.015, max 0.020, contended False (2 samples)" \
+        in host.end("one")
+    host.mon._samples.extend([0.3])
+    assert "mean 0.300, max 0.300, contended True (1 samples)" \
+        in host.end("two")
+    assert "no sample" in host.end("three")
+    out = capsys.readouterr().out
+    assert "[host] one: competing_cpu_frac_mean 0.015" in out
+    assert "[host] three: no sample" in out
+    assert host.summary()["procfs_counts_cpu"] is True
+
+
+def test_host_verdict_on_a_procfs_that_counts_no_cpu_time(monkeypatch):
+    """A sandbox whose /proc/stat cpu line is all zeros cannot show
+    other processes' load: the verdict says not measured."""
+    from explicit_hybrid_mpc_tpu_torch.obs import host as host_mod
+
+    monkeypatch.setattr(chip_smoke, "HOST_INTERVAL_S", 60.0)
+    monkeypatch.setattr(host_mod.ContentionMonitor, "_jiffies",
+                        lambda self: (0, 0))
+    host = chip_smoke.HostVerdict()
+    host.mon._samples.extend([0.0, 0.0])
+    assert host.blind and host.end("one").startswith("not measured")
+    assert host.summary()["procfs_counts_cpu"] is False

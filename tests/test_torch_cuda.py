@@ -888,3 +888,102 @@ def test_rebuild_service_on_the_card_swaps_under_load(gpu, tmp_path):
         torn += sum(not np.array_equal(r.u, np.asarray(ref.u[j]))
                     for j, (_th, r) in enumerate(rows) if r.fallback is None)
     assert torn == 0
+
+
+def test_serial_oracle_against_the_card(gpu):
+    """The serial baseline (one QP a call, in numpy on the host)
+    against the card's oracle on 16 flagship thetas: V* to the JAX
+    package's bar (rtol 1e-6, atol 1e-8), d* wherever the two best
+    commutations are apart by more than it."""
+    from explicit_hybrid_mpc_tpu_torch.oracle.bnb import SerialBnB
+
+    problem = make("inverted_pendulum")
+    thetas = np.random.default_rng(18).uniform(
+        problem.theta_lb, problem.theta_ub, (16, problem.n_theta))
+    ser = oracle.Oracle(problem, backend="serial")
+    assert ser.device.type == "cpu" and ser.ipm_kernel == "torch"
+    before = ipm_leg.launches
+    bnb = [SerialBnB(ser).solve_point(th) for th in thetas]
+    assert ipm_leg.launches == before
+    sol = oracle.Oracle(problem, backend="cuda").solve_vertices(thetas)
+    assert ipm_leg.launches > before
+    V = np.array([v for v, _d, _n in bnb])
+    d = np.array([dd for _v, dd, _n in bnb])
+    fin = np.isfinite(sol.Vstar)
+    assert np.array_equal(np.isfinite(V), fin)
+    np.testing.assert_allclose(V[fin], sol.Vstar[fin], rtol=1e-6, atol=1e-8)
+    Vs = np.sort(sol.V, axis=1)
+    with np.errstate(invalid="ignore"):
+        clear = fin & (Vs[:, 1] - Vs[:, 0] > 1e-8 + 1e-6 * np.abs(Vs[:, 0]))
+    assert clear.any()
+    np.testing.assert_array_equal(d[clear], sol.dstar[clear])
+
+
+def test_traced_arena_scheduler_on_the_card_is_bitwise_untraced(gpu):
+    """ServeConfig(tracing='on') through the arena kernel: every ticket's
+    phases sum to its wall, and every result is bitwise the untraced
+    run's on the same requests."""
+    from explicit_hybrid_mpc_tpu_torch.config import ServeConfig
+    from explicit_hybrid_mpc_tpu_torch.obs import Obs
+    from explicit_hybrid_mpc_tpu_torch.obs.reqtrace import (
+        PHASES, trace_from_serve_config)
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+    from explicit_hybrid_mpc_tpu_torch.serve import (ArenaScheduler,
+                                                     DeviceArena,
+                                                     FallbackPolicy)
+
+    rng = np.random.default_rng(9)
+    tabs = {n: _grid_table(rng, L) for n, L in (("a", 300), ("b", 77))}
+    box = (np.zeros(2), np.full(2, 18.0))
+    th = rng.uniform(-1, 19, (400, 2))
+    out = {}
+    for mode in ("off", "on"):
+        o = Obs("jsonl")
+        tr = trace_from_serve_config(ServeConfig(tracing=mode), obs=o)
+        arena = DeviceArena(p=2, n_u=1, capacity_cols=1024, device=gpu)
+        for n, t in tabs.items():
+            arena.publish(n, "v1", t, *box)
+        before = fused.launches
+        with ArenaScheduler(arena, max_batch=64, max_wait_us=500.0,
+                            fallback=FallbackPolicy(*box), obs=o,
+                            trace=tr) as sched:
+            tickets = [sched.submit("ab"[i % 2], q)
+                       for i, q in enumerate(th)]
+            out[mode] = [t.result(30.0)[0] for t in tickets]
+        assert fused.launches - before == sched.n_batches > 0
+        assert (sched.trace is None) == (mode == "off")
+    for a, b in zip(out["off"], out["on"]):
+        assert np.array_equal(a.u, b.u) and a.cost == b.cost
+        assert (a.leaf, a.inside, a.fallback) == (b.leaf, b.inside,
+                                                  b.fallback)
+    hists = o.metrics.snapshot()["histograms"]
+    for n in ("a", "b"):
+        h = {p: hists[f"serve.ctl.{n}.phase.{p}_us"] for p in
+             (*PHASES, "wall")}
+        assert h["wall"]["count"] == 200
+        assert abs(sum(h[p]["sum"] for p in PHASES) - h["wall"]["sum"]) \
+            <= 1e-3 * h["wall"]["count"]
+
+
+def test_profiled_build_on_the_card_names_ipm_leg_fixed(gpu, tmp_path):
+    """`main --profile` on the card: the torch.profiler trace's device
+    ops name K1's register-path kernel, and the tree is the unprofiled
+    build's."""
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.obs.profiling import summarize_trace
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+
+    argv = ["-e", "double_integrator", "--problem-arg", "N=3",
+            "--problem-arg", "theta_box=1.5", "-a", "0.5", "--batch", "64",
+            "--max-depth", "20"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    tdir = str(tmp_path / "trace")
+    assert tmain.main([*argv, "-o", a]) == 0
+    assert tmain.main([*argv, "-o", b, "--profile", tdir,
+                       "--profile-steps", "3"]) == 0
+    s = summarize_trace(tdir, top_n=50)
+    assert any("ipm_leg_fixed" in op["name"] for op in s["device_ops_ms"])
+    ta, tb = Tree.load(a + ".tree.pkl"), Tree.load(b + ".tree.pkl")
+    assert len(ta) == len(tb)
+    assert all(np.array_equal(ta.vertices[n], tb.vertices[n])
+               for n in range(len(ta)))

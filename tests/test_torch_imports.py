@@ -58,6 +58,8 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "problems.satellite_soc",
                                  "problems.quadrotor",
                                  "partition.rebuild", "lifecycle.revision",
-                                 "lifecycle.service", "lifecycle.cli"])
+                                 "lifecycle.service", "lifecycle.cli",
+                                 "oracle.bnb", "obs.host", "obs.reqtrace",
+                                 "obs.profiling"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

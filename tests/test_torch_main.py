@@ -6,7 +6,9 @@ PartitionConfig equal, field by field, to the one the JAX package's
 to ``make_oracle``; the JAX package is not edited).  A build stopped
 after a checkpoint and resumed with ``--resume`` must give the straight
 build's tree, and every flag whose module is not ported yet must exit
-with "not yet ported"."""
+with "not yet ported".  ``--backend serial``, ``--profile``,
+``--profile-steps`` and ``--auto-profile`` map as the JAX CLI maps
+them."""
 
 import dataclasses
 import os
@@ -51,6 +53,9 @@ ARGVS = {
     "rebuild_from": [*_DI, "--rebuild-from", "prior.tree.pkl",
                      "--strict-provenance"],
     "from_alias": [*_DI, "-a", "9e-3", "--from", "prior.ckpt.pkl"],
+    "profile": [*_DI, "--profile", "trace_dir", "--profile-steps", "3"],
+    "auto_profile": [*_DI, "--obs", "jsonl", "--auto-profile",
+                     "--profile-steps", "2"],
 }
 
 
@@ -79,6 +84,17 @@ def test_config_from_args_is_the_jax_cli_config(key, tmp_path,
     assert names == [f.name for f in dataclasses.fields(ref)]
     for name in names:
         assert getattr(got, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("key", ["defaults", "no_two_phase", "profile"])
+def test_serial_backend_is_the_jax_cli_config(key, tmp_path, monkeypatch):
+    """`--backend serial` names the host baseline in both CLIs; the rest
+    of the config follows the same flags."""
+    argv = [*ARGVS[key], "--backend", "serial", "-o", str(tmp_path / "p")]
+    ref = _jax_config(argv, monkeypatch)
+    got = tmain.config_from_args(tmain.build_parser().parse_args(argv))
+    assert got.backend == ref.backend == "serial"
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
 
 
 def test_eps_rule_follows_the_jax_cli(tmp_path):

@@ -165,15 +165,14 @@ def test_config_defaults_match_the_reference_except_backend():
     ("prune_rows", True), ("shard_frontier", True),
     ("recompile_guard", "raise"), ("obs_recorder", True),
     ("recorder_dir", "repro"), ("health_rules", (("stall_s", 1.0),)),
-    ("auto_profile", True), ("recompile_guard", "warn"),
-    ("profile_path", "trace"), ("mesh_devices", 2)])
+    ("recompile_guard", "warn"), ("mesh_devices", 2)])
 def test_unported_knobs_raise_naming_the_roadmap(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PartitionConfig(backend="cpu", **{field: value})
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backend", "tpu"), ("backend", "serial"), ("ipm_kernel", "pallas"),
+    ("backend", "tpu"), ("backend", "gpu"), ("ipm_kernel", "pallas"),
     ("ipm_kernel", "xla")])
 def test_reference_only_choices_are_rejected(field, value):
     with pytest.raises(ValueError):
@@ -192,8 +191,11 @@ def test_cuda_backend_without_a_gpu_raises():
 
 def test_oracle_rejects_unported_backends_and_kernel_requests():
     prob = make("double_integrator", N=3, theta_box=1.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Oracle(prob, backend="serial")
+    # 'serial' is the host baseline now, and a mesh is still refused
+    # (for serial by contract: one solve at a time).
+    assert Oracle(prob, backend="serial").ipm_kernel == "torch"
+    with pytest.raises(ValueError, match="serial"):
+        Oracle(prob, backend="serial", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Oracle(prob, backend="cpu", mesh=object())
     with pytest.raises(ValueError, match="cuda"):

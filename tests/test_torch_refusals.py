@@ -26,13 +26,6 @@ def _raised(fn) -> str:
     return str(e.value)
 
 
-def _oracle_serial():
-    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
-    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
-
-    Oracle(make("double_integrator", N=3), backend="serial")
-
-
 def _oracle_mesh():
     from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
     from explicit_hybrid_mpc_tpu_torch.problems.registry import make
@@ -59,14 +52,9 @@ SITES = (
        for flag in tmain._UNPORTED_FLAGS]
     + [(f"scheduler hook {h}", lambda tmp, h=h: scheduler._HOOK_ITEMS[h])
        for h in scheduler._HOOK_ITEMS]
-    + [("Oracle serial", lambda tmp: _raised(_oracle_serial)),
-       ("Oracle mesh", lambda tmp: _raised(_oracle_mesh)),
+    + [("Oracle mesh", lambda tmp: _raised(_oracle_mesh)),
        ("Obs per_process", lambda tmp: _raised(
-           lambda: _obs_per_process(tmp))),
-       ("serve-rebuild --backend serial", lambda tmp: _raised(
-           lambda: tmain.main(["serve-rebuild", "-e", "double_integrator",
-                               "--backend", "serial", "--artifacts-root",
-                               tmp])))])
+           lambda: _obs_per_process(tmp)))])
 
 
 @pytest.mark.parametrize("site,text", SITES, ids=[s for s, _ in SITES])

@@ -501,10 +501,14 @@ def test_arena_scheduler_validation_and_unported_hooks(rng):
     with pytest.raises(ValueError):
         ArenaScheduler(arena, max_wait_us=0.0)
     for hook, item in (("demand", "A5: obs/demand.py"),
-                       ("trace", "A2: obs/reqtrace.py"),
                        ("slo", "A5: obs/slo.py")):
         with pytest.raises(NotImplementedError, match=item):
             ArenaScheduler(arena, **{hook: object()})
+    # The trace hook is ported: a hub that is off is dropped.
+    from explicit_hybrid_mpc_tpu_torch.obs.reqtrace import ReqTrace
+
+    with ArenaScheduler(arena, trace=ReqTrace(mode="off")) as sched:
+        assert sched.trace is None
 
 
 def test_scheduler_swap_during_traffic_has_no_torn_reads(rng):
@@ -642,12 +646,20 @@ def test_serve_config_has_the_jax_fields_and_checks():
         with pytest.raises(ValueError):
             jconfig.ServeConfig(**bad)
     for knob, val, item in (("demand", "on", "A5: obs/demand.py"),
-                            ("tracing", "on", "A2: obs/reqtrace.py"),
-                            ("slo", "on", "A5: obs/slo.py"),
-                            ("trace_exemplar_k", 4, "A2: obs/reqtrace.py")):
+                            ("slo", "on", "A5: obs/slo.py")):
         jconfig.ServeConfig(**{knob: val})
         with pytest.raises(NotImplementedError, match=item):
             config.ServeConfig(**{knob: val})
+    # The tracing knobs are ported, with the JAX package's checks.
+    for knob, val in (("tracing", "on"), ("trace_exemplar_k", 4),
+                      ("trace_window_s", 5.0)):
+        assert getattr(config.ServeConfig(**{knob: val}), knob) == val
+    for bad in (dict(tracing="verbose"), dict(trace_exemplar_k=0),
+                dict(trace_window_s=-1.0)):
+        with pytest.raises(ValueError):
+            config.ServeConfig(**bad)
+        with pytest.raises(ValueError):
+            jconfig.ServeConfig(**bad)
     assert config.ServeConfig().max_batch == 256
 
 
@@ -781,10 +793,14 @@ def test_request_scheduler_validation_and_unported_hooks(servers, rng):
     with pytest.raises(ValueError):
         RequestScheduler(reg, "c", max_wait_us=0.0)
     for hook, item in (("demand", "A5: obs/demand.py"),
-                       ("trace", "A2: obs/reqtrace.py"),
                        ("slo", "A5: obs/slo.py")):
         with pytest.raises(NotImplementedError, match=item):
             RequestScheduler(reg, "c", **{hook: object()})
+    # The trace hook is ported: a hub that is off is dropped.
+    from explicit_hybrid_mpc_tpu_torch.obs.reqtrace import ReqTrace
+
+    with RequestScheduler(reg, "c", trace=ReqTrace(mode="off")) as sched:
+        assert sched.trace is None
     # A wrong-width submission raises on its submitter and never poisons
     # the co-batched healthy rows.
     with RequestScheduler(reg, "c", max_batch=32,
