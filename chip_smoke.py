@@ -42,7 +42,14 @@ RequestScheduler run with ServeConfig(tracing="on") (every ticket's
 stamps in order, the histograms' phase sums equal to their wall sums,
 results bitwise an untraced run's, p50/p99
 of every phase), and the rebuild service for one generation with obs
-on (GC pauses and the watcher's stalls beside the request p99).  One
+on (GC pauses and the watcher's stalls beside the request p99).  Phase
+17 builds phase 14's sub-boxes again with `--prune-rows` (the
+PrunedOracle's masks held to the JAX package's, the reduced programs
+through the IPM leg, each reduced shape's K1 launches and device time
+beside phase 14's unpruned build), holds the leg to its plain version at
+the reduced shapes, the SOC solves on the card to the same on the CPU,
+and builds satellite_soc with the SOCOracle (regions held to the JAX
+package's, then a sampled soundness check).  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -64,7 +71,10 @@ phase 14's: the large path's time, bound and plain time at the
 quadrotor build's most frequent K, its errors against the plain
 version, the timed cells, and the quadrotor build's K1 launches and
 device time against their summed bound; its "general" object the
-general path's timed cells and the satellite build's launches on it.
+general path's timed cells and the satellite build's launches on it;
+its "pruned" object phase 17's: K1 at the pruned builds' reduced shapes
+(time, bound, plain time), each pruned build's K1 launches and device
+time beside its unpruned build's, and the SOC solves and partition.
 The "rebuild_*" keys count phase 15's unchanged rebuild (K1: launches,
 device time, summed bound) and its tightened rebuild's online batch
 (locate), from zero.
@@ -262,6 +272,31 @@ SERIAL_RTOL, SERIAL_ATOL = 1e-6, 1e-8
 PROFILE_STEPS = 3
 TRACE_EXEMPLAR_K = 8
 HOST_INTERVAL_S = 1.0
+
+#: Phase 17, constraint-row pruning and the SOC oracle stack.  17a
+#: builds OTHER_BUILDS again with --prune-rows, held to the same
+#: references; the PrunedOracle's masks on the card are held to the JAX
+#: package's on the CPU (PrunedOracle defaults, 48 samples, margin 0.02):
+#: (sha256 of packbits(row_keep) + packbits(var_keep), first 16 hex
+#: digits; kept rows; kept vars; the reduced (nzr, ncr)).
+PRUNE_MASKS = {"quadrotor": ("d065afe8f079f798", 496, 868, (60, 49)),
+               "satellite": ("cb17bfc097c31632", 243, 540, (24, 14))}
+#: 17b: K1 against its plain version at these K and the pruned builds'
+#: most frequent K, at every reduced shape they launched.
+K1_PRUNED_K = (64, 256)
+#: 17c/17d: satellite_soc at the 4c box with scripts/soc_partition.py's
+#: defaults; the reference is the JAX package's CPU build at today's
+#: defaults (that script, SOC_BUDGET 2400): 1,440 regions, 2,160 nodes,
+#: 0 uncertified, 1,755 point solves, not truncated.  SOC_THETAS thetas
+#: (drawn from SEED + 17) go through the SOC solves on the card and on
+#: the CPU; SOC_SAMPLES thetas in certified leaves through the sampled
+#: soundness check.
+SOC_ARGS = (("N", 3), ("h_box", 0.3), ("omega_box", 0.03))
+SOC_CFG = (("eps_a", 2.0), ("eps_r", 0.3), ("batch_simplices", 64),
+           ("max_depth", 24), ("semi_explicit_boundary_depth", 10))
+SOC_REF_REGIONS = 1440
+SOC_THETAS = 64
+SOC_SAMPLES = 192
 
 
 def log(*a) -> None:
@@ -1919,7 +1954,7 @@ def hold_table(dev, tree, problem, seed: int, name: str) -> None:
         f"{du:.2e}")
 
 
-def other_problems_phase(dev, tmp: str) -> dict:
+def other_problems_phase(dev, tmp: str, record: dict | None = None):
     """Phase 14: the quadrotor's and the satellite's published sub-box
     builds through the build CLI's main() on `dev` (OTHER_BUILDS), each
     with its online evaluation, K1 and K2 counted from zero and K1's
@@ -1929,7 +1964,10 @@ def other_problems_phase(dev, tmp: str) -> dict:
     K2 to the f64 host evaluator.  Then K1's large path against its
     plain version at the quadrotor's shapes (f64 to 1e-9 relative, f32
     as phase 2), timed by CUDA events.  Returns the kernels line's
-    ipm_leg "large" object and (general_path_cells) its "general" one."""
+    ipm_leg "large" object and (general_path_cells) its "general" one;
+    `record`, where given, receives each build's stats, wall, K1 count,
+    recorded K1 launches and (the profiled build) K1 device ms, for
+    phase 17 to print beside its pruned builds."""
     from collections import Counter
 
     from explicit_hybrid_mpc_tpu_torch import main as tmain
@@ -1991,6 +2029,11 @@ def other_problems_phase(dev, tmp: str) -> dict:
                         if "ipm_leg" in e.key and e.self_device_time_total]
                 quad_ms = (sum(e.self_device_time_total for e in rows) / 1e3
                            if rows else None)
+        if record is not None:
+            record[name] = {"stats": st, "wall": wall, "n_k1": n_k1,
+                            "legs": legs,
+                            "k1_ms": quad_ms if name == "quadrotor"
+                            else None}
         problem = make(args[args.index("-e") + 1], **tmain._parse_problem_args(
             [v for k, v in zip(args, args[1:]) if k == "--problem-arg"]))
         hold_table(dev, Tree.load(out + ".tree.pkl"), problem, SEED + 14,
@@ -3004,6 +3047,487 @@ def observability_phase(dev, problem, cfg, res, table, tmp: str,
     log(f"[observe] (phase took {time.perf_counter() - t_phase:.1f} s)")
 
 
+def k1_path(nz: int, nc: int) -> str:
+    """The CUDA kernel's path for a QP shape (ipm_leg's dispatch)."""
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    if nz <= ipm_leg.GENERAL_MAX_NZ and nc <= ipm_leg.GENERAL_MAX_NC:
+        return "register" if nz <= K1_REGISTER_MAX_NZ else "general"
+    return "large"
+
+
+def timed_legs(real, times: list):
+    """A stand-in for ipm_leg.ipm_leg_cuda that brackets each launch with
+    CUDA events, noting ((nz, nc, K), start, end) in `times`."""
+    import torch
+
+    def leg(Q, q, A, b, z, s, lam, n_iter):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = real(Q, q, A, b, z, s, lam, n_iter)
+        t1.record()
+        times.append(((q.shape[1], b.shape[1], q.shape[0]), t0, t1))
+        return out
+    return leg
+
+
+def mask_digest(row_keep: np.ndarray, var_keep: np.ndarray) -> str:
+    """The first 16 hex digits of sha256(packbits(row_keep) +
+    packbits(var_keep)) (PRUNE_MASKS)."""
+    import hashlib
+
+    return hashlib.sha256(np.packbits(row_keep).tobytes()
+                          + np.packbits(var_keep).tobytes()).hexdigest()[:16]
+
+
+def pruned_families(po) -> dict:
+    """(nz, nc) of a PrunedOracle's reduced programs and of the full ones
+    that still run (the verified fallbacks and the Farkas phase-1)."""
+    nzr, ncr = po.reduced_shape
+    nt, nz, nc = po.can.n_theta, po.can.nz, po.can.nc
+    return {"point (reduced)": (nzr, ncr),
+            "elastic simplex-min (reduced)": (nzr + nt + 1, ncr + nt + 2),
+            "phase-1 gate (reduced)": (nzr + 1, ncr),
+            "point (full, fallbacks)": (nz, nc),
+            "elastic simplex-min (full, fallbacks)": (nz + nt + 1,
+                                                      nc + nt + 2),
+            "Farkas phase-1 (full)": (nz + nt + 1, nc + nt + 1)}
+
+
+def soc_primals_held(name: str, prob, thetas, ds, z, z_ref) -> str:
+    """SOC primals on the card against the CPU's: rtol 1e-5 / atol 1e-7
+    (the JAX SOC tests') on at least 95% of the rows; a row off that
+    (two stopping points of the solver's own tolerance set) must satisfy
+    its commutation's rows and every cone to 1e-7."""
+    can = prob.canonical
+    Ac, bc = prob.soc_cones()
+    held = np.isclose(z, z_ref, rtol=1e-5, atol=1e-7).all(axis=1)
+    if held.sum() < 0.95 * len(held):
+        fail(f"{name}: primals held on {int(held.sum())}/{len(held)} rows "
+             "(< 95%)")
+    for th, d, zk in zip(thetas[~held], ds[~held], z[~held]):
+        row = can.G[d] @ zk - can.w[d] - can.S[d] @ th
+        sc = bc - np.einsum("kmn,n->km", Ac, zk)
+        if (row > 1e-7 * (1 + np.abs(can.w[d]))).any() or (
+                sc[:, 0] - np.linalg.norm(sc[:, 1:], axis=1) < -1e-7).any():
+            fail(f"{name}: a primal off the CPU's violates its rows or cones")
+    dz = float(np.abs(z - z_ref).max()) if len(z) else 0.0
+    return (f"primals held on {int(held.sum())}/{len(held)} rows (max |dz| "
+            f"{dz:.2e}; the rest feasible)")
+
+
+def pruned_builds(dev, tmp: str, unpruned: dict) -> tuple[dict, dict]:
+    """17a: OTHER_BUILDS through `main ... --prune-rows` on `dev` under
+    torch.profiler, each held to phase 14's references, its masks to the
+    JAX package's (PRUNE_MASKS), its table through K2 to the f64 host
+    evaluator, and printed beside phase 14's unpruned build (`unpruned`,
+    other_problems_phase's record).  Returns ({name: summary}, {name:
+    (recorded K1 launches, the PrunedOracle)})."""
+    from collections import Counter, defaultdict
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.oracle.prune import PrunedOracle
+    from explicit_hybrid_mpc_tpu_torch.partition import frontier
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    on_card = dev.type == "cuda"
+    summary, launched = {}, {}
+    for name, args, ref_regions, _artifacts in OTHER_BUILDS:
+        prefix = os.path.join(tmp, name + "_pruned")
+        argv = [*args, "--prune-rows", "--obs", "jsonl", "-o", prefix]
+        if not on_card:
+            argv += ["--backend", "cpu"]
+        made: list = []
+        real_make = frontier.make_oracle
+
+        def capture(problem, cfg, strict=False):
+            made.append(real_make(problem, cfg, strict=strict))
+            return made[-1]
+
+        times: list = []
+        real_leg = ipm_leg.ipm_leg_cuda
+        frontier.make_oracle = capture
+        if on_card:
+            ipm_leg.ipm_leg_cuda = timed_legs(real_leg, times)
+        try:
+            rc, st, _ev, wall, legs, n_k1, _n_k2, prof = run_main(
+                argv, on_card, profiled=True)
+        finally:
+            frontier.make_oracle = real_make
+            ipm_leg.ipm_leg_cuda = real_leg
+        if rc != 0:
+            fail(f"{name} --prune-rows: main returned {rc}")
+        check_build(f"{name} --prune-rows", st, ref_regions,
+                    OTHER_UNCERTIFIED_MAX)
+        po = made[0] if made else None
+        if not isinstance(po, PrunedOracle):
+            fail(f"{name}: --prune-rows built {type(po).__name__}, not a "
+                 "PrunedOracle")
+        got = (mask_digest(po.row_keep, po.var_keep), int(po.row_keep.sum()),
+               int(po.var_keep.sum()), po.reduced_shape)
+        ref = PRUNE_MASKS[name]
+        if got != (ref[0], ref[1], ref[2], tuple(ref[3])):
+            fail(f"{name}: masks (digest, rows, vars, reduced shape) {got} "
+                 f"differ from the JAX package's {ref}")
+        if len(legs) != n_k1:
+            fail(f"{name} --prune-rows: {len(legs)} K1 launches recorded, "
+                 f"{n_k1} counted")
+        if on_card and n_k1 <= 0:
+            fail(f"{name} --prune-rows: K1 never launched")
+        counters = po.obs.metrics.snapshot()["counters"]
+        fams = pruned_families(po)
+        shapes = Counter((nz, nc) for _k, nz, nc, _it in legs)
+        for fam, (nz, nc) in fams.items():
+            log(f"[prune] {name}: {fam} (nz, nc) = ({nz}, {nc}), K1 "
+                f"{k1_path(nz, nc)} path: {shapes.get((nz, nc), 0)} "
+                "launches")
+        other = sum(n for sh, n in shapes.items()
+                    if sh not in fams.values())
+        if other:
+            log(f"[prune] {name}: {other} launches at other shapes")
+        k1_ms = None
+        if prof is not None:
+            rows = [e for e in prof.key_averages()
+                    if "ipm_leg" in e.key and e.self_device_time_total]
+            k1_ms = (sum(e.self_device_time_total for e in rows) / 1e3
+                     if rows else None)
+        if on_card:
+            torch.cuda.synchronize()
+        by_shape: dict = defaultdict(float)
+        by_cell: dict = defaultdict(float)
+        for (nz, nc, k), t0, t1 in times:
+            ms = t0.elapsed_time(t1)
+            by_shape[(nz, nc)] += ms
+            by_cell[(nz, nc, k)] += ms
+        by_k = Counter((nz, nc, k) for k, nz, nc, _it in legs)
+        log(f"[prune] {name}: K1 launches by (nz, nc, K), most frequent: "
+            + ", ".join(f"{c} x{n}" for c, n in by_k.most_common(12)))
+        for sh, ms in sorted(by_shape.items(), key=lambda x: -x[1]):
+            log(f"[prune] {name}: K1 at (nz, nc) = {sh} ({k1_path(*sh)} "
+                f"path): {shapes[sh]} launches, {ms:.2f} ms by CUDA events")
+        if by_cell:
+            log(f"[prune] {name}: K1 ms by CUDA events at (nz, nc, K), "
+                "largest: " + ", ".join(
+                    f"{c} {ms:.2f}" for c, ms in sorted(
+                        by_cell.items(), key=lambda x: -x[1])[:8]))
+        bound = sum(leg_bound_ms(*x) for x in legs)
+        base = unpruned.get(name, {})
+        b_st = base.get("stats", {})
+        b_legs = base.get("legs", [])
+        b_bound = sum(leg_bound_ms(*x) for x in b_legs)
+
+        def ms_text(v):
+            return f"{v:.2f} ms" if v is not None else "not measured"
+        log(f"[prune] {name} --prune-rows on {dev}: {wall:.1f} s under the "
+            f"profiler; regions {st['regions']} (reference {ref_regions}), "
+            f"uncertified {st['uncertified']}, oracle solves "
+            f"{st['oracle_solves']}, device failures "
+            f"{st['device_failures']}; prune fallbacks "
+            f"{counters.get('oracle.prune_fallbacks', 0)}, gate solves "
+            f"{counters.get('oracle.prune_gate_solves', 0)}; K1 {n_k1} "
+            f"launches, device time {ms_text(k1_ms)}, summed bound "
+            f"{bound:.4f} ms")
+        log(f"[prune] {name} unpruned (phase 14, same run): "
+            f"{base.get('wall', float('nan')):.1f} s; regions "
+            f"{b_st.get('regions')}, uncertified {b_st.get('uncertified')}, "
+            f"oracle solves {b_st.get('oracle_solves')}; K1 "
+            f"{base.get('n_k1')} launches, device time "
+            f"{ms_text(base.get('k1_ms'))}, summed bound {b_bound:.4f} ms")
+        problem = make(args[args.index("-e") + 1], **tmain._parse_problem_args(
+            [v for k, v in zip(args, args[1:]) if k == "--problem-arg"]))
+        hold_table(dev, Tree.load(prefix + ".tree.pkl"), problem, SEED + 17,
+                   name + " --prune-rows")
+        summary[name] = {
+            "regions": st["regions"], "wall_s": wall, "launches": n_k1,
+            "k1_ms": k1_ms, "bound_ms": bound,
+            "reduced": list(po.reduced_shape),
+            "prune_fallbacks": counters.get("oracle.prune_fallbacks", 0),
+            "prune_gate_solves": counters.get("oracle.prune_gate_solves", 0),
+            "k1_ms_by_shape": {f"{a}x{b}": ms
+                               for (a, b), ms in by_shape.items()},
+            "unpruned": {"wall_s": base.get("wall"),
+                         "launches": base.get("n_k1"),
+                         "k1_ms": base.get("k1_ms"), "bound_ms": b_bound}}
+        launched[name] = (legs, po)
+    return summary, launched
+
+
+def pruned_k1_cells(dev, launched: dict) -> dict:
+    """17b: K1 against its plain version at the reduced shapes the pruned
+    builds launched (every reduced shape off the card), at K1_PRUNED_K
+    and the build's most frequent K: f64 to 1e-9 relative, f32 as phase
+    2, 4 iterations from the cold start; then timed at the shape's most
+    frequent iteration count by CUDA events beside its bound."""
+    from collections import Counter
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    on_card = dev.type == "cuda"
+    g = np.random.default_rng(SEED + 17)
+    cells, err64, err32, main_cell = [], 0.0, 0.0, None
+    for name, (legs, po) in launched.items():
+        k_main = (Counter(k for k, *_ in legs).most_common(1)[0][0]
+                  if legs else max(K1_PRUNED_K))
+        its: dict = {}
+        for _k, nz, nc, it in legs:
+            its.setdefault((nz, nc), Counter())[it] += 1
+        reduced = [(f, sh) for f, sh in pruned_families(po).items()
+                   if "reduced" in f and (sh in its or not legs)]
+        for fam, (nz, nc) in reduced:
+            n_iter = (its[(nz, nc)].most_common(1)[0][0]
+                      if (nz, nc) in its else 18)
+            for K in sorted({*K1_PRUNED_K, k_main}):
+                args = random_qps(g, K, nz, nc, dev)
+                truth = plain_leg(args, 4)
+                e64 = rel_err(ipm_leg.ipm_leg(*args, n_iter=4), truth)
+                a32 = tuple(t.float() for t in args)
+                e_k = rel_err(ipm_leg.ipm_leg(*a32, n_iter=4), truth)
+                e_p = rel_err(plain_leg(a32, 4), truth)
+                if not e64 <= 1e-9:
+                    fail(f"K1 at {name}'s {fam} ({nz}, {nc}) K={K}: f64 "
+                         f"differs from plain by {e64:.2e}")
+                if not e_k <= 4 * e_p + 1e-4:
+                    fail(f"K1 at {name}'s {fam} ({nz}, {nc}) K={K}: f32 "
+                         f"worse than plain ({e_k:.2e} vs {e_p:.2e})")
+                err64, err32 = max(err64, e64), max(err32, e_k)
+                nbytes, flops = ipm_leg_cost(K, nz, nc, n_iter, 8)
+                bound = leg_bound_ms(K, nz, nc, n_iter)
+                by = ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F64_S
+                      else "operations")
+                ms = (cuda_time(raw_leg(ipm_leg._lib().ipm_leg_f64, args,
+                                        n_iter)[0], 10) if on_card else None)
+                cell = {"build": name, "family": fam, "nz": nz, "nc": nc,
+                        "K": K, "n_iter": n_iter, "path": k1_path(nz, nc),
+                        "ms": ms, "bound_ms": bound, "bound_by": by}
+                cells.append(cell)
+                log(f"[K1-pruned] {name} {fam} nz={nz} nc={nc} "
+                    f"({cell['path']} path) K={K} n_iter={n_iter}: f64 vs "
+                    f"plain {e64:.2e} (limit 1e-9); f32 vs the f64 "
+                    f"iterates: kernel {e_k:.2e}, plain {e_p:.2e}; kernel "
+                    + (f"{ms:.4f} ms, {bound / ms:.4f} of the bound"
+                       if ms else "not measured")
+                    + f"; bound {bound:.5f} ms ({by})")
+                if main_cell is None and K == k_main:
+                    main_cell = (args, n_iter, cell)
+    args, n_iter, cell = main_cell
+    # One call: the plain version takes seconds at the pruned builds' K.
+    plain_ms = (cuda_time(lambda: plain_leg(args, n_iter), 1, warmup=0)
+                if on_card else None)
+    log(f"[K1-pruned] plain version at {cell['build']} {cell['family']} "
+        f"K={cell['K']}: " + (f"{plain_ms:.2f} ms" if plain_ms
+                              else "not measured"))
+    return {"nz": cell["nz"], "nc": cell["nc"], "K": cell["K"],
+            "n_iter": n_iter, "ms": cell["ms"], "plain_ms": plain_ms,
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+            "max_rel_err_f64": err64, "max_rel_err_f32": err32,
+            "cells": cells}
+
+
+def soc_solves(dev) -> dict:
+    """17c: socp_solve, SOCPointOracle.solve_vertices and solve_fixed on
+    `dev` against the same calls on the CPU, at SOC_THETAS thetas of
+    satellite_soc (SOC_ARGS): usable/converged masks equal, d* equal and
+    V* to 1e-6 relative (1e-8 absolute) on the clear thetas (the best
+    and runner-up usable commutations apart by more than 1e-6 (1 +
+    |V*|)), values to the same on the converged rows, primals as
+    soc_primals_held."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.oracle.soc_point import (
+        SOCPointOracle, soc_pairs)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    cpu = torch.device("cpu")
+    prob = make("satellite_soc", **dict(SOC_ARGS))
+    th = np.random.default_rng(SEED + 17).uniform(
+        prob.theta_lb, prob.theta_ub, (SOC_THETAS, prob.n_theta))
+    ora = {d: SOCPointOracle(prob, device=d) for d in (dev, cpu)}
+    ipm_leg.launches = 0
+    t0 = time.perf_counter()
+    V, usable, _u0, Vstar, dstar = ora[dev].solve_vertices(th)
+    grid_s = time.perf_counter() - t0
+    n_grid = ipm_leg.launches
+    rV, rusable, _ru0, rVstar, rdstar = ora[cpu].solve_vertices(th)
+    if not np.array_equal(usable, rusable):
+        fail(f"17c solve_vertices: usable differs on "
+             f"{int((usable != rusable).sum())} cells")
+    vv = np.sort(np.where(rusable, rV, np.inf), axis=1)
+    clear = vv[:, 1] - vv[:, 0] > 1e-6 * (1 + np.abs(vv[:, 0]))
+    if not np.array_equal(dstar[clear], rdstar[clear]):
+        fail("17c solve_vertices: d* differs on clear thetas")
+    if not np.allclose(Vstar[clear], rVstar[clear], rtol=1e-6, atol=1e-8):
+        fail("17c solve_vertices: V* differs on clear thetas")
+    # solve_fixed and the raw socp_solve at the CPU's d*.
+    ds = np.where(rdstar >= 0, rdstar, 0)
+    u0f, Vf, convf, zf = ora[dev].solve_fixed(th, ds)
+    ru0f, rVf, rconvf, rzf = ora[cpu].solve_fixed(th, ds)
+    if not np.array_equal(convf, rconvf):
+        fail("17c solve_fixed: usable differs")
+    if not np.allclose(Vf[rconvf], rVf[rconvf], rtol=1e-6, atol=1e-8):
+        fail("17c solve_fixed: V differs")
+    fixed = soc_primals_held("17c solve_fixed", prob, th[rconvf],
+                             ds[rconvf], zf[rconvf], rzf[rconvf])
+    sols = {}
+    for d in (dev, cpu):
+        o = ora[d]
+        sol, Vd, _u = soc_pairs(
+            o.prob, o._Ac, o._bc, torch.as_tensor(th, device=d),
+            torch.as_tensor(ds, device=d), o.n_iter)
+        sols[d] = (sol.converged.cpu().numpy(), sol.obj.cpu().numpy(),
+                   sol.z.cpu().numpy())
+    (c, obj, z), (rc, robj, rz) = sols[dev], sols[cpu]
+    if not np.array_equal(c, rc):
+        fail("17c socp_solve: converged differs")
+    if not np.allclose(obj[rc], robj[rc], rtol=1e-6, atol=1e-8):
+        fail("17c socp_solve: objective differs")
+    raw = soc_primals_held("17c socp_solve", prob, th[rc], ds[rc], z[rc],
+                           rz[rc])
+    log(f"[soc] satellite_soc {dict(SOC_ARGS)} (nz {prob.canonical.nz}, "
+        f"nc {prob.canonical.nc}, {len(prob.soc_cones()[1])} cones, "
+        f"{prob.canonical.n_delta} commutations), {SOC_THETAS} thetas on "
+        f"{dev} against the CPU: solve_vertices {1e3 * grid_s:.1f} ms "
+        f"({n_grid} K1 launches), usable equal, d* and V* equal on "
+        f"{int(clear.sum())}/{SOC_THETAS} clear thetas (max |dV*| "
+        f"{float(np.abs(Vstar - rVstar)[clear].max()):.2e}); solve_fixed "
+        f"at d*: {fixed}; socp_solve: converged {int(c.sum())}/"
+        f"{SOC_THETAS} equal, objective to 1e-6, {raw}")
+    return {"thetas": SOC_THETAS, "clear": int(clear.sum()),
+            "grid_ms": 1e3 * grid_s, "grid_k1_launches": n_grid}
+
+
+def soc_partition(dev) -> dict:
+    """17d: satellite_soc (SOC_ARGS) through build_partition with
+    SOCOracle on `dev` at scripts/soc_partition.py's defaults (SOC_CFG):
+    regions within 2% of SOC_REF_REGIONS, 0 uncertified, no device
+    failure, K1 launched (the joint programs and the SOC solves' linear
+    QPs) -- then that script's sampled soundness check at SOC_SAMPLES
+    thetas in certified leaves: the interpolated primal satisfies the
+    linear rows and the cones, and its excess over the SOC ground truth
+    is at most eps_a + eps_r |V*|."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.oracle.soc_oracle import SOCOracle
+    from explicit_hybrid_mpc_tpu_torch.partition import geometry
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    on_card = dev.type == "cuda"
+    prob = make("satellite_soc", **dict(SOC_ARGS))
+    opts = dict(SOC_CFG)
+    cfg = PartitionConfig(problem="satellite_soc", problem_args=SOC_ARGS,
+                          backend=dev.type, **opts)
+    ipm_leg.launches = 0
+    oracle = SOCOracle(prob, backend=dev.type)
+    t0 = time.perf_counter()
+    res = build_partition(prob, cfg, oracle=oracle)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_k1 = ipm_leg.launches
+    st = res.stats
+    log(f"[soc] SOC partition on {dev}: {wall:.1f} s; regions "
+        f"{st['regions']} (reference {SOC_REF_REGIONS}), tree nodes "
+        f"{st['tree_nodes']}, uncertified {st['uncertified']}, point solves "
+        f"{st['point_solves']}, simplex solves {st['simplex_solves']}, "
+        f"steps {st['steps']}, truncated {st['truncated']}, device failures "
+        f"{st['device_failures']}; K1 launches {n_k1}")
+    if st["device_failures"] != 0 or st["device_degraded"] is not False:
+        fail("SOC partition: the build fell back from the device")
+    if abs(st["regions"] - SOC_REF_REGIONS) > 0.02 * SOC_REF_REGIONS:
+        fail(f"SOC partition: regions {st['regions']} not within 2% of "
+             f"{SOC_REF_REGIONS}")
+    if st["uncertified"] != 0:
+        fail(f"SOC partition: uncertified {st['uncertified']}")
+    if st["truncated"] and opts.get("max_steps", 10_000) >= 10_000:
+        fail("SOC partition: truncated")
+    if on_card and n_k1 <= 0:
+        fail("SOC partition: K1 never launched")
+    # -- the sampled soundness check of scripts/soc_partition.py, its
+    # thetas drawn in the same order; the ground truth solved in batches.
+    eps_a, eps_r = opts["eps_a"], opts["eps_r"]
+    rng = np.random.default_rng(11)
+    can = prob.canonical
+    Ac, bc = prob.soc_cones()
+    tree = res.tree
+    checked = skipped = attempts = 0
+    max_excess = max_lin = -np.inf
+    min_cone = np.inf
+    t0 = time.perf_counter()
+    while checked < SOC_SAMPLES and attempts < 60 * SOC_SAMPLES:
+        batch = []
+        while (len(batch) < SOC_SAMPLES - checked
+               and attempts < 60 * SOC_SAMPLES):
+            attempts += 1
+            th = rng.uniform(prob.theta_lb, prob.theta_ub)
+            n = tree.locate(th, res.roots)
+            ld = tree.leaf_data[n] if n >= 0 else None
+            if (ld is None or not getattr(ld, "certified", True)
+                    or ld.vertex_z is None):
+                skipped += 1
+                continue
+            batch.append((th, n, ld))
+        if not batch:
+            break
+        sol = oracle.solve_vertices(np.stack([b[0] for b in batch]))
+        for (th, n, ld), Vs, dsr in zip(batch, sol.Vstar, sol.dstar):
+            if dsr < 0:
+                skipped += 1
+                continue
+            zbar = geometry.barycentric(tree.vertices[n], th) @ ld.vertex_z
+            d = ld.delta_idx
+            lin = float(np.max(can.G[d] @ zbar - can.w[d] - can.S[d] @ th))
+            sc = bc - np.einsum("kmn,n->km", Ac, zbar)
+            cone = float(np.min(sc[:, 0] - np.linalg.norm(sc[:, 1:],
+                                                          axis=1)))
+            excess = float(can.value(d, th, zbar)) - float(Vs)
+            max_excess = max(max_excess, excess - eps_r * abs(float(Vs)))
+            max_lin, min_cone = max(max_lin, lin), min(min_cone, cone)
+            checked += 1
+    sound = (checked == SOC_SAMPLES and max_excess <= eps_a + 1e-6
+             and max_lin < 1e-6 and min_cone > -1e-8)
+    log(f"[soc] soundness: {checked} thetas in certified leaves "
+        f"({skipped} skipped) in {time.perf_counter() - t0:.1f} s: max "
+        f"excess - eps_r |V*| {max_excess:.4g} (bound eps_a {eps_a}), max "
+        f"linear violation {max_lin:.3g}, min cone margin {min_cone:.4g}")
+    if not sound:
+        fail("SOC partition: the sampled soundness check failed")
+    return {"regions": st["regions"], "wall_s": wall, "launches": n_k1,
+            "samples": checked, "max_excess_minus_rel": max_excess}
+
+
+def pruning_soc_phase(dev, tmp: str, unpruned: dict) -> dict:
+    """Phase 17: constraint-row pruning and the SOC oracle stack on
+    `dev` (17a pruned_builds, 17b pruned_k1_cells, 17c soc_solves, 17d
+    soc_partition).  Returns the kernels line's ipm_leg "pruned"
+    object."""
+    t_phase = time.perf_counter()
+    took = {}
+
+    def part(label, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        took[label] = time.perf_counter() - t0
+        return r
+
+    builds, launched = part("17a", pruned_builds, dev, tmp, unpruned)
+    out = part("17b", pruned_k1_cells, dev, launched)
+    out["builds"] = builds
+    out["soc"] = {"solves": part("17c", soc_solves, dev),
+                  "partition": part("17d", soc_partition, dev)}
+    log(f"[prune] (phase took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3532,8 +4056,9 @@ def main() -> int:
     host.end("phase 13 (large partition)")
 
     # -- phase 14: the other problems' published sub-boxes -----------------
+    unpruned: dict = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
-        k1_large, k1_general = other_problems_phase(dev, tmp)
+        k1_large, k1_general = other_problems_phase(dev, tmp, unpruned)
     host.end("phase 14 (other problems)")
 
     # -- phase 15: the warm rebuild and the rebuild service ----------------
@@ -3546,6 +4071,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as tmp:
         observability_phase(dev, problem, cfg, res, table, tmp, host)
 
+    # -- phase 17: constraint-row pruning and the SOC oracle stack --------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prune_") as tmp:
+        k1_pruned = pruning_soc_phase(dev, tmp, unpruned)
+    host.end("phase 17 (pruning, SOC)")
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
@@ -3553,7 +4083,8 @@ def main() -> int:
          "launches": n_k1, "max_abs_err": k1_err, **k1_entry,
          "library_ms": None, "build_ms": build_ms,
          "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
-         "large": k1_large, "general": k1_general, **reb["ipm_leg"]},
+         "large": k1_large, "general": k1_general, "pruned": k1_pruned,
+         **reb["ipm_leg"]},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",

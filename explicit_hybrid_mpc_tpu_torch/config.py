@@ -426,7 +426,6 @@ class PartitionConfig:
 #: test, the ROADMAP item and the JAX package's module it waits for).
 #: Setting one raises instead of silently building without it.
 _UNPORTED = (
-    ("prune_rows", bool, "A3: oracle/prune.py"),
     ("mesh_devices", lambda v: v is not None,
      "A4: parallel/mesh.py"),
     ("shard_frontier", bool, "A4: partition/shard.py"),

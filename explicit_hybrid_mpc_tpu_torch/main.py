@@ -67,7 +67,6 @@ import time
 #: flag -> the ROADMAP item and the JAX package's module it waits for.
 _UNPORTED_FLAGS = {
     "--mesh": "A4 (parallel/mesh.py)",
-    "--prune-rows": "A3 (oracle/prune.py)",
     "--shard-frontier": "A4 (partition/shard.py)",
     "--shard-dir": "A4 (partition/shard.py)",
     "--shard-timeout": "A4 (partition/shard.py)",
@@ -139,6 +138,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "at depth >= D as semi-explicit boundary leaves "
                    "(online fixed-delta QP) instead of splitting to "
                    "--max-depth")
+    p.add_argument("--prune-rows", action="store_true",
+                   help="prune never-active constraint rows with "
+                   "KKT-verified per-solve fallback (row-heavy configs; "
+                   "the reduced QPs run through the same IPM leg)")
     p.add_argument("--no-two-phase", action="store_true",
                    help="disable the two-phase early-exit IPM cohort "
                    "(run the full fixed schedule on every QP)")
@@ -263,6 +266,7 @@ def config_from_args(args: argparse.Namespace):
         algorithm=args.algorithm, backend=args.backend,
         batch_simplices=args.batch, max_depth=args.max_depth,
         semi_explicit_boundary_depth=args.boundary_depth,
+        prune_rows=args.prune_rows,
         ipm_two_phase=not args.no_two_phase,
         ipm_phase1_iters=args.phase1_iters,
         ipm_phase1_iters_point=args.phase1_iters_point,
@@ -397,7 +401,12 @@ def main(argv: list[str] | None = None) -> int:
         snapshot = load_checkpoint(args.resume)
         cfg = resumed_config(cfg, snapshot["cfg"])
     problem = make(cfg.problem, **dict(cfg.problem_args))
-    oracle = make_oracle(problem, cfg)
+    # strict: a --prune-rows that cannot take effect (--backend serial)
+    # is a command-line error, not a silent plain build.
+    try:
+        oracle = make_oracle(problem, cfg, strict=True)
+    except ValueError as e:
+        raise SystemExit(str(e))
     log = RunLog(cfg.log_path, echo=True)
     if snapshot is not None:
         res = FrontierEngine.resume(snapshot, problem, oracle, log,

@@ -1933,20 +1933,39 @@ def _is_frontier_owner() -> bool:
                 and dist.get_rank() != 0)
 
 
-def make_oracle(problem, cfg: PartitionConfig) -> Oracle:
+def make_oracle(problem, cfg: PartitionConfig,
+                strict: bool = False) -> Oracle:
     """The oracle choice, shared by build_partition and the CLI: honors
-    cfg.backend / precision / IPM schedules and the IPM leg dispatch."""
-    return Oracle(problem, backend=cfg.backend, precision=cfg.precision,
-                  point_schedule=getattr(cfg, "ipm_point_schedule", None),
-                  rescue_iter=getattr(cfg, "ipm_rescue_iters", 0),
-                  two_phase=getattr(cfg, "ipm_two_phase", False),
-                  phase1_iters=getattr(cfg, "ipm_phase1_iters", None),
-                  phase1_iters_point=getattr(cfg, "ipm_phase1_iters_point",
-                                             None),
-                  phase1_iters_simplex=getattr(
-                      cfg, "ipm_phase1_iters_simplex", None),
-                  warm_start=getattr(cfg, "warm_start_tree", False),
-                  ipm_kernel=getattr(cfg, "ipm_kernel", "auto"))
+    cfg.backend / precision / IPM schedules and the IPM leg dispatch,
+    and routes through PrunedOracle when cfg.prune_rows is set.  Pruning
+    covers the batched single-device backends only; strict=True raises
+    where it cannot take effect (the CLI surfaces the error),
+    strict=False silently builds the plain oracle (the library
+    default)."""
+    kw = dict(backend=cfg.backend, precision=cfg.precision,
+              point_schedule=getattr(cfg, "ipm_point_schedule", None),
+              rescue_iter=getattr(cfg, "ipm_rescue_iters", 0),
+              two_phase=getattr(cfg, "ipm_two_phase", False),
+              phase1_iters=getattr(cfg, "ipm_phase1_iters", None),
+              phase1_iters_point=getattr(cfg, "ipm_phase1_iters_point",
+                                         None),
+              phase1_iters_simplex=getattr(
+                  cfg, "ipm_phase1_iters_simplex", None),
+              warm_start=getattr(cfg, "warm_start_tree", False),
+              ipm_kernel=getattr(cfg, "ipm_kernel", "auto"))
+    if getattr(cfg, "prune_rows", False):
+        if cfg.backend == "serial":
+            if strict:
+                raise ValueError(
+                    "--prune-rows cannot take effect with --mesh or "
+                    "--backend serial (pruning covers batched "
+                    "single-device backends only)")
+        else:
+            from explicit_hybrid_mpc_tpu_torch.oracle.prune import (
+                PrunedOracle)
+
+            return PrunedOracle(problem, **kw)
+    return Oracle(problem, **kw)
 
 
 def build_partition(problem, cfg: PartitionConfig,

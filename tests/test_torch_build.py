@@ -134,7 +134,7 @@ def test_cli_builds_and_evaluates_on_cpu(tmp_path):
     ["-e", "double_integrator", "--shard-frontier"],
     ["-e", "double_integrator", "--recompile-guard", "warn"],
     ["-e", "double_integrator", "--health-rule", "stall_s=1"],
-    ["-e", "double_integrator", "--prune-rows"],
+    ["-e", "double_integrator", "--obs-per-process"],
     ["-e", "double_integrator", "--mesh", "2"],
     ["-e", "double_integrator", "--recorder-dir=x"]])
 def test_cli_unported_surfaces_exit(argv):

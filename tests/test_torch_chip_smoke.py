@@ -506,3 +506,87 @@ def test_host_verdict_on_a_procfs_that_counts_no_cpu_time(monkeypatch):
     host.mon._samples.extend([0.0, 0.0])
     assert host.blind and host.end("one").startswith("not measured")
     assert host.summary()["procfs_counts_cpu"] is False
+
+
+def _jax_masks(name, **kw):
+    """PRUNE_MASKS' entry from the JAX package's PrunedOracle (CPU)."""
+    import explicit_hybrid_mpc_tpu  # noqa: F401  (enables x64)
+    from explicit_hybrid_mpc_tpu.oracle.prune import PrunedOracle
+    from explicit_hybrid_mpc_tpu.problems.registry import make as jmake
+
+    po = PrunedOracle(jmake(name, **kw), backend="cpu")
+    red = po._red_dev
+    return (chip_smoke.mask_digest(po.row_keep, po.var_keep),
+            int(po.row_keep.sum()), int(po.var_keep.sum()),
+            (int(red.H.shape[1]), int(red.G.shape[1])))
+
+
+def test_prune_masks_are_the_jax_packages():
+    """Phase 17's mask constants are the JAX package's PrunedOracle
+    masks on the published sub-boxes (OTHER_BUILDS' problem args)."""
+    assert chip_smoke.PRUNE_MASKS["quadrotor"] == _jax_masks(
+        "quadrotor", param="pv", pos_box=0.4, vel_box=0.2)
+    assert chip_smoke.PRUNE_MASKS["satellite"] == _jax_masks(
+        "satellite", axes=3, omega_box=0.03, h_box=0.3)
+
+
+def test_pruning_soc_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
+                                                capsys):
+    """Phase 17 on the CPU at reduced configurations: phase 14's small
+    builds with --prune-rows (the JAX package's masks for them as
+    PRUNE_MASKS, the port's unpruned CPU counts as the references), K1
+    against its plain version at their reduced shapes, the SOC solves
+    and a one-step SOC partition of a small satellite_soc box (the port's
+    CPU count as the reference).  The "pruned" object carries every key;
+    its times need the card."""
+    builds = (
+        ("quadrotor", ("-e", "quadrotor", "-r", "0.1", "-a", "1",
+                       "--problem-arg", 'param="p"', "--problem-arg", "N=2",
+                       "--problem-arg", "pos_box=0.4"), 16, True),
+        ("satellite", ("-e", "satellite", "-r", "0.1", "-a", "1",
+                       "--problem-arg", "axes=1", "--problem-arg", "N=2"),
+         33, False))
+    masks = {"quadrotor": _jax_masks("quadrotor", param="p", N=2,
+                                     pos_box=0.4),
+             "satellite": _jax_masks("satellite", axes=1, N=2)}
+    unpruned = {"quadrotor": {"stats": {"regions": 16}, "wall": 1.0,
+                              "n_k1": 0, "legs": [], "k1_ms": None}}
+    for k, v in dict(OTHER_BUILDS=builds, OTHER_HOLD=256, PRUNE_MASKS=masks,
+                     K1_PRUNED_K=(2,),
+                     SOC_ARGS=(("N", 2), ("h_box", 0.15),
+                               ("omega_box", 0.015)),
+                     SOC_CFG=(("eps_a", 4.0), ("eps_r", 0.5),
+                              ("batch_simplices", 64), ("max_depth", 16),
+                              ("semi_explicit_boundary_depth", 8),
+                              ("max_steps", 1)),
+                     SOC_REF_REGIONS=64, SOC_THETAS=4,
+                     SOC_SAMPLES=4).items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    # One thread, as the other CPU parity files: the plain SOC solves
+    # would otherwise take every core from the tests beside it.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = chip_smoke.pruning_soc_phase(torch.device("cpu"),
+                                           str(tmp_path), unpruned)
+    finally:
+        torch.set_num_threads(threads)
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("regions 16 (reference 16)", "regions 33 (reference 33)",
+                "[prune] quadrotor: point (reduced)",
+                "[prune] satellite unpruned (phase 14, same run)",
+                "[other] satellite --prune-rows: K2",
+                "[K1-pruned] quadrotor point (reduced)",
+                "[soc] satellite_soc", "regions 64 (reference 64)",
+                "[soc] soundness: 4 thetas in certified leaves"):
+        assert tag in log, tag
+    assert set(out) == {"nz", "nc", "K", "n_iter", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "max_rel_err_f64",
+                        "max_rel_err_f32", "cells", "builds", "soc"}
+    # On the CPU nothing launches and no time is measured.
+    assert out["ms"] is None and out["plain_ms"] is None
+    assert out["max_rel_err_f64"] <= 1e-9
+    assert (out["nz"], out["nc"]) == masks["quadrotor"][3]
+    assert out["builds"]["quadrotor"]["launches"] == 0
+    assert out["soc"]["partition"]["regions"] == 64

@@ -37,9 +37,13 @@ def _qps(rng, K, nz, nc, dtype, dev):
 #: (nz <= 8) and its general path, the register path at one (nc <= 32),
 #: two (nc <= 64) and four (nc <= 128) constraint rows a lane, and the
 #: large path just past the general path's limits and at the
-#: quadrotor's point, Farkas and elastic simplex-min QPs.
+#: quadrotor's point, Farkas and elastic simplex-min QPs; then the
+#: pruned oracle's reduced point and elastic simplex-min QPs on the
+#: satellite 4c box (24, 14), (31, 22) and the quadrotor pv box (60, 49),
+#: (65, 55).
 _SHAPES = [(1, 7), (5, 35), (5, 70), (8, 39), (8, 128), (9, 70), (32, 128),
-           (33, 129), (60, 360), (65, 365), (65, 366)]
+           (33, 129), (60, 360), (65, 365), (65, 366),
+           (24, 14), (31, 22), (60, 49), (65, 55)]
 
 
 def _plain(args, n_iter):
@@ -987,3 +991,82 @@ def test_profiled_build_on_the_card_names_ipm_leg_fixed(gpu, tmp_path):
     assert len(ta) == len(tb)
     assert all(np.array_equal(ta.vertices[n], tb.vertices[n])
                for n in range(len(ta)))
+
+
+def test_quadrotor_pv_pruned_build_on_the_card(gpu):
+    """--prune-rows on the quadrotor's published sub-box: the card's
+    PrunedOracle keeps the JAX package's masks (chip_smoke.PRUNE_MASKS,
+    held to the JAX package by tests/test_torch_chip_smoke.py), its
+    reduced point QPs (60, 49) launch the kernel, and the build gives
+    the reference's 1,208 regions within 2%."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.oracle.prune import PrunedOracle
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition, make_oracle)
+
+    kw = (("param", "pv"), ("pos_box", 0.4), ("vel_box", 0.2))
+    prob = make("quadrotor", **dict(kw))
+    cfg = PartitionConfig(problem="quadrotor", problem_args=kw, eps_a=1.0,
+                          eps_r=0.1, prune_rows=True)
+    o = make_oracle(prob, cfg)
+    assert isinstance(o, PrunedOracle) and o.device.type == "cuda"
+    digest, rows, nvars, shape = chip_smoke.PRUNE_MASKS["quadrotor"]
+    assert chip_smoke.mask_digest(o.row_keep, o.var_keep) == digest
+    assert (int(o.row_keep.sum()), int(o.var_keep.sum()),
+            o.reduced_shape) == (rows, nvars, tuple(shape))
+    shapes = []
+    real = ipm_leg.ipm_leg_cuda
+    ipm_leg.ipm_leg_cuda = chip_smoke.record_legs(real, shapes)
+    try:
+        res = build_partition(prob, cfg, oracle=o)
+    finally:
+        ipm_leg.ipm_leg_cuda = real
+    assert any((nz, nc) == tuple(shape) for _k, nz, nc, _it in shapes)
+    st = res.stats
+    assert st["device_failures"] == 0 and not st["truncated"]
+    assert abs(st["regions"] - 1208) <= 0.02 * 1208
+    assert st["uncertified"] <= 5
+
+
+def test_pruned_oracle_on_the_card_matches_the_cpu(gpu):
+    """The satellite 4c box's PrunedOracle on the card and on the CPU:
+    the same masks, commutation choices and values."""
+    from explicit_hybrid_mpc_tpu_torch.oracle.prune import PrunedOracle
+
+    prob = make("satellite", axes=3, omega_box=0.03, h_box=0.3)
+    card = PrunedOracle(prob, backend="cuda")
+    cpu = PrunedOracle(prob, backend="cpu")
+    assert np.array_equal(card.row_keep, cpu.row_keep)
+    assert np.array_equal(card.var_keep, cpu.var_keep)
+    th = np.random.default_rng(3).uniform(prob.theta_lb, prob.theta_ub,
+                                          (64, prob.n_theta))
+    before = ipm_leg.launches
+    a, b = card.solve_vertices(th), cpu.solve_vertices(th)
+    assert ipm_leg.launches > before
+    np.testing.assert_array_equal(a.dstar, b.dstar)
+    np.testing.assert_allclose(a.Vstar, b.Vstar, rtol=1e-6, atol=1e-8)
+
+
+def test_soc_oracle_on_the_card_matches_the_cpu(gpu):
+    """SOCOracle on the card against the CPU at 8 thetas of the
+    satellite_soc 4c box: converged masks and commutation choices equal,
+    V* to 1e-6 relative; the SOC solves' linear QPs launch the kernel."""
+    from explicit_hybrid_mpc_tpu_torch.oracle.soc_oracle import SOCOracle
+
+    prob = make("satellite_soc", N=3, h_box=0.3, omega_box=0.03)
+    th = np.random.default_rng(17).uniform(prob.theta_lb, prob.theta_ub,
+                                           (8, prob.n_theta))
+    before = ipm_leg.launches
+    a = SOCOracle(prob).solve_vertices(th)
+    assert ipm_leg.launches > before
+    b = SOCOracle(prob, backend="cpu").solve_vertices(th)
+    np.testing.assert_array_equal(a.conv, b.conv)
+    np.testing.assert_array_equal(a.dstar, b.dstar)
+    np.testing.assert_allclose(a.Vstar, b.Vstar, rtol=1e-6, atol=1e-8)

@@ -60,6 +60,8 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "partition.rebuild", "lifecycle.revision",
                                  "lifecycle.service", "lifecycle.cli",
                                  "oracle.bnb", "obs.host", "obs.reqtrace",
-                                 "obs.profiling"])
+                                 "obs.profiling", "oracle.prune",
+                                 "oracle.socp", "oracle.soc_point",
+                                 "oracle.soc_oracle"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

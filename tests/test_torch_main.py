@@ -56,6 +56,10 @@ ARGVS = {
     "profile": [*_DI, "--profile", "trace_dir", "--profile-steps", "3"],
     "auto_profile": [*_DI, "--obs", "jsonl", "--auto-profile",
                      "--profile-steps", "2"],
+    "prune_rows": ["-e", "quadrotor", "-r", "0.1", "-a", "1",
+                   "--problem-arg", 'param="pv"', "--problem-arg",
+                   "pos_box=0.4", "--problem-arg", "vel_box=0.2",
+                   "--prune-rows"],
 }
 
 
@@ -142,6 +146,36 @@ def test_resumed_build_is_the_straight_build(tmp_path):
     # The solver flags come from the snapshot: a differing -a is ignored.
     assert tmain.main(["-e", "double_integrator", "-a", "0.25", "--backend",
                        "cpu", "-o", rest, "--resume", ckpt]) == 0
+    assert _signature(rest) == _signature(straight)
+
+
+def test_serial_prune_rows_exits_with_the_jax_cli_error(tmp_path):
+    """--prune-rows cannot take effect on the serial baseline: both CLIs
+    exit with the same message instead of building without it."""
+    argv = [*_DI, "--backend", "serial", "--prune-rows", "-o",
+            str(tmp_path / "p")]
+    with pytest.raises(SystemExit) as ref:
+        jmain.main(argv)
+    with pytest.raises(SystemExit) as got:
+        tmain.main(argv)
+    assert str(got.value) == str(ref.value)
+    assert "--backend serial" in str(got.value)
+
+
+def test_resumed_pruned_build_is_the_straight_build(tmp_path):
+    """prune_rows is a solver field of the snapshot: a --prune-rows build
+    checkpointed and resumed (without the flag on the command line)
+    gives the straight pruned build's tree node for node."""
+    common = [*_DI, "-a", "0.5", "--batch", "64", "--max-depth", "20",
+              "--backend", "cpu", "--prune-rows"]
+    straight, part, rest = (str(tmp_path / n) for n in ("a", "b", "c"))
+    assert tmain.main([*common, "-o", straight]) == 0
+    assert tmain.main([*common, "-o", part, "--checkpoint-every", "2",
+                       "--max-steps", "3"]) == 0
+    ckpt = part + ".ckpt.pkl"
+    assert _signature(part) != _signature(straight)  # it was cut short
+    assert tmain.main(["-e", "double_integrator", "--backend", "cpu", "-o",
+                       rest, "--resume", ckpt]) == 0
     assert _signature(rest) == _signature(straight)
 
 

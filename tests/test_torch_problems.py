@@ -162,7 +162,7 @@ def test_config_defaults_match_the_reference_except_backend():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("prune_rows", True), ("shard_frontier", True),
+    ("shard_frontier", True),
     ("recompile_guard", "raise"), ("obs_recorder", True),
     ("recorder_dir", "repro"), ("health_rules", (("stall_s", 1.0),)),
     ("recompile_guard", "warn"), ("mesh_devices", 2)])
