@@ -87,11 +87,18 @@ exits non-zero in a directory that does not hold the repository.
 also builds another version of csrc/ipm_leg.cu (the same C interface;
 for a redesign of K1, its parent's source from `git show`) and holds
 this kernel against it in the same call: phase 2's sweep of the build's
-launch shapes timed in turns, and (phase 10) four flagship builds in
-turns (baseline, kernel, kernel, baseline) for the build wall, then one
-recorded build with each for a cell-by-cell diff of the two trees that
-names, for every cell the two builds decide differently, the test that
-decided it and how far from its threshold it sat.
+launch shapes, phase 14's and 17b's large-path cells timed in turns,
+and (phase 10) four flagship builds in turns (baseline, kernel, kernel,
+baseline) for the build wall, then one recorded build with each for a
+cell-by-cell diff of the two trees that names, for every cell the two
+builds decide differently, the test that decided it and how far from
+its threshold it sat.
+
+    python3 -c "import chip_smoke as c; c.k1_large_only()"
+
+checks and times K1's large path alone (about two minutes,
+K1_BASELINE as above), with the iteration split of a copy of the
+kernel stamped with clock64() at its sections (k1_split).
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -233,6 +240,21 @@ OTHER_HOLD = 4096
 #: launched), at these K and the build's most frequent K.
 K1_LARGE_SHAPES = ((60, 360), (65, 366))
 K1_LARGE_K = (8, 64, 256)
+#: Iterations a large-path cell runs where no recorded build gives its
+#: count (the quadrotor build's: 12 at its point shape, 18 at the
+#: elastic simplex-min; the pruned programs run 30, single-phase).
+K1_LARGE_ITERS = {(60, 360): 12, (65, 366): 18, (60, 49): 30, (65, 55): 30}
+#: k1_large_only: the pruned quadrotor's reduced shapes (point and
+#: elastic simplex-min) on the large path, and the pruned satellite's
+#: point cell (nz, nc, K) on the general path.
+K1_PRUNED_SHAPES = ((60, 49), (65, 55))
+K1_PRUNED_GENERAL = (24, 14, 216)
+#: k1_large_only: the large path's smaller shapes -- just past the
+#: general path's limits, the quadrotor "p" sub-box's QPs of the GPU
+#: tests (nz 24-27, nc 144-147), and a handful of variables over many
+#: rows -- at these K, 18 iterations.
+K1_LARGE_EXTRA = ((33, 129), (26, 146), (8, 200))
+K1_LARGE_EXTRA_K = (8, 256)
 #: QPs a call of the plain version at the large shapes (it materializes
 #: K x nc x nz x nz products).
 K1_PLAIN_CHUNK = 128
@@ -241,6 +263,40 @@ K1_PLAIN_CHUNK = 128
 K1_REGISTER_MAX_NZ = 8
 K1_GENERAL_SHAPE = (24, 96)
 K1_GENERAL_K = (64, 1024)
+#: The iteration split of the large path (k1_split): a copy of the
+#: source with clock64() stamps on block 0's thread 0 (which runs the
+#: factor and the solves) at the boundaries of an iteration's sections,
+#: built under build/, at these (nz, nc, K, n_iter).  Each anchor list
+#: names, in source order inside ipm_leg_large, a line and the code put
+#: before and after it; "parent" fits the source before the redesign
+#: (its large_solve and Cholesky), "new" this one.
+K1_SPLIT_CELLS = ((60, 360, 256, 12), (60, 49, 256, 30))
+K1_SPLIT_SECTIONS = ("assembly (residuals, A'DA, A'lam, A't, mu)", "factor",
+                     "solve (predictor)",
+                     "steps, step lengths, sigma, corrector rhs",
+                     "solve (corrector)", "steps, step lengths, update",
+                     "prologue", "the barrier after the factor (Q z + q)")
+_SPLIT_COMMON_HEAD = (
+    ("unsigned char smem_raw[];", "", "long long ehm_last = clock64();"),
+    ("for (int it = 0; it < n_iter; ++it) {", "",
+     "EHM_STAMP(it ? 5 : 6);"))
+_SPLIT_COMMON_TAIL = (
+    ("for (int i = tid; i < nz; i += NT) zout[k * nz + i] = z[i];",
+     "EHM_STAMP(5);", ""),)
+K1_SPLIT_ANCHORS = {
+    "parent": _SPLIT_COMMON_HEAD + (
+        ("for (int j = 0; j < nz; ++j) {", "EHM_STAMP(0);", ""),
+        ("large_solve(nz, L, tid < nz ? -rd[tid] - wt[tid] : T(0), bc, dz);",
+         "EHM_STAMP(1);", "EHM_STAMP(2);"),
+        ("large_solve(nz, L, y, bc, dz);", "EHM_STAMP(3);", "EHM_STAMP(4);"),
+    ) + _SPLIT_COMMON_TAIL,
+    "new": _SPLIT_COMMON_HEAD + (
+        ("large_factor(nz, L, inv);", "EHM_STAMP(0);", "EHM_STAMP(1);"),
+        ("large_solve(nz, L, inv, rd, wl, wt, part, 0, true, dz);",
+         "EHM_STAMP(7);", "EHM_STAMP(2);"),
+        ("large_solve(nz, L, inv, rd, wl, wt, part, G, false, dz);",
+         "EHM_STAMP(3);", "EHM_STAMP(4);"),
+    ) + _SPLIT_COMMON_TAIL}
 
 #: Phase 15, the warm rebuild and the rebuild service, from phase 3's
 #: flagship tree.  The references are the JAX package's on the CPU at
@@ -702,15 +758,17 @@ def raw_k3(lib, arena, buf, B: int, chunks: int, parent: bool):
     return launch, rec
 
 
-def in_turns(new, old, reps: int) -> tuple[float, float | None, str]:
+def in_turns(new, old, reps: int, timer=None
+             ) -> tuple[float, float | None, str]:
     """(kernel ms, baseline ms, log text): `new` timed alone, or with a
     baseline `old` in turns (baseline, kernel, kernel, baseline), each
-    by graph_time."""
+    by `timer` (graph_time unless given)."""
+    timer = timer or graph_time
     if old is None:
-        return graph_time(new, reps), None, ""
-    b1 = graph_time(old, reps)
-    m1, m2 = graph_time(new, reps), graph_time(new, reps)
-    b2 = graph_time(old, reps)
+        return timer(new, reps), None, ""
+    b1 = timer(old, reps)
+    m1, m2 = timer(new, reps), timer(new, reps)
+    b2 = timer(old, reps)
     ms, base_ms = (m1 + m2) / 2, (b1 + b2) / 2
     return ms, base_ms, (f"; baseline {base_ms:.4f} ms ({b1:.4f}/{b2:.4f}), "
                          f"{base_ms / ms:.2f}x")
@@ -1907,6 +1965,296 @@ def random_qps(rng, K: int, nz: int, nc: int, dev):
             torch.ones_like(b))
 
 
+def k1_cell(dev, g, nz: int, nc: int, K: int, n_iter: int, tag: str,
+            base=None, reps: int = 10):
+    """One K1 cell: K random QPs (nz, nc) drawn from `g` through the
+    wrapper against the plain version -- f64 to 1e-9 relative; f32
+    within 4x the plain f32 version's error against the f64 iterates
+    plus 1e-4 (as phase 2); 4 iterations from the cold start -- then,
+    on the card, `n_iter` iterations timed by CUDA events.  On the large
+    path with a baseline library `base` (K1_BASELINE), the baseline in
+    turns with it (baseline, kernel, kernel, baseline) and the two
+    kernels' gap on the QPs both keep bounded; on the general path, the
+    large path's own entry (ipm_leg_large_f64) in turns with it on the
+    same inputs, held to the plain version too.  Returns (the cell's
+    dict, its inputs)."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    on_card = dev.type == "cuda"
+    path = k1_path(nz, nc)
+    args = random_qps(g, K, nz, nc, dev)
+    truth = plain_leg(args, 4)
+    e64 = rel_err(ipm_leg.ipm_leg(*args, n_iter=4), truth)
+    a32 = tuple(t.float() for t in args)
+    e_k = rel_err(ipm_leg.ipm_leg(*a32, n_iter=4), truth)
+    e_p = rel_err(plain_leg(a32, 4), truth)
+    where = f"K1 {path} path {tag} nz={nz} nc={nc} K={K}"
+    if not e64 <= 1e-9:
+        fail(f"{where}: f64 differs from plain by {e64:.2e} (> 1e-9 "
+             "relative)")
+    if not e_k <= 4 * e_p + 1e-4:
+        fail(f"{where}: f32 worse than plain ({e_k:.2e} vs {e_p:.2e})")
+    nbytes, flops = ipm_leg_cost(K, nz, nc, n_iter, 8)
+    bound = leg_bound_ms(K, nz, nc, n_iter)
+    by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F64_S \
+        else "operations"
+    cell = {"nz": nz, "nc": nc, "K": K, "n_iter": n_iter, "path": path,
+            "ms": None, "bound_ms": bound, "bound_by": by,
+            "max_rel_err_f64": e64, "max_rel_err_f32": e_k}
+    vs = ""
+    if on_card:
+        lib = ipm_leg._lib()
+        new, new_out = raw_leg(lib.ipm_leg_f64, args, n_iter)
+        other = None
+        if path == "large" and base is not None:
+            other, other_out = raw_leg(base.ipm_leg_f64, args, n_iter)
+        elif path == "general":
+            other, other_out = raw_leg(lib.ipm_leg_large_f64, args, n_iter)
+        ms, other_ms, _ = in_turns(new, other, reps, timer=cuda_time)
+        cell["ms"] = ms
+        if other is not None:
+            torch.cuda.synchronize()
+            ok = torch.ones(K, dtype=torch.bool, device=dev)
+            for x, y in zip(new_out, other_out):
+                ok &= (x.abs().amax(1) < 1e8) & (y.abs().amax(1) < 1e8)
+            gap = max(float(((x - y).abs() / (1 + y.abs()))[ok].max())
+                      for x, y in zip(new_out, other_out)) \
+                if ok.any() else 0.0
+            if path == "large":
+                cell.update(base_ms=other_ms, base_ratio=other_ms / ms,
+                            base_gap=gap)
+                vs = (f"; PR-parent baseline {other_ms:.4f} ms in turns, "
+                      f"{other_ms / ms:.3f}x; kernel vs baseline {gap:.1e} "
+                      f"relative on the {int(ok.sum())} bounded QPs")
+            else:
+                check, outs = raw_leg(lib.ipm_leg_large_f64, args, 4)
+                check()
+                torch.cuda.synchronize()
+                e_l = rel_err(outs, truth)
+                if not e_l <= 1e-9:
+                    fail(f"{where}: the large path's entry differs from "
+                         f"plain by {e_l:.2e} (> 1e-9 relative)")
+                cell.update(large_ms=other_ms, large_err=e_l)
+                vs = (f"; the large path on the same QPs {other_ms:.4f} ms "
+                      f"in turns ({other_ms / ms:.3f}x the general path's), "
+                      f"f64 vs plain {e_l:.2e}")
+    log(f"{tag} nz={nz} nc={nc} K={K} n_iter={n_iter} ({path} path): f64 "
+        f"vs plain {e64:.2e} (limit 1e-9); f32 vs the f64 iterates: kernel "
+        f"{e_k:.2e}, plain {e_p:.2e}; kernel "
+        + (f"{cell['ms']:.4f} ms = {1e3 * cell['ms'] / n_iter:.1f} "
+           f"us/iteration, {bound / cell['ms']:.4f} of the bound"
+           if cell["ms"] else "not measured")
+        + f"; bound {bound:.5f} ms ({by}){vs}")
+    return cell, args
+
+
+def large_path_cells(dev, cells, ks, base=None, seed: int = SEED + 15,
+                     tag: str = "[K1-large]"):
+    """K1's large path at each (nz, nc, n_iter) of `cells` and each K of
+    `ks` (k1_cell; with `base`, timed in turns against the baseline
+    library).  Phase 14 calls it at the quadrotor build's shapes, 17b at
+    the pruned builds' reduced shapes, k1_large_only at both.  Returns
+    ([cell dicts], {(nz, nc, K): inputs}, max f64 error, max f32
+    error)."""
+    g = np.random.default_rng(seed)
+    out, inputs, err64, err32 = [], {}, 0.0, 0.0
+    for nz, nc, n_iter in cells:
+        for K in ks:
+            cell, args = k1_cell(dev, g, nz, nc, K, n_iter, tag, base)
+            if cell["path"] != "large":
+                fail(f"{tag} ({nz}, {nc}) does not take the large path")
+            out.append(cell)
+            inputs[(nz, nc, K)] = args
+            err64 = max(err64, cell["max_rel_err_f64"])
+            err32 = max(err32, cell["max_rel_err_f32"])
+    return out, inputs, err64, err32
+
+
+def stamped_source(src: str, anchors) -> str:
+    """csrc/ipm_leg.cu (or another version of it) with clock64() stamps
+    in ipm_leg_large: each anchor (a line's text, code before it, code
+    after it), found in order after the kernel's definition; block 0's
+    thread 0 adds the cycles since the previous stamp to ehm_split[n],
+    which ehm_split_read / ehm_split_reset expose."""
+    pos = src.index("ipm_leg_large(const T* __restrict__ Qg")
+    for text, before, after in anchors:
+        at = src.index(text, pos)
+        start = src.rindex("\n", 0, at) + 1
+        end = src.index("\n", at) + 1
+        line = src[start:end]
+        new = (before + "\n" if before else "") + line \
+            + (after + "\n" if after else "")
+        src = src[:start] + new + src[end:]
+        pos = start + len(new)
+    head = ("__device__ unsigned long long ehm_split[8];\n"
+            "#define EHM_STAMP(n) do { if (blockIdx.x == 0 && "
+            "threadIdx.x == 0) { const long long t_ = clock64(); "
+            "ehm_split[n] += (unsigned long long)(t_ - ehm_last); "
+            "ehm_last = t_; } } while (0)\n")
+    tail = ('\nextern "C" int ehm_split_read(unsigned long long* out) {\n'
+            "  return (int)cudaMemcpyFromSymbol(out, ehm_split, "
+            "sizeof(ehm_split));\n}\n"
+            'extern "C" int ehm_split_reset() {\n'
+            "  static const unsigned long long zero[8] = {0};\n"
+            "  return (int)cudaMemcpyToSymbol(ehm_split, zero, "
+            "sizeof(zero));\n}\n")
+    inc = src.index("#include <math.h>\n") + len("#include <math.h>\n")
+    return src[:inc] + head + src[inc:] + tail
+
+
+def k1_split(dev, src_path: str, label: str, anchors, lib=None) -> list:
+    """The iteration split of the large path in the source `src_path`:
+    its stamped copy (stamped_source) built under build/chiptmp, then
+    at each K1_SPLIT_CELLS cell one launch after a warm one, block 0's
+    cycles by section (K1_SPLIT_SECTIONS), each section's share of the
+    iteration and its µs an iteration (the share of the stamped kernel's
+    time by CUDA events), beside the time of `lib`'s unstamped kernel
+    (the library built from the same source) where given."""
+    import ctypes
+    import shutil
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    with open(src_path) as f:
+        text = stamped_source(f.read(), anchors)
+    out_dir = os.path.join(os.path.dirname(kernels.BUILD_DIR), "chiptmp")
+    os.makedirs(out_dir, exist_ok=True)
+    cu = os.path.join(out_dir, f"ipm_leg_split_{label}.cu")
+    so = os.path.join(out_dir, f"libipm_leg_split_{label}.so")
+    with open(cu, "w") as f:
+        f.write(text)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    r = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-o", so, cu],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        fail(f"the stamped copy of {src_path} does not build:\n"
+             f"{r.stdout}{r.stderr}")
+    stamped = ctypes.CDLL(so)
+    stamped.ipm_leg_f64.argtypes = _ctypes_sigs()["ipm_leg"]["ipm_leg_f64"]
+    stamped.ipm_leg_f64.restype = ctypes.c_int
+    stamped.ehm_split_read.argtypes = [ctypes.c_void_p]
+    rows = []
+    g = np.random.default_rng(SEED + 12)
+    for nz, nc, K, n_iter in K1_SPLIT_CELLS:
+        args = random_qps(g, K, nz, nc, dev)
+        launch, _ = raw_leg(stamped.ipm_leg_f64, args, n_iter)
+        launch()
+        torch.cuda.synchronize()
+        stamped.ehm_split_reset()
+        launch()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 8)()
+        if stamped.ehm_split_read(ctypes.addressof(buf)):
+            fail("k1_split: cannot read the stamps")
+        cyc = [int(v) for v in buf][:len(K1_SPLIT_SECTIONS)]
+        ms = cuda_time(launch, 5)
+        kern_ms = (cuda_time(raw_leg(lib.ipm_leg_f64, args, n_iter)[0], 5)
+                   if lib is not None else None)
+        # Every bucket but the prologue (6) is a share of the iteration.
+        loop = [n for n in range(len(K1_SPLIT_SECTIONS)) if n != 6]
+        it_cyc = sum(cyc[n] for n in loop) / n_iter
+        us_it = 1e3 * ms / n_iter
+        shares = {K1_SPLIT_SECTIONS[n]: cyc[n] / n_iter / it_cyc
+                  if it_cyc else 0.0 for n in loop}
+        row = {"source": label, "nz": nz, "nc": nc, "K": K,
+               "n_iter": n_iter, "cycles_per_iteration": it_cyc,
+               "stamped_ms": ms, "kernel_ms": kern_ms,
+               "sections": {s: {"share": sh, "us_per_iteration": sh * us_it}
+                            for s, sh in shares.items()}}
+        rows.append(row)
+        log(f"[K1-split] {label} ({src_path}) nz={nz} nc={nc} K={K} "
+            f"n_iter={n_iter}: block 0 {it_cyc:.0f} cycles an iteration; "
+            f"stamped kernel {ms:.4f} ms = {us_it:.1f} us/iteration"
+            + (f" (unstamped {kern_ms:.4f} ms)" if kern_ms else "")
+            + "; " + "; ".join(f"{s} {sh:.3f} = {sh * us_it:.1f} us"
+                               for s, sh in shares.items())
+            + f"; prologue {cyc[6]} cycles")
+    return rows
+
+
+def k1_large_only(dev=None) -> int:
+    """K1's large path alone, for iterating on its design in about
+    two minutes on the card:
+
+        python3 -c "import chip_smoke as c; c.k1_large_only()"
+        K1_BASELINE=old_ipm_leg.cu python3 -c "..."   # and in turns
+
+    Builds csrc/ipm_leg.cu (and K1_BASELINE's source, in parallel),
+    then large_path_cells at K1_LARGE_SHAPES x K1_LARGE_K, at the
+    pruned quadrotor's reduced shapes (K1_PRUNED_SHAPES x K1_PRUNED_K)
+    and at the smaller large shapes (K1_LARGE_EXTRA x K1_LARGE_EXTRA_K),
+    the satellite's general-path shapes -- K1_GENERAL_SHAPE at
+    K1_GENERAL_K, K1_PRUNED_GENERAL -- with the large path in turns
+    (k1_cell), and the iteration split (k1_split) of this source and of
+    the baseline's.  Exits non-zero (fail) on any check.  Given a CPU
+    `dev` it rehearses the same cells through the plain version and only
+    writes the stamped copies' text (no nvcc there)."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    base_src = baseline_source()
+    base = None
+    if dev is None:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device; nothing was run",
+                  file=sys.stderr)
+            return 2
+        dev = torch.device("cuda", 0)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        log(f"[device] {smi or torch.cuda.get_device_name(0)}")
+        with ThreadPoolExecutor(2) as pool:
+            fut = (pool.submit(baseline_lib, base_src, kernels.BUILD_DIR,
+                               kernels.NVCC_FLAGS) if base_src else None)
+            kernels.build(["ipm_leg"])
+            base = fut.result() if fut else None
+        log(f"[build] ipm_leg{' and its baseline' if base else ''} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for ln in ptxas_lines("ipm_leg",
+                              kernels.ptxas_report.get("ipm_leg", "")):
+            if "large" in ln:
+                log(f"[build] {ln}")
+    shapes = [(nz, nc, K1_LARGE_ITERS.get((nz, nc), 18))
+              for nz, nc in K1_LARGE_SHAPES]
+    large_path_cells(dev, shapes, K1_LARGE_K, base)
+    large_path_cells(dev, [(nz, nc, K1_LARGE_ITERS.get((nz, nc), 30))
+                           for nz, nc in K1_PRUNED_SHAPES], K1_PRUNED_K,
+                     base, seed=SEED + 17, tag="[K1-pruned] quadrotor")
+    large_path_cells(dev, [(nz, nc, 18) for nz, nc in K1_LARGE_EXTRA],
+                     K1_LARGE_EXTRA_K, base, seed=SEED + 18)
+    g = np.random.default_rng(SEED + 16)
+    nz, nc = K1_GENERAL_SHAPE
+    for K in K1_GENERAL_K:
+        k1_cell(dev, g, nz, nc, K, 12, "[K1-general]", reps=20)
+    nz, nc, K = K1_PRUNED_GENERAL
+    k1_cell(dev, g, nz, nc, K, 30, "[K1-pruned] satellite", reps=20)
+    sources = [("new", os.path.join(kernels.CSRC, "ipm_leg.cu"))]
+    if base_src:
+        sources.append(("parent", base_src))
+    for label, path in sources:
+        if dev.type == "cuda":
+            from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+            k1_split(dev, path, label, K1_SPLIT_ANCHORS[label],
+                     ipm_leg._lib() if label == "new" else base)
+        else:
+            with open(path) as f:
+                text = stamped_source(f.read(), K1_SPLIT_ANCHORS[label])
+            log(f"[K1-split] {label}: stamped copy of {path} written "
+                f"({text.count('EHM_STAMP(') - 1} stamps), not built here")
+    log(f"[K1-large] k1_large_only took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def hold_table(dev, tree, problem, seed: int, name: str) -> None:
     """K2 on a built table against the f64 host evaluator, as phase 4:
     OTHER_HOLD sampled thetas through locate.evaluate on `dev`; leaf ids,
@@ -1954,7 +2302,8 @@ def hold_table(dev, tree, problem, seed: int, name: str) -> None:
         f"{du:.2e}")
 
 
-def other_problems_phase(dev, tmp: str, record: dict | None = None):
+def other_problems_phase(dev, tmp: str, record: dict | None = None,
+                         base=None):
     """Phase 14: the quadrotor's and the satellite's published sub-box
     builds through the build CLI's main() on `dev` (OTHER_BUILDS), each
     with its online evaluation, K1 and K2 counted from zero and K1's
@@ -1962,12 +2311,13 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None):
     device time.  Each build is held to the reference's regions (2%),
     uncertified, not truncated, no device failure, and its table through
     K2 to the f64 host evaluator.  Then K1's large path against its
-    plain version at the quadrotor's shapes (f64 to 1e-9 relative, f32
-    as phase 2), timed by CUDA events.  Returns the kernels line's
-    ipm_leg "large" object and (general_path_cells) its "general" one;
-    `record`, where given, receives each build's stats, wall, K1 count,
-    recorded K1 launches and (the profiled build) K1 device ms, for
-    phase 17 to print beside its pruned builds."""
+    plain version at the quadrotor's shapes (large_path_cells: f64 to
+    1e-9 relative, f32 as phase 2), timed by CUDA events, in turns with
+    the baseline library `base` (K1_BASELINE) where given.  Returns the
+    kernels line's ipm_leg "large" object and (general_path_cells) its
+    "general" one; `record`, where given, receives each build's stats,
+    wall, K1 count, recorded K1 launches and (the profiled build) K1
+    device ms, for phase 17 to print beside its pruned builds."""
     from collections import Counter
 
     from explicit_hybrid_mpc_tpu_torch import main as tmain
@@ -2040,10 +2390,9 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None):
                    name)
 
     # K1's large path at the quadrotor's shapes against its plain
-    # version on the same inputs: f64 to 1e-9 relative, f32 within 4x
-    # the plain f32 version's error against the f64 iterates plus 1e-4
-    # (as phase 2), 4 iterations from the cold start; then timed at the
-    # build's iteration count for the shape by CUDA events.
+    # version (large_path_cells: f64 to 1e-9 relative, f32 as phase 2),
+    # timed at the build's iteration count for the shape by CUDA events,
+    # with K1_BASELINE in turns.
     hist = Counter((nz, nc, it) for _k, nz, nc, it in quad_legs
                    if nz > ipm_leg.GENERAL_MAX_NZ
                    or nc > ipm_leg.GENERAL_MAX_NC)
@@ -2052,48 +2401,15 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None):
     iters = {}
     for (nz, nc, it), _n in hist.most_common():
         iters.setdefault((nz, nc), it)
-    cells = sorted({*K1_LARGE_SHAPES, *iters})
-    ks = sorted({*K1_LARGE_K, k_main})
-    g = np.random.default_rng(SEED + 15)
-    err64 = err32 = 0.0
-    timed = []
-    main_cell = None
-    for nz, nc in cells:
-        n_iter = iters.get((nz, nc), 18)
-        for K in ks:
-            args = random_qps(g, K, nz, nc, dev)
-            truth = plain_leg(args, 4)
-            e64 = rel_err(ipm_leg.ipm_leg(*args, n_iter=4), truth)
-            a32 = tuple(t.float() for t in args)
-            e_k = rel_err(ipm_leg.ipm_leg(*a32, n_iter=4), truth)
-            e_p = rel_err(plain_leg(a32, 4), truth)
-            if not e64 <= 1e-9:
-                fail(f"K1 large path nz={nz} nc={nc} K={K}: f64 differs "
-                     f"from plain by {e64:.2e} (> 1e-9 relative)")
-            if not e_k <= 4 * e_p + 1e-4:
-                fail(f"K1 large path nz={nz} nc={nc} K={K}: f32 worse than "
-                     f"plain ({e_k:.2e} vs {e_p:.2e})")
-            err64, err32 = max(err64, e64), max(err32, e_k)
-            nbytes, flops = ipm_leg_cost(K, nz, nc, n_iter, 8)
-            bound = leg_bound_ms(K, nz, nc, n_iter)
-            ms = (cuda_time(raw_leg(ipm_leg._lib().ipm_leg_f64, args,
-                                    n_iter)[0], 10) if on_card else None)
-            cell = {"nz": nz, "nc": nc, "K": K, "n_iter": n_iter, "ms": ms,
-                    "bound_ms": bound}
-            timed.append(cell)
-            log(f"[K1-large] nz={nz} nc={nc} K={K} n_iter={n_iter}: f64 vs "
-                f"plain {e64:.2e} (limit 1e-9); f32 vs the f64 iterates: "
-                f"kernel {e_k:.2e}, plain {e_p:.2e}; kernel "
-                + (f"{ms:.4f} ms = {1e3 * ms / n_iter:.1f} us/iteration, "
-                   f"{bound / ms:.4f} of the bound" if ms else "not measured")
-                + f"; bound {bound:.5f} ms ("
-                + ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F64_S
-                   else "operations") + ")")
-            if (nz, nc) == K1_LARGE_SHAPES[0] and K == k_main:
-                main_cell = (args, n_iter, cell,
-                             "bytes" if nbytes / PEAK_BYTES_S
-                             > flops / PEAK_F64_S else "operations")
-    args, n_iter, cell, by = main_cell
+    shapes = [(nz, nc, iters.get((nz, nc), K1_LARGE_ITERS.get((nz, nc), 18)))
+              for nz, nc in sorted({*K1_LARGE_SHAPES, *iters})]
+    timed, inputs, err64, err32 = large_path_cells(
+        dev, shapes, sorted({*K1_LARGE_K, k_main}), base)
+    nz0, nc0 = K1_LARGE_SHAPES[0]
+    cell = next(c for c in timed if (c["nz"], c["nc"], c["K"])
+                == (nz0, nc0, k_main))
+    args, n_iter, by = inputs[(nz0, nc0, k_main)], cell["n_iter"], \
+        cell["bound_by"]
     plain_ms = (cuda_time(lambda: plain_leg(args, n_iter), 2, warmup=1)
                 if on_card else None)
     build_bound = sum(leg_bound_ms(*x) for x in quad_legs)
@@ -2120,11 +2436,14 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None):
 def general_path_cells(dev, sat_legs: list) -> dict:
     """K1's general path (8 < nz <= 32, nc <= 128) at the satellite 4c
     build's point shape (K1_GENERAL_SHAPE): against its plain version on
-    random QPs (f64 to 1e-9 relative, 4 iterations from the cold start),
-    then ms a launch by CUDA events at K1_GENERAL_K and the build's
-    iteration count for the shape, beside the bound; with the general-path
-    launches the satellite build made (`sat_legs`, recorded in phase 14).
-    Returns the kernels line's ipm_leg "general" object."""
+    random QPs (k1_cell: f64 to 1e-9 relative, f32 as phase 2, 4
+    iterations from the cold start), then ms a launch by CUDA events at
+    K1_GENERAL_K and the build's iteration count for the shape, beside
+    the bound and, in turns on the same QPs, the large path's own entry
+    (whether the general path keeps a place of its own); with the
+    general-path launches the satellite build made (`sat_legs`, recorded
+    in phase 14).  Returns the kernels line's ipm_leg "general"
+    object."""
     from collections import Counter
 
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
@@ -2138,24 +2457,10 @@ def general_path_cells(dev, sat_legs: list) -> dict:
     g = np.random.default_rng(SEED + 16)
     cells, err64 = [], 0.0
     for K in K1_GENERAL_K:
-        args = random_qps(g, K, nz, nc, dev)
-        e64 = rel_err(ipm_leg.ipm_leg(*args, n_iter=4), plain_leg(args, 4))
-        if not e64 <= 1e-9:
-            fail(f"K1 general path nz={nz} nc={nc} K={K}: f64 differs from "
-                 f"plain by {e64:.2e} (> 1e-9 relative)")
-        err64 = max(err64, e64)
-        nbytes, flops = ipm_leg_cost(K, nz, nc, n_iter, 8)
-        bound = leg_bound_ms(K, nz, nc, n_iter)
-        by = ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F64_S
-              else "operations")
-        ms = (cuda_time(raw_leg(ipm_leg._lib().ipm_leg_f64, args,
-                                n_iter)[0], 20) if on_card else None)
-        cells.append({"K": K, "ms": ms, "bound_ms": bound, "bound_by": by})
-        log(f"[K1-general] nz={nz} nc={nc} K={K} n_iter={n_iter}: f64 vs "
-            f"plain {e64:.2e} (limit 1e-9); kernel "
-            + (f"{ms:.4f} ms a launch = {1e3 * ms / n_iter:.2f} us/iteration, "
-               f"{bound / ms:.4f} of the bound" if ms else "not measured")
-            + f"; bound {bound:.5f} ms ({by})")
+        cell, args = k1_cell(dev, g, nz, nc, K, n_iter, "[K1-general]",
+                             reps=20)
+        cells.append(cell)
+        err64 = max(err64, cell["max_rel_err_f64"])
     plain_ms = (cuda_time(lambda: plain_leg(args, n_iter), 2, warmup=1)
                 if on_card else None)
     shapes = Counter((z, c) for _k, z, c, _it in gen_legs)
@@ -3257,15 +3562,16 @@ def pruned_builds(dev, tmp: str, unpruned: dict) -> tuple[dict, dict]:
     return summary, launched
 
 
-def pruned_k1_cells(dev, launched: dict) -> dict:
+def pruned_k1_cells(dev, launched: dict, base=None) -> dict:
     """17b: K1 against its plain version at the reduced shapes the pruned
     builds launched (every reduced shape off the card), at K1_PRUNED_K
     and the build's most frequent K: f64 to 1e-9 relative, f32 as phase
     2, 4 iterations from the cold start; then timed at the shape's most
-    frequent iteration count by CUDA events beside its bound."""
+    frequent iteration count by CUDA events beside its bound -- the
+    large path's shapes through large_path_cells (in turns with the
+    baseline library `base` where given), the general path's through
+    k1_cell (in turns with the large path's own entry)."""
     from collections import Counter
-
-    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
 
     on_card = dev.type == "cuda"
     g = np.random.default_rng(SEED + 17)
@@ -3281,38 +3587,22 @@ def pruned_k1_cells(dev, launched: dict) -> dict:
         for fam, (nz, nc) in reduced:
             n_iter = (its[(nz, nc)].most_common(1)[0][0]
                       if (nz, nc) in its else 18)
-            for K in sorted({*K1_PRUNED_K, k_main}):
-                args = random_qps(g, K, nz, nc, dev)
-                truth = plain_leg(args, 4)
-                e64 = rel_err(ipm_leg.ipm_leg(*args, n_iter=4), truth)
-                a32 = tuple(t.float() for t in args)
-                e_k = rel_err(ipm_leg.ipm_leg(*a32, n_iter=4), truth)
-                e_p = rel_err(plain_leg(a32, 4), truth)
-                if not e64 <= 1e-9:
-                    fail(f"K1 at {name}'s {fam} ({nz}, {nc}) K={K}: f64 "
-                         f"differs from plain by {e64:.2e}")
-                if not e_k <= 4 * e_p + 1e-4:
-                    fail(f"K1 at {name}'s {fam} ({nz}, {nc}) K={K}: f32 "
-                         f"worse than plain ({e_k:.2e} vs {e_p:.2e})")
-                err64, err32 = max(err64, e64), max(err32, e_k)
-                nbytes, flops = ipm_leg_cost(K, nz, nc, n_iter, 8)
-                bound = leg_bound_ms(K, nz, nc, n_iter)
-                by = ("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F64_S
-                      else "operations")
-                ms = (cuda_time(raw_leg(ipm_leg._lib().ipm_leg_f64, args,
-                                        n_iter)[0], 10) if on_card else None)
-                cell = {"build": name, "family": fam, "nz": nz, "nc": nc,
-                        "K": K, "n_iter": n_iter, "path": k1_path(nz, nc),
-                        "ms": ms, "bound_ms": bound, "bound_by": by}
+            ks = sorted({*K1_PRUNED_K, k_main})
+            tag = f"[K1-pruned] {name} {fam}"
+            if k1_path(nz, nc) == "large":
+                got, inputs, _e64, _e32 = large_path_cells(
+                    dev, [(nz, nc, n_iter)], ks, base,
+                    seed=int(g.integers(2 ** 31)), tag=tag)
+                pairs = [(c, inputs[(nz, nc, c["K"])]) for c in got]
+            else:
+                pairs = [k1_cell(dev, g, nz, nc, K, n_iter, tag, reps=20)
+                         for K in ks]
+            for cell, args in pairs:
+                cell.update(build=name, family=fam)
                 cells.append(cell)
-                log(f"[K1-pruned] {name} {fam} nz={nz} nc={nc} "
-                    f"({cell['path']} path) K={K} n_iter={n_iter}: f64 vs "
-                    f"plain {e64:.2e} (limit 1e-9); f32 vs the f64 "
-                    f"iterates: kernel {e_k:.2e}, plain {e_p:.2e}; kernel "
-                    + (f"{ms:.4f} ms, {bound / ms:.4f} of the bound"
-                       if ms else "not measured")
-                    + f"; bound {bound:.5f} ms ({by})")
-                if main_cell is None and K == k_main:
+                err64 = max(err64, cell["max_rel_err_f64"])
+                err32 = max(err32, cell["max_rel_err_f32"])
+                if main_cell is None and cell["K"] == k_main:
                     main_cell = (args, n_iter, cell)
     args, n_iter, cell = main_cell
     # One call: the plain version takes seconds at the pruned builds' K.
@@ -3504,11 +3794,11 @@ def soc_partition(dev) -> dict:
             "samples": checked, "max_excess_minus_rel": max_excess}
 
 
-def pruning_soc_phase(dev, tmp: str, unpruned: dict) -> dict:
+def pruning_soc_phase(dev, tmp: str, unpruned: dict, base=None) -> dict:
     """Phase 17: constraint-row pruning and the SOC oracle stack on
-    `dev` (17a pruned_builds, 17b pruned_k1_cells, 17c soc_solves, 17d
-    soc_partition).  Returns the kernels line's ipm_leg "pruned"
-    object."""
+    `dev` (17a pruned_builds, 17b pruned_k1_cells -- with K1_BASELINE's
+    library `base` in turns --, 17c soc_solves, 17d soc_partition).
+    Returns the kernels line's ipm_leg "pruned" object."""
     t_phase = time.perf_counter()
     took = {}
 
@@ -3519,7 +3809,7 @@ def pruning_soc_phase(dev, tmp: str, unpruned: dict) -> dict:
         return r
 
     builds, launched = part("17a", pruned_builds, dev, tmp, unpruned)
-    out = part("17b", pruned_k1_cells, dev, launched)
+    out = part("17b", pruned_k1_cells, dev, launched, base)
     out["builds"] = builds
     out["soc"] = {"solves": part("17c", soc_solves, dev),
                   "partition": part("17d", soc_partition, dev)}
@@ -4058,7 +4348,8 @@ def main() -> int:
     # -- phase 14: the other problems' published sub-boxes -----------------
     unpruned: dict = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
-        k1_large, k1_general = other_problems_phase(dev, tmp, unpruned)
+        k1_large, k1_general = other_problems_phase(dev, tmp, unpruned,
+                                                    base)
     host.end("phase 14 (other problems)")
 
     # -- phase 15: the warm rebuild and the rebuild service ----------------
@@ -4073,7 +4364,7 @@ def main() -> int:
 
     # -- phase 17: constraint-row pruning and the SOC oracle stack --------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prune_") as tmp:
-        k1_pruned = pruning_soc_phase(dev, tmp, unpruned)
+        k1_pruned = pruning_soc_phase(dev, tmp, unpruned, base)
     host.end("phase 17 (pruning, SOC)")
 
     kernels_line = {"kernels": [

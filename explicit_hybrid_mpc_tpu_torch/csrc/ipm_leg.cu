@@ -46,21 +46,48 @@
 //    rows of the KKT matrix.  nz is not padded to 8 (0 * NaN would
 //    leak NaN into live rows and change the sums).
 //  - Every larger shape (nz > 32 or nc > 128; the quadrotor's QPs are
-//    nz 60-65, nc 360-366) takes the large path (ipm_leg_large): one
-//    block of 256 threads per QP.  There a QP does ~2 MFLOP an
-//    iteration and A alone is 190 KB in f64, so the work is the
-//    assembly of A'DA (nc nz (nz+1)/2 FMAs, ~80% of it) and the bound
-//    is operations.  The packed factor and the nc-long vectors live in
-//    shared memory; A streams from global memory (L2) in chunks of 16
-//    rows, each chunk staged with D*A beside it, and every thread sums
-//    its own entries of A'DA, A'lam and A't over the chunk; a warp per
-//    row forms the row products A z and A dz.  The Cholesky is
-//    right-looking in shared memory (two barriers a column), the
-//    substitutions one barrier a column with thread i holding y_i.
+//    nz 60-65, nc 360-366, its pruned ones nz 60-65, nc 49-55) takes the
+//    large path (ipm_leg_large): one block of 256 threads per QP.  A QP
+//    does ~2 MFLOP an iteration there and A alone is 190 KB in f64, so
+//    the bound is operations (the assembly of A'DA, nc nz (nz+1)/2
+//    FMAs); but the build launches it at K 8-1,024, two QPs an SM at
+//    most, so what bounds it is one QP's iteration: the dependent chain
+//    of the factor and the four substitutions (nz steps each), the
+//    block-wide reductions between the passes over the rows, and the
+//    assembly's shared-memory traffic.  The design:
+//    * The Cholesky and the four substitutions run on one warp over the
+//      packed triangle in shared memory (the other warps form Q z + q
+//      meanwhile, then wait at a barrier).  The pivot is
+//      min(rsqrt(max(C_jj, 0)), 1/floor), also 1/L_jj for the solves
+//      where the clamp is inactive (as the register path).  The factor
+//      is left-looking: a lane's rows of column j are C_aj less the
+//      reference's downdates L_ak L_jk, k < j, in its order, as one FMA
+//      chain of loads only, then scaled; a __syncwarp a column.  A
+//      substitution step loads its factor entries first, then is a
+//      __shfl_sync broadcast of the pivot row's value and one FMA a
+//      row, lane l holding rows l, l+32, ... in registers, no lane
+//      branching: no division and no block barrier in the chain.
+//    * Block sums are a __shfl_xor_sync butterfly a warp, then the 8
+//      warp partials in order; the primal and dual step minima share
+//      one exchange and one barrier: 9 barriers an iteration besides
+//      two a chunk of A.
+//    * The row passes form 1/s and 1/lam once a row an iteration, D =
+//      lam (1/s), the step ratios with the reciprocal of the step, and
+//      spread each row's dot product over 4-8 lanes joined by shuffles:
+//      no lane runs a serial chain of divisions.
+//    * A'DA: A streams from global memory (L2) in chunks of 32 rows,
+//      double-buffered with cp.async so the next chunk loads while this
+//      one is summed.  Each thread owns 4x4 register tiles of the
+//      lower triangle (tile indices computed once a launch) and sums
+//      them over the chunk's rows in order: 8 shared loads for 16 FMAs,
+//      each group of 4 columns padded by one so that the groups a
+//      warp reads fall in distinct banks.
+//      A'lam and A't go to the threads the tiles leave.
 //    Every sum runs in a fixed order (rows in order for each entry, a
-//    fixed tree across threads), so a QP's result does not depend on
-//    its batch.  Its ceiling is the shared memory of one block
-//    (large_elems) and one thread per variable (nz <= 256).
+//    fixed tree across lanes and warps), so a QP's result does not
+//    depend on its batch.  Its ceiling is the shared memory of one
+//    block (large_smem) and the registers of one warp (nz <= 256); at
+//    (65, 366) in f64 a QP takes 96 KB, so two QPs share an SM.
 //
 // A QP depends only on its own inputs -- no cross-QP reduction, no
 // padding across QPs -- so its result is bitwise independent of K and
@@ -82,7 +109,9 @@ namespace {
 constexpr int kMaxNz = 32;
 constexpr int kMaxNc = 128;
 constexpr int kLargeThreads = 256;
-constexpr int kLargeRows = 16;                // rows of A in a chunk
+constexpr int kLargeRows = 32;                // rows of A in a chunk
+constexpr int kLargeWarps = kLargeThreads / 32;
+constexpr int kTile = 4;                      // A'DA register tile edge
 constexpr long long kMaxSmem = 232448;        // 227 KB, one block
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -646,12 +675,29 @@ __global__ void ipm_leg_general(const T* __restrict__ Qg,
 
 // -- the large path, nz > 32 or nc > 128 ----------------------------------
 
-// Elements of shared memory the large path uses for one QP (see the
-// carve-up in ipm_leg_large).
-__host__ __device__ inline long long large_elems(int nz, int nc) {
-  return (long long)nz * (nz + 1) / 2 + 5LL * nz +
-         2LL * kLargeRows * nz + 11LL * nc + kLargeThreads + 2;
+// Bytes of shared memory the large path uses for one QP (see the
+// carve-up in ipm_leg_large): the packed triangle, six nz-vectors,
+// eleven nc-vectors, two chunks of A (a row is nb tiles of kTile
+// columns, each group followed by one pad: large_col), the corrector's
+// A't partials, the reduction slots, and the tile table (2 bytes a
+// tile).
+__host__ __device__ inline long long large_tiles(int nz) {
+  const long long nb = (nz + kTile - 1) / kTile;
+  return nb * (nb + 1) / 2;
 }
+__host__ __device__ inline long long large_smem(int nz, int nc,
+                                                int itemsize) {
+  const long long ld = (nz + kTile - 1) / kTile * (kTile + 1);
+  return itemsize * ((long long)nz * (nz + 1) / 2 + 6LL * nz + 11LL * nc +
+                     2LL * kLargeRows * ld + kLargeThreads +
+                     4 * kLargeWarps) +
+         2 * large_tiles(nz);
+}
+
+// Where column c of A sits in a staged row: groups of kTile columns,
+// each followed by a pad, so the groups a warp's tiles read start
+// kTile + 1 elements apart and fall in distinct banks.
+__device__ __forceinline__ int large_col(int c) { return c + c / kTile; }
 
 // (i, j), j <= i, of packed lower-triangle index e (the inverse of tri).
 __device__ __forceinline__ void untri(int e, int& i, int& j) {
@@ -662,84 +708,313 @@ __device__ __forceinline__ void untri(int e, int& i, int& j) {
   j = e - r * (r + 1) / 2;
 }
 
-// Sum (or NaN-propagating min) of one value per thread over the block,
-// in a fixed tree order; every thread gets the result.  red holds
-// kLargeThreads elements; the call begins and ends with a barrier.
-template <typename T, bool MIN>
-__device__ __forceinline__ T block_reduce(T v, T* red) {
-  const int t = threadIdx.x;
-  __syncthreads();
-  red[t] = v;
-  __syncthreads();
-#pragma unroll
-  for (int o = kLargeThreads / 2; o > 0; o >>= 1) {
-    if (t < o) red[t] = MIN ? pmin(red[t], red[t + o]) : red[t] + red[t + o];
-    __syncthreads();
-  }
-  const T r = red[0];
-  __syncthreads();
-  return r;
+// One element from global to shared memory, asynchronously (cp.async);
+// a commit closes the group, wait_all waits for this thread's groups.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// y <- L'^-1 L^-1 y for the packed factor L; thread i < nz holds y_i in
-// `y` and leaves x_i in out[i].  Column-oriented as the reference
-// (fwd_sub, bwd_sub), including its explicit zero outside the
-// triangle; the pivot's quotient goes through two alternating slots
-// of `bc`, one barrier a column.
+// Start the copy of rows [c0, c0 + rows) of A into `dst` (row stride ld,
+// columns at large_col; the pads are never written): a warp per row,
+// lanes over the row's entries.
 template <typename T>
-__device__ void large_solve(int nz, const T* L, T y, T* bc, T* out) {
-  const int i = threadIdx.x;
-  int step = 0;
-  for (int j = 0; j < nz; ++j, ++step) {
-    if (i == j) bc[step & 1] = y / L[tri(j, j)];
-    __syncthreads();
-    const T d = bc[step & 1];
-    if (i < nz) y = i == j ? d : y - d * (i > j ? L[tri(i, j)] : T(0));
-  }
-  for (int j = nz - 1; j >= 0; --j, ++step) {
-    if (i == j) bc[step & 1] = y / L[tri(j, j)];
-    __syncthreads();
-    const T d = bc[step & 1];
-    if (i < nz) y = i == j ? d : y - d * (i < j ? L[tri(j, i)] : T(0));
-  }
-  if (i < nz) out[i] = y;
-  __syncthreads();
-}
-
-// The step of one right-hand side from dz (shared): a warp per row,
-//   dlam = D (A dz + r_p) - r_c/s,   ds = -(r_c + s dlam)/lam.
-template <typename T>
-__device__ void large_steps(int nz, int nc, const T* __restrict__ A,
-                            const T* dz, const T* rp, const T* D,
-                            const T* s, const T* lam, const T* rc, T* ds,
-                            T* dl) {
+__device__ __forceinline__ void large_stage(T* dst, const T* __restrict__ A,
+                                            int c0, int rows, int nz,
+                                            int ld) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < nc; i += kLargeThreads / 32) {
-    const T* Ai = A + (long long)i * nz;
-    T acc = 0;
-    for (int c = lane; c < nz; c += 32) acc += Ai[c] * dz[c];
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const T dli = D[i] * (acc + rp[i]) - rc[i] / s[i];
-      dl[i] = dli;
-      ds[i] = -(rc[i] + s[i] * dli) / lam[i];
+  for (int r = warp; r < rows; r += kLargeWarps) {
+    const T* src = A + (long long)(c0 + r) * nz;
+    for (int c = lane; c < nz; c += 32)
+      cp_async(dst + r * ld + large_col(c), src + c);
+  }
+  cp_async_commit();
+}
+
+// A block sum in two halves around a barrier the caller has anyway:
+// warp_partial leaves each warp's butterfly total in red[warp];
+// warps_total adds the kLargeWarps totals in order.
+template <typename T>
+__device__ __forceinline__ void warp_partial(T v, T* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+}
+template <typename T>
+__device__ __forceinline__ T warps_total(const T* red) {
+  T v = red[0];
+#pragma unroll
+  for (int w = 1; w < kLargeWarps; ++w) v += red[w];
+  return v;
+}
+
+// The primal and the dual step lengths min(1, tau min ratio) of the
+// block, from each thread's running minima of the ratios: one warp
+// reduction each, one exchange through red (2 kLargeWarps slots), one
+// barrier.  NaN-propagating.
+template <typename T>
+__device__ __forceinline__ void large_ftb(T mp, T md, T tau, T* red, T& a_p,
+                                          T& a_d) {
+  mp = warp_min_nonneg(mp);
+  md = warp_min_nonneg(md);
+  if ((threadIdx.x & 31) == 0) {
+    red[2 * (threadIdx.x >> 5)] = mp;
+    red[2 * (threadIdx.x >> 5) + 1] = md;
+  }
+  __syncthreads();
+  mp = red[0];
+  md = red[1];
+#pragma unroll
+  for (int w = 1; w < kLargeWarps; ++w) {
+    mp = pmin(mp, red[2 * w]);
+    md = pmin(md, red[2 * w + 1]);
+  }
+  a_p = pmin(T(1), tau * mp);
+  a_d = pmin(T(1), tau * md);
+}
+
+// Row blocks of 32 a lane of the factor's warp holds: nz <= 256.
+constexpr int kRowBlocks = kLargeThreads / 32;
+
+// Column j of the warp's left-looking factor, for N row blocks on and
+// below the pivot (rows a = j + lane + 32 m, m < N; past nz a lane
+// repeats row nz - 1 and stores nothing).  Each row's entry is C_aj less
+// L_ak L_jk for k < j: the reference's rank-1 downdates of that entry,
+// summed as P interleaved chains (k mod P, each in order) joined in a
+// fixed order, so a lane keeps 4 independent FMA chains of loads only
+// (N and P template arguments: no branch holds the loads back).  Then
+// the pivot's reciprocal r from lane 0's diagonal (inv[j] as chol()
+// above), the column scaled by r, a __syncwarp.
+template <typename T, int N>
+__device__ __forceinline__ void factor_column(int nz, int j, T* L, T* inv) {
+  constexpr int P = N >= 4 ? 1 : 4 / N;
+  const int lane = threadIdx.x & 31;
+  const T inv_floor = T(1) / Leg<T>::floor();
+  const int oj = tri(j, 0);
+  int oa[N];
+  T acc[N][P];
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    oa[m] = tri(min(j + lane + 32 * m, nz - 1), 0);
+    acc[m][0] = L[oa[m] + j];
+#pragma unroll
+    for (int h = 1; h < P; ++h) acc[m][h] = T(0);
+  }
+  int k = 0;
+#pragma unroll 2
+  for (; k + P <= j; k += P) {
+#pragma unroll
+    for (int h = 0; h < P; ++h) {
+      const T ljk = L[oj + k + h];
+#pragma unroll
+      for (int m = 0; m < N; ++m) acc[m][h] -= L[oa[m] + k + h] * ljk;
     }
   }
-  __syncthreads();
+  for (; k < j; ++k) {
+    const T ljk = L[oj + k];
+#pragma unroll
+    for (int m = 0; m < N; ++m) acc[m][0] -= L[oa[m] + k] * ljk;
+  }
+#pragma unroll
+  for (int m = 0; m < N; ++m)
+#pragma unroll
+    for (int h = 1; h < P; ++h) acc[m][0] += acc[m][h];
+  const T cjj = __shfl_sync(kFull, acc[0][0], 0);
+  const T r = pmin(rroot(pmax(cjj, T(0))), inv_floor);
+  __syncwarp();  // every lane has read row j before it is scaled
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    const int a = j + lane + 32 * m;
+    if (a < nz) L[tri(a, j)] = acc[m][0] * r;
+  }
+  if (lane == 0) inv[j] = r > T(0) && r < inv_floor ? r : recip(cjj * r);
+  __syncwarp();
 }
 
-// alpha = min(1, tau * min_{dv<0} -v/dv) over the block, NaN-propagating.
+// In-place Cholesky of the packed lower triangle L (C = M + reg I) on
+// one warp, in the reference's clamped column form, column by column
+// (factor_column).  Not inlined: the warp's chain gets the registers to
+// itself (the kernel's state waits in local memory across the call,
+// once, instead of spilling inside the chain).
 template <typename T>
-__device__ T large_ftb(int nc, const T* v, const T* dv, T tau, T* red) {
+__device__ __noinline__ void large_factor(int nz, T* L, T* inv) {
+  __builtin_assume(__isShared(L) && __isShared(inv));
+  for (int j = 0; j < nz; ++j) {
+    switch ((nz - j + 31) >> 5) {
+#define EHM_COLUMN(N)                          \
+  case N:                                      \
+    factor_column<T, N>(nz, j, L, inv);        \
+    break;
+      EHM_COLUMN(1) EHM_COLUMN(2) EHM_COLUMN(3) EHM_COLUMN(4)
+      EHM_COLUMN(5) EHM_COLUMN(6) EHM_COLUMN(7) EHM_COLUMN(8)
+#undef EHM_COLUMN
+    }
+  }
+}
+
+// y <- L'^-1 L^-1 y on one warp for the packed factor L and the pivots'
+// reciprocals inv, lane l holding y_i, i = l + 32 m, in y[m] (MB row
+// blocks; rows past nz hold values nothing reads).  Column-oriented as
+// the reference (fwd_sub, bwd_sub), with its explicit zero outside the
+// triangle: a step loads its factor entries first, then is the pivot
+// row's value broadcast from its lane, times inv, and one FMA a row,
+// with no lane branching.
+template <typename T, int MB>
+__device__ __forceinline__ void solve_rows(int nz, const T* L, const T* inv,
+                                           T (&y)[MB]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int jm = 0; jm < MB; ++jm) {
+    const int jn = min(32, nz - 32 * jm);
+    for (int jl = 0; jl < jn; ++jl) {
+      const int j = 32 * jm + jl;
+      T lv[MB];
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        const int i = lane + 32 * m;
+        lv[m] = L[i > j && i < nz ? tri(i, j) : 0];
+      }
+      const T d = __shfl_sync(kFull, y[jm], jl) * inv[j];
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        const int i = lane + 32 * m;
+        const T u = y[m] - d * (i > j ? lv[m] : T(0));
+        y[m] = i == j ? d : u;
+      }
+    }
+  }
+#pragma unroll
+  for (int jm = MB - 1; jm >= 0; --jm) {
+    const int jn = min(32, nz - 32 * jm);
+    for (int jl = jn - 1; jl >= 0; --jl) {
+      const int j = 32 * jm + jl;
+      const int oj = tri(j, 0);
+      T lv[MB];
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        const int i = lane + 32 * m;
+        lv[m] = L[oj + (i < j ? i : 0)];
+      }
+      const T d = __shfl_sync(kFull, y[jm], jl) * inv[j];
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        const int i = lane + 32 * m;
+        const T u = y[m] - d * (i < j ? lv[m] : T(0));
+        y[m] = i == j ? d : u;
+      }
+    }
+  }
+}
+
+// The factor's warp, one solve: the predictor's rhs -r_d - A't, with
+// r_d = (Q z + q) + A'lam (left in rd), or (pred false) the corrector's
+// -r_d less its G groups of A't partials in order; solve_rows; the step
+// into dz.
+template <typename T, int MB>
+__device__ __forceinline__ void rhs_solve(int nz, const T* L, const T* inv,
+                                          T* rd, const T* wl, const T* wt,
+                                          const T* part, int G, bool pred,
+                                          T* dz) {
+  const int lane = threadIdx.x & 31;
+  T y[MB];
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    const int i = lane + 32 * m;
+    y[m] = T(0);
+    if (i < nz) {
+      if (pred) {
+        const T rdi = rd[i] + wl[i];
+        rd[i] = rdi;
+        y[m] = -rdi - wt[i];
+      } else {
+        T w = 0;
+        for (int g = 0; g < G; ++g) w += part[g * nz + i];
+        y[m] = -rd[i] - w;
+      }
+    }
+  }
+  solve_rows<T, MB>(nz, L, inv, y);
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    const int i = lane + 32 * m;
+    if (i < nz) dz[i] = y[m];
+  }
+}
+
+// rhs_solve for the row blocks nz takes.  Not inlined, as large_factor.
+template <typename T>
+__device__ __noinline__ void large_solve(int nz, const T* L, const T* inv,
+                                         T* rd, const T* wl, const T* wt,
+                                         const T* part, int G, bool pred,
+                                         T* dz) {
+  __builtin_assume(__isShared(L) && __isShared(inv) && __isShared(rd) &&
+                   __isShared(wl) && __isShared(wt) && __isShared(part) &&
+                   __isShared(dz));
+  switch ((nz + 31) >> 5) {
+#define EHM_SOLVE(N)                                                   \
+  case N:                                                              \
+    rhs_solve<T, N>(nz, L, inv, rd, wl, wt, part, G, pred, dz);        \
+    break;
+    EHM_SOLVE(1) EHM_SOLVE(2) EHM_SOLVE(3) EHM_SOLVE(4)
+    EHM_SOLVE(5) EHM_SOLVE(6) EHM_SOLVE(7) EHM_SOLVE(8)
+#undef EHM_SOLVE
+  }
+}
+
+// The step of one right-hand side r_c from dz (shared), four lanes a
+// row joined by two shuffles, then the row's own arithmetic on the
+// lane holding it:
+//   dlam = D (A dz + r_p) - r_c (1/s),   ds = -(r_c + s dlam) (1/lam),
+// with each thread's running minima of the step ratios -v (1/dv) over
+// dv < 0 for large_ftb.  PRED: r_c = s lam (the predictor), else rc.
+template <typename T, bool PRED>
+__device__ __forceinline__ void large_steps(
+    int nz, int nc, const T* __restrict__ A, const T* dz, const T* rp,
+    const T* D, const T* s, const T* lam, const T* is, const T* il,
+    const T* rc, T* ds, T* dl, T& mp, T& md) {
+  constexpr int P = 4, ROWS = kLargeThreads / P;
+  const int r = threadIdx.x / P, p = threadIdx.x % P;
   const T inf = Leg<T>::inf();
-  T m = inf;
-  for (int i = threadIdx.x; i < nc; i += kLargeThreads)
-    m = pmin(m, dv[i] < T(0) ? -v[i] / dv[i] : inf);
-  return pmin(T(1), tau * block_reduce<T, true>(m, red));
+  mp = inf;
+  md = inf;
+#pragma unroll 2
+  for (int i0 = 0; i0 < nc; i0 += ROWS) {
+    const int i = i0 + r;
+    T acc = 0;
+    if (i < nc) {
+      const T* Ai = A + (long long)i * nz;
+      for (int c = p; c < nz; c += P) acc += Ai[c] * dz[c];
+    }
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    acc += __shfl_xor_sync(kFull, acc, 2);
+    if (p == 0 && i < nc) {
+      const T si = s[i], li = lam[i];
+      const T rci = PRED ? si * li : rc[i];
+      const T dli = D[i] * (acc + rp[i]) - rci * is[i];
+      const T dsi = -(rci + si * dli) * il[i];
+      dl[i] = dli;
+      ds[i] = dsi;
+      mp = pmin(mp, dsi < T(0) ? (-si) * recip(dsi) : inf);
+      md = pmin(md, dli < T(0) ? (-li) * recip(dli) : inf);
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kLargeThreads)
+__global__ void __launch_bounds__(kLargeThreads, 2)
 ipm_leg_large(const T* __restrict__ Qg, const T* __restrict__ qg,
               const T* __restrict__ Ag, const T* __restrict__ bg,
               const T* __restrict__ zin, const T* __restrict__ s_in,
@@ -747,168 +1022,215 @@ ipm_leg_large(const T* __restrict__ Qg, const T* __restrict__ qg,
               T* __restrict__ sout, T* __restrict__ lout, int nz, int nc,
               int n_iter) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int NT = kLargeThreads, NW = NT / 32, R = kLargeRows;
+  constexpr int NT = kLargeThreads, NW = kLargeWarps, R = kLargeRows;
+  constexpr int RP = NT / R;  // lanes a row in the chunk's row pass
+  static_assert(RP == 8, "the row pass joins 8 lanes a row");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long k = blockIdx.x;
   const T* __restrict__ Q = Qg + k * nz * nz;
   const T* __restrict__ q = qg + k * nz;
   const T* __restrict__ A = Ag + k * nc * nz;
   const int ntri = nz * (nz + 1) / 2;
+  const int ld = (nz + kTile - 1) / kTile * (kTile + 1);
+  const int ntiles = (int)large_tiles(nz);
+  const int nchunks = (nc + R - 1) / R;
 
-  // L: the packed lower triangle of A'DA, then of C = Q + A'DA + reg I,
-  // then its factor; wl, wt: A'lam and A't (contiguous after L, so one
-  // loop zeroes all three).
+  // L: the packed lower triangle of A'DA, then C = Q + A'DA + reg I,
+  // then its factor.  rd: Q z + q, then r_d.  ds/dl hold the
+  // predictor's steps until the corrector's replace them.
   T* L = reinterpret_cast<T*>(smem_raw);
-  T* wl = L + ntri;
-  T* wt = wl + nz;
+  T* wl = L + ntri;      // A'lam
+  T* wt = wl + nz;       // A't (the predictor's)
   T* z = wt + nz;
   T* rd = z + nz;
   T* dz = rd + nz;
-  T* As = dz + nz;       // R rows of A
-  T* DAs = As + R * nz;  // the same rows times D
-  T* b = DAs + R * nz;
+  T* inv = dz + nz;      // 1/L_jj
+  T* b = inv + nz;
   T* s = b + nc;
   T* lam = s + nc;
-  T* rp = lam + nc;
-  T* D = rp + nc;
-  T* rc = D + nc;
-  T* tmp = rc + nc;
-  T* dsa = tmp + nc;
-  T* dla = dsa + nc;
-  T* ds = dla + nc;
+  T* is = lam + nc;      // 1/s
+  T* il = is + nc;       // 1/lam
+  T* D = il + nc;
+  T* rp = D + nc;
+  T* rc = rp + nc;
+  T* t = rc + nc;        // D r_p - r_c (1/s)
+  T* ds = t + nc;
   T* dl = ds + nc;
-  T* red = dl + nc;      // NT: reductions, the factor's column, A't partials
-  T* bc = red + NT;      // 2: the substitutions' broadcast slots
+  T* As = dl + nc;       // two chunks of R rows of A (large_col)
+  T* part = As + 2 * R * ld;  // NT: the corrector's A't by row groups
+  T* red = part + NT;    // 4 NW: mu, mu_aff, the step minima
+  unsigned short* tiles = reinterpret_cast<unsigned short*>(red + 4 * NW);
 
-  const T reg = Leg<T>::reg(), tiny = Leg<T>::tiny();
-  const T nc_t = T(nc);
   for (int i = tid; i < nz; i += NT) z[i] = zin[k * nz + i];
   for (int i = tid; i < nc; i += NT) {
     b[i] = bg[k * nc + i];
     s[i] = s_in[k * nc + i];
     lam[i] = l_in[k * nc + i];
   }
+  // The chunks' padding columns stay zero; each thread's tiles (bi, bj)
+  // of the lower triangle, indexed once.
+  for (int e = tid; e < 2 * R * ld; e += NT) As[e] = T(0);
+  for (int e = tid; e < ntiles; e += NT) {
+    int bi, bj;
+    untri(e, bi, bj);
+    tiles[e] = (unsigned short)((bi << 8) | bj);
+  }
+  __syncthreads();
 
+  const T reg = Leg<T>::reg(), tiny = Leg<T>::tiny();
+  const T nc_t = T(nc), inv_nc = recip(nc_t);
   for (int it = 0; it < n_iter; ++it) {
-    __syncthreads();
+    large_stage(As, A, 0, min(R, nc), nz, ld);
+    // The thread's own rows i = tid + NT m: floors, reciprocals, D, mu.
+    T mu_part = 0;
     for (int i = tid; i < nc; i += NT) {
-      s[i] = pmax(s[i], tiny);
-      lam[i] = pmax(lam[i], tiny);
+      const T si = pmax(s[i], tiny), li = pmax(lam[i], tiny);
+      const T isi = recip(si);
+      s[i] = si;
+      lam[i] = li;
+      is[i] = isi;
+      il[i] = recip(li);
+      D[i] = li * isi;
+      mu_part += si * li;
     }
-    for (int e = tid; e < ntri + 2 * nz; e += NT) L[e] = T(0);
-    __syncthreads();
-    // One pass over A: r_p = A z + s - b, D = lam/s, the predictor's
-    // r_c = s lam and t = D r_p - r_c/s, row by row; A'DA, A'lam and
-    // A't summed chunk by chunk, each entry over the rows in order.
-    for (int c0 = 0; c0 < nc; c0 += R) {
-      const int rows = min(R, nc - c0);
-      const T* Ac = A + (long long)c0 * nz;
-      for (int e = tid; e < rows * nz; e += NT) As[e] = Ac[e];
+    warp_partial(mu_part, red);
+    // One pass over A in chunks: r_p = A z + s - b and the predictor's
+    // t = D r_p - s lam (1/s) for the chunk's rows, then A'DA, A'lam
+    // and A't summed over them.
+    for (int ch = 0; ch < nchunks; ++ch) {
+      const int c0 = ch * R, rows = min(R, nc - c0);
+      const T* cur = As + (ch & 1) * R * ld;
+      cp_async_wait_all();
       __syncthreads();
-      for (int r = warp; r < rows; r += NW) {
+      if (ch + 1 < nchunks)
+        large_stage(As + ((ch + 1) & 1) * R * ld, A, c0 + R,
+                    min(R, nc - c0 - R), nz, ld);
+      {
+        const int r = tid / RP, p = tid % RP;
         T acc = 0;
-        for (int c = lane; c < nz; c += 32) acc += As[r * nz + c] * z[c];
-        acc = warp_sum(acc);
-        if (lane == 0) {
+        if (r < rows)
+          for (int c = p; c < nz; c += RP)
+            acc += cur[r * ld + large_col(c)] * z[c];
+        acc += __shfl_xor_sync(kFull, acc, 1);
+        acc += __shfl_xor_sync(kFull, acc, 2);
+        acc += __shfl_xor_sync(kFull, acc, 4);
+        if (p == 0 && r < rows) {
           const int i = c0 + r;
           const T rpi = acc + s[i] - b[i];
-          const T Di = lam[i] / s[i];
-          const T rci = s[i] * lam[i];
           rp[i] = rpi;
-          D[i] = Di;
-          rc[i] = rci;
-          tmp[i] = Di * rpi - rci / s[i];
+          t[i] = D[i] * rpi - (s[i] * lam[i]) * is[i];
         }
       }
       __syncthreads();
-      for (int e = tid; e < rows * nz; e += NT)
-        DAs[e] = D[c0 + e / nz] * As[e];
-      __syncthreads();
-      for (int e = tid; e < ntri + 2 * nz; e += NT) {
-        T acc = L[e];
-        if (e < ntri) {
-          int i, j;
-          untri(e, i, j);
-          for (int r = 0; r < rows; ++r) acc += As[r * nz + i] * DAs[r * nz + j];
+      const bool first = ch == 0, last = ch == nchunks - 1;
+      const T* Dc = D + c0;
+      for (int e = tid; e < ntiles + nz; e += NT) {
+        if (e < ntiles) {
+          const int bi = tiles[e] >> 8, bj = tiles[e] & 255;
+          const int i0 = bi * kTile, j0 = bj * kTile;
+          const int pi = bi * (kTile + 1), pj = bj * (kTile + 1);
+          T acc[kTile][kTile];
+#pragma unroll
+          for (int a = 0; a < kTile; ++a)
+#pragma unroll
+            for (int c = 0; c < kTile; ++c) {
+              const int i = i0 + a, j = j0 + c;
+              acc[a][c] = !first && i < nz && j <= i ? L[tri(i, j)] : T(0);
+            }
+          const T* Ar = cur;
+          for (int r = 0; r < rows; ++r, Ar += ld) {
+            const T dr = Dc[r];
+            T ai[kTile], dj[kTile];
+#pragma unroll
+            for (int a = 0; a < kTile; ++a) ai[a] = Ar[pi + a];
+#pragma unroll
+            for (int c = 0; c < kTile; ++c) dj[c] = dr * Ar[pj + c];
+#pragma unroll
+            for (int a = 0; a < kTile; ++a)
+#pragma unroll
+              for (int c = 0; c < kTile; ++c) acc[a][c] += ai[a] * dj[c];
+          }
+#pragma unroll
+          for (int a = 0; a < kTile; ++a)
+#pragma unroll
+            for (int c = 0; c < kTile; ++c) {
+              const int i = i0 + a, j = j0 + c;
+              if (i < nz && j <= i) {
+                T v = acc[a][c];
+                if (last) {
+                  v = Q[(long long)i * nz + j] + v;
+                  if (i == j) v = v + reg;
+                }
+                L[tri(i, j)] = v;
+              }
+            }
         } else {
-          const int c = e < ntri + nz ? e - ntri : e - ntri - nz;
-          const T* v = (e < ntri + nz ? lam : tmp) + c0;
-          for (int r = 0; r < rows; ++r) acc += As[r * nz + c] * v[r];
+          const int c = e - ntiles;
+          T al = first ? T(0) : wl[c], at = first ? T(0) : wt[c];
+          for (int r = 0; r < rows; ++r) {
+            const T v = cur[r * ld + large_col(c)];
+            al += v * lam[c0 + r];
+            at += v * t[c0 + r];
+          }
+          wl[c] = al;
+          wt[c] = at;
         }
-        L[e] = acc;
       }
-      __syncthreads();
-    }
-    T part = 0;
-    for (int i = tid; i < nc; i += NT) part += s[i] * lam[i];
-    const T mu = block_reduce<T, false>(part, red) / nc_t;
-    // r_d = Q z + q + A'lam;  C = Q + A'DA + reg I.
-    for (int i = tid; i < nz; i += NT) {
-      T acc = 0;
-      for (int c = 0; c < nz; ++c) acc += Q[i * nz + c] * z[c];
-      rd[i] = acc + q[i] + wl[i];
-    }
-    for (int e = tid; e < ntri; e += NT) {
-      int i, j;
-      untri(e, i, j);
-      const T v = Q[i * nz + j] + L[e];
-      L[e] = i == j ? v + reg : v;
     }
     __syncthreads();
-    // Cholesky in the clamped column form: d = sqrt(max(C_jj, 0)),
-    // column j = C[:, j] / max(d, floor) (into red), then the rank-1
-    // downdate of the trailing lower triangle.
-    for (int j = 0; j < nz; ++j) {
-      const T dd = pmax(root(pmax(L[tri(j, j)], T(0))), Leg<T>::floor());
-      for (int i = j + tid; i < nz; i += NT) red[i] = L[tri(i, j)] / dd;
-      __syncthreads();
-      for (int i = j + tid; i < nz; i += NT) L[tri(i, j)] = red[i];
-      const int m = nz - j - 1;
-      for (int e = tid; e < m * (m + 1) / 2; e += NT) {
-        int a, c;
-        untri(e, a, c);
-        a += j + 1;
-        c += j + 1;
-        L[tri(a, c)] -= red[a] * red[c];
+    // The factor on one warp while the others form Q z + q; then r_d =
+    // Q z + q + A'lam and the predictor (affine scaling): rhs = -r_d -
+    // A'(D r_p - r_c/s), on the factor's warp.
+    if (warp == 0) {
+      large_factor(nz, L, inv);
+    } else {
+      for (int i = tid - 32; i < nz; i += NT - 32) {
+        const T* Qi = Q + (long long)i * nz;
+        T acc = 0;
+#pragma unroll 8
+        for (int j = 0; j < nz; ++j) acc += Qi[j] * z[j];
+        rd[i] = acc + q[i];
       }
-      __syncthreads();
     }
-    // Predictor (affine scaling): rhs = -r_d - A'(D r_p - r_c/s).
-    large_solve(nz, L, tid < nz ? -rd[tid] - wt[tid] : T(0), bc, dz);
-    large_steps(nz, nc, A, dz, rp, D, s, lam, rc, dsa, dla);
-    T a_p = large_ftb(nc, s, dsa, T(1), red);
-    T a_d = large_ftb(nc, lam, dla, T(1), red);
-    part = 0;
+    __syncthreads();
+    if (warp == 0) large_solve(nz, L, inv, rd, wl, wt, part, 0, true, dz);
+    __syncthreads();
+    const T mu = warps_total(red) / nc_t;
+    const T inv_mu = recip(pmax(mu, Leg<T>::mu_floor()));
+    T mp, md, a_p, a_d;
+    large_steps<T, true>(nz, nc, A, dz, rp, D, s, lam, is, il, rc, ds, dl,
+                         mp, md);
+    large_ftb(mp, md, T(1), red + 2 * NW, a_p, a_d);
+    // sigma = (mu_aff / max(mu, floor))^3, mu_aff = sum / nc.
+    T aff = 0;
     for (int i = tid; i < nc; i += NT)
-      part += (s[i] + a_p * dsa[i]) * (lam[i] + a_d * dla[i]);
-    const T mu_aff = block_reduce<T, false>(part, red) / nc_t;
-    const T ratio = mu_aff / pmax(mu, Leg<T>::mu_floor());
+      aff += (s[i] + a_p * ds[i]) * (lam[i] + a_d * dl[i]);
+    warp_partial(aff, red + NW);
+    __syncthreads();
+    const T ratio = warps_total(red + NW) * (inv_nc * inv_mu);
     const T smu = ratio * ratio * ratio * mu;
     // Corrector with centering: r_c = s lam + ds_a dl_a - sigma mu;
     // A't summed by G = NT / nz groups of rows, then the groups in order.
     for (int i = tid; i < nc; i += NT) {
-      rc[i] = s[i] * lam[i] + dsa[i] * dla[i] - smu;
-      tmp[i] = D[i] * rp[i] - rc[i] / s[i];
+      const T rci = s[i] * lam[i] + ds[i] * dl[i] - smu;
+      rc[i] = rci;
+      t[i] = D[i] * rp[i] - rci * is[i];
     }
     __syncthreads();
     const int G = NT / nz;
     if (tid < G * nz) {
       const int g = tid / nz, c = tid - g * nz;
       T acc = 0;
-      for (int i = g; i < nc; i += G) acc += A[(long long)i * nz + c] * tmp[i];
-      red[tid] = acc;
+#pragma unroll 4
+      for (int i = g; i < nc; i += G) acc += A[(long long)i * nz + c] * t[i];
+      part[tid] = acc;
     }
     __syncthreads();
-    T y = 0;
-    if (tid < nz) {
-      T w = 0;
-      for (int g = 0; g < G; ++g) w += red[g * nz + tid];
-      y = -rd[tid] - w;
-    }
-    large_solve(nz, L, y, bc, dz);
-    large_steps(nz, nc, A, dz, rp, D, s, lam, rc, ds, dl);
-    a_p = large_ftb(nc, s, ds, T(0.995), red);
-    a_d = large_ftb(nc, lam, dl, T(0.995), red);
+    if (warp == 0) large_solve(nz, L, inv, rd, wl, wt, part, G, false, dz);
+    __syncthreads();
+    large_steps<T, false>(nz, nc, A, dz, rp, D, s, lam, is, il, rc, ds, dl,
+                          mp, md);
+    large_ftb(mp, md, T(0.995), red + 2 * NW, a_p, a_d);
     for (int i = tid; i < nz; i += NT) z[i] = z[i] + a_p * dz[i];
     for (int i = tid; i < nc; i += NT) {
       s[i] = s[i] + a_p * ds[i];
@@ -942,6 +1264,22 @@ int launch_fixed(const T* Q, const T* q, const T* A, const T* b, const T* z,
   return (int)cudaGetLastError();
 }
 
+// The large path for any shape within its ceiling (one block a QP).
+template <typename T>
+int launch_large(const T* Q, const T* q, const T* A, const T* b, const T* z,
+                 const T* s, const T* lam, T* zo, T* so, T* lo, int K, int nz,
+                 int nc, int n_iter, cudaStream_t st) {
+  const long long smem = large_smem(nz, nc, (int)sizeof(T));
+  if (nz > kLargeThreads || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ipm_leg_large<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ipm_leg_large<T><<<K, kLargeThreads, (size_t)smem, st>>>(
+      Q, q, A, b, z, s, lam, zo, so, lo, nz, nc, n_iter);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const T* Q, const T* q, const T* A, const T* b, const T* z,
            const T* s, const T* lam, T* zo, T* so, T* lo, int K, int nz,
@@ -949,18 +1287,9 @@ int launch(const T* Q, const T* q, const T* A, const T* b, const T* z,
   if (K <= 0) return 0;
   if (nz < 1 || nc < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (nz > kMaxNz || nc > kMaxNc) {
-    const long long smem = large_elems(nz, nc) * (long long)sizeof(T);
-    if (nz > kLargeThreads || smem > kMaxSmem)
-      return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        ipm_leg_large<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ipm_leg_large<T><<<K, kLargeThreads, (size_t)smem, st>>>(
-        Q, q, A, b, z, s, lam, zo, so, lo, nz, nc, n_iter);
-    return (int)cudaGetLastError();
-  }
+  if (nz > kMaxNz || nc > kMaxNc)
+    return launch_large<T>(Q, q, A, b, z, s, lam, zo, so, lo, K, nz, nc,
+                           n_iter, st);
   switch (nz) {
 #define EHM_FIXED(N)                                                        \
   case N:                                                                   \
@@ -1007,6 +1336,18 @@ int ipm_leg_f32(const float* Q, const float* q, const float* A,
                        stream);
 }
 
+// The large path alone, whatever the shape's dispatch (within its
+// ceiling): for timing it against the general path at the same shapes.
+int ipm_leg_large_f64(const double* Q, const double* q, const double* A,
+                      const double* b, const double* z, const double* s,
+                      const double* lam, double* zo, double* so, double* lo,
+                      int K, int nz, int nc, int n_iter, void* stream) {
+  if (K <= 0) return 0;
+  if (nz < 1 || nc < 1) return (int)cudaErrorInvalidValue;
+  return launch_large<double>(Q, q, A, b, z, s, lam, zo, so, lo, K, nz, nc,
+                              n_iter, (cudaStream_t)stream);
+}
+
 // The general path's limits (larger shapes take the large path), and
 // the large path's: threads a block, rows a chunk, shared memory a
 // block, and the bytes of shared memory it takes for one QP.
@@ -1016,7 +1357,7 @@ int ipm_leg_large_threads() { return kLargeThreads; }
 int ipm_leg_large_rows() { return kLargeRows; }
 long long ipm_leg_max_smem() { return kMaxSmem; }
 long long ipm_leg_large_smem(int nz, int nc, int itemsize) {
-  return large_elems(nz, nc) * itemsize;
+  return large_smem(nz, nc, itemsize);
 }
 
 const char* ipm_leg_error_string(int err) {

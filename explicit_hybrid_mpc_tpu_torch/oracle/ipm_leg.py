@@ -33,24 +33,33 @@ launches = 0
 #: register-resident path, larger nz in its shared-memory general path.
 #: Every larger shape (the quadrotor's nz 60-65, nc 360-366) runs the
 #: large path, one block of LARGE_THREADS threads per QP streaming A in
-#: chunks of LARGE_ROWS rows.  Its ceiling: one thread per variable
-#: (nz <= LARGE_THREADS) and the shared memory one block may use
-#: (large_smem_bytes <= MAX_SMEM_BYTES; in float64 at the quadrotor's
-#: nc 366 that is nz <= 188).  csrc/ipm_leg.cu holds the same numbers;
-#: _lib() checks them against the library.
+#: double-buffered chunks of LARGE_ROWS rows, its Cholesky and
+#: substitutions on one warp.  Its ceiling: the rows a lane of that
+#: warp holds (nz <= LARGE_THREADS) and the shared memory one block may
+#: use (large_smem_bytes <= MAX_SMEM_BYTES; in float64 at the
+#: quadrotor's nc 366 that is nz <= 151).  csrc/ipm_leg.cu holds the
+#: same numbers; _lib() checks them against the library.
 GENERAL_MAX_NZ = 32
 GENERAL_MAX_NC = 128
 LARGE_THREADS = 256
-LARGE_ROWS = 16
+LARGE_ROWS = 32
+LARGE_TILE = 4
+LARGE_WARPS = LARGE_THREADS // 32
 MAX_SMEM_BYTES = 232_448
 
 
 def large_smem_bytes(nz: int, nc: int, itemsize: int) -> int:
     """Shared memory of the large path for one QP: the packed factor,
-    five nz-vectors, a chunk of A and of D*A, eleven nc-vectors and the
-    block's reduction scratch."""
-    return itemsize * (nz * (nz + 1) // 2 + 5 * nz + 2 * LARGE_ROWS * nz
-                       + 11 * nc + LARGE_THREADS + 2)
+    six nz-vectors, eleven nc-vectors, two chunks of A (a row is nb
+    tiles of LARGE_TILE columns, each followed by one pad), the
+    corrector's A't partials and the reduction slots, then the tile
+    table (2 bytes a tile)."""
+    nb = -(-nz // LARGE_TILE)
+    ld = nb * (LARGE_TILE + 1)
+    return (itemsize * (nz * (nz + 1) // 2 + 6 * nz + 11 * nc
+                        + 2 * LARGE_ROWS * ld + LARGE_THREADS
+                        + 4 * LARGE_WARPS)
+            + 2 * (nb * (nb + 1) // 2))
 
 
 def kernel_takes(nz: int, nc: int, itemsize: int) -> bool:
@@ -189,7 +198,7 @@ def ipm_leg_torch(Q, q, A, b, z, s, lam, n_iter: int):
 def _lib():
     lib = kernels.library("ipm_leg")
     if not getattr(lib, "_ehm_typed", False):
-        for fn in (lib.ipm_leg_f64, lib.ipm_leg_f32):
+        for fn in (lib.ipm_leg_f64, lib.ipm_leg_f32, lib.ipm_leg_large_f64):
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int

@@ -590,3 +590,72 @@ def test_pruning_soc_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
     assert (out["nz"], out["nc"]) == masks["quadrotor"][3]
     assert out["builds"]["quadrotor"]["launches"] == 0
     assert out["soc"]["partition"]["regions"] == 64
+
+
+def test_k1_large_only_rehearses_on_the_cpu(monkeypatch, capsys):
+    """The K1-only entry on the CPU at small shapes: every large-path
+    and general-path cell through the plain version (f64 to 1e-9, f32
+    as phase 2), no time measured, and the stamped copy of csrc/
+    ipm_leg.cu written with a stamp at each section boundary."""
+    monkeypatch.delenv("K1_BASELINE", raising=False)
+    for k, v in dict(K1_LARGE_SHAPES=((33, 129),), K1_LARGE_K=(2,),
+                     K1_PRUNED_SHAPES=((34, 20),), K1_PRUNED_K=(3,),
+                     K1_LARGE_EXTRA=((5, 140),), K1_LARGE_EXTRA_K=(2,),
+                     K1_GENERAL_SHAPE=(12, 40), K1_GENERAL_K=(2,),
+                     K1_PRUNED_GENERAL=(10, 14, 3)).items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    assert chip_smoke.k1_large_only(torch.device("cpu")) == 0
+    out = capsys.readouterr().out
+    assert "FAIL" not in out
+    for tag in ("[K1-large] nz=33 nc=129 K=2 n_iter=18 (large path)",
+                "[K1-pruned] quadrotor nz=34 nc=20 K=3 n_iter=30 (large "
+                "path)", "[K1-large] nz=5 nc=140 K=2 n_iter=18 (large path)",
+                "[K1-general] nz=12 nc=40 K=2 n_iter=12 (general path)",
+                "[K1-pruned] satellite nz=10 nc=14 K=3 n_iter=30 (general "
+                "path)",
+                "[K1-split] new: stamped copy", "(8 stamps)"):
+        assert tag in out, tag
+
+
+def test_large_path_cells_hold_each_cell_to_the_plain_version():
+    import numpy as np
+
+    cells, inputs, e64, e32 = chip_smoke.large_path_cells(
+        torch.device("cpu"), [(33, 129, 5), (40, 10, 7)], (1, 2))
+    assert [(c["nz"], c["nc"], c["K"]) for c in cells] == [
+        (33, 129, 1), (33, 129, 2), (40, 10, 1), (40, 10, 2)]
+    assert all(c["path"] == "large" and c["ms"] is None for c in cells)
+    assert e64 <= 1e-9 and e32 == max(c["max_rel_err_f32"] for c in cells)
+    assert cells[3]["bound_ms"] == pytest.approx(
+        chip_smoke.leg_bound_ms(2, 40, 10, 7))
+    assert inputs[(40, 10, 2)][2].shape == (2, 10, 40)
+    # A general-path shape is refused: the function holds the large path.
+    with pytest.raises(SystemExit):
+        chip_smoke.large_path_cells(torch.device("cpu"), [(12, 40, 5)],
+                                    (1,))
+    assert np.isfinite(e64)
+
+
+def test_stamped_source_puts_each_stamp_at_its_anchor():
+    """The stamped copy of csrc/ipm_leg.cu: the stamp buffer and its
+    readers, the clock at the large kernel's start, and one stamp before
+    or after each anchored line of ipm_leg_large, in order; the other
+    kernels untouched."""
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    with open(os.path.join(kernels.CSRC, "ipm_leg.cu")) as f:
+        src = f.read()
+    out = chip_smoke.stamped_source(src, chip_smoke.K1_SPLIT_ANCHORS["new"])
+    body = out[out.index("ipm_leg_large(const T* __restrict__ Qg"):]
+    order = [body.index(f"EHM_STAMP({n});") for n in (0, 1, 2, 3, 4)]
+    assert order == sorted(order)
+    assert body.index("EHM_STAMP(it ? 5 : 6);") < order[0]
+    assert body.index("long long ehm_last = clock64();") < body.index(
+        "EHM_STAMP(it ? 5 : 6);")
+    assert body.rindex("EHM_STAMP(5);") > order[-1]
+    assert 'extern "C" int ehm_split_read' in out
+    assert "__device__ unsigned long long ehm_split[8];" in out
+    head = out[:out.index("ipm_leg_large(const T* __restrict__ Qg")]
+    assert "EHM_STAMP(" not in head.split("#define EHM_STAMP(n)")[1]
+    with pytest.raises(ValueError):
+        chip_smoke.stamped_source(src, (("no such line", "x;", ""),))

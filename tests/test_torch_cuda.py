@@ -83,7 +83,7 @@ def test_ipm_leg_kernel_matches_plain(gpu, nz, nc, K):
 
 
 @pytest.mark.parametrize("nz,nc", [(5, 35), (5, 70), (8, 39), (8, 128),
-                                   (9, 70), (65, 366)])
+                                   (9, 70), (65, 366), (60, 360), (60, 49)])
 def test_ipm_leg_result_does_not_depend_on_the_batch(gpu, nz, nc):
     """A QP's result is bitwise the same launched alone, in its batch,
     and at another offset inside a larger batch of other QPs."""
@@ -109,13 +109,14 @@ def test_ipm_leg_result_does_not_depend_on_the_batch(gpu, nz, nc):
         assert torch.equal(a[123:163], b)
 
 
-@pytest.mark.parametrize("nz,nc", [(5, 35), (65, 366)])
+@pytest.mark.parametrize("nz,nc", [(5, 35), (65, 366), (60, 49), (33, 129)])
 def test_ipm_leg_nan_and_infeasible_qps(gpu, nz, nc):
     """A NaN in q comes back non-finite from the kernel and the plain
     version alike; a QP whose feasible set is empty comes back not
     converged and not feasible from qp_solve on the card, as on the
     CPU (the register path, and the large path at the quadrotor's
-    elastic simplex-min shape)."""
+    elastic simplex-min shape, its pruned point shape and just past the
+    general path's limits)."""
     Q, q, A, b = _qps(np.random.default_rng(3), 6, nz, nc, torch.float64,
                       gpu)
     q[2, 1] = float("nan")

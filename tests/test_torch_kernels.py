@@ -49,10 +49,11 @@ def test_library_path_follows_the_source_and_every_header(csrc, name,
 
 def test_ipm_leg_paths_take_every_shape_up_to_the_ceiling():
     """Past the warp paths (nz 32, nc 128) the large path takes every
-    shape up to its ceiling, one thread a variable and 227 KB of shared
-    memory a block; the source declares the constants the wrapper
-    holds, and the wrapper refuses past the ceiling before it looks at
-    the device."""
+    shape up to its ceiling, 8 rows of 32 a lane of its factor's warp
+    (nz <= 256) and 227 KB of shared memory a block (two chunks of 32
+    rows of A beside the factor: nz <= 151 at nc 366 in float64); the
+    source declares the constants the wrapper holds, and the wrapper
+    refuses past the ceiling before it looks at the device."""
     import torch
 
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
@@ -61,10 +62,13 @@ def test_ipm_leg_paths_take_every_shape_up_to_the_ceiling():
                    (65, 365), (65, 366)):
         for itemsize in (4, 8):
             assert ipm_leg.kernel_takes(nz, nc, itemsize), (nz, nc)
-    assert ipm_leg.large_smem_bytes(65, 366, 8) == 70_672
+    assert ipm_leg.large_smem_bytes(65, 366, 8) == 98_618
+    # Two QPs an SM at the quadrotor's largest shape (228 KB an SM, 1 KB
+    # of it reserved a block).
+    assert 2 * (ipm_leg.large_smem_bytes(65, 366, 8) + 1024) <= 233_472
     assert max(n for n in range(1, 300)
-               if ipm_leg.kernel_takes(n, 366, 8)) == 188
-    assert not ipm_leg.kernel_takes(189, 366, 8)
+               if ipm_leg.kernel_takes(n, 366, 8)) == 151
+    assert not ipm_leg.kernel_takes(152, 366, 8)
     assert ipm_leg.kernel_takes(256, 10, 4)
     assert not ipm_leg.kernel_takes(257, 10, 4)
     with open(os.path.join(kernels.CSRC, "ipm_leg.cu")) as f:
@@ -73,6 +77,7 @@ def test_ipm_leg_paths_take_every_shape_up_to_the_ceiling():
                  f"kMaxNc = {ipm_leg.GENERAL_MAX_NC};",
                  f"kLargeThreads = {ipm_leg.LARGE_THREADS};",
                  f"kLargeRows = {ipm_leg.LARGE_ROWS};",
+                 f"kTile = {ipm_leg.LARGE_TILE};",
                  f"kMaxSmem = {ipm_leg.MAX_SMEM_BYTES};"):
         assert decl in src, decl
 
