@@ -23,10 +23,12 @@ descent at 1,474,560 synthetic leaves (flat against 8 shards, µs per
 query, CUDA kernels a batch, device-resident bytes).  Phase 14 builds
 the quadrotor's and the satellite's published sub-boxes through the
 build CLI's main() on the card, held to the JAX package's region counts
-and through the point-location kernel to the f64 host evaluator, and
-holds the IPM leg's large path (nz > 32 or nc > 128, the quadrotor's
-QPs) and its general path (the satellite's nz 24 / nc 96) against their
-plain version.  Phase 15 drives the warm rebuild and the rebuild
+and through the point-location kernel to the f64 host evaluator (both
+builds under torch.profiler: K1's launches by (nz, nc, K), device time
+and wall), and holds the IPM leg's large path (nz > 32 or nc > 128, the
+quadrotor's QPs) and its general path (8 < nz <= 32, nc <= 128: every
+satellite cell of K1_GENERAL_CELLS, timed in turns with K1_BASELINE's
+kernel and the large path's own entry) against their plain version.  Phase 15 drives the warm rebuild and the rebuild
 service from phase 3's tree: `main rebuild --from` unchanged and at
 eps_a 9e-3 (held to the JAX package's region counts, the kept leaves'
 payloads bitwise, the tightened table through the point-location kernel
@@ -71,7 +73,9 @@ phase 14's: the large path's time, bound and plain time at the
 quadrotor build's most frequent K, its errors against the plain
 version, the timed cells, and the quadrotor build's K1 launches and
 device time against their summed bound; its "general" object the
-general path's timed cells and the satellite build's launches on it;
+general path's cells (each with its ratio to the baseline and to the
+large path's entry, and their ranges) and the satellite 4c build's K1
+record unpruned (phase 14) and pruned (17a);
 its "pruned" object phase 17's: K1 at the pruned builds' reduced shapes
 (time, bound, plain time), each pruned build's K1 launches and device
 time beside its unpruned build's, and the SOC solves and partition.
@@ -99,6 +103,12 @@ its threshold it sat.
 checks and times K1's large path alone (about two minutes,
 K1_BASELINE as above), with the iteration split of a copy of the
 kernel stamped with clock64() at its sections (k1_split).
+
+    K1_BASELINE=old_ipm_leg.cu python3 -c \
+        "import sys, chip_smoke as c; sys.exit(c.k1_general_only())"
+
+does the same for the general path: every cell of K1_GENERAL_CELLS in
+turns with the baseline and the large path's entry, and its split.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -245,10 +255,8 @@ K1_LARGE_K = (8, 64, 256)
 #: elastic simplex-min; the pruned programs run 30, single-phase).
 K1_LARGE_ITERS = {(60, 360): 12, (65, 366): 18, (60, 49): 30, (65, 55): 30}
 #: k1_large_only: the pruned quadrotor's reduced shapes (point and
-#: elastic simplex-min) on the large path, and the pruned satellite's
-#: point cell (nz, nc, K) on the general path.
+#: elastic simplex-min) on the large path.
 K1_PRUNED_SHAPES = ((60, 49), (65, 55))
-K1_PRUNED_GENERAL = (24, 14, 216)
 #: k1_large_only: the large path's smaller shapes -- just past the
 #: general path's limits, the quadrotor "p" sub-box's QPs of the GPU
 #: tests (nz 24-27, nc 144-147), and a handful of variables over many
@@ -259,10 +267,24 @@ K1_LARGE_EXTRA_K = (8, 256)
 #: K x nc x nz x nz products).
 K1_PLAIN_CHUNK = 128
 #: K1's general path (8 < nz <= 32, nc <= 128; the kernel's dispatch):
-#: the satellite 4c build's point QPs, timed at these K.
+#: its cells, (label, (nz, nc), K, n_iter) -- the satellite 4c build's
+#: QPs (point, elastic simplex-min, Farkas phase-1), the pruned
+#: satellite's (point, elastic simplex-min and phase-1 gate at the
+#: reduced shapes), then the path's two edges.  general_path_cells
+#: takes a cell's n_iter from the satellite 4c build where phase 14
+#: recorded the shape.
 K1_REGISTER_MAX_NZ = 8
-K1_GENERAL_SHAPE = (24, 96)
-K1_GENERAL_K = (64, 1024)
+K1_GENERAL_CELLS = (
+    ("satellite point", (24, 96), (64, 1024, 1728), 12),
+    ("pruned satellite point", (24, 14), (64, 216, 256), 30),
+    ("satellite elastic simplex-min", (31, 104), (64, 256), 18),
+    ("satellite Farkas phase-1", (31, 103), (64, 256), 30),
+    ("pruned elastic simplex-min", (31, 22), (64, 256), 12),
+    ("pruned phase-1 gate", (25, 14), (64, 256), 30),
+    ("smallest nz", (9, 70), (8, 256), 18),
+    ("largest shape", (32, 128), (8, 256), 18))
+#: The cell that stands for the general path in the kernels line.
+K1_GENERAL_MAIN = ((24, 96), 1024)
 #: The iteration split of the large path (k1_split): a copy of the
 #: source with clock64() stamps on block 0's thread 0 (which runs the
 #: factor and the solves) at the boundaries of an iteration's sections,
@@ -270,6 +292,7 @@ K1_GENERAL_K = (64, 1024)
 #: names, in source order inside ipm_leg_large, a line and the code put
 #: before and after it; "parent" fits the source before the redesign
 #: (its large_solve and Cholesky), "new" this one.
+K1_SPLIT_KERNEL = "ipm_leg_large(const T* __restrict__ Qg"
 K1_SPLIT_CELLS = ((60, 360, 256, 12), (60, 49, 256, 30))
 K1_SPLIT_SECTIONS = ("assembly (residuals, A'DA, A'lam, A't, mu)", "factor",
                      "solve (predictor)",
@@ -297,6 +320,28 @@ K1_SPLIT_ANCHORS = {
         ("large_solve(nz, L, inv, rd, wl, wt, part, G, false, dz);",
          "EHM_STAMP(3);", "EHM_STAMP(4);"),
     ) + _SPLIT_COMMON_TAIL}
+
+#: The iteration split of the general path (k1_general_only): the same
+#: stamps in ipm_leg_mid, at these (nz, nc, K, n_iter) of its cells.
+K1_GENERAL_SPLIT_KERNEL = "ipm_leg_mid(const T* __restrict__ Qg"
+K1_GENERAL_SPLIT_CELLS = ((24, 96, 64, 12), (24, 14, 64, 30),
+                          (31, 104, 64, 18))
+K1_GENERAL_SPLIT_SECTIONS = (
+    "row pass (residuals, D, t, mu, Q z)", "assembly (A'DA tiles, A'lam, "
+    "A't)", "factor (C rows, Cholesky)", "solve (predictor)",
+    "steps, step lengths, sigma, corrector A't", "solve (corrector)",
+    "prologue", "steps, step lengths, update")
+K1_GENERAL_SPLIT_ANCHORS = (
+    ("unsigned char smem_raw[];", "", "long long ehm_last = clock64();"),
+    ("for (int it = 0; it < n_iter; ++it) {", "", "EHM_STAMP(it ? 7 : 6);"),
+    ("    mid_assemble<NZB>(As, Ds, ls, ts, nc, nz, Cs, wl, wt);",
+     "EHM_STAMP(0);", ""),
+    ("    T L[NZB];", "EHM_STAMP(1);", ""),
+    ("T dz = mid_solve<T, NZB>(nz, me, L, inv, Cs, -rd - at);",
+     "EHM_STAMP(2);", "EHM_STAMP(3);"),
+    ("dz = mid_solve<T, NZB>(nz, me, L, inv, Cs, -rd - ((p0 + p1) + (p2 + "
+     "p3)));", "EHM_STAMP(4);", "EHM_STAMP(5);"),
+    ("if (live) zout[k * nz + lane] = z;", "EHM_STAMP(7);", ""))
 
 #: Phase 15, the warm rebuild and the rebuild service, from phase 3's
 #: flagship tree.  The references are the JAX package's on the CPU at
@@ -766,19 +811,29 @@ def in_turns(new, old, reps: int, timer=None
     timer = timer or graph_time
     if old is None:
         return timer(new, reps), None, ""
-    b1 = timer(old, reps)
-    m1, m2 = timer(new, reps), timer(new, reps)
-    b2 = timer(old, reps)
-    ms, base_ms = (m1 + m2) / 2, (b1 + b2) / 2
+    ms, runs = in_turns_each(new, {"base": old}, reps, timer)
+    b1, b2 = runs["base"]
+    base_ms = (b1 + b2) / 2
     return ms, base_ms, (f"; baseline {base_ms:.4f} ms ({b1:.4f}/{b2:.4f}), "
                          f"{base_ms / ms:.2f}x")
+
+
+def in_turns_each(new, olds: dict, reps: int, timer
+                  ) -> tuple[float, dict]:
+    """(kernel ms, {name: (first ms, last ms)}): `new` and every
+    baseline of `olds` timed in turns by `timer` -- the baselines in
+    order, the kernel twice, the baselines in reverse order."""
+    first = {k: timer(f, reps) for k, f in olds.items()}
+    m1, m2 = timer(new, reps), timer(new, reps)
+    last = {k: timer(olds[k], reps) for k in reversed(list(olds))}
+    return (m1 + m2) / 2, {k: (first[k], last[k]) for k in olds}
 
 
 def ptxas_lines(name: str, report: str) -> list[str]:
     """One line per kernel function of a ptxas -v report: registers,
     stack frame and spill stores/loads (template arguments read back
-    from the mangled name: K1's dtype, NZ, ROWS; K2's and K3's K =
-    p+1)."""
+    from the mangled name: K1's dtype, NZ and ROWS or the general
+    path's NZB; K2's and K3's K = p+1)."""
     import re
 
     out, fn, frame = [], None, ""
@@ -788,13 +843,14 @@ def ptxas_lines(name: str, report: str) -> list[str]:
             # The name follows its length; the namespace before it
             # holds the file name (ipm_leg_cu_...), not preceded by one.
             fn = m.group(1)
-            mm = re.search(r"\d(ipm_leg_\w+?)I([fd])(?:Li(\d+)ELi(\d+)E)?E",
+            mm = re.search(r"\d(ipm_leg_\w+?)I([fd])(?:Li(\d+)E(?:Li(\d+)E)?)?E",
                            fn)
             mk = re.search(r"\d(locate_kernel|locate_merge|arena_eval_kernel)"
                            r"(?:ILi(\d+)EE)?", fn)
             if mm:
                 dtype = "double" if mm.group(2) == "d" else "float"
                 args = (f", NZ={mm.group(3)}, ROWS={mm.group(4)}"
+                        if mm.group(4) else f", NZB={mm.group(3)}"
                         if mm.group(3) else "")
                 fn = f"{mm.group(1)}<{dtype}{args}>"
             elif mk:
@@ -1971,13 +2027,12 @@ def k1_cell(dev, g, nz: int, nc: int, K: int, n_iter: int, tag: str,
     wrapper against the plain version -- f64 to 1e-9 relative; f32
     within 4x the plain f32 version's error against the f64 iterates
     plus 1e-4 (as phase 2); 4 iterations from the cold start -- then,
-    on the card, `n_iter` iterations timed by CUDA events.  On the large
-    path with a baseline library `base` (K1_BASELINE), the baseline in
-    turns with it (baseline, kernel, kernel, baseline) and the two
-    kernels' gap on the QPs both keep bounded; on the general path, the
-    large path's own entry (ipm_leg_large_f64) in turns with it on the
-    same inputs, held to the plain version too.  Returns (the cell's
-    dict, its inputs)."""
+    on the card, `n_iter` iterations timed by CUDA events, in turns
+    (in_turns_each) with the baseline library `base` (K1_BASELINE) where
+    given -- with the two kernels' gap on the QPs both keep bounded --
+    and, on the general path, with the large path's own entry
+    (ipm_leg_large_f64) on the same inputs, held to the plain version
+    too.  Returns (the cell's dict, its inputs)."""
     import torch
 
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
@@ -2007,39 +2062,41 @@ def k1_cell(dev, g, nz: int, nc: int, K: int, n_iter: int, tag: str,
     if on_card:
         lib = ipm_leg._lib()
         new, new_out = raw_leg(lib.ipm_leg_f64, args, n_iter)
-        other = None
-        if path == "large" and base is not None:
-            other, other_out = raw_leg(base.ipm_leg_f64, args, n_iter)
-        elif path == "general":
-            other, other_out = raw_leg(lib.ipm_leg_large_f64, args, n_iter)
-        ms, other_ms, _ = in_turns(new, other, reps, timer=cuda_time)
+        others = {}
+        if base is not None:
+            others["base"] = raw_leg(base.ipm_leg_f64, args, n_iter)
+        if path == "general":
+            others["large"] = raw_leg(lib.ipm_leg_large_f64, args, n_iter)
+        ms, runs = in_turns_each(new, {k: v[0] for k, v in others.items()},
+                                 reps, cuda_time)
+        other_ms = {k: (a + b) / 2 for k, (a, b) in runs.items()}
         cell["ms"] = ms
-        if other is not None:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        if "base" in others:
+            other_out = others["base"][1]
             ok = torch.ones(K, dtype=torch.bool, device=dev)
             for x, y in zip(new_out, other_out):
                 ok &= (x.abs().amax(1) < 1e8) & (y.abs().amax(1) < 1e8)
             gap = max(float(((x - y).abs() / (1 + y.abs()))[ok].max())
                       for x, y in zip(new_out, other_out)) \
                 if ok.any() else 0.0
-            if path == "large":
-                cell.update(base_ms=other_ms, base_ratio=other_ms / ms,
-                            base_gap=gap)
-                vs = (f"; PR-parent baseline {other_ms:.4f} ms in turns, "
-                      f"{other_ms / ms:.3f}x; kernel vs baseline {gap:.1e} "
-                      f"relative on the {int(ok.sum())} bounded QPs")
-            else:
-                check, outs = raw_leg(lib.ipm_leg_large_f64, args, 4)
-                check()
-                torch.cuda.synchronize()
-                e_l = rel_err(outs, truth)
-                if not e_l <= 1e-9:
-                    fail(f"{where}: the large path's entry differs from "
-                         f"plain by {e_l:.2e} (> 1e-9 relative)")
-                cell.update(large_ms=other_ms, large_err=e_l)
-                vs = (f"; the large path on the same QPs {other_ms:.4f} ms "
-                      f"in turns ({other_ms / ms:.3f}x the general path's), "
-                      f"f64 vs plain {e_l:.2e}")
+            b_ms = other_ms["base"]
+            cell.update(base_ms=b_ms, base_ratio=b_ms / ms, base_gap=gap)
+            vs += (f"; PR-parent baseline {b_ms:.4f} ms in turns, "
+                   f"{b_ms / ms:.3f}x; kernel vs baseline {gap:.1e} "
+                   f"relative on the {int(ok.sum())} bounded QPs")
+        if "large" in others:
+            check, outs = raw_leg(lib.ipm_leg_large_f64, args, 4)
+            check()
+            torch.cuda.synchronize()
+            e_l = rel_err(outs, truth)
+            if not e_l <= 1e-9:
+                fail(f"{where}: the large path's entry differs from "
+                     f"plain by {e_l:.2e} (> 1e-9 relative)")
+            l_ms = other_ms["large"]
+            cell.update(large_ms=l_ms, large_ratio=l_ms / ms, large_err=e_l)
+            vs += (f"; the large path's entry on the same QPs {l_ms:.4f} ms "
+                   f"in turns, {l_ms / ms:.3f}x, f64 vs plain {e_l:.2e}")
     log(f"{tag} nz={nz} nc={nc} K={K} n_iter={n_iter} ({path} path): f64 "
         f"vs plain {e64:.2e} (limit 1e-9); f32 vs the f64 iterates: kernel "
         f"{e_k:.2e}, plain {e_p:.2e}; kernel "
@@ -2072,13 +2129,14 @@ def large_path_cells(dev, cells, ks, base=None, seed: int = SEED + 15,
     return out, inputs, err64, err32
 
 
-def stamped_source(src: str, anchors) -> str:
+def stamped_source(src: str, anchors, kernel: str = K1_SPLIT_KERNEL) -> str:
     """csrc/ipm_leg.cu (or another version of it) with clock64() stamps
-    in ipm_leg_large: each anchor (a line's text, code before it, code
+    in the kernel whose definition starts with `kernel` (ipm_leg_large's
+    unless given): each anchor (a line's text, code before it, code
     after it), found in order after the kernel's definition; block 0's
     thread 0 adds the cycles since the previous stamp to ehm_split[n],
     which ehm_split_read / ehm_split_reset expose."""
-    pos = src.index("ipm_leg_large(const T* __restrict__ Qg")
+    pos = src.index(kernel)
     for text, before, after in anchors:
         at = src.index(text, pos)
         start = src.rindex("\n", 0, at) + 1
@@ -2104,14 +2162,18 @@ def stamped_source(src: str, anchors) -> str:
     return src[:inc] + head + src[inc:] + tail
 
 
-def k1_split(dev, src_path: str, label: str, anchors, lib=None) -> list:
-    """The iteration split of the large path in the source `src_path`:
-    its stamped copy (stamped_source) built under build/chiptmp, then
-    at each K1_SPLIT_CELLS cell one launch after a warm one, block 0's
-    cycles by section (K1_SPLIT_SECTIONS), each section's share of the
-    iteration and its µs an iteration (the share of the stamped kernel's
-    time by CUDA events), beside the time of `lib`'s unstamped kernel
-    (the library built from the same source) where given."""
+def k1_split(dev, src_path: str, label: str, anchors, lib=None,
+             cells=None, sections=None, kernel: str = K1_SPLIT_KERNEL
+             ) -> list:
+    """The iteration split of the large path (or of `kernel`, a kernel's
+    definition as stamped_source takes it) in the source `src_path`: its
+    stamped copy (stamped_source) built under build/chiptmp, then at each
+    cell of `cells` (K1_SPLIT_CELLS unless given) one launch after a warm
+    one, block 0's cycles by section (`sections`, K1_SPLIT_SECTIONS
+    unless given; the seventh is the prologue), each section's share of
+    the iteration and its µs an iteration (the share of the stamped
+    kernel's time by CUDA events), beside the time of `lib`'s unstamped
+    kernel (the library built from the same source) where given."""
     import ctypes
     import shutil
 
@@ -2119,8 +2181,10 @@ def k1_split(dev, src_path: str, label: str, anchors, lib=None) -> list:
 
     from explicit_hybrid_mpc_tpu_torch import kernels
 
+    cells = cells or K1_SPLIT_CELLS
+    sections = sections or K1_SPLIT_SECTIONS
     with open(src_path) as f:
-        text = stamped_source(f.read(), anchors)
+        text = stamped_source(f.read(), anchors, kernel)
     out_dir = os.path.join(os.path.dirname(kernels.BUILD_DIR), "chiptmp")
     os.makedirs(out_dir, exist_ok=True)
     cu = os.path.join(out_dir, f"ipm_leg_split_{label}.cu")
@@ -2139,7 +2203,7 @@ def k1_split(dev, src_path: str, label: str, anchors, lib=None) -> list:
     stamped.ehm_split_read.argtypes = [ctypes.c_void_p]
     rows = []
     g = np.random.default_rng(SEED + 12)
-    for nz, nc, K, n_iter in K1_SPLIT_CELLS:
+    for nz, nc, K, n_iter in cells:
         args = random_qps(g, K, nz, nc, dev)
         launch, _ = raw_leg(stamped.ipm_leg_f64, args, n_iter)
         launch()
@@ -2150,15 +2214,15 @@ def k1_split(dev, src_path: str, label: str, anchors, lib=None) -> list:
         buf = (ctypes.c_ulonglong * 8)()
         if stamped.ehm_split_read(ctypes.addressof(buf)):
             fail("k1_split: cannot read the stamps")
-        cyc = [int(v) for v in buf][:len(K1_SPLIT_SECTIONS)]
+        cyc = [int(v) for v in buf][:len(sections)]
         ms = cuda_time(launch, 5)
         kern_ms = (cuda_time(raw_leg(lib.ipm_leg_f64, args, n_iter)[0], 5)
                    if lib is not None else None)
         # Every bucket but the prologue (6) is a share of the iteration.
-        loop = [n for n in range(len(K1_SPLIT_SECTIONS)) if n != 6]
+        loop = [n for n in range(len(sections)) if n != 6]
         it_cyc = sum(cyc[n] for n in loop) / n_iter
         us_it = 1e3 * ms / n_iter
-        shares = {K1_SPLIT_SECTIONS[n]: cyc[n] / n_iter / it_cyc
+        shares = {sections[n]: cyc[n] / n_iter / it_cyc
                   if it_cyc else 0.0 for n in loop}
         row = {"source": label, "nz": nz, "nc": nc, "K": K,
                "n_iter": n_iter, "cycles_per_iteration": it_cyc,
@@ -2176,6 +2240,39 @@ def k1_split(dev, src_path: str, label: str, anchors, lib=None) -> list:
     return rows
 
 
+def k1_only_setup():
+    """The card and the libraries of a K1-only entry: (device, K1_BASELINE's
+    library or None) after building csrc/ipm_leg.cu and the baseline's
+    source in parallel and logging the card, or None without a card."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return None
+    t0 = time.perf_counter()
+    base_src = baseline_source()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log(f"[device] {smi or torch.cuda.get_device_name(0)}")
+    with ThreadPoolExecutor(2) as pool:
+        fut = (pool.submit(baseline_lib, base_src, kernels.BUILD_DIR,
+                           kernels.NVCC_FLAGS) if base_src else None)
+        kernels.build(["ipm_leg"])
+        base = fut.result() if fut else None
+    log(f"[build] ipm_leg{' and its baseline' if base else ''} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for ln in ptxas_lines("ipm_leg", kernels.ptxas_report.get("ipm_leg", "")):
+        if "fixed" not in ln:
+            log(f"[build] {ln}")
+    return dev, base
+
+
 def k1_large_only(dev=None) -> int:
     """K1's large path alone, for iterating on its design in about
     two minutes on the card:
@@ -2187,42 +2284,22 @@ def k1_large_only(dev=None) -> int:
     then large_path_cells at K1_LARGE_SHAPES x K1_LARGE_K, at the
     pruned quadrotor's reduced shapes (K1_PRUNED_SHAPES x K1_PRUNED_K)
     and at the smaller large shapes (K1_LARGE_EXTRA x K1_LARGE_EXTRA_K),
-    the satellite's general-path shapes -- K1_GENERAL_SHAPE at
-    K1_GENERAL_K, K1_PRUNED_GENERAL -- with the large path in turns
-    (k1_cell), and the iteration split (k1_split) of this source and of
-    the baseline's.  Exits non-zero (fail) on any check.  Given a CPU
-    `dev` it rehearses the same cells through the plain version and only
-    writes the stamped copies' text (no nvcc there)."""
-    import torch
-    from concurrent.futures import ThreadPoolExecutor
-
+    the general path's cells (general_path_cells: K1_GENERAL_CELLS with
+    the baseline and the large path's entry in turns), and the
+    iteration split (k1_split) of this source and of the baseline's.
+    Exits non-zero (fail) on any check.  Given a CPU `dev` it rehearses
+    the same cells through the plain version and only writes the
+    stamped copies' text (no nvcc there)."""
     from explicit_hybrid_mpc_tpu_torch import kernels
 
     t0 = time.perf_counter()
     base_src = baseline_source()
     base = None
     if dev is None:
-        if not torch.cuda.is_available():
-            print("chip_smoke: no CUDA device; nothing was run",
-                  file=sys.stderr)
+        setup = k1_only_setup()
+        if setup is None:
             return 2
-        dev = torch.device("cuda", 0)
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-        log(f"[device] {smi or torch.cuda.get_device_name(0)}")
-        with ThreadPoolExecutor(2) as pool:
-            fut = (pool.submit(baseline_lib, base_src, kernels.BUILD_DIR,
-                               kernels.NVCC_FLAGS) if base_src else None)
-            kernels.build(["ipm_leg"])
-            base = fut.result() if fut else None
-        log(f"[build] ipm_leg{' and its baseline' if base else ''} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for ln in ptxas_lines("ipm_leg",
-                              kernels.ptxas_report.get("ipm_leg", "")):
-            if "large" in ln:
-                log(f"[build] {ln}")
+        dev, base = setup
     shapes = [(nz, nc, K1_LARGE_ITERS.get((nz, nc), 18))
               for nz, nc in K1_LARGE_SHAPES]
     large_path_cells(dev, shapes, K1_LARGE_K, base)
@@ -2231,12 +2308,7 @@ def k1_large_only(dev=None) -> int:
                      base, seed=SEED + 17, tag="[K1-pruned] quadrotor")
     large_path_cells(dev, [(nz, nc, 18) for nz, nc in K1_LARGE_EXTRA],
                      K1_LARGE_EXTRA_K, base, seed=SEED + 18)
-    g = np.random.default_rng(SEED + 16)
-    nz, nc = K1_GENERAL_SHAPE
-    for K in K1_GENERAL_K:
-        k1_cell(dev, g, nz, nc, K, 12, "[K1-general]", reps=20)
-    nz, nc, K = K1_PRUNED_GENERAL
-    k1_cell(dev, g, nz, nc, K, 30, "[K1-pruned] satellite", reps=20)
+    general_path_cells(dev, [], base)
     sources = [("new", os.path.join(kernels.CSRC, "ipm_leg.cu"))]
     if base_src:
         sources.append(("parent", base_src))
@@ -2252,6 +2324,49 @@ def k1_large_only(dev=None) -> int:
             log(f"[K1-split] {label}: stamped copy of {path} written "
                 f"({text.count('EHM_STAMP(') - 1} stamps), not built here")
     log(f"[K1-large] k1_large_only took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def k1_general_only(dev=None) -> int:
+    """K1's general path alone (8 < nz <= 32, nc <= 128), in a few
+    minutes on the card:
+
+        K1_BASELINE=old_ipm_leg.cu python3 -c \
+            "import sys, chip_smoke as c; sys.exit(c.k1_general_only())"
+
+    Builds csrc/ipm_leg.cu (and K1_BASELINE's source, in parallel), then
+    general_path_cells: every cell of K1_GENERAL_CELLS held to the plain
+    version and timed in turns with the baseline and with the large
+    path's own entry, each ratio printed, and the cells where the large
+    path's entry was faster named.  Exits non-zero (fail) on any check.
+    Given a CPU `dev` it rehearses the same cells through the plain
+    version, measuring nothing."""
+    t0 = time.perf_counter()
+    base = None
+    if dev is None:
+        setup = k1_only_setup()
+        if setup is None:
+            return 2
+        dev, base = setup
+    out = general_path_cells(dev, [], base)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "explicit_hybrid_mpc_tpu_torch", "csrc", "ipm_leg.cu")
+    if dev.type == "cuda":
+        from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+        out["split"] = k1_split(
+            dev, path, "general", K1_GENERAL_SPLIT_ANCHORS, ipm_leg._lib(),
+            K1_GENERAL_SPLIT_CELLS, K1_GENERAL_SPLIT_SECTIONS,
+            K1_GENERAL_SPLIT_KERNEL)
+    else:
+        with open(path) as f:
+            text = stamped_source(f.read(), K1_GENERAL_SPLIT_ANCHORS,
+                                  K1_GENERAL_SPLIT_KERNEL)
+        log(f"[K1-split] general: stamped copy of {path} written "
+            f"({text.count('EHM_STAMP(') - 1} stamps), not built here")
+    log(json.dumps({"general": out}))
+    log(f"[K1-general] k1_general_only took "
+        f"{time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -2329,7 +2444,7 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None,
     on_card = dev.type == "cuda"
     quad_legs: list = []
     sat_legs: list = []
-    quad_ms = None
+    quad_ms = sat_build = None
     for name, args, ref_regions, artifacts in OTHER_BUILDS:
         out = os.path.join(tmp, name)
         argv = [*args, "--evaluate", str(OTHER_EVALUATE), "-o", out]
@@ -2338,7 +2453,7 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None,
         if not on_card:
             argv += ["--backend", "cpu"]
         rc, st, ev, wall, legs, n_k1, n_k2, prof = run_main(
-            argv, on_card, profiled=artifacts)
+            argv, on_card, profiled=True)
         if rc != 0 or ev is None or not ev["u_finite"]:
             fail(f"{name}: main returned {rc}, evaluate summary {ev}")
         log(f"[other] main {' '.join(args)} --evaluate {OTHER_EVALUATE} on "
@@ -2374,16 +2489,15 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None,
                                    for _k, nz, _nc, _it in legs):
                 fail("quadrotor: no K1 launch with nz > "
                      f"{ipm_leg.GENERAL_MAX_NZ} (the large path)")
-            if prof is not None:
-                rows = [e for e in prof.key_averages()
-                        if "ipm_leg" in e.key and e.self_device_time_total]
-                quad_ms = (sum(e.self_device_time_total for e in rows) / 1e3
-                           if rows else None)
+        k1_ms = profiled_ms(prof, "ipm_leg")
+        if name == "quadrotor":
+            quad_ms = k1_ms
+        else:
+            sat_build = k1_build_summary(legs, k1_ms, wall)
+            log_k1_build(f"{name} (phase 14)", sat_build)
         if record is not None:
             record[name] = {"stats": st, "wall": wall, "n_k1": n_k1,
-                            "legs": legs,
-                            "k1_ms": quad_ms if name == "quadrotor"
-                            else None}
+                            "legs": legs, "k1_ms": k1_ms}
         problem = make(args[args.index("-e") + 1], **tmain._parse_problem_args(
             [v for k, v in zip(args, args[1:]) if k == "--problem-arg"]))
         hold_table(dev, Tree.load(out + ".tree.pkl"), problem, SEED + 14,
@@ -2422,7 +2536,8 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None,
         "on the large path, device time "
         + (f"{quad_ms:.2f} ms" if quad_ms is not None else "not measured")
         + f" against a summed bound of {build_bound:.4f} ms")
-    general = general_path_cells(dev, sat_legs)
+    general = general_path_cells(dev, sat_legs, base)
+    general["builds"] = {"unpruned": sat_build}
     log(f"[other] (phase took {time.perf_counter() - t_phase:.1f} s)")
     return {"nz": cell["nz"], "nc": cell["nc"], "K": cell["K"],
             "n_iter": n_iter, "ms": cell["ms"], "plain_ms": plain_ms,
@@ -2433,44 +2548,112 @@ def other_problems_phase(dev, tmp: str, record: dict | None = None,
             "cells": timed}, general
 
 
-def general_path_cells(dev, sat_legs: list) -> dict:
-    """K1's general path (8 < nz <= 32, nc <= 128) at the satellite 4c
-    build's point shape (K1_GENERAL_SHAPE): against its plain version on
-    random QPs (k1_cell: f64 to 1e-9 relative, f32 as phase 2, 4
-    iterations from the cold start), then ms a launch by CUDA events at
-    K1_GENERAL_K and the build's iteration count for the shape, beside
-    the bound and, in turns on the same QPs, the large path's own entry
-    (whether the general path keeps a place of its own); with the
-    general-path launches the satellite build made (`sat_legs`, recorded
-    in phase 14).  Returns the kernels line's ipm_leg "general"
-    object."""
+def profiled_ms(prof, name: str) -> float | None:
+    """Device ms of the kernels whose name holds `name` in a
+    torch.profiler run (None without one, or when none ran)."""
+    if prof is None:
+        return None
+    rows = [e for e in prof.key_averages()
+            if name in e.key and e.self_device_time_total]
+    return (sum(e.self_device_time_total for e in rows) / 1e3
+            if rows else None)
+
+
+def k1_build_summary(legs: list, k1_ms, wall: float) -> dict:
+    """A build's K1 record for the kernels line: its launches in all and
+    on the general path, by (nz, nc, K), their device time (profiler),
+    their summed bound and the build's wall."""
+    from collections import Counter
+
+    by_cell = Counter((nz, nc, k) for k, nz, nc, _it in legs)
+    return {"launches": len(legs),
+            "general_launches": sum(1 for _k, nz, nc, _it in legs
+                                    if k1_path(nz, nc) == "general"),
+            "by_cell": {f"{nz}x{nc}xK{k}": n
+                        for (nz, nc, k), n in sorted(by_cell.items())},
+            "k1_ms": k1_ms, "bound_ms": sum(leg_bound_ms(*x) for x in legs),
+            "wall_s": wall}
+
+
+def log_k1_build(name: str, b: dict) -> None:
+    """Log a satellite build's K1 record (k1_build_summary)."""
+    log(f"[K1-general] the satellite 4c build {name}: K1 {b['launches']} "
+        f"launches, {b['general_launches']} on the general path; by (nz, "
+        f"nc, K): " + ", ".join(f"{c} x{n}" for c, n in b["by_cell"].items())
+        + "; device time " + (f"{b['k1_ms']:.2f} ms" if b["k1_ms"] is not
+                              None else "not measured")
+        + f" (profiler), summed bound {b['bound_ms']:.4f} ms; wall "
+        f"{b['wall_s']:.1f} s")
+
+
+def general_path_cells(dev, sat_legs: list, base=None) -> dict:
+    """K1's general path (8 < nz <= 32, nc <= 128) at every cell of
+    K1_GENERAL_CELLS: against its plain version on random QPs (k1_cell:
+    f64 to 1e-9 relative, f32 as phase 2, 4 iterations from the cold
+    start), then ms a launch by CUDA events at the cell's K and at the
+    satellite 4c build's iteration count for the shape where `sat_legs`
+    (its K1 launches, recorded in phase 14) has one, in turns with
+    K1_BASELINE's library `base` where given and with the large path's
+    own entry, each ratio printed.  Returns the kernels line's ipm_leg
+    "general" object: the cell K1_GENERAL_MAIN (its time, bound and
+    plain time), every cell, the range of each ratio, the cells where
+    the large path's entry was faster, and the satellite build's
+    launches on the path."""
     from collections import Counter
 
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
 
     on_card = dev.type == "cuda"
-    nz, nc = K1_GENERAL_SHAPE
     gen_legs = [x for x in sat_legs if K1_REGISTER_MAX_NZ < x[1]
                 <= ipm_leg.GENERAL_MAX_NZ and x[2] <= ipm_leg.GENERAL_MAX_NC]
-    iters = Counter(it for _k, z, c, it in gen_legs if (z, c) == (nz, nc))
-    n_iter = iters.most_common(1)[0][0] if iters else 18
+    its: dict = {}
+    for _k, z, c, it in gen_legs:
+        its.setdefault((z, c), Counter())[it] += 1
     g = np.random.default_rng(SEED + 16)
-    cells, err64 = [], 0.0
-    for K in K1_GENERAL_K:
-        cell, args = k1_cell(dev, g, nz, nc, K, n_iter, "[K1-general]",
-                             reps=20)
-        cells.append(cell)
-        err64 = max(err64, cell["max_rel_err_f64"])
-    plain_ms = (cuda_time(lambda: plain_leg(args, n_iter), 2, warmup=1)
-                if on_card else None)
+    cells, err64, err32, main = [], 0.0, 0.0, None
+    for label, (nz, nc), ks, n_iter in K1_GENERAL_CELLS:
+        if (nz, nc) in its:
+            n_iter = its[(nz, nc)].most_common(1)[0][0]
+        for K in ks:
+            cell, args = k1_cell(dev, g, nz, nc, K, n_iter,
+                                 "[K1-general]", base, reps=20)
+            cell["label"] = label
+            cells.append(cell)
+            err64 = max(err64, cell["max_rel_err_f64"])
+            err32 = max(err32, cell["max_rel_err_f32"])
+            if main is None or ((nz, nc), K) == K1_GENERAL_MAIN:
+                main = (cell, args)
+    cell, args = main
+    plain_ms = (cuda_time(lambda: plain_leg(args, cell["n_iter"]), 2,
+                          warmup=1) if on_card else None)
+
+    def span(key):
+        vals = [c[key] for c in cells if c.get(key) is not None]
+        return [min(vals), max(vals)] if vals else None
+    slower = [f"({c['nz']}, {c['nc']}) K {c['K']}" for c in cells
+              if c.get("large_ratio") is not None and c["large_ratio"] < 1]
     shapes = Counter((z, c) for _k, z, c, _it in gen_legs)
     log(f"[K1-general] the satellite 4c build: {len(gen_legs)} K1 launches "
         f"on the general path of {len(sat_legs)} (shapes "
         + ", ".join(f"{k} x{n}" for k, n in sorted(shapes.items()))
-        + f"); plain version at K={K1_GENERAL_K[-1]}: "
+        + f"); plain version at nz={cell['nz']} nc={cell['nc']} "
+        f"K={cell['K']}: "
         + (f"{plain_ms:.2f} ms" if plain_ms else "not measured"))
-    return {"nz": nz, "nc": nc, "n_iter": n_iter, "cells": cells,
-            "plain_ms": plain_ms, "max_rel_err_f64": err64,
+    if on_card:
+        b, lr = span("base_ratio"), span("large_ratio")
+        log("[K1-general] in turns over the cells: the parent's kernel "
+            + (f"{b[0]:.3f}-{b[1]:.3f}x" if b else "not run (no "
+               "K1_BASELINE)")
+            + f", the large path's entry {lr[0]:.3f}-{lr[1]:.3f}x this "
+            "kernel's time; the large path faster at: "
+            + (", ".join(slower) if slower else "no cell"))
+    return {"nz": cell["nz"], "nc": cell["nc"], "K": cell["K"],
+            "n_iter": cell["n_iter"], "ms": cell["ms"],
+            "plain_ms": plain_ms, "bound_ms": cell["bound_ms"],
+            "bound_by": cell["bound_by"], "max_rel_err_f64": err64,
+            "max_rel_err_f32": err32, "cells": cells,
+            "base_ratio": span("base_ratio"),
+            "large_ratio": span("large_ratio"), "large_faster": slower,
             "launches": len(gen_legs)}
 
 
@@ -3495,12 +3678,10 @@ def pruned_builds(dev, tmp: str, unpruned: dict) -> tuple[dict, dict]:
                     if sh not in fams.values())
         if other:
             log(f"[prune] {name}: {other} launches at other shapes")
-        k1_ms = None
-        if prof is not None:
-            rows = [e for e in prof.key_averages()
-                    if "ipm_leg" in e.key and e.self_device_time_total]
-            k1_ms = (sum(e.self_device_time_total for e in rows) / 1e3
-                     if rows else None)
+        k1_ms = profiled_ms(prof, "ipm_leg")
+        k1 = k1_build_summary(legs, k1_ms, wall)
+        if name == "satellite":
+            log_k1_build("--prune-rows (phase 17a)", k1)
         if on_card:
             torch.cuda.synchronize()
         by_shape: dict = defaultdict(float)
@@ -3555,6 +3736,7 @@ def pruned_builds(dev, tmp: str, unpruned: dict) -> tuple[dict, dict]:
             "prune_gate_solves": counters.get("oracle.prune_gate_solves", 0),
             "k1_ms_by_shape": {f"{a}x{b}": ms
                                for (a, b), ms in by_shape.items()},
+            "k1": k1,
             "unpruned": {"wall_s": base.get("wall"),
                          "launches": base.get("n_k1"),
                          "k1_ms": base.get("k1_ms"), "bound_ms": b_bound}}
@@ -3595,8 +3777,8 @@ def pruned_k1_cells(dev, launched: dict, base=None) -> dict:
                     seed=int(g.integers(2 ** 31)), tag=tag)
                 pairs = [(c, inputs[(nz, nc, c["K"])]) for c in got]
             else:
-                pairs = [k1_cell(dev, g, nz, nc, K, n_iter, tag, reps=20)
-                         for K in ks]
+                pairs = [k1_cell(dev, g, nz, nc, K, n_iter, tag, base,
+                                 reps=20) for K in ks]
             for cell, args in pairs:
                 cell.update(build=name, family=fam)
                 cells.append(cell)
@@ -4366,6 +4548,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prune_") as tmp:
         k1_pruned = pruning_soc_phase(dev, tmp, unpruned, base)
     host.end("phase 17 (pruning, SOC)")
+    k1_general["builds"]["pruned"] = (
+        k1_pruned["builds"].get("satellite", {}).get("k1"))
 
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",

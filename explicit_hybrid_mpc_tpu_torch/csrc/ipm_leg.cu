@@ -41,10 +41,46 @@
 //    divisions left are the fraction-to-boundary ratios, independent
 //    across rows; their primal and dual minima each take two
 //    __reduce_min_sync on the bit patterns instead of 5 shuffles.
-//  - nz 9..32 takes the general path (ipm_leg_general): the first
-//    design, the QP's operands and factor in shared memory, lanes over
-//    rows of the KKT matrix.  nz is not padded to 8 (0 * NaN would
-//    leak NaN into live rows and change the sums).
+//  - nz 9..32 with nc <= 128 (the satellite's QPs: nz 24-31, nc
+//    14-104) takes the general path (ipm_leg_mid).  nz is not padded to
+//    8 (0 * NaN would leak NaN into live rows and change the sums).  At
+//    these shapes A is 3-33 KB in f64 and an iteration ~10^5 flops, and
+//    the build launches K 64-1,728 (at most ~5 QPs an SM), so what
+//    bounds it is again one QP's dependent chain: nz pivots and 4 nz
+//    substitution steps an iteration, each a shuffle and a few f64
+//    operations of ~15-30 cycles, and the assembly of A'DA over nc
+//    rows.  Measured on an H100 (chip_smoke.k1_general_only, clock64()
+//    split at nz 24 / nc 96, 12 iterations, K 64): 15.9 us an
+//    iteration -- factor 3.7, the four substitutions 4.2, assembly 2.6,
+//    the rest on the rows (residuals, steps, step lengths, sigma).  The
+//    design:
+//    * One warp a QP and a block.  Lane i owns variable i (z_i, r_d_i,
+//      row i of C and of its factor L, in registers) and constraint
+//      rows i, i + 32, ... (s, lam, b and the steps in registers); A,
+//      Q and C (then L, by column) stay in shared memory, A loaded
+//      once by cp.async for all n_iter iterations.  The loops are
+//      unrolled to an nz bucket (16, 24, 32); a column the bucket may
+//      lack is skipped by a select or a uniform branch, never summed as
+//      zero times a value that may be NaN.
+//    * The factor broadcasts two columns' pivot entries a round; every
+//      lane forms both pivot reciprocals min(rsqrt(max(C_jj, 0)),
+//      1/floor) itself, scales its entries, and applies both rank-1
+//      downdates after one exchange through shared memory: no
+//      division, no nz^2 sweep, 1/L_ii formed once after the factor.
+//    * A substitution step is a shuffle of the pivot row's value times
+//      1/L_jj and one FMA a lane: forward with the lane's row of L in
+//      registers, backward with its column from shared memory.
+//    * A'DA (f64) on the FP64 tensor cores: DMMA m8n8k4 tiles of the
+//      lower triangle over four rows a step, A' the A operand, D A the
+//      B operand, A'lam and A't one more block column; A's rows are
+//      staged so that a fragment's loads and the lanes' own rows both
+//      fall in distinct banks.  f32 sums register tiles on the FMA
+//      units.  A'DA's entries each run over the rows in a fixed order.
+//    * The row passes as the register path: 1/s and 1/lam once a row,
+//      the step ratios by reciprocal, their minima by
+//      __reduce_min_sync on the bit patterns, mu and mu_aff one
+//      butterfly each; the corrector's A't as four interleaved chains
+//      joined in a fixed order.
 //  - Every larger shape (nz > 32 or nc > 128; the quadrotor's QPs are
 //    nz 60-65, nc 360-366, its pruned ones nz 60-65, nc 49-55) takes the
 //    large path (ipm_leg_large): one block of 256 threads per QP.  A QP
@@ -133,8 +169,6 @@ template <> struct Leg<double> {
   }
 };
 
-__device__ __forceinline__ float root(float a) { return sqrtf(a); }
-__device__ __forceinline__ double root(double a) { return ::sqrt(a); }
 __device__ __forceinline__ float rroot(float a) { return rsqrtf(a); }
 __device__ __forceinline__ double rroot(double a) { return ::rsqrt(a); }
 __device__ __forceinline__ float recip(float a) { return __frcp_rn(a); }
@@ -152,10 +186,6 @@ template <typename T> __device__ __forceinline__ T pmin(T a, T b) {
 }
 template <typename T> __device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-template <typename T> __device__ __forceinline__ T warp_min(T v) {
-  for (int o = 16; o > 0; o >>= 1) v = pmin(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
@@ -467,209 +497,6 @@ ipm_leg_fixed(const T* __restrict__ Qg, const T* __restrict__ qg,
       sout[o] = s[r];
       lout[o] = lam[r];
     }
-  }
-}
-
-// -- the general path, 9 <= nz <= 32 --------------------------------------
-
-// Elements of shared memory one QP uses (see the carve-up below).
-__host__ __device__ inline int warp_elems(int nz, int nc) {
-  return 3 * nz * nz + nc * nz + 4 * nz + 11 * nc;
-}
-
-// Solve the KKT system for one right-hand side r_c (in rc) and write
-// the step (dz, ds, dl).  Mirrors kkt_step of the reference:
-//   rhs  = -r_d - A'(D r_p - r_c/s)
-//   dz   = L'^-1 L^-1 rhs
-//   dlam = D (A dz + r_p) - r_c/s
-//   ds   = -(r_c + s dlam)/lam
-template <typename T>
-__device__ void kkt_step(int lane, int nz, int nc, const T* A, const T* L,
-                         const T* rd, const T* rp, const T* D, const T* s,
-                         const T* lam, const T* rc, T* tmp, T* dz, T* ds,
-                         T* dl) {
-  for (int i = lane; i < nc; i += 32) tmp[i] = D[i] * rp[i] - rc[i] / s[i];
-  __syncwarp();
-  T y = 0;
-  if (lane < nz) {
-    T acc = 0;
-    for (int i = 0; i < nc; ++i) acc += A[i * nz + lane] * tmp[i];
-    y = -rd[lane] - acc;
-  }
-  // Forward substitution L y = rhs, lane j holds y_j.
-  for (int j = 0; j < nz; ++j) {
-    T yj = __shfl_sync(kFull, y, j);
-    T d = yj / L[j * nz + j];
-    if (lane < nz && lane != j) y = y - d * (lane > j ? L[lane * nz + j] : T(0));
-    if (lane == j) y = d;
-  }
-  // Backward substitution L' x = y.
-  for (int j = nz - 1; j >= 0; --j) {
-    T xj = __shfl_sync(kFull, y, j);
-    T d = xj / L[j * nz + j];
-    if (lane < nz && lane != j) y = y - d * (lane < j ? L[j * nz + lane] : T(0));
-    if (lane == j) y = d;
-  }
-  if (lane < nz) dz[lane] = y;
-  __syncwarp();
-  for (int i = lane; i < nc; i += 32) {
-    T acc = 0;
-    for (int k = 0; k < nz; ++k) acc += A[i * nz + k] * dz[k];
-    T dli = D[i] * (acc + rp[i]) - rc[i] / s[i];
-    dl[i] = dli;
-    ds[i] = -(rc[i] + s[i] * dli) / lam[i];
-  }
-  __syncwarp();
-}
-
-// alpha = min(1, tau * min_{dv<0} -v/dv), NaN-propagating.
-template <typename T>
-__device__ T frac_to_boundary(int lane, int nc, const T* v, const T* dv,
-                              T tau) {
-  T m = Leg<T>::inf();
-  for (int i = lane; i < nc; i += 32) {
-    T r = dv[i] < T(0) ? -v[i] / dv[i] : Leg<T>::inf();
-    m = pmin(m, r);
-  }
-  return pmin(T(1), tau * warp_min(m));
-}
-
-template <typename T>
-__global__ void ipm_leg_general(const T* __restrict__ Qg,
-                                const T* __restrict__ qg,
-                                const T* __restrict__ Ag,
-                                const T* __restrict__ bg,
-                                const T* __restrict__ zin,
-                                const T* __restrict__ s_in,
-                                const T* __restrict__ l_in,
-                                T* __restrict__ zout, T* __restrict__ sout,
-                                T* __restrict__ lout, int K, int nz, int nc,
-                                int n_iter, int warps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long k = (long long)blockIdx.x * warps + warp;
-  if (k >= K) return;  // whole warps exit; only __syncwarp is used below
-
-  T* base = reinterpret_cast<T*>(smem_raw) + (size_t)warp * warp_elems(nz, nc);
-  T* Q = base;
-  T* C = Q + nz * nz;
-  T* L = C + nz * nz;
-  T* A = L + nz * nz;
-  T* q = A + nc * nz;
-  T* z = q + nz;
-  T* rd = z + nz;
-  T* dz = rd + nz;
-  T* b = dz + nz;
-  T* s = b + nc;
-  T* lam = s + nc;
-  T* rp = lam + nc;
-  T* D = rp + nc;
-  T* rc = D + nc;
-  T* tmp = rc + nc;
-  T* dsa = tmp + nc;
-  T* dla = dsa + nc;
-  T* ds = dla + nc;
-  T* dl = ds + nc;
-
-  const T reg = Leg<T>::reg(), tiny = Leg<T>::tiny();
-  const T nc_t = T(nc);
-
-  for (int i = lane; i < nz * nz; i += 32) Q[i] = Qg[k * nz * nz + i];
-  for (int i = lane; i < nc * nz; i += 32) A[i] = Ag[k * nc * nz + i];
-  for (int i = lane; i < nz; i += 32) {
-    q[i] = qg[k * nz + i];
-    z[i] = zin[k * nz + i];
-  }
-  for (int i = lane; i < nc; i += 32) {
-    b[i] = bg[k * nc + i];
-    s[i] = s_in[k * nc + i];
-    lam[i] = l_in[k * nc + i];
-  }
-  __syncwarp();
-
-  for (int it = 0; it < n_iter; ++it) {
-    for (int i = lane; i < nc; i += 32) {
-      s[i] = pmax(s[i], tiny);
-      lam[i] = pmax(lam[i], tiny);
-    }
-    __syncwarp();
-    // r_d = Q z + q + A' lam
-    if (lane < nz) {
-      T acc = 0, acc2 = 0;
-      for (int c = 0; c < nz; ++c) acc += Q[lane * nz + c] * z[c];
-      for (int i = 0; i < nc; ++i) acc2 += A[i * nz + lane] * lam[i];
-      rd[lane] = acc + q[lane] + acc2;
-    }
-    // r_p = A z + s - b;  D = lam / s;  mu = s'lam / nc
-    T mu_part = 0;
-    for (int i = lane; i < nc; i += 32) {
-      T acc = 0;
-      for (int c = 0; c < nz; ++c) acc += A[i * nz + c] * z[c];
-      rp[i] = acc + s[i] - b[i];
-      D[i] = lam[i] / s[i];
-      mu_part += s[i] * lam[i];
-    }
-    const T mu = warp_sum(mu_part) / nc_t;
-    __syncwarp();
-    // C = Q + A' D A + reg I, lower triangle.
-    for (int e = lane; e < nz * nz; e += 32) {
-      const int r = e / nz, c = e - r * nz;
-      if (c <= r) {
-        T acc = 0;
-        for (int i = 0; i < nc; ++i)
-          acc += A[i * nz + r] * (D[i] * A[i * nz + c]);
-        T v = Q[r * nz + c] + acc;
-        C[r * nz + c] = r == c ? v + reg : v;
-      }
-    }
-    __syncwarp();
-    // Cholesky, clamped column form: d = sqrt(max(C_jj, 0)),
-    // L_ij = C_ij / max(d, floor) for i >= j, zero above the diagonal,
-    // then the rank-1 downdate of the trailing lower triangle.
-    for (int j = 0; j < nz; ++j) {
-      const T d = root(pmax(C[j * nz + j], T(0)));
-      const T dd = pmax(d, Leg<T>::floor());
-      if (lane < nz) L[lane * nz + j] = lane >= j ? C[lane * nz + j] / dd : T(0);
-      __syncwarp();
-      for (int e = lane; e < nz * nz; e += 32) {
-        const int r = e / nz, c = e - r * nz;
-        if (c > j && c <= r) C[r * nz + c] -= L[r * nz + j] * L[c * nz + j];
-      }
-      __syncwarp();
-    }
-    // Predictor (affine scaling): r_c = s .* lam.
-    for (int i = lane; i < nc; i += 32) rc[i] = s[i] * lam[i];
-    __syncwarp();
-    kkt_step(lane, nz, nc, A, L, rd, rp, D, s, lam, rc, tmp, dz, dsa, dla);
-    T a_p = frac_to_boundary(lane, nc, s, dsa, T(1));
-    T a_d = frac_to_boundary(lane, nc, lam, dla, T(1));
-    T aff_part = 0;
-    for (int i = lane; i < nc; i += 32)
-      aff_part += (s[i] + a_p * dsa[i]) * (lam[i] + a_d * dla[i]);
-    const T mu_aff = warp_sum(aff_part) / nc_t;
-    const T ratio = mu_aff / pmax(mu, Leg<T>::mu_floor());
-    const T sigma = ratio * ratio * ratio;
-    // Corrector with centering.
-    const T smu = sigma * mu;
-    for (int i = lane; i < nc; i += 32)
-      rc[i] = s[i] * lam[i] + dsa[i] * dla[i] - smu;
-    __syncwarp();
-    kkt_step(lane, nz, nc, A, L, rd, rp, D, s, lam, rc, tmp, dz, ds, dl);
-    a_p = frac_to_boundary(lane, nc, s, ds, T(0.995));
-    a_d = frac_to_boundary(lane, nc, lam, dl, T(0.995));
-    if (lane < nz) z[lane] = z[lane] + a_p * dz[lane];
-    for (int i = lane; i < nc; i += 32) {
-      s[i] = s[i] + a_p * ds[i];
-      lam[i] = lam[i] + a_d * dl[i];
-    }
-    __syncwarp();
-  }
-
-  for (int i = lane; i < nz; i += 32) zout[k * nz + i] = z[i];
-  for (int i = lane; i < nc; i += 32) {
-    sout[k * nc + i] = s[i];
-    lout[k * nc + i] = lam[i];
   }
 }
 
@@ -1245,6 +1072,491 @@ ipm_leg_large(const T* __restrict__ Qg, const T* __restrict__ qg,
   }
 }
 
+// -- the general path, 8 < nz <= 32 and nc <= 128 ------------------------
+
+// The general path's nz buckets: a QP of nz variables runs the smallest
+// bucket NZB >= nz, its loops unrolled to NZB; the columns from LO (one
+// past the bucket below) are guarded by nz.  T is the edge of the f32
+// leg's A'DA register tiles: NB blocks of T columns cover NZB, and the
+// NB (NB + 1) / 2 tiles of the lower triangle fit one warp (21, 21 and
+// 28 tiles); the f64 leg sums A'DA on the FP64 tensor cores instead.
+template <int NZB> struct MidShape;
+template <> struct MidShape<16> {
+  static constexpr int T = 3, LO = 9;
+};
+template <> struct MidShape<24> {
+  static constexpr int T = 4, LO = 17;
+};
+template <> struct MidShape<32> {
+  static constexpr int T = 5, LO = 25;
+};
+
+template <int NZB> struct Mid {
+  static constexpr int T = MidShape<NZB>::T;
+  // Columns below LO are live for every nz of the bucket (nz >= LO).
+  static constexpr int LO = MidShape<NZB>::LO;
+  static constexpr int NB = (NZB + T - 1) / T;
+  static constexpr int TILES = NB * (NB + 1) / 2;
+  static_assert(TILES <= 32, "one A'DA tile a lane");
+  // A staged: row r at r LDA + ((r >> 2) & 3), LDA = 4 (mod 16) and at
+  // least NZB + 3.  A DMMA fragment (rows 4q..4q+3, 8 columns) and the
+  // lanes' own rows (32 consecutive rows, one column) then each fall in
+  // distinct banks (doubles: 16 lanes a wavefront).  Q and C rows LDC.
+  static constexpr int LDA = (NZB + 14) / 16 * 16 + 4;
+  static constexpr int LDC = NZB | 1;
+  __host__ __device__ static constexpr int row(int r) {
+    return r * LDA + ((r >> 2) & 3);
+  }
+};
+
+// Rows of A (and of the D, lam and t vectors) a QP stages: nc in whole
+// DMMA steps of 4, the rows past nc zero.
+__host__ __device__ constexpr int mid_rows(int nc) { return (nc + 3) & ~3; }
+
+// Elements of shared memory one QP of the general path uses: A staged,
+// Q, C (then L), z, dz, A'lam and A't, and D, lam and t of every row.
+template <int NZB>
+__host__ __device__ constexpr long long mid_elems(int nc) {
+  return (long long)mid_rows(nc) * Mid<NZB>::LDA +
+         2LL * NZB * Mid<NZB>::LDC + 4LL * NZB + 3LL * mid_rows(nc);
+}
+__host__ __device__ inline long long mid_smem(int nz, int nc, int itemsize) {
+  return itemsize * (nz <= 16   ? mid_elems<16>(nc)
+                     : nz <= 24 ? mid_elems<24>(nc)
+                                : mid_elems<32>(nc));
+}
+
+// d += a b for one m8n8k4 f64 tile on the FP64 tensor cores: lane l
+// holds a = A(l / 4, l % 4), b = B(l % 4, l / 4) and d = D(l / 4,
+// 2 (l % 4) + i).
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// The assembly's pass over the rows, f64: A'DA's lower triangle in 8x8
+// blocks, each A_ri (D_r A_rj) summed four rows a step on the tensor
+// cores (A' is the A operand, D A the B operand, both from one load a
+// block: lane l reads row 4q + l % 4, column 8 bm + l / 4), and A'lam,
+// A't as one more block column whose B operand is (lam, t, 0, ...).
+// Each output entry is its own sum over the rows in a fixed order; the
+// rows past nc are zero.  C's entries on and below the diagonal go to
+// Cs (row-major), A'lam and A't to wl and wt.
+template <int NZB>
+__device__ __forceinline__ void mid_assemble(const double* As,
+                                             const double* Ds,
+                                             const double* ls,
+                                             const double* ts, int nc,
+                                             int nz, double* Cs, double* wl,
+                                             double* wt) {
+  using S = Mid<NZB>;
+  constexpr int B8 = NZB / 8, NBLK = B8 * (B8 + 1) / 2;
+  const int lane = threadIdx.x, kk = lane & 3, g = lane >> 2;
+  double acc[NBLK][2], ext[B8][2];
+#pragma unroll
+  for (int t = 0; t < NBLK; ++t) acc[t][0] = acc[t][1] = 0.0;
+#pragma unroll
+  for (int t = 0; t < B8; ++t) ext[t][0] = ext[t][1] = 0.0;
+#pragma unroll 4
+  for (int k0 = 0; k0 < nc; k0 += 4) {
+    const int r = k0 + kk;
+    const double* Ar = As + S::row(r);
+    const double dr = Ds[r], lr = ls[r], tr = ts[r];
+    const double e = g == 0 ? lr : g == 1 ? tr : 0.0;
+    double a[B8], b[B8];
+#pragma unroll
+    for (int bm = 0; bm < B8; ++bm) {
+      a[bm] = Ar[8 * bm + g];
+      b[bm] = dr * a[bm];
+    }
+    int t = 0;
+#pragma unroll
+    for (int bm = 0; bm < B8; ++bm) {
+#pragma unroll
+      for (int bn = 0; bn <= bm; ++bn) dmma(acc[t++], a[bm], b[bn]);
+      dmma(ext[bm], a[bm], e);
+    }
+  }
+  int t = 0;
+#pragma unroll
+  for (int bm = 0; bm < B8; ++bm) {
+    const int i = 8 * bm + g;
+#pragma unroll
+    for (int bn = 0; bn <= bm; ++bn, ++t)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = 8 * bn + 2 * kk + q;
+        if (i < nz && j <= i) Cs[i * S::LDC + j] = acc[t][q];
+      }
+    if (kk == 0 && i < nz) {
+      wl[i] = ext[bm][0];
+      wt[i] = ext[bm][1];
+    }
+  }
+}
+
+// The same pass, f32 (no FP32 tensor-core product in IEEE f32): lane e
+// < TILES sums its TxT tile (bi, bj) of A'DA's lower triangle, A_ri
+// (D_r A_rj), over the rows in order; each live lane A'lam and A't for
+// its variable.
+template <int NZB>
+__device__ __forceinline__ void mid_assemble(const float* As,
+                                             const float* Ds,
+                                             const float* ls,
+                                             const float* ts, int nc,
+                                             int nz, float* Cs, float* wl,
+                                             float* wt) {
+  using S = Mid<NZB>;
+  constexpr int TT = S::T;
+  const int lane = threadIdx.x;
+  const int me = lane < nz ? lane : nz - 1;
+  int bi, bj;
+  untri(lane < S::TILES ? lane : 0, bi, bj);
+  float acc[TT][TT];
+#pragma unroll
+  for (int a = 0; a < TT; ++a)
+#pragma unroll
+    for (int c = 0; c < TT; ++c) acc[a][c] = 0.f;
+  float al = 0.f, at = 0.f;
+#pragma unroll 2
+  for (int r = 0; r < nc; ++r) {
+    const float* Ar = As + S::row(r);
+    const float dr = Ds[r];
+    float x[TT], y[TT];
+#pragma unroll
+    for (int a = 0; a < TT; ++a) x[a] = Ar[bi * TT + a];
+#pragma unroll
+    for (int c = 0; c < TT; ++c) y[c] = dr * Ar[bj * TT + c];
+#pragma unroll
+    for (int a = 0; a < TT; ++a)
+#pragma unroll
+      for (int c = 0; c < TT; ++c) acc[a][c] += x[a] * y[c];
+    const float v = Ar[me];
+    al += v * ls[r];
+    at += v * ts[r];
+  }
+  if (lane < S::TILES) {
+#pragma unroll
+    for (int a = 0; a < TT; ++a)
+#pragma unroll
+      for (int c = 0; c < TT; ++c) {
+        const int i = bi * TT + a, j = bj * TT + c;
+        if (i < nz && j <= i) Cs[i * S::LDC + j] = acc[a][c];
+      }
+  }
+  if (lane < nz) {
+    wl[lane] = al;
+    wt[lane] = at;
+  }
+}
+
+// A_r . v over the nz live columns of the staged row Ar (v in shared
+// memory, read by broadcast).  Unrolled to the bucket: every load is
+// made, and a column the bucket may lack (c >= LO) is skipped by a
+// select when c >= nz, so that no branch holds a load back and its
+// product never reaches the sum.
+template <typename T, int NZB>
+__device__ __forceinline__ T mid_dot(const T* Ar, const T* v, int nz) {
+  T acc = 0;
+#pragma unroll
+  for (int c = 0; c < NZB; ++c) {
+    const T f = fma(Ar[c], v[c], acc);
+    acc = c < Mid<NZB>::LO || c < nz ? f : acc;
+  }
+  return acc;
+}
+
+// y <- L'^-1 L^-1 y on the QP's warp, lane i holding y_i: forward with
+// row i of L in registers (L; its steps past nz skipped, a uniform
+// branch a step), backward over the nz columns with column i of L from
+// Lt (column-major, stride LDC; lanes past nz read the last column and
+// hold values nothing reads).  Column-oriented as the reference
+// (fwd_sub, bwd_sub), with its explicit zero outside the triangle: a
+// step is the pivot row's value times 1/L_jj (inv, the pivot lane's),
+// broadcast by __shfl_sync, and one FMA a lane, with no division and no
+// lane branching.
+template <typename T, int NZB>
+__device__ __forceinline__ T mid_solve(int nz, int me, const T (&L)[NZB],
+                                       T inv, const T* Lt, T y) {
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < NZB; ++j) {
+    if (j < nz) {
+      const T d = __shfl_sync(kFull, y * inv, j);
+      const T u = y - d * (lane > j ? L[j] : T(0));
+      y = lane == j ? d : u;
+    }
+  }
+  const T* Lc = Lt + me * Mid<NZB>::LDC;
+#pragma unroll 4
+  for (int j = nz - 1; j >= 0; --j) {
+    const T lji = Lc[j];
+    const T d = __shfl_sync(kFull, y * inv, j);
+    const T u = y - d * (lane < j ? lji : T(0));
+    y = lane == j ? d : u;
+  }
+  return y;
+}
+
+// One warp a QP and a block.  Lane i owns variable i (z_i, r_d_i, row i
+// of C and L) and constraint rows i, i + 32, ... (s, lam, b and the
+// steps in registers); A, Q, and C or L stay in shared memory.
+template <typename T, int NZB>
+__global__ void __launch_bounds__(32)
+ipm_leg_mid(const T* __restrict__ Qg, const T* __restrict__ qg,
+            const T* __restrict__ Ag, const T* __restrict__ bg,
+            const T* __restrict__ zin, const T* __restrict__ s_in,
+            const T* __restrict__ l_in, T* __restrict__ zout,
+            T* __restrict__ sout, T* __restrict__ lout, int nz, int nc,
+            int n_iter) {
+  using S = Mid<NZB>;
+  constexpr int LDC = S::LDC;
+  constexpr int RMAX = kMaxNc / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ncp = mid_rows(nc);
+  T* As = reinterpret_cast<T*>(smem_raw);  // ncp staged rows (S::row)
+  T* Qs = As + ncp * S::LDA;               // Q, row-major
+  T* Cs = Qs + NZB * LDC;                  // C row-major, then L by column
+  T* zs = Cs + NZB * LDC;
+  T* dzs = zs + NZB;
+  T* wl = dzs + NZB;                       // A'lam, A't
+  T* wt = wl + NZB;
+  T* Ds = wt + NZB;                        // D, lam and t of every row
+  T* ls = Ds + ncp;
+  T* ts = ls + ncp;
+  const int lane = threadIdx.x;
+  const long long k = blockIdx.x;
+  const int rows = (nc + 31) >> 5;
+  const bool live = lane < nz;
+  const int me = live ? lane : nz - 1;  // lanes past nz repeat the last
+
+  // The QP's shared memory zeroed (the pads stay zero: no value past nz
+  // is uninitialized), then A and Q by cp.async, once for all n_iter
+  // iterations.
+  for (long long e = lane; e < mid_elems<NZB>(nc); e += 32) As[e] = T(0);
+  __syncwarp();
+  if (live) {
+    const T* Ak = Ag + k * nc * nz + lane;
+    for (int r = 0; r < nc; ++r)
+      cp_async(As + S::row(r) + lane, Ak + (long long)r * nz);
+    const T* Qk = Qg + k * nz * nz + lane;
+    for (int i = 0; i < nz; ++i)
+      cp_async(Qs + i * LDC + lane, Qk + (long long)i * nz);
+  }
+  cp_async_commit();
+  T z = live ? zin[k * nz + lane] : T(0);
+  const T qi = live ? qg[k * nz + lane] : T(0);
+  if (live) zs[lane] = z;
+  T b[RMAX], s[RMAX], lam[RMAX];
+  bool ok[RMAX];
+#pragma unroll
+  for (int m = 0; m < RMAX; ++m) {
+    const int row = lane + 32 * m;
+    ok[m] = row < nc;
+    const long long o = k * nc + row;
+    b[m] = ok[m] ? bg[o] : T(0);
+    s[m] = ok[m] ? s_in[o] : T(1);
+    lam[m] = ok[m] ? l_in[o] : T(1);
+  }
+  cp_async_wait_all();
+  __syncwarp();
+
+  const T reg = Leg<T>::reg(), tiny = Leg<T>::tiny(), inf = Leg<T>::inf();
+  const T nc_t = T(nc), inv_nc = recip(nc_t);
+  const T inv_floor = T(1) / Leg<T>::floor();
+  for (int it = 0; it < n_iter; ++it) {
+    // The lane's rows: floors, 1/s, 1/lam, D, r_p = A z + s - b, the
+    // predictor's t = D r_p - s lam (1/s), mu's partial; D, lam and t to
+    // shared memory for the assembly.  Q z + q for the lane's variable.
+    T is[RMAX], il[RMAX], D[RMAX], rp[RMAX];
+    T mu_part = 0;
+#pragma unroll
+    for (int m = 0; m < RMAX; ++m) {
+      is[m] = il[m] = D[m] = rp[m] = T(0);
+      if (m < rows) {
+        const int row = lane + 32 * m;
+        s[m] = pmax(s[m], tiny);
+        lam[m] = pmax(lam[m], tiny);
+        is[m] = recip(s[m]);
+        il[m] = recip(lam[m]);
+        D[m] = lam[m] * is[m];
+        rp[m] = mid_dot<T, NZB>(As + S::row(min(row, nc - 1)), zs, nz) +
+                s[m] - b[m];
+        if (ok[m]) {
+          const T sl = s[m] * lam[m];
+          Ds[row] = D[m];
+          ls[row] = lam[m];
+          ts[row] = D[m] * rp[m] - sl * is[m];
+          mu_part += sl;
+        }
+      }
+    }
+    T qz = 0;
+#pragma unroll
+    for (int c = 0; c < NZB; ++c) {
+      const T f = fma(Qs[me * LDC + c], zs[c], qz);
+      qz = c < S::LO || c < nz ? f : qz;
+    }
+    qz = qz + qi;
+    const T mu = warp_sum(mu_part) / nc_t;
+    const T inv_mu = recip(pmax(mu, Leg<T>::mu_floor()));
+    __syncwarp();
+
+    // One pass over the rows: A'DA's lower triangle into Cs, A'lam and
+    // A't into wl and wt (mid_assemble).
+    mid_assemble<NZB>(As, Ds, ls, ts, nc, nz, Cs, wl, wt);
+    __syncwarp();
+    // Row `me` of C = Q + A'DA + reg I on and below the diagonal, zero
+    // above; r_d = Q z + q + A'lam.
+    T L[NZB];
+#pragma unroll
+    for (int c = 0; c < NZB; ++c) {
+      const T v = Qs[me * LDC + c] + Cs[me * LDC + c];
+      L[c] = c < me ? v : c == me ? (c == lane ? v + reg : v) : T(0);
+    }
+    const T rd = qz + wl[me], at = wt[me];
+    __syncwarp();  // C read before the factor's columns overwrite it
+
+    // The factor, right-looking in the reference's clamped column form,
+    // two columns a round: row j's diagonal and row j + 1's entries j
+    // and j + 1 are broadcast once, and every lane forms both pivot
+    // reciprocals r = min(rsqrt(max(C_jj, 0)), 1/floor) and L_{j+1,j}
+    // itself; each lane scales its entries of the two columns, stores
+    // them for the other rows, and applies both rank-1 downdates in the
+    // reference's order (column j, then j + 1) after one __syncwarp.
+    // The entries past nz are dead (nothing reads them); an odd nz's
+    // last round uses its first column only.  Each lane keeps its own r
+    // and L_ii (selects) and forms 1/L_ii after the factor: r where the
+    // clamp is inactive, else the reciprocal of L_ii itself.
+    T r_own = T(0), l_own = T(0);
+#pragma unroll
+    for (int j = 0; j < NZB; j += 2) {
+      if (j < nz) {
+        const T c00 = __shfl_sync(kFull, L[j], j);
+        const T c10 = __shfl_sync(kFull, L[j], j + 1);
+        const T c11 = __shfl_sync(kFull, L[j + 1], j + 1);
+        const T r0 = pmin(rroot(pmax(c00, T(0))), inv_floor);
+        const T l10 = c10 * r0;
+        const T r1 = pmin(rroot(pmax(fma(-l10, l10, c11), T(0))), inv_floor);
+        const T li0 = lane >= j ? L[j] * r0 : T(0);
+        const T li1 = lane >= j + 1 ? fma(-li0, l10, L[j + 1]) * r1 : T(0);
+        L[j] = li0;
+        L[j + 1] = li1;
+        r_own = lane == j ? r0 : lane == j + 1 ? r1 : r_own;
+        l_own = lane == j ? li0 : lane == j + 1 ? li1 : l_own;
+        if (live) {
+          Cs[j * LDC + lane] = li0;
+          Cs[(j + 1) * LDC + lane] = li1;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int c = j + 2; c < NZB; ++c)
+          L[c] = fma(-li1, Cs[(j + 1) * LDC + c],
+                     fma(-li0, Cs[j * LDC + c], L[c]));
+      }
+    }
+    const T inv = r_own > T(0) && r_own < inv_floor ? r_own : recip(l_own);
+
+    // Predictor (affine scaling): rhs = -r_d - A'(D r_p - r_c/s).
+    T dz = mid_solve<T, NZB>(nz, me, L, inv, Cs, -rd - at);
+    if (live) dzs[lane] = dz;
+    __syncwarp();
+    T dsa[RMAX], dla[RMAX];
+    T mp = inf, md = inf;
+#pragma unroll
+    for (int m = 0; m < RMAX; ++m) {
+      dsa[m] = dla[m] = T(0);
+      if (m < rows) {
+        const int row = lane + 32 * m;
+        const T adz = mid_dot<T, NZB>(As + S::row(min(row, nc - 1)), dzs,
+                                      nz);
+        const T rc = s[m] * lam[m];
+        dla[m] = D[m] * (adz + rp[m]) - rc * is[m];
+        dsa[m] = -(rc + s[m] * dla[m]) * il[m];
+        if (ok[m]) {
+          mp = pmin(mp, dsa[m] < T(0) ? (-s[m]) * recip(dsa[m]) : inf);
+          md = pmin(md, dla[m] < T(0) ? (-lam[m]) * recip(dla[m]) : inf);
+        }
+      }
+    }
+    mp = warp_min_nonneg(mp);
+    md = warp_min_nonneg(md);
+    T a_p = pmin(T(1), mp), a_d = pmin(T(1), md);
+    T aff = 0;
+#pragma unroll
+    for (int m = 0; m < RMAX; ++m)
+      if (m < rows && ok[m])
+        aff += (s[m] + a_p * dsa[m]) * (lam[m] + a_d * dla[m]);
+    // sigma = (mu_aff / max(mu, floor))^3, mu_aff = sum / nc.
+    const T ratio = warp_sum(aff) * (inv_nc * inv_mu);
+    const T smu = ratio * ratio * ratio * mu;
+
+    // Corrector with centering: r_c = s lam + ds_a dl_a - sigma mu; its
+    // A't for the lane's variable as four interleaved chains over the
+    // rows, joined in a fixed order.
+    T rc[RMAX];
+#pragma unroll
+    for (int m = 0; m < RMAX; ++m) {
+      rc[m] = s[m] * lam[m] + dsa[m] * dla[m] - smu;
+      if (m < rows && ok[m])
+        ts[lane + 32 * m] = D[m] * rp[m] - rc[m] * is[m];
+    }
+    __syncwarp();
+    T p0 = 0, p1 = 0, p2 = 0, p3 = 0;
+    for (int r = 0; r < nc; r += 4) {  // the rows past nc are zero
+      p0 += As[S::row(r) + me] * ts[r];
+      p1 += As[S::row(r + 1) + me] * ts[r + 1];
+      p2 += As[S::row(r + 2) + me] * ts[r + 2];
+      p3 += As[S::row(r + 3) + me] * ts[r + 3];
+    }
+    dz = mid_solve<T, NZB>(nz, me, L, inv, Cs, -rd - ((p0 + p1) + (p2 + p3)));
+    if (live) dzs[lane] = dz;
+    __syncwarp();
+    T ds[RMAX], dl[RMAX];
+    mp = inf;
+    md = inf;
+#pragma unroll
+    for (int m = 0; m < RMAX; ++m) {
+      ds[m] = dl[m] = T(0);
+      if (m < rows) {
+        const int row = lane + 32 * m;
+        const T adz = mid_dot<T, NZB>(As + S::row(min(row, nc - 1)), dzs,
+                                      nz);
+        dl[m] = D[m] * (adz + rp[m]) - rc[m] * is[m];
+        ds[m] = -(rc[m] + s[m] * dl[m]) * il[m];
+        if (ok[m]) {
+          mp = pmin(mp, ds[m] < T(0) ? (-s[m]) * recip(ds[m]) : inf);
+          md = pmin(md, dl[m] < T(0) ? (-lam[m]) * recip(dl[m]) : inf);
+        }
+      }
+    }
+    mp = warp_min_nonneg(mp);
+    md = warp_min_nonneg(md);
+    a_p = pmin(T(1), T(0.995) * mp);
+    a_d = pmin(T(1), T(0.995) * md);
+    z = z + a_p * dz;
+    if (live) zs[lane] = z;
+#pragma unroll
+    for (int m = 0; m < RMAX; ++m) {
+      s[m] = s[m] + a_p * ds[m];
+      lam[m] = lam[m] + a_d * dl[m];
+    }
+    __syncwarp();
+  }
+
+  if (live) zout[k * nz + lane] = z;
+#pragma unroll
+  for (int m = 0; m < RMAX; ++m) {
+    if (ok[m]) {
+      const long long o = k * nc + lane + 32 * m;
+      sout[o] = s[m];
+      lout[o] = lam[m];
+    }
+  }
+}
+
 // -- launch ----------------------------------------------------------------
 
 template <typename T, int NZ>
@@ -1261,6 +1573,22 @@ int launch_fixed(const T* Q, const T* q, const T* A, const T* b, const T* z,
   else
     ipm_leg_fixed<T, NZ, 4><<<K, 32, 0, st>>>(Q, q, A, b, z, s, lam, zo, so,
                                               lo, nc, n_iter);
+  return (int)cudaGetLastError();
+}
+
+// The general path for 8 < nz <= 32, nc <= 128 (one warp a QP and a
+// block), in the nz bucket NZB.
+template <typename T, int NZB>
+int launch_mid(const T* Q, const T* q, const T* A, const T* b, const T* z,
+               const T* s, const T* lam, T* zo, T* so, T* lo, int K, int nz,
+               int nc, int n_iter, cudaStream_t st) {
+  const long long smem = mid_elems<NZB>(nc) * (long long)sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      ipm_leg_mid<T, NZB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ipm_leg_mid<T, NZB><<<K, 32, (size_t)smem, st>>>(
+      Q, q, A, b, z, s, lam, zo, so, lo, nz, nc, n_iter);
   return (int)cudaGetLastError();
 }
 
@@ -1301,19 +1629,14 @@ int launch(const T* Q, const T* q, const T* A, const T* b, const T* z,
     default:
       break;
   }
-  const size_t per_warp = (size_t)warp_elems(nz, nc) * sizeof(T);
-  // Up to 4 QPs (warps) per block, within the 227 KB a block may use.
-  int warps = 4;
-  while (warps > 1 && per_warp * warps > 200 * 1024) warps >>= 1;
-  const size_t smem = per_warp * warps;
-  cudaError_t err = cudaFuncSetAttribute(
-      ipm_leg_general<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (K + warps - 1) / warps;
-  ipm_leg_general<T><<<blocks, 32 * warps, smem, st>>>(
-      Q, q, A, b, z, s, lam, zo, so, lo, K, nz, nc, n_iter, warps);
-  return (int)cudaGetLastError();
+  if (nz <= 16)
+    return launch_mid<T, 16>(Q, q, A, b, z, s, lam, zo, so, lo, K, nz, nc,
+                             n_iter, st);
+  if (nz <= 24)
+    return launch_mid<T, 24>(Q, q, A, b, z, s, lam, zo, so, lo, K, nz, nc,
+                             n_iter, st);
+  return launch_mid<T, 32>(Q, q, A, b, z, s, lam, zo, so, lo, K, nz, nc,
+                           n_iter, st);
 }
 
 }  // namespace
@@ -1358,6 +1681,9 @@ int ipm_leg_large_rows() { return kLargeRows; }
 long long ipm_leg_max_smem() { return kMaxSmem; }
 long long ipm_leg_large_smem(int nz, int nc, int itemsize) {
   return large_smem(nz, nc, itemsize);
+}
+long long ipm_leg_general_smem(int nz, int nc, int itemsize) {
+  return mid_smem(nz, nc, itemsize);
 }
 
 const char* ipm_leg_error_string(int err) {

@@ -30,22 +30,40 @@ launches = 0
 
 #: The CUDA kernel's three paths.  Up to GENERAL_MAX_NZ variables and
 #: GENERAL_MAX_NC constraints a QP runs on one warp: nz <= 8 in its
-#: register-resident path, larger nz in its shared-memory general path.
-#: Every larger shape (the quadrotor's nz 60-65, nc 360-366) runs the
-#: large path, one block of LARGE_THREADS threads per QP streaming A in
-#: double-buffered chunks of LARGE_ROWS rows, its Cholesky and
-#: substitutions on one warp.  Its ceiling: the rows a lane of that
-#: warp holds (nz <= LARGE_THREADS) and the shared memory one block may
-#: use (large_smem_bytes <= MAX_SMEM_BYTES; in float64 at the
-#: quadrotor's nc 366 that is nz <= 151).  csrc/ipm_leg.cu holds the
-#: same numbers; _lib() checks them against the library.
+#: register-resident path, larger nz in its general path (the
+#: satellite's QPs), which unrolls its loops to the smallest bucket of
+#: GENERAL_BUCKETS at or above nz and keeps A, Q and the factor in
+#: shared memory (general_smem_bytes, at most 57 KB).  Every larger
+#: shape (the quadrotor's nz 60-65, nc 360-366) runs the large path, one
+#: block of LARGE_THREADS threads per QP streaming A in double-buffered
+#: chunks of LARGE_ROWS rows, its Cholesky and substitutions on one
+#: warp.  Its ceiling: the rows a lane of that warp holds (nz <=
+#: LARGE_THREADS) and the shared memory one block may use
+#: (large_smem_bytes <= MAX_SMEM_BYTES; in float64 at the quadrotor's
+#: nc 366 that is nz <= 151).  csrc/ipm_leg.cu holds the same numbers;
+#: _lib() checks them against the library.
 GENERAL_MAX_NZ = 32
 GENERAL_MAX_NC = 128
+#: nz bucket -> edge of the general path's A'DA register tiles.
+GENERAL_BUCKETS = {16: 3, 24: 4, 32: 5}
 LARGE_THREADS = 256
 LARGE_ROWS = 32
 LARGE_TILE = 4
 LARGE_WARPS = LARGE_THREADS // 32
 MAX_SMEM_BYTES = 232_448
+
+
+def general_smem_bytes(nz: int, nc: int, itemsize: int) -> int:
+    """Shared memory of the general path for one QP (8 < nz <= 32, nc <=
+    128): A staged in nc rows rounded up to 4 (the f64 leg's tensor-core
+    steps), each row LDA = 4 (mod 16) wide and at least the bucket + 3
+    (a row is shifted by (r // 4) % 4), Q and C in rows of an odd
+    stride, four nz-vectors and three nc-vectors of the rounded rows."""
+    nzb = min(b for b in GENERAL_BUCKETS if b >= nz)
+    ncp = -(-nc // 4) * 4
+    lda = (nzb + 14) // 16 * 16 + 4
+    ldc = nzb | 1
+    return itemsize * (ncp * lda + 2 * nzb * ldc + 4 * nzb + 3 * ncp)
 
 
 def large_smem_bytes(nz: int, nc: int, itemsize: int) -> int:
@@ -204,18 +222,24 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.ipm_leg_error_string.argtypes = [ctypes.c_int]
         lib.ipm_leg_error_string.restype = ctypes.c_char_p
-        for name in ("ipm_leg_max_smem", "ipm_leg_large_smem"):
+        for name in ("ipm_leg_max_smem", "ipm_leg_large_smem",
+                     "ipm_leg_general_smem"):
             getattr(lib, name).restype = ctypes.c_longlong
         lib.ipm_leg_large_smem.argtypes = [ctypes.c_int] * 3
+        lib.ipm_leg_general_smem.argtypes = [ctypes.c_int] * 3
+        general = [(nz, nc, size) for nz in (9, 16, 17, 24, 25, 32)
+                   for nc in (14, 128) for size in (4, 8)]
         if (lib.ipm_leg_max_nz(), lib.ipm_leg_max_nc(),
                 lib.ipm_leg_large_threads(), lib.ipm_leg_large_rows(),
                 lib.ipm_leg_max_smem(),
-                lib.ipm_leg_large_smem(65, 366, 8)) != (
+                lib.ipm_leg_large_smem(65, 366, 8),
+                [lib.ipm_leg_general_smem(*x) for x in general]) != (
                 GENERAL_MAX_NZ, GENERAL_MAX_NC, LARGE_THREADS, LARGE_ROWS,
-                MAX_SMEM_BYTES, large_smem_bytes(65, 366, 8)):
+                MAX_SMEM_BYTES, large_smem_bytes(65, 366, 8),
+                [general_smem_bytes(*x) for x in general]):
             raise kernels.KernelError(
                 "ipm_leg: the kernel's path limits differ from the "
-                "wrapper's (GENERAL_MAX_*, LARGE_*, MAX_SMEM_BYTES)")
+                "wrapper's (GENERAL_*, LARGE_*, MAX_SMEM_BYTES)")
         lib._ehm_typed = True
     return lib
 

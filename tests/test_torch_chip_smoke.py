@@ -187,6 +187,19 @@ def test_ptxas_lines_name_the_template_arguments():
         "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads"]
 
 
+def test_ptxas_lines_name_the_general_path_bucket():
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__x_"
+        "10_ipm_leg_cu_dfdcc5d311ipm_leg_midIdLi24EEEvPKT_S3_S3_S3_S3_S3_"
+        "S3_PS1_S4_S4_iii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN...",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 0 barriers"])
+    assert chip_smoke.ptxas_lines("ipm_leg", report) == [
+        "ipm_leg: ipm_leg_mid<double, NZB=24>: 168 registers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
+
+
 def test_baseline_source_reads_each_kernels_variable(tmp_path):
     src = tmp_path / "locate.cu"
     src.write_text("// the parent\n")
@@ -309,7 +322,8 @@ def test_other_problems_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
          33, False))
     for k, v in dict(OTHER_BUILDS=builds, OTHER_EVALUATE=512, OTHER_HOLD=256,
                      K1_LARGE_SHAPES=((33, 129),), K1_LARGE_K=(2,),
-                     K1_GENERAL_SHAPE=(12, 40), K1_GENERAL_K=(2, 3)).items():
+                     K1_GENERAL_CELLS=(("point", (12, 40), (2, 3), 18),),
+                     K1_GENERAL_MAIN=((12, 40), 3)).items():
         monkeypatch.setattr(chip_smoke, k, v)
     large, general = chip_smoke.other_problems_phase(torch.device("cpu"),
                                                      str(tmp_path))
@@ -320,14 +334,24 @@ def test_other_problems_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
                 "[other] satellite: K2 (p=2, 33 leaves)",
                 "[K1-large] nz=33 nc=129 K=2",
                 "[K1-general] nz=12 nc=40 K=3 n_iter=18",
-                "[K1-general] the satellite 4c build: 0 K1 launches"):
+                "[K1-general] the satellite 4c build: 0 K1 launches",
+                "[K1-general] the satellite 4c build satellite (phase 14): "
+                "K1 0 launches"):
         assert tag in out, tag
-    assert set(general) == {"nz", "nc", "n_iter", "cells", "plain_ms",
-                            "max_rel_err_f64", "launches"}
+    assert set(general) == {"nz", "nc", "K", "n_iter", "ms", "plain_ms",
+                            "bound_ms", "bound_by", "max_rel_err_f64",
+                            "max_rel_err_f32", "cells", "base_ratio",
+                            "large_ratio", "large_faster", "launches",
+                            "builds"}
     assert [c["K"] for c in general["cells"]] == [2, 3]
     assert general["cells"][0]["ms"] is None and general["launches"] == 0
+    assert general["K"] == 3 and general["ms"] is None
     assert general["cells"][1]["bound_ms"] == pytest.approx(
         chip_smoke.leg_bound_ms(3, 12, 40, 18))
+    # The satellite build's K1 record (nothing launches on the CPU).
+    unpruned = general["builds"]["unpruned"]
+    assert unpruned["launches"] == 0 and unpruned["k1_ms"] is None
+    assert unpruned["by_cell"] == {} and unpruned["wall_s"] > 0
     assert os.path.exists(str(tmp_path / "quadrotor.artifacts"))
     assert set(large) == {"nz", "nc", "K", "n_iter", "ms", "plain_ms",
                           "bound_ms", "bound_by", "max_rel_err_f64",
@@ -601,8 +625,9 @@ def test_k1_large_only_rehearses_on_the_cpu(monkeypatch, capsys):
     for k, v in dict(K1_LARGE_SHAPES=((33, 129),), K1_LARGE_K=(2,),
                      K1_PRUNED_SHAPES=((34, 20),), K1_PRUNED_K=(3,),
                      K1_LARGE_EXTRA=((5, 140),), K1_LARGE_EXTRA_K=(2,),
-                     K1_GENERAL_SHAPE=(12, 40), K1_GENERAL_K=(2,),
-                     K1_PRUNED_GENERAL=(10, 14, 3)).items():
+                     K1_GENERAL_CELLS=(("point", (12, 40), (2,), 12),
+                                       ("pruned point", (10, 14), (3,), 30))
+                     ).items():
         monkeypatch.setattr(chip_smoke, k, v)
     assert chip_smoke.k1_large_only(torch.device("cpu")) == 0
     out = capsys.readouterr().out
@@ -611,10 +636,79 @@ def test_k1_large_only_rehearses_on_the_cpu(monkeypatch, capsys):
                 "[K1-pruned] quadrotor nz=34 nc=20 K=3 n_iter=30 (large "
                 "path)", "[K1-large] nz=5 nc=140 K=2 n_iter=18 (large path)",
                 "[K1-general] nz=12 nc=40 K=2 n_iter=12 (general path)",
-                "[K1-pruned] satellite nz=10 nc=14 K=3 n_iter=30 (general "
-                "path)",
+                "[K1-general] nz=10 nc=14 K=3 n_iter=30 (general path)",
                 "[K1-split] new: stamped copy", "(8 stamps)"):
         assert tag in out, tag
+
+
+def test_k1_general_only_rehearses_on_the_cpu(monkeypatch, capsys):
+    """The general path's K1-only entry on the CPU at small shapes: each
+    cell of K1_GENERAL_CELLS through the plain version (f64 to 1e-9, f32
+    as phase 2) at its own iteration count, no time measured and no
+    ratio (the baselines need the card), and the stamped copy of the
+    general kernel written with a stamp at each section boundary."""
+    import json
+
+    monkeypatch.delenv("K1_BASELINE", raising=False)
+    cells = (("point", (12, 40), (2, 3), 12),
+             ("pruned point", (24, 14), (2,), 30),
+             ("edge", (9, 33), (1,), 18))
+    monkeypatch.setattr(chip_smoke, "K1_GENERAL_CELLS", cells)
+    monkeypatch.setattr(chip_smoke, "K1_GENERAL_MAIN", ((24, 14), 2))
+    assert chip_smoke.k1_general_only(torch.device("cpu")) == 0
+    out = capsys.readouterr().out
+    assert "FAIL" not in out
+    for tag in ("[K1-general] nz=12 nc=40 K=2 n_iter=12 (general path)",
+                "[K1-general] nz=12 nc=40 K=3 n_iter=12 (general path)",
+                "[K1-general] nz=24 nc=14 K=2 n_iter=30 (general path)",
+                "[K1-general] nz=9 nc=33 K=1 n_iter=18 (general path)",
+                "[K1-split] general: stamped copy", "(8 stamps)"):
+        assert tag in out, tag
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"general"'))
+    general = json.loads(line)["general"]
+    assert [(c["label"], c["K"]) for c in general["cells"]] == [
+        ("point", 2), ("point", 3), ("pruned point", 2), ("edge", 1)]
+    assert (general["nz"], general["nc"], general["K"]) == (24, 14, 2)
+    assert all(c["ms"] is None and "base_ratio" not in c
+               for c in general["cells"])
+    assert general["base_ratio"] is None and general["large_faster"] == []
+    assert general["max_rel_err_f64"] <= 1e-9
+
+
+def test_general_path_cells_take_the_builds_iteration_counts(monkeypatch):
+    """A cell's n_iter is the satellite build's most frequent count for
+    its shape where phase 14 recorded one, the cell's own otherwise."""
+    monkeypatch.setattr(chip_smoke, "K1_GENERAL_CELLS",
+                        (("a", (12, 40), (1,), 12), ("b", (10, 14), (1,), 30)))
+    legs = [(8, 12, 40, 5), (16, 12, 40, 5), (8, 12, 40, 7), (8, 60, 360, 9)]
+    out = chip_smoke.general_path_cells(torch.device("cpu"), legs)
+    assert [c["n_iter"] for c in out["cells"]] == [5, 30]
+    assert out["launches"] == 3
+
+
+def test_in_turns_time_every_baseline_around_the_kernel_twice():
+    """in_turns_each: the baselines in order, the kernel twice, the
+    baselines in reverse order (each timer call recorded), each
+    baseline's two readings kept; in_turns is its one-baseline case."""
+    calls = []
+    ms_of = {"new": 1.0, "a": 2.0, "b": 4.0}
+
+    def timer(fn, reps):
+        calls.append(fn)
+        return ms_of[fn] + len(calls) / 100
+
+    ms, runs = chip_smoke.in_turns_each("new", {"a": "a", "b": "b"}, 5,
+                                        timer)
+    assert calls == ["a", "b", "new", "new", "b", "a"]
+    assert ms == pytest.approx(1.035)
+    assert runs == {"a": (2.01, 2.06), "b": (4.02, 4.05)}
+    calls.clear()
+    ms, base_ms, text = chip_smoke.in_turns("new", "a", 5, timer)
+    assert calls == ["a", "new", "new", "a"]
+    assert base_ms == pytest.approx(2.025) and ms == pytest.approx(1.025)
+    assert "1.98x" in text
+    calls.clear()
+    assert chip_smoke.in_turns("new", None, 5, timer)[1:] == (None, "")
 
 
 def test_large_path_cells_hold_each_cell_to_the_plain_version():
@@ -634,6 +728,27 @@ def test_large_path_cells_hold_each_cell_to_the_plain_version():
         chip_smoke.large_path_cells(torch.device("cpu"), [(12, 40, 5)],
                                     (1,))
     assert np.isfinite(e64)
+
+
+def test_general_stamped_source_puts_each_stamp_at_its_anchor():
+    """The stamped copy for the general path's split: every anchor of
+    K1_GENERAL_SPLIT_ANCHORS found in ipm_leg_mid, the stamps in order
+    inside it, and no stamp in the large path."""
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    with open(os.path.join(kernels.CSRC, "ipm_leg.cu")) as f:
+        src = f.read()
+    out = chip_smoke.stamped_source(src, chip_smoke.K1_GENERAL_SPLIT_ANCHORS,
+                                    chip_smoke.K1_GENERAL_SPLIT_KERNEL)
+    body = out[out.index(chip_smoke.K1_GENERAL_SPLIT_KERNEL):]
+    order = [body.index(f"EHM_STAMP({n});") for n in range(6)]
+    assert order == sorted(order)
+    assert body.index("EHM_STAMP(it ? 7 : 6);") < order[0]
+    assert body.rindex("EHM_STAMP(7);") > order[-1]
+    large = out[out.index("ipm_leg_large(const T* __restrict__ Qg"):
+                out.index(chip_smoke.K1_GENERAL_SPLIT_KERNEL)]
+    assert "EHM_STAMP(" not in large
+    assert len(chip_smoke.K1_GENERAL_SPLIT_SECTIONS) == 8
 
 
 def test_stamped_source_puts_each_stamp_at_its_anchor():

@@ -40,10 +40,14 @@ def _qps(rng, K, nz, nc, dtype, dev):
 #: quadrotor's point, Farkas and elastic simplex-min QPs; then the
 #: pruned oracle's reduced point and elastic simplex-min QPs on the
 #: satellite 4c box (24, 14), (31, 22) and the quadrotor pv box (60, 49),
-#: (65, 55).
+#: (65, 55); then the satellite 4c build's point, elastic simplex-min
+#: and Farkas QPs (24, 96), (31, 104), (31, 103), the pruned phase-1
+#: gate (25, 14), and the general path's bucket edges (16, 33) and
+#: (17, 128).
 _SHAPES = [(1, 7), (5, 35), (5, 70), (8, 39), (8, 128), (9, 70), (32, 128),
            (33, 129), (60, 360), (65, 365), (65, 366),
-           (24, 14), (31, 22), (60, 49), (65, 55)]
+           (24, 14), (31, 22), (60, 49), (65, 55),
+           (24, 96), (31, 104), (31, 103), (25, 14), (16, 33), (17, 128)]
 
 
 def _plain(args, n_iter):
@@ -83,7 +87,8 @@ def test_ipm_leg_kernel_matches_plain(gpu, nz, nc, K):
 
 
 @pytest.mark.parametrize("nz,nc", [(5, 35), (5, 70), (8, 39), (8, 128),
-                                   (9, 70), (65, 366), (60, 360), (60, 49)])
+                                   (9, 70), (65, 366), (60, 360), (60, 49),
+                                   (24, 96), (24, 14), (31, 22)])
 def test_ipm_leg_result_does_not_depend_on_the_batch(gpu, nz, nc):
     """A QP's result is bitwise the same launched alone, in its batch,
     and at another offset inside a larger batch of other QPs."""
@@ -109,14 +114,16 @@ def test_ipm_leg_result_does_not_depend_on_the_batch(gpu, nz, nc):
         assert torch.equal(a[123:163], b)
 
 
-@pytest.mark.parametrize("nz,nc", [(5, 35), (65, 366), (60, 49), (33, 129)])
+@pytest.mark.parametrize("nz,nc", [(5, 35), (65, 366), (60, 49), (33, 129),
+                                   (24, 96), (24, 14), (31, 22)])
 def test_ipm_leg_nan_and_infeasible_qps(gpu, nz, nc):
     """A NaN in q comes back non-finite from the kernel and the plain
     version alike; a QP whose feasible set is empty comes back not
     converged and not feasible from qp_solve on the card, as on the
-    CPU (the register path, and the large path at the quadrotor's
-    elastic simplex-min shape, its pruned point shape and just past the
-    general path's limits)."""
+    CPU (the register path, the large path at the quadrotor's elastic
+    simplex-min shape, its pruned point shape and just past the general
+    path's limits, and the general path at the satellite's point, pruned
+    point and pruned elastic simplex-min shapes)."""
     Q, q, A, b = _qps(np.random.default_rng(3), 6, nz, nc, torch.float64,
                       gpu)
     q[2, 1] = float("nan")
@@ -223,6 +230,35 @@ def test_quadrotor_subbox_builds_on_the_card(gpu):
         launched = ipm_leg.launches - before
         assert launched > 0 if backend == "cuda" else launched == 0
     assert make("quadrotor", **kw).canonical.nc > ipm_leg.GENERAL_MAX_NC
+    assert res["cuda"].stats["device_failures"] == 0
+    assert not res["cuda"].stats["truncated"]
+    assert _tree_signature(res["cuda"]) == _tree_signature(res["cpu"])
+
+
+@pytest.mark.parametrize("N", [2, 3, 4])
+def test_satellite_subbox_builds_on_the_card(gpu, N):
+    """The satellite 4c sub-box (axes 3, omega_box 0.03, h_box 0.3;
+    artifacts/configs_cpu_r5.json "4c") at horizons 2, 3 and its own 4
+    (QPs nz 12 / 18 / 24, nc 48 / 72 / 96: the kernel's general path in
+    its 16 and 24 buckets) built on the card is node-for-node the port's
+    CPU build, with the general path launched."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+
+    kw = {"axes": 3, "omega_box": 0.03, "h_box": 0.3, "N": N}
+    prob = make("satellite", **kw)
+    assert 8 < prob.canonical.nz <= ipm_leg.GENERAL_MAX_NZ
+    res = {}
+    for backend in ("cuda", "cpu"):
+        before = ipm_leg.launches
+        res[backend] = build_partition(
+            make("satellite", **kw),
+            PartitionConfig(problem="satellite", backend=backend,
+                            problem_args=tuple(sorted(kw.items())),
+                            eps_a=1.0, eps_r=0.1))
+        launched = ipm_leg.launches - before
+        assert launched > 0 if backend == "cuda" else launched == 0
     assert res["cuda"].stats["device_failures"] == 0
     assert not res["cuda"].stats["truncated"]
     assert _tree_signature(res["cuda"]) == _tree_signature(res["cpu"])

@@ -89,3 +89,40 @@ def test_ipm_leg_paths_take_every_shape_up_to_the_ceiling():
         ipm_leg.ipm_leg_cuda(*qps(257, 10), n_iter=2)
     with pytest.raises(ValueError, match="CUDA device"):
         ipm_leg.ipm_leg_cuda(*qps(65, 366), n_iter=2)
+
+
+def test_ipm_leg_general_path_limits_agree_with_the_source():
+    """The general path (8 < nz <= 32, nc <= 128): the source declares
+    the buckets and tile edges the wrapper holds (GENERAL_BUCKETS), each
+    bucket's tiles fit one warp, its shared memory a QP is the wrapper's
+    general_smem_bytes (A staged in rows of a stride 4 mod 16, Q and C,
+    four nz- and three nc-vectors) and stays far inside a block's, and
+    kernel_takes accepts every shape of the path."""
+    import re
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    with open(os.path.join(kernels.CSRC, "ipm_leg.cu")) as f:
+        src = f.read()
+    decl = {int(b): (int(t), int(lo)) for b, t, lo in re.findall(
+        r"struct MidShape<(\d+)> \{\s*static constexpr int T = (\d+), "
+        r"LO = (\d+);", src)}
+    assert {b: t for b, (t, _lo) in decl.items()} == ipm_leg.GENERAL_BUCKETS
+    buckets = sorted(decl)
+    assert buckets[-1] == ipm_leg.GENERAL_MAX_NZ
+    # Each bucket's smallest nz is one past the bucket below (the
+    # register path's 8 below the first): the columns below it are live.
+    assert [decl[b][1] for b in buckets] == [
+        9] + [b + 1 for b in buckets[:-1]]
+    for b, (t, _lo) in decl.items():
+        nb = -(-b // t)
+        assert nb * (nb + 1) // 2 <= 32
+    for nz in range(9, ipm_leg.GENERAL_MAX_NZ + 1):
+        for nc in (1, 14, 96, ipm_leg.GENERAL_MAX_NC):
+            assert ipm_leg.kernel_takes(nz, nc, 8)
+            assert ipm_leg.general_smem_bytes(nz, nc, 8) < 64 * 1024
+    assert ipm_leg.general_smem_bytes(24, 96, 8) == 40_320
+    assert ipm_leg.general_smem_bytes(32, 128, 8) == 57_856
+    assert ipm_leg.general_smem_bytes(17, 14, 4) == 2 * ipm_leg \
+        .general_smem_bytes(17, 14, 2)
+    assert "ipm_leg_general(" not in src and "kkt_step" not in src
