@@ -51,7 +51,21 @@ through the IPM leg, each reduced shape's K1 launches and device time
 beside phase 14's unpruned build), holds the leg to its plain version at
 the reduced shapes, the SOC solves on the card to the same on the CPU,
 and builds satellite_soc with the SOCOracle (regions held to the JAX
-package's, then a sampled soundness check).  One
+package's, then a sampled soundness check).  Phase 18 drives the
+build's diagnostics: 18a an Oracle(n_iter=2) with a flight recorder at
+each K1 path (the flagship, the satellite 4c and the quadrotor pv
+boxes), its diverged_cells bundle replayed on the card to the observed
+conv and feas masks bit for bit and V bitwise, and the kernel-only
+probe; 18b the flagship build with obs, the recorder and the health
+monitor (a throughput floor that must fire): phase 3's tree cell for
+cell, bundles = counter = events, no capture error, every bundle
+replayed; 18c the auto-profile schedule (stall_s 0.2, two 0.4 s stalls
+at oracle.wait): one critical health.stall, one capture naming K1;
+18d phase 15a's rebuild with the recorder, its recert bundles replayed
+with their verdicts; 18e two concurrent `main` builds sharing one obs
+path with --obs-per-process, folded by obs.fleet; 18f `main serve`'s
+obs stream through the monitor at ceilings below and above its p99.
+Each replay's K1 launches are counted from zero.  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -109,6 +123,10 @@ kernel stamped with clock64() at its sections (k1_split).
 
 does the same for the general path: every cell of K1_GENERAL_CELLS in
 turns with the baseline and the large path's entry, and its split.
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.diagnostics_only())"
+
+runs phase 18 alone (after a flagship build of its own).
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -4000,6 +4018,508 @@ def pruning_soc_phase(dev, tmp: str, unpruned: dict, base=None) -> dict:
     return out
 
 
+#: Phase 18a: forced divergence through each K1 path -- (label, problem,
+#: constructor args, the K1 path its point QPs take), the sub-boxes of
+#: phase 14 (artifacts/configs_cpu_r5.json rows "4c" and "5b").
+DIAG_PROBLEMS = (
+    ("inverted_pendulum", "inverted_pendulum", {}, "register"),
+    ("satellite 4c", "satellite",
+     {"axes": 3, "omega_box": 0.03, "h_box": 0.3}, "general"),
+    ("quadrotor pv", "quadrotor",
+     {"param": "pv", "pos_box": 0.4, "vel_box": 0.2}, "large"))
+#: Seeded (theta, delta) cells a forced-divergence call solves, and the
+#: IPM schedule that cannot converge them (the JAX package's
+#: tests/test_diagnostics.py fault injection).
+DIAG_CELLS = 256
+DIAG_N_ITER = 2
+#: Phase 18f: requests of the `main serve --selftest` run whose obs
+#: stream goes through the health monitor.
+DIAG_SERVE_REQUESTS = 4096
+
+
+def timed_replay(dev, replay_fn, *args, **kw) -> tuple[dict, int, float]:
+    """(report, K1 launches, ms) of one replay on `dev`: K1's count is
+    set to 0 just before the replay and read just after."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    ipm_leg.launches = 0
+    t0 = time.perf_counter()
+    rep = replay_fn(*args, **kw)
+    sync()
+    return rep, ipm_leg.launches, 1e3 * (time.perf_counter() - t0)
+
+
+def forced_divergence(dev, tmp: str) -> dict:
+    """Phase 18a: Oracle(n_iter=2) with a flight recorder on the card at
+    each K1 path; every call's diverged_cells bundle must replay on the
+    card to the observed conv and feas masks bit for bit and V bitwise,
+    and the kernel-only probe (ipm.solve_mask through K1) must agree
+    with the observed conv mask.  Returns the replays' K1 launches and
+    ms per problem."""
+    from explicit_hybrid_mpc_tpu_torch.obs import replay
+    from explicit_hybrid_mpc_tpu_torch.obs.recorder import (FlightRecorder,
+                                                            load_bundle)
+    from explicit_hybrid_mpc_tpu_torch.oracle import oracle
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    out = {}
+    for label, name, kw, path in DIAG_PROBLEMS:
+        prob = make(name, **kw)
+        can = prob.canonical
+        if k1_path(can.nz, can.nc) != path:
+            fail(f"18a {label}: nz={can.nz} nc={can.nc} takes K1's "
+                 f"{k1_path(can.nz, can.nc)} path, not {path}")
+        rec = FlightRecorder(os.path.join(tmp, f"18a_{name}"))
+        orc = oracle.Oracle(prob, backend=dev.type, n_iter=DIAG_N_ITER)
+        orc.recorder = rec
+        g = np.random.default_rng(SEED + 18)
+        th = g.uniform(prob.theta_lb, prob.theta_ub,
+                       (DIAG_CELLS, can.n_theta))
+        ds = g.integers(0, can.n_delta, DIAG_CELLS)
+        _V, conv, *_ = orc.solve_pairs(th, ds)
+        if len(rec.bundles) != 1 or rec.n_capture_errors:
+            fail(f"18a {label}: {len(rec.bundles)} bundles, "
+                 f"{rec.n_capture_errors} capture errors (want 1, 0)")
+        meta, arrays = load_bundle(rec.bundles[0])
+        if meta["trigger"] != "diverged_cells" or meta["kind"] != "pairs":
+            fail(f"18a {label}: bundle {meta['trigger']}/{meta['kind']}")
+        rep, n_rep, ms = timed_replay(dev, replay.replay_bundle,
+                                      rec.bundles[0], backend=dev.type)
+        kep, n_kep, kms = timed_replay(dev, replay.replay_bundle,
+                                       rec.bundles[0], backend=dev.type,
+                                       kernel_only=True)
+        log(f"[diag] 18a {label} (K1 {path} path, nz={can.nz} "
+            f"nc={can.nc}): {int(conv.sum())}/{DIAG_CELLS} converged, "
+            f"{meta['n_anomalous']} feasible-unconverged, "
+            f"{meta['captured']} captured; replay conv "
+            f"{rep['conv_mismatches']} / feas {rep['feas_mismatches']} "
+            f"mismatches, V bitwise {rep['V_bitwise']}, {n_rep} K1 "
+            f"launches in {ms:.1f} ms; kernel-only conv mismatches "
+            f"{kep['kernel_vs_obs_conv_mismatches']}, {n_kep} K1 launches "
+            f"in {kms:.1f} ms")
+        if not (rep["ok"] and rep["same_platform"] and rep["conv_match"]
+                and rep["feas_match"] and rep["V_bitwise"]):
+            fail(f"18a {label}: the replay on the card differs: {rep}")
+        if not kep["kernel_vs_obs_conv_match"]:
+            fail(f"18a {label}: the kernel-only probe differs: {kep}")
+        if dev.type == "cuda" and (n_rep <= 0 or n_kep <= 0):
+            fail(f"18a {label}: a replay did not go through K1 "
+                 f"({n_rep}, {n_kep} launches)")
+        out[label] = {"path": path, "captured": meta["captured"],
+                      "replay_launches": n_rep, "replay_ms": ms,
+                      "kernel_only_launches": n_kep, "kernel_only_ms": kms}
+    return out
+
+
+def replay_bundles(dev, paths: list, name: str) -> dict:
+    """Replay every bundle of `paths` on the card: each must be ok by
+    its kind's contract (a cell bundle's snapshot must not certify, a
+    recert bundle must reproduce its invalidation).  Returns the counts
+    by kind, vertex conv flips (advisory for cell/recert bundles), and
+    the replays' K1 launches and ms."""
+    from explicit_hybrid_mpc_tpu_torch.obs import replay
+
+    out = {"kinds": {}, "conv_flips": 0, "launches": 0, "ms": 0.0}
+    for path in paths:
+        rep, n, ms = timed_replay(dev, replay.replay_bundle, path,
+                                  backend=dev.type)
+        kind = rep["kind"]
+        out["kinds"][kind] = out["kinds"].get(kind, 0) + 1
+        out["launches"] += n
+        out["ms"] += ms
+        if kind in ("cell", "recert"):
+            out["conv_flips"] += rep["conv_mismatches"]
+        if not rep["ok"] or (kind == "cell" and rep[
+                "snapshot_stage1_status"] == "certified"):
+            fail(f"{name}: the replay of {os.path.basename(path)} on the "
+                 f"card contradicts its capture: {rep}")
+    return out
+
+
+def recorded_build(dev, problem, cfg, res, build_s: float, tmp: str) -> dict:
+    """Phase 18b: the flagship build again with obs on, the flight
+    recorder and the health monitor (default rules plus a throughput
+    floor ten times phase 3's rate, which must fire
+    health.throughput_low): the tree equal to phase 3's cell for cell,
+    a cell bundle for each uncertified leaf up to the recorder's cap of
+    16 a trigger with the overflow counted, the bundle counter equal to
+    the bundle events, no capture error, and every bundle replayed on
+    the card (a cell bundle's snapshot must not certify)."""
+    import dataclasses
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        FrontierEngine, make_oracle)
+
+    floor = 10.0 * res.stats["regions"] / build_s
+    stream = os.path.join(tmp, "18b.obs.jsonl")
+    cfg_b = dataclasses.replace(
+        cfg, obs="jsonl", obs_path=stream, obs_recorder=True,
+        recorder_dir=os.path.join(tmp, "18b.repro"),
+        health_rules=(("min_regions_per_s", floor),))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    ipm_leg.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    eng = FrontierEngine(problem, make_oracle(problem, cfg_b), cfg_b)
+    res_b = eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    n_k1 = ipm_leg.launches
+    rec = eng.recorder
+    recs = load_jsonl(stream)
+    snap = [r for r in recs if r["kind"] == "metrics"][-1]["counters"]
+    n_events = sum(r.get("name") == "recorder.bundle" for r in recs)
+    fired = [r for r in recs if str(r.get("name")).startswith("health.")]
+    a, b = tree_outcomes(res.tree), tree_outcomes(res_b.tree)
+    diff, other = differing_cells(a, b)
+    st = res_b.stats
+    log(f"[diag] 18b flagship build with recorder + health on: {wall:.1f} s "
+        f"(phase 3: {build_s:.1f} s), regions {st['regions']}, uncertified "
+        f"{st['uncertified']}, {n_k1} K1 launches; tree "
+        f"{'equal to' if a == b else 'NOT equal to'} phase 3's cell for "
+        f"cell ({len(a)} cells, {len(diff)} decided differently, {other} "
+        f"other commutations); bundles {len(rec.bundles)} (counter "
+        f"{snap.get('recorder.bundles')}, events {n_events}), dropped "
+        f"{rec.n_dropped}, capture errors "
+        f"{snap.get('recorder.capture_errors')}; health events "
+        + ", ".join(f"{r['name']} ({r['severity']}, value {r.get('value')}"
+                    f", threshold {r.get('threshold')})" for r in fired))
+    if a != b:
+        fail("18b: watching changed the tree")
+    cells = [p for p in rec.bundles if "uncertified_leaf" in p]
+    if not (len(cells) == min(rec.max_bundles, st["uncertified"])
+            and snap.get("recorder.bundles") == n_events == len(rec.bundles)
+            and rec.n_dropped >= st["uncertified"] - len(cells)):
+        fail("18b: the bundles, their counter, their events and the "
+             "overflow do not add up")
+    if rec.n_capture_errors or snap.get("recorder.capture_errors") != 0:
+        fail("18b: a capture raised")
+    if not any(r["name"] == "health.throughput_low"
+               and r["severity"] == "warn" for r in fired):
+        fail("18b: health.throughput_low did not fire")
+    if any(r["severity"] == "critical" for r in fired):
+        fail("18b: a critical health verdict on a healthy build")
+    rp = replay_bundles(dev, rec.bundles, "18b")
+    log(f"[diag] 18b replays on the card: {rp['kinds']} ({len(cells)} cell "
+        f"bundles, snapshot never certifies), vertex conv flips "
+        f"{rp['conv_flips']} (advisory), {rp['launches']} K1 launches in "
+        f"{rp['ms']:.1f} ms")
+    return {"bundles": len(rec.bundles), "dropped": rec.n_dropped,
+            "replays": rp}
+
+
+def auto_profile_trigger(dev, tmp: str) -> dict:
+    """Phase 18c: the JAX package's auto-profile schedule on the card --
+    the tier-1 DI build with stall_s 0.2 and two 0.4 s stalls at
+    oracle.wait (the port's 'stall' fault kind: the solve comes back
+    late, so nothing fails and nothing falls back): health.stall
+    (critical) fires, exactly one capture opens, its summary names K1's
+    kernel among the card's ops (device_ops_ms: top_ops_ms ranks the
+    host's ops and the card's together, and the host's fill it), and
+    build.auto_profiles is 1."""
+    import glob
+
+    from explicit_hybrid_mpc_tpu_torch import faults
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.faults.plan import FaultPlan
+    from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    path = os.path.join(tmp, "18c.obs.jsonl")
+    rdir = os.path.join(tmp, "18c.repro")
+    cfg = PartitionConfig(
+        problem="double_integrator",
+        problem_args=(("N", 3), ("theta_box", 1.5)), eps_a=0.4,
+        backend=dev.type, batch_simplices=64, obs="jsonl", obs_path=path, auto_profile=True,
+        profile_steps=2, recorder_dir=rdir,
+        health_rules=(("stall_s", 0.2),))
+    plan = FaultPlan(faults=(
+        {"site": "oracle.wait", "kind": "stall", "at": 2, "hang_s": 0.4},
+        {"site": "oracle.wait", "kind": "stall", "at": 7, "hang_s": 0.4}))
+    t0 = time.perf_counter()
+    with faults.activate(plan):
+        res = build_partition(make("double_integrator", N=3,
+                                   theta_box=1.5), cfg)
+    wall = time.perf_counter() - t0
+    recs = load_jsonl(path)
+    stalls = [r for r in recs if r.get("name") == "health.stall"]
+    caps = [r for r in recs if r.get("name") == "profile.capture"]
+    bundles = glob.glob(os.path.join(rdir, "auto_profile_*.json"))
+    snap = [r for r in recs if r["kind"] == "metrics"][-1]["counters"]
+    st = res.stats
+    summ = {}
+    if len(bundles) == 1:
+        with open(bundles[0]) as f:
+            summ = json.load(f).get("trace_summary", {})
+    top = [r["name"] for r in summ.get("top_ops_ms", [])]
+    dev_top = [r["name"] for r in summ.get("device_ops_ms", [])]
+    k1_rank, k1_dev = (next((i + 1 for i, n in enumerate(names)
+                             if "ipm_leg" in n), None)
+                       for names in (top, dev_top))
+    log(f"[diag] 18c auto-profile on an injected stall: build {wall:.1f} s, "
+        f"regions {st['regions']}, device failures {st['device_failures']}; "
+        f"{len(stalls)} health.stall "
+        f"({', '.join(str(r.get('value')) for r in stalls)} s idle, "
+        f"{stalls[0]['severity'] if stalls else '-'}), {len(caps)} "
+        f"profile.capture, {len(bundles)} auto_profile bundle(s), "
+        f"build.auto_profiles {snap.get('build.auto_profiles')}; K1's "
+        f"kernel at rank {k1_dev or 'absent'} of the {len(dev_top)} "
+        f"device_ops_ms, {k1_rank or 'absent'} of the {len(top)} "
+        "top_ops_ms (host and device ops)")
+    if st["device_failures"] or st["device_degraded"] \
+            or st["quarantined_cells"]:
+        fail("18c: the build fell back from the device")
+    if not stalls or stalls[0]["severity"] != "critical":
+        fail("18c: health.stall (critical) did not fire")
+    if len(caps) != 1 or len(bundles) != 1 \
+            or snap.get("build.auto_profiles") != 1:
+        fail(f"18c: {len(caps)} captures, {len(bundles)} bundles, "
+             f"build.auto_profiles {snap.get('build.auto_profiles')} "
+             "(want exactly one)")
+    if dev.type == "cuda" and k1_dev is None:
+        fail("18c: the capture's device ops do not name K1's kernel")
+    return {"stalls": len(stalls), "captures": len(caps),
+            "k1_device_rank": k1_dev, "k1_top_rank": k1_rank}
+
+
+def recorded_rebuild(dev, cfg, res, tmp: str) -> dict:
+    """Phase 18d: phase 15a's unchanged warm rebuild from phase 3's tree,
+    with the recorder on: the leaves whose stored certificate fails
+    stage 1 or stage 2 give recert bundles (at most 16; a closed-
+    infeasible leaf's failed Farkas re-proof gives none, as in the JAX
+    package), each replayed on the card with the invalidation verdict
+    reproduced, and every other bundle of the run too."""
+    from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
+
+    on_card = dev.type == "cuda"
+    flags = ["-e", cfg.problem, "--batch", str(cfg.batch_simplices),
+             "--max-depth", str(cfg.max_depth),
+             *([] if on_card else ["--backend", "cpu"])]
+    for k, v in cfg.problem_args:
+        flags += ["--problem-arg", f"{k}={json.dumps(v)}"]
+    prior = os.path.join(tmp, "18d.prior.tree.pkl")
+    res.tree.save(prior)
+    out = os.path.join(tmp, "18d")
+    bdir = out + ".bundles"
+    rc, st, _ev, wall, _legs, n_k1, _n_k2, _prof = run_main(
+        ["rebuild", *flags, "-a", str(cfg.eps_a), "--from", prior, "-o",
+         out, "--recorder-dir", bdir, "--obs", "jsonl"], on_card)
+    if rc != 0:
+        fail(f"18d: main rebuild --recorder-dir returned {rc}")
+    paths = sorted(os.path.join(bdir, f) for f in os.listdir(bdir)) \
+        if os.path.isdir(bdir) else []
+    recert = [p for p in paths if "recert_invalidated" in p]
+    snap = [r for r in load_jsonl(out + ".obs.jsonl")
+            if r["kind"] == "metrics"][-1]["counters"]
+    rp = replay_bundles(dev, paths, "18d")
+    log(f"[diag] 18d warm rebuild with the recorder: {wall:.1f} s, regions "
+        f"{st['regions']}, invalidated {st['rebuild_leaves_invalidated']}, "
+        f"{n_k1} K1 launches; bundles {len(paths)} ({len(recert)} recert), "
+        f"capture errors {snap.get('recorder.capture_errors')}; replays on "
+        f"the card {rp['kinds']}, every invalidation verdict reproduced, "
+        f"vertex conv flips {rp['conv_flips']} (advisory), "
+        f"{rp['launches']} K1 launches in {rp['ms']:.1f} ms")
+    check_build("18d rebuild", st, REBUILD_REF_REGIONS, REF_UNCERTIFIED_MAX)
+    if not 0 < len(recert) <= 16:
+        fail(f"18d: {len(recert)} recert bundles (want 1..16)")
+    if snap.get("recorder.capture_errors") != 0:
+        fail("18d: a capture raised")
+    return {"bundles": len(paths), "recert": len(recert), "replays": rp}
+
+
+def fleet_streams(dev, tmp: str) -> dict:
+    """Phase 18e: two `python -m explicit_hybrid_mpc_tpu_torch.main`
+    builds of the tier-1 DI fixture at once on cuda:0, with one obs path,
+    --obs-per-process, the recorder and a health rule: two .pI-PID
+    streams, two identities, no strict issue, the fleet rollup's
+    counters the sum of the two final snapshots bit exactly, the merged
+    events ordered on t_abs, and the fleet monitor's verdict."""
+    from explicit_hybrid_mpc_tpu_torch.obs import fleet
+
+    obs_path = os.path.join(tmp, "18e.obs.jsonl")
+    env = {**os.environ, "EHM_RUN_ID": "chipsmoke18e"}
+    procs = []
+    t0 = time.perf_counter()
+    for i in range(2):
+        cmd = [sys.executable, "-m", "explicit_hybrid_mpc_tpu_torch.main",
+               *SIM_DI_ARGS, "--obs", "jsonl", "--obs-path", obs_path,
+               "--obs-per-process", "--recorder", "--health-rule",
+               "stall_s=300", "-o", os.path.join(tmp, f"18e_{i}"),
+               *([] if dev.type == "cuda" else ["--backend", "cpu"])]
+        procs.append(subprocess.Popen(cmd, cwd=os.path.dirname(
+            os.path.abspath(__file__)), env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True))
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, e in zip(procs, errs):
+        if p.returncode != 0:
+            fail(f"18e: a build exited {p.returncode}: {e[-2000:]}")
+    paths = fleet.resolve_streams(obs_path)
+    pids = sorted(p.pid for p in procs)
+    streams = fleet.load_fleet(obs_path)
+    issues = fleet.strict_issues(streams)
+    roll = fleet.fleet_rollup(streams)
+    last = [[r for r in s.records if r["kind"] == "metrics"][-1]["counters"]
+            for s in streams]
+    summed = {}
+    for c in last:
+        for k, v in c.items():
+            summed[k] = summed.get(k, 0) + v
+    merged = fleet.merge_events(streams)
+    t_abs = [r["t_abs"] for r in merged]
+    mon = fleet.FleetMonitor()
+    for s in streams:
+        for r in s.records:
+            mon.feed(s.shard, r)
+    verdict = mon.finalize(streams)
+    strag = fleet.straggler_report(streams)
+    log(f"[diag] 18e two concurrent builds on {dev}, one obs path: "
+        f"{wall:.1f} s; streams "
+        f"{[os.path.basename(p) for p in paths]}; identities "
+        f"{sorted(s.shard for s in streams)}, run_ids {roll['run_ids']}, "
+        f"strict issues {issues}; rollup build.steps "
+        f"{roll['counters'].get('build.steps')}, oracle.point_solves "
+        f"{roll['counters'].get('oracle.point_solves')}, regions max "
+        f"{roll['regions']}; {len(merged)} merged records; fleet verdict "
+        f"{mon.worst} ({[e['name'] for e in verdict]})")
+    log(f"[diag] 18e straggler_report: " + json.dumps(
+        {"concurrent": strag["concurrent"],
+         "straggle_frac": strag["straggle_frac"],
+         "slowest": strag["slowest"], "fastest": strag["fastest"],
+         "shards": {k: {f: v.get(f) for f in ("steps", "regions",
+                                              "regions_per_s", "lag_s")}
+                    for k, v in strag["shards"].items()}}))
+    if len(paths) != 2 or sorted(int(p.rsplit("-", 1)[1].split(".")[0])
+                                 for p in paths) != pids:
+        fail(f"18e: streams {paths}, want one per pid {pids}")
+    if len({s.identity["pid"] for s in streams if s.identity}) != 2 \
+            or issues:
+        fail(f"18e: identities or strict issues wrong ({issues})")
+    if roll["counters"] != summed:
+        fail("18e: the fleet rollup's counters are not the sum of the "
+             "two final snapshots")
+    if t_abs != sorted(t_abs):
+        fail("18e: merge_events is not ordered on t_abs")
+    return {"streams": len(paths), "wall_s": wall, "worst": mon.worst}
+
+
+def serving_health(dev, res, tmp: str) -> dict:
+    """Phase 18f: `main serve --selftest` on the flagship artifacts with
+    an obs stream (--fallback off: every answer from the table), fed
+    record by record to a HealthMonitor: a serve_p99_us ceiling at half
+    the measured p99 fires health.serve_p99_us for the controller, a
+    ceiling at twice the largest p99 gauge fires nothing."""
+    import contextlib
+    import io
+
+    from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
+    from explicit_hybrid_mpc_tpu_torch.obs.health import HealthMonitor
+    from explicit_hybrid_mpc_tpu_torch.serve import registry
+    from explicit_hybrid_mpc_tpu_torch.serve.cli import serve_main
+
+    art = os.path.join(tmp, "18f.pend")
+    registry.save_artifacts(res.tree, res.roots, art)
+    stream = os.path.join(tmp, "18f.obs.jsonl")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main(["--artifacts", art, "--controller", "pend",
+                         "--selftest", str(DIAG_SERVE_REQUESTS),
+                         "--fallback", "off", "--obs", "jsonl",
+                         "--obs-path", stream,
+                         *([] if dev.type == "cuda"
+                           else ["--backend", "cpu"])])
+    summ = json.loads(buf.getvalue().strip().splitlines()[-1])
+    recs = load_jsonl(stream)
+    p99s = [r["gauges"]["serve.ctl.pend.p99_us"] for r in recs
+            if r["kind"] == "metrics"
+            and "serve.ctl.pend.p99_us" in r.get("gauges", {})]
+    if rc != 0 or not p99s:
+        fail(f"18f: serve rc {rc}, {len(p99s)} p99 gauges in the stream")
+    out = {}
+    for label, ceiling in (("below", 0.5 * p99s[-1]),
+                           ("above", 2.0 * max(p99s))):
+        mon = HealthMonitor({"serve_p99_us": ceiling,
+                             "min_solves_for_rates": 1.0})
+        for r in recs:
+            mon.feed(r)
+        out[label] = mon
+        log(f"[diag] 18f serve stream ({summ['requests']} requests, p99 "
+            f"{summ['p99_us']:.0f} us; gauge {p99s[-1]:.0f} us) through "
+            f"the monitor at a ceiling of {ceiling:.0f} us ({label} the "
+            f"p99): {[e['name'] for e in mon.events]}, exit code "
+            f"{mon.exit_code}")
+    if not any(e["name"] == "health.serve_p99_us" and "'pend'" in e["msg"]
+               for e in out["below"].events):
+        fail("18f: health.serve_p99_us did not fire for the controller")
+    if out["above"].events:
+        fail("18f: the monitor fired above the p99")
+    return {"p99_us": p99s[-1]}
+
+
+def diagnostics_phase(dev, problem, cfg, res, build_s: float,
+                      tmp: str) -> dict:
+    """Phase 18: the build's diagnostics on the card (18a-18f above)."""
+    t0 = time.perf_counter()
+    out = {"forced": forced_divergence(dev, tmp),
+           "build": recorded_build(dev, problem, cfg, res, build_s, tmp),
+           "auto_profile": auto_profile_trigger(dev, tmp),
+           "rebuild": recorded_rebuild(dev, cfg, res, tmp),
+           "fleet": fleet_streams(dev, tmp),
+           "serve": serving_health(dev, res, tmp)}
+    log(f"[diag] phase 18 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def diagnostics_only() -> int:
+    """Phase 18 alone, for iterating on the diagnostics on the card: the
+    kernels built, a flagship build standing in for phase 3's, then
+    18a-18f.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.diagnostics_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    problem = make("inverted_pendulum")
+    cfg = PartitionConfig(problem="inverted_pendulum", eps_a=1e-2)
+    t0 = time.perf_counter()
+    res = build_partition(problem, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[main] build {build_s:.1f} s: regions {res.stats['regions']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_diag_") as tmp:
+        diagnostics_phase(dev, problem, cfg, res, build_s, tmp)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4550,6 +5070,12 @@ def main() -> int:
     host.end("phase 17 (pruning, SOC)")
     k1_general["builds"]["pruned"] = (
         k1_pruned["builds"].get("satellite", {}).get("k1"))
+
+    # -- phase 18: the build's diagnostics (recorder, replay, health
+    # monitor, auto-profile trigger, per-process fleet streams) --------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_diag_") as tmp:
+        diagnostics_phase(dev, problem, cfg, res, build_s, tmp)
+    host.end("phase 18 (diagnostics)")
 
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",

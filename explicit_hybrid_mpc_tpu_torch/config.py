@@ -230,11 +230,11 @@ class PartitionConfig:
     obs_path: Optional[str] = None
     # Per-process obs streams (obs/fleet.py): suffix obs_path with
     # .p<process_index>-<pid>, so N processes sharing one configured
-    # path (supervised restart chains, multi-process pjit builds)
+    # path (supervised restart chains, several builds on one card)
     # write N separate streams instead of interleaving one file -- a
     # crashed writer's torn line mid-file would make load_jsonl reject
     # the whole stream.  Readers resolve the bare name transparently;
-    # obs_report/obs_watch --fleet merge the family.
+    # obs.fleet.load_fleet merges the family.
     obs_per_process: bool = False
     # Health-triggered bounded device profiling (obs/profiling.py
     # AutoProfiler): the first CRITICAL in-build health verdict
@@ -244,17 +244,17 @@ class PartitionConfig:
     # the recorder's -- a sick long build self-captures the evidence
     # instead of burning the allocation.  At most one capture per run;
     # ignored while cfg.profile_path runs a manual trace (one active
-    # trace at a time).  The health monitor is not yet ported (ROADMAP
-    # A5), so only an external trigger
-    # (FrontierEngine.trigger_auto_profile) opens a capture today.
+    # trace at a time).  An external driver opens one through
+    # FrontierEngine.trigger_auto_profile.
     auto_profile: bool = False
     # Flight recorder (obs/recorder.py): when True, solver anomalies --
     # cells still feasible-but-unconverged after the two-phase cohort
     # and the rescue pass, simplex rows with no usable bound, device-
     # failure batches, depth-capped uncertified leaves -- are dumped as
     # versioned compressed repro bundles under `recorder_dir`;
-    # scripts/replay_solve.py re-runs a bundle standalone and must
-    # reproduce the converged/diverged mask bit-for-bit.  Works with
+    # `python -m explicit_hybrid_mpc_tpu_torch.obs.replay` re-runs a
+    # bundle standalone and must reproduce the converged/diverged mask
+    # bit-for-bit.  Works with
     # obs='off' too (the recorder's ring is just empty then); every
     # hook is a None-check when disabled.
     obs_recorder: bool = False
@@ -267,8 +267,7 @@ class PartitionConfig:
     # problem_args).  Non-empty AND obs enabled => the frontier engine
     # feeds an in-stream HealthMonitor per step (plus a periodic
     # metrics snapshot) and structured health.* events land in the obs
-    # stream.  scripts/obs_watch.py applies the same schema to a live
-    # stream from outside the process.
+    # stream.  Unknown rule names raise here (rules_from_pairs).
     health_rules: tuple = ()
     # Incremental warm rebuild (partition/rebuild.py): path to a prior
     # build's .tree.pkl or .ckpt.pkl.  When set, build_partition
@@ -415,6 +414,13 @@ class PartitionConfig:
                 raise ValueError(
                     f"shard_index {self.shard_index} out of range for "
                     f"shard_count {self.shard_count}")
+        if self.health_rules:
+            # Validate rule names eagerly: a typo'd rule that silently
+            # never fires defeats the watchdog's purpose.
+            from explicit_hybrid_mpc_tpu_torch.obs.health import (
+                rules_from_pairs)
+
+            rules_from_pairs(self.health_rules)
         for fld, on, item in _UNPORTED:
             if on(getattr(self, fld)):
                 raise NotImplementedError(
@@ -429,9 +435,6 @@ _UNPORTED = (
     ("mesh_devices", lambda v: v is not None,
      "A4: parallel/mesh.py"),
     ("shard_frontier", bool, "A4: partition/shard.py"),
-    ("obs_recorder", bool, "A5: obs/recorder.py"),
-    ("recorder_dir", lambda v: v is not None, "A5: obs/recorder.py"),
-    ("health_rules", bool, "A5: obs/health.py"),
     ("recompile_guard", lambda v: v != "off",
      "A6: analysis/recompile_guard.py"),
 )

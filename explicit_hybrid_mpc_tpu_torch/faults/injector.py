@@ -111,6 +111,9 @@ class FaultInjector:
             time.sleep(spec.hang_s)
             raise InjectedFault(
                 f"injected solve hang ({spec.hang_s}s) at {site}#{n}")
+        if spec.kind == "stall":
+            time.sleep(spec.hang_s)
+            return
         if spec.kind == "crash":
             if self.plan.process_exit:
                 # The SIGKILL stand-in: no cleanup, no atexit, no

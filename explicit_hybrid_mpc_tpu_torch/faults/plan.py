@@ -53,6 +53,12 @@ Kinds:
   set the timeout watchdog fires first; without it the build stalls
   for ``hang_s`` and then recovers via the same failure path (bounded
   either way -- a plan must never be able to hang CI forever).
+- ``stall``: sleep ``hang_s`` then return -- a solve that is slow but
+  comes back (a wedged device that recovers).  Nothing fails, so
+  nothing falls back: the in-build health monitor's stall rule is
+  what sees it (a CUDA build, which never falls back to the CPU, is
+  driven through its auto-profile trigger this way).  The JAX
+  package's plan has no such kind.
 - ``crash``: kill the run at the hook.  ``process_exit=True`` plans
   (the supervised-subprocess mode) call ``os._exit(exit_code)`` --
   no cleanup, no atexit, the closest in-process stand-in for SIGKILL;
@@ -79,7 +85,7 @@ import dataclasses
 import json
 from typing import Optional
 
-KINDS = ("error", "hang", "crash", "corrupt")
+KINDS = ("error", "hang", "stall", "crash", "corrupt")
 
 SITES = (
     "oracle.call", "oracle.dispatch", "oracle.wait", "oracle.fallback",

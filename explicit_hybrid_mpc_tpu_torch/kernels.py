@@ -16,6 +16,7 @@ here runs at import time: importing the package on a machine without
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -72,10 +73,24 @@ def _lib_path(name: str) -> str:
 def build(names=None) -> dict[str, float]:
     """Compile every named kernel whose library is missing, one ``nvcc``
     per source, all started together.  Returns seconds per built
-    kernel; raises KernelError with the compiler output on failure."""
+    kernel; raises KernelError with the compiler output on failure.
+
+    Safe across processes sharing one checkout (several builds started
+    together on one card): the build holds an exclusive lock on
+    ``BUILD_DIR/.lock``, so a second process waits for the first's
+    compile and then loads its libraries instead of compiling them
+    again; each library lands by an atomic rename."""
     names = list(SOURCES if names is None else names)
+    if all(os.path.exists(_lib_path(n)) for n in names):
+        return {}
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names, nvcc)
+
+
+def _build_locked(names: list, nvcc: str) -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:

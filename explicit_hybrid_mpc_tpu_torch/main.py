@@ -45,10 +45,16 @@ device (the explicit controller through the point-location kernel,
 the implicit one through the oracle) and writes PREFIX.sim.json.
 ``--profile DIR`` writes a torch.profiler Chrome trace of the first
 ``--profile-steps`` frontier steps to DIR (CPU activity, plus the
-card's kernels on cuda); ``--auto-profile`` arms the bounded capture of
-obs/profiling.py, which only ``FrontierEngine.trigger_auto_profile``
-opens until the health monitor (its automatic trigger, ROADMAP A5) is
-ported: the command line warns that nothing will open it.
+card's kernels on cuda).  Diagnostics (obs/): ``--health-rule
+NAME=VALUE`` (repeatable, needs ``--obs``) runs the in-build health
+monitor, whose health.* events land in the obs stream;
+``--auto-profile`` arms the bounded capture of obs/profiling.py, which
+the first critical health verdict opens; ``--recorder`` (bundles under
+PREFIX.repro/, or ``--recorder-dir DIR``, which implies it) dumps repro
+bundles of solver anomalies, replayed by ``python -m
+explicit_hybrid_mpc_tpu_torch.obs.replay BUNDLE``; ``--obs-per-process``
+suffixes the obs stream with ``.pI-PID`` so several processes sharing
+one prefix write one stream each (obs/fleet.py merges them).
 
 The JAX package's flags in _UNPORTED_FLAGS exit with "not yet ported"
 and the ROADMAP item that brings them.
@@ -70,10 +76,6 @@ _UNPORTED_FLAGS = {
     "--shard-frontier": "A4 (partition/shard.py)",
     "--shard-dir": "A4 (partition/shard.py)",
     "--shard-timeout": "A4 (partition/shard.py)",
-    "--recorder": "A5 (obs/recorder.py)",
-    "--recorder-dir": "A5 (obs/recorder.py)",
-    "--health-rule": "A5 (obs/health.py)",
-    "--obs-per-process": "A5 (obs/fleet.py)",
     "--recompile-guard": "A6 (analysis/recompile_guard.py)",
 }
 
@@ -206,13 +208,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--obs-path", metavar="FILE", default=None,
                    help="override the obs stream path "
                    "(default PREFIX.obs.jsonl)")
+    p.add_argument("--obs-per-process", action="store_true",
+                   help="suffix the obs stream with .p<index>-<pid> "
+                        "(fleet telemetry): N processes sharing one "
+                        "prefix write N streams instead of interleaving "
+                        "one file; obs.fleet.load_fleet merges them")
     p.add_argument("--auto-profile", action="store_true",
-                   help="bounded profiler capture (obs/profiling.py): "
-                        "--profile-steps frontier steps and a summarized "
-                        "auto_profile JSON bundle, opened by the "
-                        "engine's external trigger; nothing triggers it "
-                        "from the command line until the health monitor "
-                        "is ported (ROADMAP A5)")
+                   help="health-triggered bounded profiling "
+                        "(obs/profiling.py): the first CRITICAL in-build "
+                        "health verdict opens a torch.profiler capture "
+                        "of --profile-steps steps and drops a summarized "
+                        "auto_profile JSON bundle (needs --obs and "
+                        "--health-rule)")
+    p.add_argument("--recorder", action="store_true",
+                   help="flight recorder: dump versioned compressed "
+                        "repro bundles on solver anomalies (diverged "
+                        "cells, simplex stalls, device failures, "
+                        "uncertified leaves); replay them with python -m "
+                        "explicit_hybrid_mpc_tpu_torch.obs.replay")
+    p.add_argument("--recorder-dir", metavar="DIR", default=None,
+                   help="bundle directory (default PREFIX.repro/; "
+                        "implies --recorder)")
+    p.add_argument("--health-rule", action="append", default=[],
+                   metavar="NAME=VALUE",
+                   help="override a streaming health rule (repeatable; "
+                        "see obs.health.DEFAULT_RULES).  Any override "
+                        "activates the in-build watchdog: health.* "
+                        "events land in the obs stream (needs --obs)")
     p.add_argument("--problem-arg", action="append", default=[],
                    metavar="K=V", help="problem constructor overrides, "
                    "e.g. --problem-arg N=5")
@@ -248,6 +270,28 @@ def _parse_problem_args(pairs: list[str]) -> dict:
         except json.JSONDecodeError:
             out[k] = v
     return out
+
+
+def _parse_health_rules(pairs: list[str]) -> tuple:
+    """NAME=VALUE pairs -> cfg.health_rules tuple, with CLI-friendly
+    errors.  Name/value validation is delegated to the ONE validator
+    (obs.health.rules_from_pairs) so the known-rule list can never go
+    stale here."""
+    if not pairs:
+        return ()
+    from explicit_hybrid_mpc_tpu_torch.obs.health import rules_from_pairs
+
+    out = []
+    for kv in pairs:
+        if "=" not in kv:
+            raise SystemExit(f"--health-rule needs NAME=VALUE, got {kv!r}")
+        k, v = kv.split("=", 1)
+        try:
+            rules_from_pairs([(k, float(v))])
+        except ValueError as e:
+            raise SystemExit(f"--health-rule: {e}")
+        out.append((k, float(v)))
+    return tuple(out)
 
 
 def config_from_args(args: argparse.Namespace):
@@ -288,7 +332,14 @@ def config_from_args(args: argparse.Namespace):
         obs=args.obs,
         obs_path=(args.obs_path or f"{prefix}.obs.jsonl"
                   if args.obs != "off" else None),
+        obs_per_process=args.obs_per_process,
         auto_profile=args.auto_profile,
+        # --recorder-dir implies --recorder: naming a bundle directory
+        # and silently recording nothing would be the worst reading.
+        obs_recorder=args.recorder or bool(args.recorder_dir),
+        recorder_dir=(args.recorder_dir or f"{prefix}.repro"
+                      if args.recorder or args.recorder_dir else None),
+        health_rules=_parse_health_rules(args.health_rule),
         solve_timeout_s=args.solve_timeout,
         fault_plan=args.fault_plan,
         rebuild_from=args.rebuild_from,
@@ -364,15 +415,12 @@ def main(argv: list[str] | None = None) -> int:
             raise SystemExit(f"{flag}: not yet ported to the torch package "
                              f"(ROADMAP {item})")
     args = build_parser().parse_args(argv)
-    if args.auto_profile:
-        # The JAX package's automatic trigger is the health monitor,
-        # whose rules the port still refuses (ROADMAP A5): from the
-        # command line the armed profiler is never opened.
-        print("--auto-profile: armed, but nothing in a command-line "
-              "build triggers it until the health monitor is ported "
-              "(ROADMAP A5: obs/health.py); a caller that drives "
-              "FrontierEngine opens it with trigger_auto_profile(reason)",
-              file=sys.stderr)
+    if args.health_rule and args.obs == "off":
+        # The in-build watchdog lives on the obs stream; configuring
+        # rules that can never fire is the exact silent failure the
+        # rule-name validation exists to prevent.
+        raise SystemExit("--health-rule requires --obs jsonl|full "
+                         "(the watchdog evaluates the obs stream)")
     if rebuild_cmd and not args.rebuild_from:
         raise SystemExit("rebuild: --from PRIOR (a .tree.pkl or "
                          ".ckpt.pkl) is required")

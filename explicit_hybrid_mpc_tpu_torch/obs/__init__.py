@@ -22,9 +22,15 @@ device_frac, backlog), oracle/{oracle,bnb}.py (solve-time histograms,
 IPM iteration counters, the serial baseline's node counters),
 obs/host.py (competing-CPU gauges), obs/reqtrace.py (the serving
 schedulers' per-request phase decomposition and host forensics) and
-obs/profiling.py (torch.profiler capture summaries).  The diagnostics
-built on top in the JAX package (flight recorder, health watchdog, SLO
-engine, fleet merging) are not yet ported (ROADMAP A5).
+obs/profiling.py (torch.profiler capture summaries).
+
+Diagnostics built on top: obs/recorder.py (flight recorder -- repro
+bundles on solver anomalies, replayed standalone by obs/replay.py),
+obs/health.py (streaming watchdog -- health.* events, fed in-build by
+the frontier engine; its first critical verdict opens the armed
+auto-profile capture) and obs/fleet.py (per-process streams merged
+into one view).  The SLO engine and demand telemetry are not yet ported
+(ROADMAP A5: obs/slo.py, obs/demand.py).
 """
 
 from __future__ import annotations
@@ -32,11 +38,15 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+from explicit_hybrid_mpc_tpu_torch.obs.health import (  # noqa: F401
+    DEFAULT_RULES, HealthMonitor, rules_from_pairs)
 from explicit_hybrid_mpc_tpu_torch.obs.host import (  # noqa: F401
     ContentionMonitor)
 from explicit_hybrid_mpc_tpu_torch.obs.metrics import (  # noqa: F401
     DEFAULT_LATENCY_BOUNDS, Counter, Gauge, Histogram, MetricsRegistry,
     histogram_row, quantile)
+from explicit_hybrid_mpc_tpu_torch.obs.recorder import (  # noqa: F401
+    BUNDLE_VERSION, FlightRecorder, load_bundle)
 from explicit_hybrid_mpc_tpu_torch.obs.sink import (  # noqa: F401
     SCHEMA_VERSION, JsonlSink, json_default, load_jsonl)
 from explicit_hybrid_mpc_tpu_torch.obs.trace import Tracer  # noqa: F401
@@ -75,10 +85,10 @@ class Obs:
                  per_process: bool = False):
         """per_process: suffix `path` with ``.pI-PID`` (obs/fleet.py)
         so N processes sharing one configured stream path -- a
-        supervised restart chain, a multi-process pjit build, co-host
+        supervised restart chain, several builds on one card, co-host
         serve replicas -- never interleave one file; readers resolve
-        the bare name (sink.load_jsonl) and fleet tooling
-        (obs_report/obs_watch --fleet) merges the family."""
+        the bare name (sink.load_jsonl) and obs.fleet.load_fleet merges
+        the family."""
         if mode not in MODES:
             raise ValueError(f"unknown obs mode {mode!r} "
                              f"(expected one of {MODES})")
@@ -86,9 +96,9 @@ class Obs:
         self.enabled = mode != "off"
         if self.enabled:
             if path and per_process:
-                raise NotImplementedError(
-                    "per-process obs streams are not yet ported to the "
-                    "torch package (ROADMAP A5: obs/fleet.py)")
+                from explicit_hybrid_mpc_tpu_torch.obs import fleet
+
+                path = fleet.per_process_path(path)
             self.sink = JsonlSink(path, echo=echo, base_t=base_t,
                                   schema_meta=True)
             self.metrics = MetricsRegistry()

@@ -7,8 +7,9 @@ can be minutes apart in real time, so N per-process streams cannot be
 merged on ``t`` alone.  The identity record every schema-v2 sink
 stamps (obs/sink.py) therefore carries a **clock anchor**: the wall
 clock (``time.time``) and the stream's own ``t``, captured at the same
-instant, so fleet tooling can map any record's stream time onto a
-shared wall axis (the merging itself is not yet ported, ROADMAP A5).
+instant.  ``to_wall(identity, t)`` maps any record's stream time onto
+the shared wall axis, which is what ``obs/fleet.py`` sorts merged
+fleet views by.
 
 Caveat the reader must keep in mind: wall clocks across HOSTS agree
 only as well as NTP does (typically ms, occasionally worse).  Within
@@ -85,3 +86,21 @@ def identity() -> dict:
             "pid": os.getpid(),
             "wall_time": time.time(),
             **coords}
+
+
+def wall_offset(identity_rec: dict) -> float | None:
+    """Stream-t -> wall-clock offset from an identity record, i.e.
+    ``wall = offset + t`` for every record of that stream.  None when
+    the record carries no anchor (schema-v1 legacy streams)."""
+    w = identity_rec.get("wall_time") if identity_rec else None
+    t = identity_rec.get("t") if identity_rec else None
+    if isinstance(w, (int, float)) and isinstance(t, (int, float)):
+        return float(w) - float(t)
+    return None
+
+
+def to_wall(identity_rec: dict, t: float) -> float | None:
+    """Absolute wall time of a record with stream time `t`, or None
+    for anchor-less legacy streams."""
+    off = wall_offset(identity_rec)
+    return None if off is None else off + float(t)

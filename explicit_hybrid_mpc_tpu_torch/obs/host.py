@@ -67,6 +67,11 @@ class ContentionMonitor:
         try:
             with open(self._stat_path) as f:
                 vals = [int(x) for x in f.readline().split()[1:]]
+            if not any(vals):
+                # A procfs that counts no CPU time at all (some
+                # container hosts): contention is not measured, and no gauge
+                # must read it as an uncontended 0.
+                return None
             busy = ContentionMonitor._busy_jiffies(vals)
             with open(self._self_stat_path) as f:
                 st = f.read().rsplit(")", 1)[1].split()

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import atexit
 import json
+import os
 import sys
 import threading
 import time
@@ -172,7 +173,27 @@ def load_jsonl(path: str, tolerant_tail: bool = True) -> list[dict]:
     stream matters most.  Corruption anywhere EARLIER still raises: a
     mangled middle means the file itself is damaged, not merely cut
     short.
+
+    Bare-name resolution: a per-process writer (``Obs(per_process=
+    True)`` / ``cfg.obs_per_process``) suffixes the configured path with
+    ``.pI-PID``, so the bare name a reader was handed may not exist.
+    When exactly one suffixed sibling does, it is read transparently;
+    several siblings raise, naming the fleet reader
+    (obs.fleet.load_fleet), instead of silently picking one shard's
+    stream.
     """
+    if not os.path.exists(path):
+        from explicit_hybrid_mpc_tpu_torch.obs import fleet
+
+        sibs = fleet.sibling_streams(path)
+        if len(sibs) == 1:
+            path = sibs[0]
+        elif sibs:
+            raise FileNotFoundError(
+                f"{path} does not exist but {len(sibs)} per-process "
+                f"streams do ({', '.join(os.path.basename(s) for s in sibs[:4])}"
+                f"{', ...' if len(sibs) > 4 else ''}): merge them with "
+                "obs.fleet.load_fleet instead of reading one shard")
     recs: list[dict] = []
     bad_at = None
     with open(path) as f:

@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from explicit_hybrid_mpc_tpu_torch import device as device_lib
 from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
 
 #: IPM leg dispatch choices (cfg.ipm_kernel / Oracle(ipm_kernel=...)).
@@ -85,13 +86,15 @@ def _bmtv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(v.unsqueeze(-2), M).squeeze(-2)
 
 
-def _run_leg(Q, q, A, b, start, n_iter: int):
+def _run_leg(Q, q, A, b, start, n_iter: int, plain: bool = False):
     """One fixed-iteration leg; ipm_leg dispatches on the tensors'
-    device (the CUDA kernel or its plain version)."""
+    device (the CUDA kernel or its plain version), or the plain version
+    wherever the tensors are when `plain`."""
     if n_iter <= 0:
         return start
-    return ipm_leg.ipm_leg(*(t.contiguous() for t in (Q, q, A, b, *start)),
-                           n_iter=n_iter)
+    leg = ipm_leg.ipm_leg_torch if plain else ipm_leg.ipm_leg
+    return leg(*(t.contiguous() for t in (Q, q, A, b, *start)),
+               n_iter=n_iter)
 
 
 def schedule_iters(n_f32: int, n_f64: int) -> int:
@@ -107,8 +110,8 @@ def cho_solve(L: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 def qp_solve(Q: torch.Tensor, q: torch.Tensor, A: torch.Tensor,
              b: torch.Tensor, n_iter: int = 30, tol: float = 1e-8,
-             n_f32: int = 0, warm_start: tuple | None = None
-             ) -> QPSolution:
+             n_f32: int = 0, warm_start: tuple | None = None,
+             plain_leg: bool = False) -> QPSolution:
     """Solve a batch of dense convex QPs with Mehrotra predictor-corrector.
 
     Shapes: Q (K,nz,nz) PD, q (K,nz), A (K,nc,nz), b (K,nc), one dtype
@@ -202,13 +205,14 @@ def qp_solve(Q: torch.Tensor, q: torch.Tensor, A: torch.Tensor,
     if n_f32 > 0:
         f32 = torch.float32
         warm32 = _run_leg(Q.to(f32), q.to(f32), A.to(f32), b.to(f32),
-                          tuple(c.to(f32) for c in start), n_f32)
+                          tuple(c.to(f32) for c in start), n_f32,
+                          plain_leg)
         warm = tuple(c.to(dtype) for c in warm32)
         m_warm = merit(warm)
         f32_ok = torch.isfinite(m_warm) & (m_warm <= merit(start))
         start = pick(f32_ok, warm, start)
 
-    z, s, lam = _run_leg(Q, q, A, b, start, n_iter)
+    z, s, lam = _run_leg(Q, q, A, b, start, n_iter, plain_leg)
 
     # Back to original units for the returned solution and the KKT
     # residual checks (tolerances must mean what callers think they mean).
@@ -235,12 +239,32 @@ def qp_solve(Q: torch.Tensor, q: torch.Tensor, A: torch.Tensor,
 
 
 def solve_mask(Q, q, A, b, n_iter: int = 30, n_f32: int = 0,
-               tol: float = 1e-8):
-    """Host-level convergence probe over a batch of raw QPs (numpy or
-    tensors; tensors keep their device, numpy runs on the CPU): returns
-    numpy ``(converged, feasible, rp)``."""
-    Q, q, A, b = (torch.as_tensor(x) for x in (Q, q, A, b))
-    sol = qp_solve(Q, q, A, b, n_iter=n_iter, tol=tol, n_f32=n_f32)
+               tol: float = 1e-8, device="cuda", kernel: str = "auto"):
+    """Batched host-level convergence probe: run qp_solve over a batch
+    of raw QPs on `device` (default the card; 'cpu' on request) and
+    return numpy ``(converged, feasible, rp)``.
+
+    The flight recorder's kernel-only replay entry (obs/replay.py
+    --kernel-only): a repro bundle carries the exact per-cell matrices,
+    and this answers "what does the bare kernel say about these QPs
+    under this schedule" without the Oracle pipeline (two-phase
+    cohorts, rescue, warm gating) in the way.
+
+    kernel: 'auto' runs the device's leg (the CUDA kernel on the card,
+    its plain version on the CPU); 'cuda' insists on the kernel (raises
+    off the card); 'torch' runs the plain version on either device --
+    the bisection step between the kernel and its plain version.
+    Shapes: Q (K, nz, nz), q (K, nz), A (K, nc, nz), b (K, nc)."""
+    if kernel not in KERNEL_TIERS:
+        raise ValueError(f"unknown kernel {kernel!r} "
+                         f"(expected one of {KERNEL_TIERS})")
+    dev = device_lib.resolve(device)
+    if kernel == "cuda" and dev.type != "cuda":
+        raise ValueError("kernel='cuda' runs on the card; this probe "
+                         f"was asked for {dev}")
+    Q, q, A, b = (torch.as_tensor(x).to(dev) for x in (Q, q, A, b))
+    sol = qp_solve(Q, q, A, b, n_iter=n_iter, tol=tol, n_f32=n_f32,
+                   plain_leg=kernel == "torch")
     return (sol.converged.cpu().numpy(), sol.feasible.cpu().numpy(),
             sol.rp.cpu().numpy())
 

@@ -380,6 +380,12 @@ class Oracle:
         # iteration counters flow through it.  NOOP by default; the
         # frontier engine re-points it at the build's own handle.
         self.obs = obs if obs is not None else obs_lib.NOOP
+        # Flight recorder (obs/recorder.py): None by default; the
+        # frontier engine points it at the build's recorder when
+        # cfg.obs_recorder is set.  When live, cells that finish the
+        # full pipeline feasible-but-unconverged and simplex rows with
+        # no usable bound are dumped as replayable repro bundles.
+        self.recorder = None
         if precision not in ("f64", "mixed"):
             raise ValueError(f"unknown precision {precision!r}")
         self.precision = precision
@@ -740,6 +746,83 @@ class Oracle:
         cap = 1 << max(3, (budget // nd).bit_length() - 1)
         return min(self.points_cap or 2048, 2048, cap)
 
+    # -- flight-recorder capture (obs/recorder.py) -------------------------
+
+    # Per-bundle cell cap: a storm of anomalies must produce a usable
+    # repro, not a multi-GB artifact.
+    MAX_CAPTURE_CELLS = 64
+
+    def _capture_pairs(self, thetas: np.ndarray, ds: np.ndarray,
+                       conv: np.ndarray, feas: np.ndarray, V: np.ndarray,
+                       warm=None, trigger: str = "diverged_cells") -> None:
+        """Dump (point, delta) cells that are feasible but unconverged
+        AFTER the full pipeline into a repro bundle (no-op without a
+        recorder or without anomalies).  Infeasible commutations are
+        excluded by construction: they can never converge and are the
+        normal, expected unconverged population."""
+        rec = self.recorder
+        if rec is None:
+            return
+        bad = np.asarray(feas, dtype=bool) & ~np.asarray(conv, dtype=bool)
+        if not bad.any():
+            return
+        try:  # diagnostics must never break the solve it observes
+            from explicit_hybrid_mpc_tpu_torch.obs import recorder as rec_lib
+
+            idx = np.nonzero(bad)[0][:self.MAX_CAPTURE_CELLS]
+            arrays = {**rec_lib.canonical_arrays(self.can),
+                      "thetas": np.asarray(thetas)[idx],
+                      "delta_idx": np.asarray(ds, dtype=np.int64)[idx],
+                      "obs_conv": np.asarray(conv, dtype=bool)[idx],
+                      "obs_feas": np.asarray(feas, dtype=bool)[idx],
+                      "obs_V": np.asarray(V, dtype=np.float64)[idx]}
+            if warm is not None:
+                zw, sw, lw, hw = warm
+                arrays.update(warm_z=np.asarray(zw)[idx],
+                              warm_s=np.asarray(sw)[idx],
+                              warm_lam=np.asarray(lw)[idx],
+                              warm_has=np.asarray(hw, dtype=bool)[idx])
+            rec.dump(trigger, arrays,
+                     {"kind": "pairs",
+                      "oracle": rec_lib.oracle_meta(self),
+                      "backend": self.backend,
+                      "n_anomalous": int(bad.sum()),
+                      "captured": int(idx.size)})
+        except Exception as e:  # full disk, bad permissions: counted
+            rec.capture_error("oracle.pairs", e)
+
+    def _capture_simplex(self, Ms: np.ndarray, ds: np.ndarray,
+                         vmin: np.ndarray, feas_sw: np.ndarray) -> None:
+        """Dump simplex rows whose stage-2 bound came back -inf (both
+        joint solves stalled: certification is conservatively blocked
+        and the cell will split -- the exact 'why did this region
+        subdivide forever' repro)."""
+        rec = self.recorder
+        if rec is None:
+            return
+        bad = ~np.isfinite(vmin) & (vmin < 0)
+        if not bad.any():
+            return
+        try:  # diagnostics must never break the solve it observes
+            from explicit_hybrid_mpc_tpu_torch.obs import recorder as rec_lib
+
+            idx = np.nonzero(bad)[0][:self.MAX_CAPTURE_CELLS]
+            rec.dump("simplex_stall",
+                     {**rec_lib.canonical_arrays(self.can),
+                      "bary_Ms": np.asarray(Ms)[idx],
+                      "delta_idx": np.asarray(ds, dtype=np.int64)[idx],
+                      "obs_vmin": np.asarray(vmin,
+                                             dtype=np.float64)[idx],
+                      "obs_feas_sw": np.asarray(feas_sw,
+                                                dtype=bool)[idx]},
+                     {"kind": "simplex",
+                      "oracle": rec_lib.oracle_meta(self),
+                      "backend": self.backend,
+                      "n_anomalous": int(bad.sum()),
+                      "captured": int(idx.size)})
+        except Exception as e:  # same contract as _capture_pairs
+            rec.capture_error("oracle.simplex", e)
+
     def solve_vertices(self, thetas: np.ndarray) -> VertexSolution:
         """Solve the full enumeration at each point; pads the point batch
         to power-of-two buckets (bounded by max_points_per_call, larger
@@ -822,7 +905,17 @@ class Oracle:
                             n * ipm.schedule_iters(self.point_n_f32,
                                                    self.point_n_iter),
                             f64)
-        return VertexSolution(*self._finalize(parts), lam=lam, s=s)
+        sol = VertexSolution(*self._finalize(parts), lam=lam, s=s)
+        if self.recorder is not None:
+            # Grid cells replay bit-for-bit through the pair path: the
+            # per-cell programs share schedules, and the cold start of a
+            # gated-but-invalid warm tuple is bitwise the ungated cold
+            # start.
+            pt, dsb = np.nonzero(sol.feas & ~sol.conv)
+            if pt.size:
+                self._capture_pairs(thetas[pt], dsb, sol.conv[pt, dsb],
+                                    sol.feas[pt, dsb], sol.V[pt, dsb])
+        return sol
 
     def _rescue_grid(self, thetas: np.ndarray, parts: list,
                      lam: np.ndarray | None = None,
@@ -1051,7 +1144,11 @@ class Oracle:
                         time.perf_counter() - t0,
                         self.n_iters_f32 + self.n_iters_f64 - it0,
                         self.n_iters_f64 - f64_0)
-        return np.concatenate(outs), np.concatenate(feas_sw)
+        out_all = np.concatenate(outs)
+        feas_all = np.concatenate(feas_sw)
+        if self.recorder is not None:
+            self._capture_simplex(bary_Ms, delta_idx, out_all, feas_all)
+        return out_all, feas_all
 
     def _elastic_min_into(self, Ms: np.ndarray, ds: np.ndarray,
                           idx: np.ndarray, out: np.ndarray,
@@ -1193,7 +1290,11 @@ class Oracle:
                     (zw, sw, lw, hw), lo, lo + cap, tj.shape[0] - Kc)
                 chunks.append(
                     (self._solve_pairs_ws(tj, dj, zj, sj, lj, hj), Kc))
-            return ("ws_chunks", thetas, delta_idx, chunks, hw)
+            # The warm arrays ride the handle so the flight recorder's
+            # wait-time capture can bundle the EXACT starts the failing
+            # cells were given (references only -- no copies).
+            return ("ws_chunks", thetas, delta_idx, chunks, hw,
+                    (zw, sw, lw))
         for lo in range(0, K, cap):
             tj, dj, Kc = self._pad_pairs(thetas[lo:lo + cap],
                                          delta_idx[lo:lo + cap])
@@ -1209,14 +1310,28 @@ class Oracle:
         """wait_pairs returning (V, conv, grad, u0, z, lam, s); lam/s
         are the final duals/slacks on full-output paths, None on the
         others."""
+        out = self._wait_pairs_all(handle)
+        return out[:2] + out[3:]
+
+    def solve_pairs_masks(self, thetas: np.ndarray, delta_idx: np.ndarray,
+                          warm=None):
+        """(V, conv, feas) of solve_pairs_full's pipeline: the values and
+        masks a flight-recorder pairs bundle holds, for its replay."""
+        out = self._wait_pairs_all(
+            self.dispatch_pairs(thetas, delta_idx, warm=warm))
+        return out[0], out[1], out[2]
+
+    def _wait_pairs_all(self, handle):
+        """The pair wait: (V, conv, feas, grad, u0, z, lam, s)."""
         kind = handle[0]
         if kind == "empty":
             nt, nu, nz = self.can.n_theta, self.can.n_u, self.can.nz
-            return (np.zeros(0), np.zeros(0, dtype=bool), np.zeros((0, nt)),
+            return (np.zeros(0), np.zeros(0, dtype=bool),
+                    np.zeros(0, dtype=bool), np.zeros((0, nt)),
                     np.zeros((0, nu)), np.zeros((0, nz)), None, None)
         t0 = time.perf_counter()
         if kind == "ws_chunks":
-            _, thetas, delta_idx, chunks, hw = handle
+            _, thetas, delta_idx, chunks, hw, (zw_in, sw_in, lw_in) = handle
             parts = [np.concatenate([_np(out[k])[:Kc]
                                      for out, Kc in chunks])
                      for k in range(10)]
@@ -1259,7 +1374,11 @@ class Oracle:
             self._iters(K * self.point_n_f32, f64, K * self.point_n_iter)
             self._obs_batch("point", K, time.perf_counter() - t0,
                             K * self.point_n_f32 + f64, f64)
-            return np.where(conv, V, _INF), conv, grad, u0, z, lam, s
+            Vout = np.where(conv, V, _INF)
+            if self.recorder is not None:
+                self._capture_pairs(thetas, delta_idx, conv, feas, Vout,
+                                    warm=(zw_in, sw_in, lw_in, hw))
+            return Vout, conv, feas, grad, u0, z, lam, s
         _, thetas, delta_idx, chunks = handle
         parts = [np.concatenate([_np(out[k])[:Kc] for out, Kc in chunks])
                  for k in range(6)]
@@ -1279,7 +1398,10 @@ class Oracle:
         self._obs_batch("point", K, time.perf_counter() - t0,
                         K * ipm.schedule_iters(self.point_n_f32,
                                                self.point_n_iter), f64)
-        return np.where(conv, V, _INF), conv, grad, u0, z, None, None
+        Vout = np.where(conv, V, _INF)
+        if self.recorder is not None:
+            self._capture_pairs(thetas, delta_idx, conv, feas, Vout)
+        return Vout, conv, feas, grad, u0, z, None, None
 
     # -- fixed-commutation point solve (the semi-explicit ONLINE stage) ----
 

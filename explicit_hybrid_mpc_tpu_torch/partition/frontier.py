@@ -355,18 +355,40 @@ class FrontierEngine:
         # health monitor -- the auto-profile trigger.  Updated after
         # checkpoints too (a slow checkpoint is not a stall).
         self._last_step_end: float | None = None
-        # The flight recorder, in-build health monitor and recompile
-        # sentinel are not yet ported (ROADMAP A5/A6; PartitionConfig
-        # rejects their knobs): every hook below is a None-test.
         self.recorder = None
+        # recorder_dir implies obs_recorder at EVERY entry point (the
+        # CLI applies the same rule): naming a bundle directory while
+        # silently recording nothing would be the worst reading.
+        if getattr(self.cfg, "obs_recorder", False) \
+                or getattr(self.cfg, "recorder_dir", None):
+            from explicit_hybrid_mpc_tpu_torch.obs.recorder import (
+                FlightRecorder)
+
+            out_dir = (getattr(self.cfg, "recorder_dir", None)
+                       or os.path.join("artifacts", "repro"))
+            self.recorder = FlightRecorder(out_dir, obs=self.obs)
+            # The sink tap feeds the recorder's ring so every bundle
+            # carries the obs records leading up to the anomaly.
+            if (self.obs.enabled and self.obs.sink is not None
+                    and self.obs.sink.tap is None):
+                self.obs.sink.tap = self.recorder.note
+            if getattr(self.oracle, "recorder", None) is None:
+                self.oracle.recorder = self.recorder
         self._health = None
+        rules = getattr(self.cfg, "health_rules", ())
+        if self.obs.enabled and rules:
+            from explicit_hybrid_mpc_tpu_torch.obs.health import (
+                HealthMonitor, rules_from_pairs)
+
+            self._health = HealthMonitor(rules_from_pairs(rules),
+                                         sink=self.obs.sink)
         # Bounded profiler capture (cfg.auto_profile; obs/profiling.py):
         # armed here, triggered by the first critical health verdict
-        # (_poll_auto_profile; none until the health monitor is ported)
-        # or an external driver (trigger_auto_profile).  Mutually
-        # exclusive with a manual cfg.profile_path trace: one profiler
-        # runs at a time, and the manual capture IS the evidence the
-        # auto-capture exists to produce.
+        # (_poll_auto_profile) or an external driver
+        # (trigger_auto_profile).  Mutually exclusive with a manual
+        # cfg.profile_path trace: one profiler runs at a time, and the
+        # manual capture IS the evidence the auto-capture exists to
+        # produce.
         self._auto_prof = None
         if getattr(self.cfg, "auto_profile", False) \
                 and not self.cfg.profile_path:
@@ -396,6 +418,126 @@ class FrontierEngine:
         if self._health is not None:
             self._health.feed(rec or {"kind": "event",
                                       "name": "build.device_failure"})
+
+    def _capture(self, site: str, fn, *args) -> None:
+        """Run one recorder capture; a capture that raises never breaks
+        the build, and is counted (recorder.capture_errors) instead."""
+        try:
+            fn(*args)
+        except Exception as e:  # diagnostics must never break the build
+            self.recorder.capture_error(site, e)
+
+    def _capture_uncertified(self, node: int, sd, res) -> None:
+        """Repro bundle for a depth-capped UNcertified leaf: the cell
+        geometry plus every vertex fact the certificate read
+        (certify.cell_snapshot) and the canonical problem, so the
+        replay can re-solve the vertices and re-run stage 1
+        standalone."""
+        from explicit_hybrid_mpc_tpu_torch.obs import recorder as rec_lib
+
+        self.recorder.dump(
+            "uncertified_leaf",
+            {**rec_lib.canonical_arrays(self.oracle.can),
+             **certify.cell_snapshot(sd)},
+            {"kind": "cell",
+             "oracle": rec_lib.oracle_meta(self.oracle),
+             "backend": self.oracle.backend,
+             "node": int(node), "depth": int(self.tree.depth[node]),
+             "gap": float(res.gap),
+             "eps_a": self.cfg.eps_a, "eps_r": self.cfg.eps_r})
+
+    # Device-failure bundles keep the whole failed batch (the INPUT is
+    # the repro), but bounded: beyond this many rows the bundle is a
+    # disk hazard, not a repro.
+    _MAX_FAILURE_ROWS = 4096
+
+    def _capture_device_failure(self, kind: str, args: tuple, out,
+                                err: str) -> None:
+        """Bundle a device-failed batch AFTER its CPU-twin re-solve (so
+        the observed masks ride along): the exact batch that broke the
+        device, replayable on any host."""
+        from explicit_hybrid_mpc_tpu_torch.obs import recorder as rec_lib
+
+        cap = self._MAX_FAILURE_ROWS
+        arrays = dict(rec_lib.canonical_arrays(self.oracle.can))
+        meta = {"oracle": rec_lib.oracle_meta(self.oracle),
+                "backend": self.oracle.backend, "error": err[:500]}
+        if kind == "vertices":
+            sol = out
+            arrays.update(thetas=np.asarray(args[0])[:cap],
+                          obs_conv=np.asarray(sol.conv, dtype=bool)[:cap],
+                          obs_feas=np.asarray(sol.feas, dtype=bool)[:cap],
+                          obs_V=np.asarray(sol.V, dtype=np.float64)[:cap])
+            meta["kind"] = "vertices"
+        else:  # pairs / pairs_full
+            arrays.update(thetas=np.asarray(args[0])[:cap],
+                          delta_idx=np.asarray(args[1],
+                                               dtype=np.int64)[:cap],
+                          obs_V=np.asarray(out[0], dtype=np.float64)[:cap],
+                          obs_conv=np.asarray(out[1], dtype=bool)[:cap])
+            if kind == "pairs_full" and args[2] is not None:
+                zw, sw, lw, hw = args[2]
+                arrays.update(warm_z=np.asarray(zw)[:cap],
+                              warm_s=np.asarray(sw)[:cap],
+                              warm_lam=np.asarray(lw)[:cap],
+                              warm_has=np.asarray(hw, dtype=bool)[:cap])
+            meta["kind"] = "pairs"
+        self.recorder.dump("device_failure", arrays, meta)
+
+    def _capture_oracle_failure(self, method: str, args: tuple, out,
+                                err: str) -> None:
+        """Device-failure bundle for the synchronous stage-2 calls
+        (_oracle_call): simplex-batch inputs + the twin's observed
+        outputs."""
+        from explicit_hybrid_mpc_tpu_torch.obs import recorder as rec_lib
+
+        cap = self._MAX_FAILURE_ROWS
+        arrays = dict(rec_lib.canonical_arrays(self.oracle.can))
+        arrays.update(bary_Ms=np.asarray(args[0])[:cap],
+                      delta_idx=np.asarray(args[1], dtype=np.int64)[:cap])
+        meta = {"oracle": rec_lib.oracle_meta(self.oracle),
+                "backend": self.oracle.backend, "error": err[:500]}
+        if method == "solve_simplex_min":
+            arrays.update(obs_vmin=np.asarray(out[0],
+                                              dtype=np.float64)[:cap],
+                          obs_feas_sw=np.asarray(out[1],
+                                                 dtype=bool)[:cap])
+            meta["kind"] = "simplex"
+        elif method == "simplex_feasibility":
+            arrays.update(obs_t=np.asarray(out[0],
+                                           dtype=np.float64)[:cap],
+                          obs_feas_sw=np.asarray(out[1],
+                                                 dtype=bool)[:cap],
+                          obs_infeas=np.asarray(out[2],
+                                                dtype=bool)[:cap])
+            meta["kind"] = "simplex_feas"
+        else:
+            return
+        self.recorder.dump("device_failure", arrays, meta)
+
+    def _capture_quarantine(self, kind: str, args: tuple,
+                            err: BaseException | None) -> None:
+        """Repro bundle for a quarantined batch: the exact inputs every
+        recovery attempt failed on (the replay re-solves them
+        standalone -- the poison-cell triage entry point)."""
+        from explicit_hybrid_mpc_tpu_torch.obs import recorder as rec_lib
+
+        cap = self._MAX_FAILURE_ROWS
+        arrays = dict(rec_lib.canonical_arrays(self.oracle.can))
+        a0 = np.asarray(args[0])[:cap]
+        if kind in ("vertices", "pairs", "pairs_full"):
+            arrays["thetas"] = a0
+        else:
+            arrays["bary_Ms"] = a0
+        if len(args) > 1 and args[1] is not None:
+            arrays["delta_idx"] = np.asarray(args[1],
+                                             dtype=np.int64)[:cap]
+        self.recorder.dump(
+            "quarantine", arrays,
+            {"kind": "quarantine", "query": kind,
+             "oracle": rec_lib.oracle_meta(self.oracle),
+             "backend": self.oracle.backend,
+             "error": repr(err)[:500] if err else None})
 
     # -- device-failure fallback (SURVEY.md section 6.3) -------------------
 
@@ -915,6 +1057,15 @@ class FrontierEngine:
                 last = e
                 continue
             self.oracle.fold_stats(fb, before)
+            if err is not None and self.recorder is not None:
+                if kind in ("vertices", "pairs", "pairs_full"):
+                    self._capture("frontier.device_failure",
+                                  self._capture_device_failure, kind,
+                                  args, out, repr(err))
+                else:
+                    self._capture("frontier.device_failure",
+                                  self._capture_oracle_failure, kind,
+                                  args, out, repr(err))
             return out
         return self._quarantine(kind, args, last)
 
@@ -969,6 +1120,9 @@ class FrontierEngine:
         if self._health is not None:
             self._health.feed(rec or {"kind": "event",
                                       "name": "faults.quarantine"})
+        if self.recorder is not None:
+            self._capture("frontier.quarantine", self._capture_quarantine,
+                          kind, args, err)
         return out
 
     def _gather_batch(self, nodes: list[int]) -> tuple[dict, tuple]:
@@ -1304,6 +1458,9 @@ class FrontierEngine:
                     # UNcertified best-effort leaf, flag it in stats.
                     self.n_uncertified += 1
                     sd = sds[n]
+                    if self.recorder is not None:
+                        self._capture("frontier.uncertified_leaf",
+                                      self._capture_uncertified, n, sd, res)
                     d = certify.best_feasible_candidate(sd)
                     if d is not None:
                         self.tree.set_leaf(n, LeafData(

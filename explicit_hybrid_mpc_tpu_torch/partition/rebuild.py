@@ -309,6 +309,29 @@ def _dispatch_sweep(eng: FrontierEngine, plan: dict):
     return sol, pair_out
 
 
+def _capture_recert(eng: FrontierEngine, node: int, sd, delta_idx: int,
+                    gap: float, vmin: np.ndarray | None) -> None:
+    """Repro bundle for an INVALIDATED stored-delta re-certification
+    (recorder on): cell geometry + certification snapshot + the stage-2
+    bounds the verdict consumed, replayable standalone by obs/replay.py
+    (kind='recert')."""
+    from explicit_hybrid_mpc_tpu_torch.obs import recorder as rec_lib
+
+    nd = eng.oracle.can.n_delta
+    arrays = {**rec_lib.canonical_arrays(eng.oracle.can),
+              **certify.cell_snapshot(sd)}
+    arrays["recert_vmin"] = (np.full(nd, np.nan) if vmin is None
+                             else np.asarray(vmin, dtype=np.float64))
+    eng.recorder.dump(
+        "recert_invalidated", arrays,
+        {"kind": "recert",
+         "oracle": rec_lib.oracle_meta(eng.oracle),
+         "backend": eng.oracle.backend,
+         "node": int(node), "delta_idx": int(delta_idx),
+         "gap": float(gap) if np.isfinite(gap) else None,
+         "eps_a": eng.cfg.eps_a, "eps_r": eng.cfg.eps_r})
+
+
 def warm_rebuild(problem, cfg: PartitionConfig, prior,
                  oracle: Oracle | None = None,
                  obs: "obs_lib.Obs | None" = None,
@@ -525,9 +548,9 @@ def warm_rebuild(problem, cfg: PartitionConfig, prior,
                 if res.status == "certified":
                     keep(node)
                 elif res.status == "split":
-                    # (The JAX package dumps a flight-recorder bundle of
-                    # the invalidated leaf here; the recorder is not
-                    # ported -- PartitionConfig refuses obs_recorder.)
+                    if eng.recorder is not None:
+                        eng._capture("rebuild.recert", _capture_recert,
+                                     eng, node, sd, d, res.gap, None)
                     invalidate(node)
                 else:  # pending: stage-2 bounds needed
                     pending[node] = res
@@ -679,7 +702,13 @@ def warm_rebuild(problem, cfg: PartitionConfig, prior,
                     # this node and its children), and exact leaf
                     # bounds are inherited facts exactly like step()'s
                     # fresh results (-inf stalls are never stored,
-                    # matching step()).  (No recorder bundle: see above.)
+                    # matching step()).
+                    if eng.recorder is not None:
+                        vmin_vec = np.full(nd, np.nan)
+                        for dp, v in vm.items():
+                            vmin_vec[dp] = v
+                        eng._capture("rebuild.recert", _capture_recert,
+                                     eng, nn, sds[nn], d, np.inf, vmin_vec)
                     invalidate(nn, {dp: v for dp, v in vm.items()
                                     if v != -np.inf})
 

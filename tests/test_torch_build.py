@@ -133,13 +133,37 @@ def test_cli_builds_and_evaluates_on_cpu(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["-e", "double_integrator", "--shard-frontier"],
     ["-e", "double_integrator", "--recompile-guard", "warn"],
-    ["-e", "double_integrator", "--health-rule", "stall_s=1"],
-    ["-e", "double_integrator", "--obs-per-process"],
-    ["-e", "double_integrator", "--mesh", "2"],
-    ["-e", "double_integrator", "--recorder-dir=x"]])
+    ["-e", "double_integrator", "--mesh", "2"]])
 def test_cli_unported_surfaces_exit(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         tmain.main(argv)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--obs", "jsonl", "--health-rule", "stall_s=300"],
+    ["--obs", "jsonl", "--obs-per-process"],
+    ["--recorder-dir=bundles"]])
+def test_cli_diagnostics_surfaces_build(flags, tmp_path):
+    """The diagnostics flags build the tier-1 DI tree on the CPU: the
+    watchdog's rules validated, the obs stream suffixed per process,
+    the bundle directory named (here nothing diverges, so it stays
+    empty) -- and the tree is the plain build's."""
+    prefix = str(tmp_path / "di")
+    argv = ["-e", "double_integrator", "--problem-arg", "N=3",
+            "--problem-arg", "theta_box=1.5", "-a", "0.5", "--batch", "64",
+            "--backend", "cpu", "-o", prefix]
+    assert tmain.main([*argv, *flags]) == 0
+    got = Tree.load(prefix + ".tree.pkl")
+    assert tmain.main([*argv[:-1], prefix + "_plain"]) == 0
+    ref = Tree.load(prefix + "_plain.tree.pkl")
+    assert [v.tobytes() for v in got.vertices] \
+        == [v.tobytes() for v in ref.vertices]
+    if "--obs-per-process" in flags:
+        assert not os.path.exists(prefix + ".obs.jsonl")
+        (p,) = [f for f in os.listdir(tmp_path) if ".obs.p0-" in f]
+        assert p == os.path.basename(prefix) + f".obs.p0-{os.getpid()}.jsonl"
+    elif "--obs" in flags:
+        assert os.path.exists(prefix + ".obs.jsonl")
 
 
 # -- a kernel that cannot run stops the build ---------------------------------

@@ -774,3 +774,78 @@ def test_stamped_source_puts_each_stamp_at_its_anchor():
     assert "EHM_STAMP(" not in head.split("#define EHM_STAMP(n)")[1]
     with pytest.raises(ValueError):
         chip_smoke.stamped_source(src, (("no such line", "x;", ""),))
+
+
+@pytest.fixture(scope="module")
+def small_pendulum():
+    """A pendulum build with uncertified (depth-capped) leaves, the
+    stand-in for phase 3's flagship result in the phase-18 rehearsals."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    problem = make("inverted_pendulum", N=2)
+    cfg = PartitionConfig(problem="inverted_pendulum",
+                          problem_args=(("N", 2),), eps_a=0.5,
+                          backend="cpu", batch_simplices=8, max_depth=8)
+    res = build_partition(problem, cfg)
+    # Depth-capped leaves to bundle, and more steps than the health
+    # monitor's default throughput window (50).
+    assert res.stats["uncertified"] > 0 and res.stats["steps"] > 50
+    return problem, cfg, res
+
+
+def test_diagnostics_phase_a_b_c_rehearse_on_the_cpu(
+        small_pendulum, tmp_path, monkeypatch, capsys):
+    """Phase 18a (the forced divergence, at the tier-1 DI fixture), 18b
+    (the recorded build with the health monitor) and 18c (the
+    auto-profile trigger on injected stalls) on the CPU."""
+    problem, cfg, res = small_pendulum
+    monkeypatch.setattr(chip_smoke, "DIAG_PROBLEMS", (
+        ("double_integrator", "double_integrator",
+         {"N": 3, "theta_box": 1.5}, "register"),))
+    dev = torch.device("cpu")
+    forced = chip_smoke.forced_divergence(dev, str(tmp_path))
+    build = chip_smoke.recorded_build(dev, problem, cfg, res, 1.0,
+                                      str(tmp_path))
+    auto = chip_smoke.auto_profile_trigger(dev, str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("replay conv 0 / feas 0 mismatches, V bitwise True",
+                "tree equal to phase 3's cell for cell",
+                "capture errors 0", "health.throughput_low (warn",
+                "snapshot never certifies", "1 profile.capture"):
+        assert tag in log, tag
+    assert forced["double_integrator"]["captured"] > 0
+    assert 0 < build["bundles"] <= 16
+    assert auto["captures"] == 1
+
+
+def test_diagnostics_phase_d_e_f_rehearse_on_the_cpu(
+        small_pendulum, tmp_path, monkeypatch, capsys):
+    """Phase 18d (the warm rebuild with the recorder; here at a tighter
+    eps than the prior's, so leaves are invalidated), 18e (two builds
+    in two processes, one obs path) and 18f (the serving stream through
+    the monitor) on the CPU."""
+    import dataclasses
+
+    from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
+
+    problem, cfg, res = small_pendulum
+    tight = dataclasses.replace(cfg, eps_a=0.4)
+    ref = warm_rebuild(problem, tight, res.tree).stats
+    assert ref["rebuild_leaves_invalidated"] > 0
+    monkeypatch.setattr(chip_smoke, "REBUILD_REF_REGIONS", ref["regions"])
+    monkeypatch.setattr(chip_smoke, "DIAG_SERVE_REQUESTS", 512)
+    dev = torch.device("cpu")
+    reb = chip_smoke.recorded_rebuild(dev, tight, res, str(tmp_path))
+    fl = chip_smoke.fleet_streams(dev, str(tmp_path))
+    chip_smoke.serving_health(dev, res, str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    assert reb["recert"] > 0 and fl["streams"] == 2
+    for tag in ("every invalidation verdict reproduced",
+                "strict issues []", "[diag] 18e straggler_report",
+                "['health.serve_p99_us']", "p99): [], exit code 0"):
+        assert tag in log, tag

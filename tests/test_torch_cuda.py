@@ -1107,3 +1107,59 @@ def test_soc_oracle_on_the_card_matches_the_cpu(gpu):
     np.testing.assert_array_equal(a.conv, b.conv)
     np.testing.assert_array_equal(a.dstar, b.dstar)
     np.testing.assert_allclose(a.Vstar, b.Vstar, rtol=1e-6, atol=1e-8)
+
+
+#: The forced-divergence problems of chip_smoke.py phase 18a, one per K1
+#: path: (problem, constructor args).
+_DIAG = {"register": ("inverted_pendulum", {}),
+         "general": ("satellite", {"axes": 3, "omega_box": 0.03,
+                                   "h_box": 0.3}),
+         "large": ("quadrotor", {"param": "pv", "pos_box": 0.4,
+                                 "vel_box": 0.2})}
+
+
+@pytest.fixture(scope="module")
+def diag_bundles(gpu, tmp_path_factory):
+    """One diverged_cells bundle per K1 path: Oracle(n_iter=2) on the card
+    over 256 seeded (theta, delta) cells, with a flight recorder."""
+    from explicit_hybrid_mpc_tpu_torch.obs.recorder import FlightRecorder
+
+    d = tmp_path_factory.mktemp("diag")
+    out = {}
+    for path, (name, kw) in _DIAG.items():
+        prob = make(name, **kw)
+        rec = FlightRecorder(str(d / path))
+        orc = oracle.Oracle(prob, backend="cuda", n_iter=2)
+        orc.recorder = rec
+        g = np.random.default_rng(18)
+        th = g.uniform(prob.theta_lb, prob.theta_ub,
+                       (256, prob.canonical.n_theta))
+        orc.solve_pairs(th, g.integers(0, prob.canonical.n_delta, 256))
+        assert len(rec.bundles) == 1 and rec.n_capture_errors == 0
+        out[path] = rec.bundles[0]
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(_DIAG))
+def test_diverged_bundle_replays_bitwise_on_the_card(diag_bundles, path):
+    from explicit_hybrid_mpc_tpu_torch.obs import replay
+
+    n0 = ipm_leg.launches
+    rep = replay.replay_bundle(diag_bundles[path])  # the card by default
+    assert ipm_leg.launches > n0
+    assert rep["ok"] and rep["same_platform"]
+    assert rep["conv_match"] and rep["feas_match"] and rep["V_bitwise"]
+
+
+@pytest.mark.parametrize("path", sorted(_DIAG))
+def test_kernel_only_probe_on_the_card_agrees(diag_bundles, path):
+    from explicit_hybrid_mpc_tpu_torch.obs import replay
+
+    n0 = ipm_leg.launches
+    rep = replay.replay_bundle(diag_bundles[path], kernel_only=True,
+                               kernel="cuda")
+    assert ipm_leg.launches > n0
+    assert rep["kernel_vs_obs_conv_match"]
+    plain = replay.replay_bundle(diag_bundles[path], kernel_only=True,
+                                 kernel="torch")
+    assert plain["kernel_vs_obs_conv_match"]

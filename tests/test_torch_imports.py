@@ -62,6 +62,8 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "oracle.bnb", "obs.host", "obs.reqtrace",
                                  "obs.profiling", "oracle.prune",
                                  "oracle.socp", "oracle.soc_point",
-                                 "oracle.soc_oracle"])
+                                 "oracle.soc_oracle", "obs.health",
+                                 "obs.recorder", "obs.fleet",
+                                 "obs.replay"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

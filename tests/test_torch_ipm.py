@@ -193,7 +193,7 @@ def test_converged_solutions_match_admm_ground_truth():
 def test_solve_mask_and_phase1_match_the_reference():
     arrays = _qp_batch(np.random.default_rng(29), K=10)
     cx, fx, rx = jipm.solve_mask(*map(jnp.asarray, arrays), n_iter=15)
-    cp, fp, rp = ipm.solve_mask(*arrays, n_iter=15)
+    cp, fp, rp = ipm.solve_mask(*arrays, n_iter=15, device="cpu")
     assert np.array_equal(cx, cp) and np.array_equal(fx, fp)
     fin = np.isfinite(rx) & np.isfinite(rp)
     np.testing.assert_allclose(rp[fin], rx[fin], rtol=1e-6, atol=1e-12)

@@ -46,6 +46,34 @@ def test_library_path_follows_the_source_and_every_header(csrc, name,
     assert kernels._lib_path(name) not in (before, touched)
 
 
+def test_concurrent_builds_compile_each_library_once(tmp_path, monkeypatch):
+    """Two builds started together (two processes on one checkout, here
+    two threads: the lock is per open file) compile a missing library
+    once; the second waits on BUILD_DIR/.lock and loads the first's."""
+    import threading
+
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho x >> " + str(calls) + "\nsleep 0.3\n"
+                    "while [ \"$1\" != -o ]; do shift; done\ntouch \"$2\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "kernels"))
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    out = []
+    threads = [threading.Thread(target=lambda: out.append(
+        kernels.build(["locate"]))) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert len(calls.read_text().split()) == 1
+    assert sorted(len(o) for o in out) == [0, 1]
+    assert os.path.exists(kernels._lib_path("locate"))
+    # Present libraries need no compiler at all.
+    monkeypatch.setattr(kernels, "_nvcc", lambda: 1 / 0)
+    assert kernels.build(["locate"]) == {}
+
+
 
 def test_ipm_leg_paths_take_every_shape_up_to_the_ceiling():
     """Past the warp paths (nz 32, nc 128) the large path takes every

@@ -7,8 +7,9 @@ to ``make_oracle``; the JAX package is not edited).  A build stopped
 after a checkpoint and resumed with ``--resume`` must give the straight
 build's tree, and every flag whose module is not ported yet must exit
 with "not yet ported".  ``--backend serial``, ``--profile``,
-``--profile-steps`` and ``--auto-profile`` map as the JAX CLI maps
-them."""
+``--profile-steps``, ``--auto-profile`` and the diagnostics flags
+(``--recorder``, ``--recorder-dir``, ``--health-rule``,
+``--obs-per-process``) map as the JAX CLI maps them."""
 
 import dataclasses
 import os
@@ -56,6 +57,12 @@ ARGVS = {
     "profile": [*_DI, "--profile", "trace_dir", "--profile-steps", "3"],
     "auto_profile": [*_DI, "--obs", "jsonl", "--auto-profile",
                      "--profile-steps", "2"],
+    "recorder": [*_DI, "--recorder"],
+    "recorder_dir": [*_DI, "--recorder-dir", "bundles"],
+    "health_rules": [*_DI, "--obs", "jsonl", "--health-rule", "stall_s=300",
+                     "--health-rule", "min_regions_per_s=5",
+                     "--auto-profile"],
+    "obs_per_process": [*_DI, "--obs", "jsonl", "--obs-per-process"],
     "prune_rows": ["-e", "quadrotor", "-r", "0.1", "-a", "1",
                    "--problem-arg", 'param="pv"', "--problem-arg",
                    "pos_box=0.4", "--problem-arg", "vel_box=0.2",
@@ -184,3 +191,14 @@ def test_unported_flags_exit(flag):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         tmain.main(["-e", "double_integrator", flag, "1"])
     assert tmain._UNPORTED_FLAGS[flag] in str(e.value)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--health-rule", "stall_s=1"], "requires --obs"),
+    (["--obs", "jsonl", "--health-rule", "stall_s"], "NAME=VALUE"),
+    (["--obs", "jsonl", "--health-rule", "bogus=1"], "unknown health rule")])
+def test_health_rule_errors_are_the_jax_clis(argv, msg, tmp_path):
+    full = [*_DI, "--backend", "cpu", "-o", str(tmp_path / "p"), *argv]
+    for m in (tmain, jmain):
+        with pytest.raises(SystemExit, match=msg):
+            m.main(full)

@@ -163,12 +163,23 @@ def test_config_defaults_match_the_reference_except_backend():
 
 @pytest.mark.parametrize("field,value", [
     ("shard_frontier", True),
-    ("recompile_guard", "raise"), ("obs_recorder", True),
-    ("recorder_dir", "repro"), ("health_rules", (("stall_s", 1.0),)),
+    ("recompile_guard", "raise"),
     ("recompile_guard", "warn"), ("mesh_devices", 2)])
 def test_unported_knobs_raise_naming_the_roadmap(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PartitionConfig(backend="cpu", **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("obs_recorder", True), ("recorder_dir", "repro"),
+    ("health_rules", (("stall_s", 1.0),))])
+def test_diagnostics_knobs_are_accepted_as_the_reference_accepts_them(
+        field, value):
+    from explicit_hybrid_mpc_tpu.config import PartitionConfig as JaxCfg
+
+    got = PartitionConfig(backend="cpu", **{field: value})
+    ref = JaxCfg(backend="cpu", **{field: value})
+    assert getattr(got, field) == getattr(ref, field) == value
 
 
 @pytest.mark.parametrize("field,value", [

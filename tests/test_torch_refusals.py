@@ -33,12 +33,6 @@ def _oracle_mesh():
     Oracle(make("double_integrator", N=3), backend="cpu", mesh=object())
 
 
-def _obs_per_process(tmp):
-    from explicit_hybrid_mpc_tpu_torch.obs import Obs
-
-    Obs("jsonl", path=os.path.join(tmp, "x.obs.jsonl"), per_process=True)
-
-
 #: (site, a callable giving the refusal's text; it takes a scratch dir).
 SITES = (
     [(f"PartitionConfig.{f}", lambda tmp, item=item: item)
@@ -52,9 +46,7 @@ SITES = (
        for flag in tmain._UNPORTED_FLAGS]
     + [(f"scheduler hook {h}", lambda tmp, h=h: scheduler._HOOK_ITEMS[h])
        for h in scheduler._HOOK_ITEMS]
-    + [("Oracle mesh", lambda tmp: _raised(_oracle_mesh)),
-       ("Obs per_process", lambda tmp: _raised(
-           lambda: _obs_per_process(tmp)))])
+    + [("Oracle mesh", lambda tmp: _raised(_oracle_mesh))])
 
 
 @pytest.mark.parametrize("site,text", SITES, ids=[s for s, _ in SITES])
@@ -66,3 +58,45 @@ def test_a_refusal_names_its_item_and_an_existing_jax_module(site, text,
     assert modules, msg
     for m in modules:
         assert os.path.isfile(os.path.join(_JAX_PKG, m)), (site, m)
+
+
+def _obs_per_process(tmp):
+    from explicit_hybrid_mpc_tpu_torch.obs import Obs, fleet
+
+    o = Obs("jsonl", path=os.path.join(tmp, "x.obs.jsonl"), per_process=True)
+    o.close()
+    assert len(fleet.sibling_streams(os.path.join(tmp, "x.obs.jsonl"))) == 1
+
+
+def _main_flag(tmp, flags):
+    """The DI build through main with `flags`, to max-steps 2."""
+    assert tmain.main(["-e", "double_integrator", "--problem-arg", "N=3",
+                       "--backend", "cpu", "-a", "0.5", "--max-steps", "2",
+                       "-o", os.path.join(tmp, "p"), *flags]) == 0
+
+
+#: The surfaces ROADMAP A5's first half lifted: each now runs instead of
+#: refusing (its module ported: obs/recorder.py, obs/health.py,
+#: obs/fleet.py).
+LIFTED = {
+    "PartitionConfig.obs_recorder": lambda tmp: config.PartitionConfig(
+        backend="cpu", obs_recorder=True),
+    "PartitionConfig.recorder_dir": lambda tmp: config.PartitionConfig(
+        backend="cpu", recorder_dir=tmp),
+    "PartitionConfig.health_rules": lambda tmp: config.PartitionConfig(
+        backend="cpu", health_rules=(("stall_s", 9.0),)),
+    "main --recorder": lambda tmp: _main_flag(tmp, ["--recorder"]),
+    "main --recorder-dir": lambda tmp: _main_flag(
+        tmp, ["--recorder-dir", os.path.join(tmp, "b")]),
+    "main --health-rule": lambda tmp: _main_flag(
+        tmp, ["--obs", "jsonl", "--health-rule", "stall_s=300"]),
+    "main --obs-per-process": lambda tmp: _main_flag(
+        tmp, ["--obs", "jsonl", "--obs-per-process"]),
+    "Obs per_process": _obs_per_process,
+}
+
+
+@pytest.mark.parametrize("site", sorted(LIFTED))
+def test_a_lifted_refusal_now_runs(site, tmp_path):
+    LIFTED[site](str(tmp_path))
+    assert not any(site == s for s, _ in SITES)

@@ -6,12 +6,12 @@ tests/test_reqtrace.py cases: the phase-sum == wall invariant for both
 schedulers (an arithmetic identity: reply is folded as the remainder),
 the exemplar ring across a hot swap, the ring's keep-K-slowest rule,
 exemplar digests, the dropped pre-attach batch, the off mode, the
-rolling window's max-age cut, the GC-pause recorder, the rate-limited
-stall events, and the config plumbing.  Not ported: the cases whose
-rule reads the health monitor (the JAX file's stale-window p99 rule,
-``max_queue_frac`` rule and its end-to-end trip), which waits for
-obs/health.py (ROADMAP A5); and ``test_trace_overhead_ab``, a latency
-A/B that is no parity check (no test here asserts a time).
+rolling window's max-age cut and the health rules that read it (the
+stale-window p99 rule, the volume-gated ``max_queue_frac`` rule and its
+end-to-end trip, through the port's obs/health.py), the GC-pause
+recorder, the rate-limited stall events, and the config plumbing.  Not
+ported: ``test_trace_overhead_ab``, a latency A/B that is no parity
+check (no test here asserts a time).
 
 Parity: one scripted sequence of ``fold`` calls with an injected clock
 through both hubs gives the same histograms, the same ``queue_frac`` and
@@ -34,6 +34,7 @@ from explicit_hybrid_mpc_tpu.obs import reqtrace as jreqtrace
 from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
 from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig, ServeConfig
 from explicit_hybrid_mpc_tpu_torch.obs import reqtrace
+from explicit_hybrid_mpc_tpu_torch.obs.health import HealthMonitor
 from explicit_hybrid_mpc_tpu_torch.obs.reqtrace import (
     GcPauseRecorder, ReqTrace, _Ring, trace_from_serve_config)
 from explicit_hybrid_mpc_tpu_torch.online import descent, export, sharded
@@ -421,6 +422,94 @@ def test_prune_stale_unit():
     sched_mod._prune_stale(lat, fb, now)
     assert list(lat) == [(now - 1.0, 0.001)]
     assert list(fb) == [(now - 1.0, 0)]
+
+
+def test_stale_window_stops_firing_serve_p99(rng):
+    """Latency samples older than the max-age cut must fall out of the
+    rolling p99 gauge: a burst of old slow requests cannot keep firing
+    ``health.serve_p99_us`` forever, while the SAME samples with fresh
+    timestamps must fire it (the rule still works)."""
+    o = obs_lib.Obs("jsonl")
+    reg = ControllerRegistry(obs=o)
+    reg.publish("c", "v1", _server(obs=o))
+    rules = {"serve_p99_us": 1e6, "min_solves_for_rates": 1.0}
+
+    def fired():
+        snap = o.metrics.snapshot()
+        mon = HealthMonitor(rules=rules)
+        mon.feed({"kind": "metrics", "counters": snap["counters"],
+                  "gauges": snap["gauges"]})
+        return any(e["name"] == "health.serve_p99_us" for e in mon.events)
+
+    with RequestScheduler(reg, "c", max_batch=16, max_wait_us=500.0,
+                          obs=o) as sched:
+        # A stale burst of 5 s latencies, older than _ROLL_MAX_AGE_S.
+        sched._lat_roll.extend([(time.perf_counter() - 120.0, 5.0)] * 200)
+        for t in [sched.submit(th)
+                  for th in rng.uniform(0, 1, size=(30, 2))]:
+            t.result(30.0)
+        assert o.metrics.snapshot()["gauges"]["serve.ctl.c.p99_us"] < 1e6
+        assert not fired()
+        # Control: the same burst with FRESH timestamps dominates the
+        # window and the rule fires.
+        sched._lat_roll.extend([(time.perf_counter(), 5.0)] * 200)
+        for t in [sched.submit(th)
+                  for th in rng.uniform(0, 1, size=(30, 2))]:
+            t.result(30.0)
+        assert o.metrics.snapshot()["gauges"]["serve.ctl.c.p99_us"] > 1e6
+        assert fired()
+
+
+def test_max_queue_frac_rule_fires_volume_gated():
+    gauges = {"serve.ctl.c.queue_frac": 0.62}
+    # Below the volume gate: silent.
+    mon = HealthMonitor(rules={"max_queue_frac": 0.5})
+    mon.feed({"kind": "metrics",
+              "counters": {"serve.ctl.c.requests": 10.0},
+              "gauges": gauges})
+    assert not mon.events
+    # Past the gate: warn, keyed per controller, nonzero exit.
+    mon.feed({"kind": "metrics",
+              "counters": {"serve.ctl.c.requests": 5000.0},
+              "gauges": gauges})
+    evs = [e for e in mon.events if e["name"] == "health.serve_queue"]
+    assert len(evs) == 1
+    assert evs[0]["severity"] == "warn"
+    assert "queue" in evs[0]["msg"]
+    assert mon.exit_code != 0
+    # Default rules keep the rule off (opt-in like serve_p99_us).
+    mon2 = HealthMonitor()
+    mon2.feed({"kind": "metrics",
+               "counters": {"serve.ctl.c.requests": 5000.0},
+               "gauges": gauges})
+    assert not mon2.events
+
+
+def test_queue_frac_rule_end_to_end(rng):
+    """A long batching window on single-row submits is queue-dominated
+    by construction; the gauge the scheduler publishes must trip the
+    rule through a real metrics snapshot."""
+    o = obs_lib.Obs("jsonl")
+    reg = ControllerRegistry(obs=o)
+    reg.publish("c", "v1", _server(obs=o))
+    # Short trace window so the warmup round ages OUT of the queue_frac
+    # roll before the measured round.
+    tr = ReqTrace(mode="on", window_s=0.5, obs=o)
+    with RequestScheduler(reg, "c", max_batch=64, max_wait_us=20000.0,
+                          obs=o, trace=tr) as sched:
+        for t in [sched.submit(th)
+                  for th in rng.uniform(0, 1, size=(40, 2))]:
+            t.result(30.0)  # warmup
+        time.sleep(0.6)
+        for t in [sched.submit(th)
+                  for th in rng.uniform(0, 1, size=(40, 2))]:
+            t.result(30.0)
+    snap = o.metrics.snapshot()
+    mon = HealthMonitor(rules={"max_queue_frac": 0.2,
+                               "min_solves_for_rates": 1.0})
+    mon.feed({"kind": "metrics", "counters": snap["counters"],
+              "gauges": snap["gauges"]})
+    assert any(e["name"] == "health.serve_queue" for e in mon.events)
 
 
 # -- host forensics ---------------------------------------------------------
