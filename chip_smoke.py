@@ -65,7 +65,20 @@ at oracle.wait): one critical health.stall, one capture naming K1;
 with their verdicts; 18e two concurrent `main` builds sharing one obs
 path with --obs-per-process, folded by obs.fleet; 18f `main serve`'s
 obs stream through the monitor at ceilings below and above its p99.
-Each replay's K1 launches are counted from zero.  One
+Each replay's K1 launches are counted from zero.  Phase 19 drives the
+SLO engine and demand telemetry: 19a `main serve --selftest 4096
+--demand on --demand-dir D` (the snapshot loads, its rows are the
+served rows, the answers bitwise those with --demand off); 19b phase
+8's arena at 5,000 requests with demand capture and SLO tracking on and
+off in turns (answers bitwise, 0 dropped, 0 torn, each tenant's sketch
+the bincount of its served leaves, p50/p99 of both); 19c the hub's
+suboptimality re-solves through its own Oracle on the card (K1 from
+the hub's thread while the worker launches K3; any demand.error event
+fails; V* held to the plain CPU oracle, certified rows within eps_a);
+19d RebuildService with demand_dir ordering phase 15b's tightened
+rebuild hottest-first (regions within 0.1% of 15b's) and the
+depth-capped DI case bitwise; 19e SLO state reloaded bitwise in a fresh
+interpreter, the fleet fold, and the burn alerts.  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -95,7 +108,11 @@ its "pruned" object phase 17's: K1 at the pruned builds' reduced shapes
 time beside its unpruned build's, and the SOC solves and partition.
 The "rebuild_*" keys count phase 15's unchanged rebuild (K1: launches,
 device time, summed bound) and its tightened rebuild's online batch
-(locate), from zero.
+(locate), from zero.  The "subopt_*" keys count phase 19c's re-solves
+(K1 launches from zero, device time), the "demand_rebuild_*" keys 19d's
+prioritized rebuild; arena_eval's "capture_launches" is 19b's first run
+with demand capture and SLO tracking on, "capture_p99_ratio" its p99
+over the runs without them.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -126,7 +143,11 @@ turns with the baseline and the large path's entry, and its split.
 
     python3 -c "import sys, chip_smoke as c; sys.exit(c.diagnostics_only())"
 
-runs phase 18 alone (after a flagship build of its own).
+runs phase 18 alone (after a flagship build of its own), and
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.slo_demand_only())"
+
+phase 19 likewise.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -985,6 +1006,64 @@ def serve_queries(tenants, lb, ub, n, rng):
     return names, th, out
 
 
+def same_result(a, b) -> bool:
+    """Two ServeResults bitwise equal (u, cost, leaf, flags, version)."""
+    return (np.array_equal(a.u, b.u) and a.cost == b.cost
+            and (a.leaf, a.inside, a.version, a.fallback)
+            == (b.leaf, b.inside, b.version, b.fallback))
+
+
+def closed_loop(sched, names, th, clients: int, mid=None):
+    """Requests j (names[j], th[j]) from `clients` closed-loop threads
+    through the ArenaScheduler `sched`, which is closed at the end;
+    mid() runs on this thread once half are answered.  Fails on any
+    errored or dropped request.  Returns (results, latencies s, submit
+    times, wall s)."""
+    import threading
+
+    n = len(names)
+    results = [None] * n
+    t_sub, lat = np.zeros(n), np.zeros(n)
+    errors: list[str] = []
+    lock = threading.Lock()
+    done = [0]
+    halfway = threading.Event()
+
+    def client(c):
+        for j in range(c, n, clients):
+            t0 = time.perf_counter()
+            try:
+                r = sched.submit(names[j], th[j]).result(60.0)[0]
+            except BaseException as e:  # noqa: BLE001 -- counted, fails
+                with lock:
+                    errors.append(f"request {j}: {e!r}")
+                continue
+            lat[j], t_sub[j], results[j] = time.perf_counter() - t0, t0, r
+            with lock:
+                done[0] += 1
+                if done[0] == n // 2:
+                    halfway.set()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t_run = time.perf_counter()
+    for t in threads:
+        t.start()
+    if mid is not None:
+        if not halfway.wait(600.0):
+            fail("a serving run did not reach half its requests")
+        mid()
+    for t in threads:
+        t.join()
+    sched.close()
+    wall = time.perf_counter() - t_run
+    dropped = sum(r is None for r in results)
+    if errors or dropped:
+        fail(f"serving run: {len(errors)} errored, {dropped} dropped "
+             f"requests ({errors[:3]})")
+    return results, lat, t_sub, wall
+
+
 def arena_eval_cost(ext, B, pp1, n_u) -> tuple[float, float]:
     """(bytes, flops) one launch needs: every row scores its own
     tenant's leaves, (p+1)^2 FMAs each; the live extents' bary is read
@@ -999,6 +1078,46 @@ def arena_eval_cost(ext, B, pp1, n_u) -> tuple[float, float]:
     return nbytes, flops
 
 
+def tenant_arenas(dev, res, table, tmp: str) -> dict:
+    """Phase 8's publish history: phase 3's tree saved as t0's v1
+    artifact, and a v2 delta of it with half of the payload slots
+    doubled -- exact in floating point, so a read that mixes versions
+    shows bit for bit.  Returns the tenants, the two directories, the
+    delta's stats, the certified box, and fresh(obs=None): an arena on
+    `dev` with t0 v1 from the artifact, the other tenants from `table`,
+    and room for one more extent (the delta's)."""
+    from explicit_hybrid_mpc_tpu_torch.lifecycle.delta import (
+        write_delta_artifact)
+    from explicit_hybrid_mpc_tpu_torch.online.descent import load_descent
+    from explicit_hybrid_mpc_tpu_torch.serve import DeviceArena, registry
+
+    tenants = [f"t{k}" for k in range(TENANTS)]
+    v1_dir = os.path.join(tmp, "t0_v1")
+    d2_dir = os.path.join(tmp, "t0_v2.delta")
+    registry.save_artifacts(res.tree, res.roots, v1_dir)
+    v2 = res.tree.clone()
+    half = v2._n_slots // 2
+    v2._pl_inputs[:half] *= 2.0
+    v2._pl_costs[:half] *= 2.0
+    dstats = write_delta_artifact(v2, res.roots, d2_dir, v1_dir,
+                                  base_version="v1")
+    lb, ub = registry.root_box(load_descent(os.path.join(v1_dir,
+                                                         "descent.npz")))
+    cols = 128 * -(-table.n_leaves // 128)
+
+    def fresh(obs=None):
+        a = DeviceArena(p=res.tree.p, n_u=res.tree.n_u,
+                        capacity_cols=(TENANTS + 1) * cols, device=dev,
+                        obs=obs)
+        a.publish_from_artifacts("t0", "v1", v1_dir)
+        for n in tenants[1:]:
+            a.publish(n, "v1", table, lb, ub)
+        return a
+
+    return dict(tenants=tenants, v1_dir=v1_dir, d2_dir=d2_dir,
+                dstats=dstats, lb=lb, ub=ub, fresh=fresh)
+
+
 def serve_phases(dev, res, table, rng, tmp: str, base_k3=None,
                  k3_src: str | None = None) -> dict:
     """Phases 6-8: the flagship table served to TENANTS tenants from one
@@ -1007,48 +1126,20 @@ def serve_phases(dev, res, table, rng, tmp: str, base_k3=None,
     bitwise torn-read audit.  `base_k3`: the parent's arena kernel
     (K3_BASELINE), timed in turns and held bitwise.  Returns the
     kernel's entry of the kernels line."""
-    import os
-    import threading
-
     import torch
 
     from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
-    from explicit_hybrid_mpc_tpu_torch.lifecycle.delta import (
-        write_delta_artifact)
     from explicit_hybrid_mpc_tpu_torch.online import fused
-    from explicit_hybrid_mpc_tpu_torch.online.descent import load_descent
     from explicit_hybrid_mpc_tpu_torch.serve import (ArenaScheduler,
-                                                     DeviceArena,
-                                                     FallbackPolicy,
-                                                     registry)
+                                                     FallbackPolicy)
 
     # -- phase 6: the arena on the card -------------------------------------
-    tenants = [f"t{k}" for k in range(TENANTS)]
-    tree, roots = res.tree, res.roots
-    v1_dir = os.path.join(tmp, "t0_v1")
-    d2_dir = os.path.join(tmp, "t0_v2.delta")
-    registry.save_artifacts(tree, roots, v1_dir)
-    # v2: half of the payload slots doubled -- exact in floating point,
-    # so a read that mixes versions shows bit for bit.
-    v2 = tree.clone()
-    half = v2._n_slots // 2
-    v2._pl_inputs[:half] *= 2.0
-    v2._pl_costs[:half] *= 2.0
-    dstats = write_delta_artifact(v2, roots, d2_dir, v1_dir,
-                                  base_version="v1")
-    lb, ub = registry.root_box(load_descent(os.path.join(v1_dir,
-                                                         "descent.npz")))
-    L, p, n_u = table.n_leaves, tree.p, tree.n_u
+    ten = tenant_arenas(dev, res, table, tmp)
+    tenants, v1_dir, d2_dir = ten["tenants"], ten["v1_dir"], ten["d2_dir"]
+    dstats, lb, ub, fresh_arena = (ten["dstats"], ten["lb"], ten["ub"],
+                                   ten["fresh"])
+    L, p, n_u = table.n_leaves, res.tree.p, res.tree.n_u
     pp1 = p + 1
-    cols = 128 * -(-L // 128)
-
-    def fresh_arena(obs=None):
-        a = DeviceArena(p=p, n_u=n_u, capacity_cols=(TENANTS + 1) * cols,
-                        device=dev, obs=obs)
-        a.publish_from_artifacts("t0", "v1", v1_dir)
-        for n in tenants[1:]:
-            a.publish(n, "v1", table, lb, ub)
-        return a
 
     o = obs_lib.Obs("jsonl")
     arena = fresh_arena(o)
@@ -1209,53 +1300,6 @@ def serve_phases(dev, res, table, rng, tmp: str, base_k3=None,
     # -- phase 8: the serving run -------------------------------------------
     names, th, out = serve_queries(tenants, lb, ub, REQUESTS, rng)
 
-    def drive(sched_, n, mid=None):
-        # Requests 0..n-1 from CLIENTS closed-loop threads through sched_;
-        # mid() runs on this thread once half of them are answered.
-        # Returns (results, latencies s, submit times, wall s).
-        results = [None] * n
-        t_sub, lat = np.zeros(n), np.zeros(n)
-        errors: list[str] = []
-        lock = threading.Lock()
-        done = [0]
-        halfway = threading.Event()
-
-        def client(c):
-            for j in range(c, n, CLIENTS):
-                t0 = time.perf_counter()
-                try:
-                    r = sched_.submit(names[j], th[j]).result(60.0)[0]
-                except BaseException as e:  # noqa: BLE001 -- counted, fails
-                    with lock:
-                        errors.append(f"request {j}: {e!r}")
-                    continue
-                lat[j] = time.perf_counter() - t0
-                t_sub[j] = t0
-                results[j] = r
-                with lock:
-                    done[0] += 1
-                    if done[0] == n // 2:
-                        halfway.set()
-
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(CLIENTS)]
-        t_run = time.perf_counter()
-        for t in threads:
-            t.start()
-        if mid is not None:
-            if not halfway.wait(600.0):
-                fail("the serving run did not reach half its requests")
-            mid()
-        for t in threads:
-            t.join()
-        sched_.close()
-        run_s = time.perf_counter() - t_run
-        dropped = sum(r is None for r in results)
-        if errors or dropped:
-            fail(f"serving run: {len(errors)} errored, {dropped} dropped "
-                 f"requests ({errors[:3]})")
-        return results, lat, t_sub, run_s
-
     real_pack = arena.pack_queries
 
     def recording(batches):
@@ -1286,7 +1330,8 @@ def serve_phases(dev, res, table, rng, tmp: str, base_k3=None,
     arena.pack_queries = recording(batches)
     fused.launches = 0
     try:
-        results, lat, t_sub, run_s = drive(sched, REQUESTS, swap)
+        results, lat, t_sub, run_s = closed_loop(sched, names, th, CLIENTS,
+                                                 swap)
     finally:
         del arena.pack_queries
     n_launch = fused.launches
@@ -1419,7 +1464,9 @@ def serve_phases(dev, res, table, rng, tmp: str, base_k3=None,
     launch0 = fused.launches
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as sprof:
-            _res, _lat, _ts, prof_s = drive(sched_p, PROFILED_REQUESTS)
+            _res, _lat, _ts, prof_s = closed_loop(
+                sched_p, names[:PROFILED_REQUESTS], th[:PROFILED_REQUESTS],
+                CLIENTS)
     finally:
         del arena.pack_queries
     prof_launches = fused.launches - launch0
@@ -2803,7 +2850,7 @@ def rebuild_phase(dev, problem, cfg, res, build_s: float, tmp: str) -> dict:
         f"{st['sweep_wall_s']} s; provenance changed "
         f"{st['provenance_changed']}")
     bound_a = sum(leg_bound_ms(*x) for x in legs)
-    k1_a = n_k1
+    k1_a, regions_a = n_k1, st["regions"]
     log(f"[rebuild] K1 in the rebuild, counted from zero: {n_k1} launches "
         f"({len(legs)} recorded), device time "
         + (f"{k1_ms:.2f} ms" if k1_ms is not None else "not measured")
@@ -2998,7 +3045,11 @@ def rebuild_phase(dev, problem, cfg, res, build_s: float, tmp: str) -> dict:
     log(f"[rebuild] (phase took {time.perf_counter() - t_phase:.1f} s)")
     return {"ipm_leg": {"rebuild_launches": k1_a, "rebuild_ms": k1_ms,
                         "rebuild_bound_ms": bound_a},
-            "locate": {"rebuild_launches": k2_b}}
+            "locate": {"rebuild_launches": k2_b},
+            "refs": {"unchanged": {"regions": regions_a, "k1_launches": k1_a,
+                                   "k1_ms": k1_ms},
+                     "tight": {"regions": st["regions"],
+                               "k1_launches": n_k1}}}
 
 
 class HostVerdict:
@@ -3439,14 +3490,9 @@ def observability_phase(dev, problem, cfg, res, table, tmp: str,
         fail(f"traced arena run: {t['n_k3']} arena_eval launches for "
              f"{t['a_batches']} batches")
 
-    def same(a, b):
-        return (np.array_equal(a.u, b.u) and a.cost == b.cost
-                and (a.leaf, a.inside, a.version, a.fallback)
-                == (b.leaf, b.inside, b.version, b.fallback))
-
     for kind, n_req in (("arena", REQUESTS),
                         ("req", SWAP_CLIENTS * SWAP_REQUESTS)):
-        diff = sum(not same(a, b) for ra, rb in zip(t[kind], u[kind])
+        diff = sum(not same_result(a, b) for ra, rb in zip(t[kind], u[kind])
                    for a, b in zip(ra, rb))
         if diff:
             fail(f"traced {kind} run: {diff} of {n_req} results differ from "
@@ -4520,6 +4566,885 @@ def diagnostics_only() -> int:
     return 0
 
 
+# -- phase 19: the SLO engine and demand telemetry ---------------------------
+
+#: Phase 19 (the SLO engine and demand telemetry).  Requests of each arena
+#: run (phase 8's traffic, cut from 20,000 so the phase stays short), the
+#: run pairs timed in turns (off/on, on/off, ...), the online
+#: suboptimality stride and eps (the flagship's eps_a; eps_r is 0),
+#: `main serve --selftest` rows, the sketch's exact capacity (above the
+#: flagship's leaf count, so the per-leaf counts stay exact), the SLO
+#: windows scaled to seconds (the JAX tests' geometry, 1 s slots) with
+#: their burn thresholds, and the demand-ordered rebuild's region
+#: tolerance against phase 15a's unprioritized rebuild.
+SD_REQUESTS = 5_000
+SD_PAIRS = 2
+SD_SUBOPT_FRAC = 1 / 16
+SD_SUBOPT_EPS = 1e-2
+SD_SELFTEST = 4096
+SD_MAX_LEAVES = 16_384
+SD_WINDOWS = ((5.0, 60.0), (120.0, 600.0))
+SD_BURNS = (14.4, 1.0)
+SD_REGION_TOL = 1e-3
+
+
+class RecordingOracle:
+    """The demand hub's oracle, recorded: each solve_vertices call's
+    thetas, V* and d* (host copies) and the thread that made it, so the
+    hub's re-solves can be held to another oracle on the same points."""
+
+    def __init__(self, oracle):
+        import threading
+
+        self.oracle = oracle
+        self.calls: list = []
+        self._lock = threading.Lock()
+
+    def solve_vertices(self, thetas):
+        import threading
+
+        sol = self.oracle.solve_vertices(thetas)
+        with self._lock:
+            self.calls.append((np.array(thetas, dtype=np.float64),
+                               np.array(sol.Vstar, dtype=np.float64),
+                               np.array(sol.dstar),
+                               threading.get_ident()))
+        return sol
+
+
+def demand_serve(dev, res, tmp: str) -> dict:
+    """19a: `main serve --selftest SD_SELFTEST` on phase 3's artifacts,
+    with --demand on (snapshot under --demand-dir) and off, each
+    request's answer kept from the CLI's scheduler: the answers bitwise
+    the same in both; the snapshot commits and loads (load_demand), its
+    raw row count is the served rows and its leaves theirs.  The path
+    serves through ShardedDescent (plain torch): no hand kernel runs."""
+    import contextlib
+    import io
+
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import load_demand
+    from explicit_hybrid_mpc_tpu_torch.online import fused, locate
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.serve import registry, scheduler
+    from explicit_hybrid_mpc_tpu_torch.serve.cli import serve_main
+
+    art = os.path.join(tmp, "19a.pend")
+    registry.save_artifacts(res.tree, res.roots, art)
+    droot = os.path.join(tmp, "19a.demand")
+    real = scheduler.RequestScheduler
+    runs = {}
+    for mode in ("on", "off"):
+        tickets: list = []
+
+        class Kept(real):
+            def submit(self, theta):
+                t = super().submit(theta)
+                tickets.append(t)
+                return t
+
+        argv = ["--artifacts", art, "--controller", "pend", "--selftest",
+                str(SD_SELFTEST), "--demand", mode,
+                *(["--demand-dir", droot] if mode == "on" else []),
+                *([] if dev.type == "cuda" else ["--backend", "cpu"])]
+        ipm_leg.launches = locate.launches = fused.launches = 0
+        out = io.StringIO()
+        scheduler.RequestScheduler = Kept
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = serve_main(argv)
+        finally:
+            scheduler.RequestScheduler = real
+        wall = time.perf_counter() - t0
+        summ = json.loads(out.getvalue().strip().splitlines()[-1])
+        results = [t.result(10.0)[0] for t in tickets]
+        kern = (ipm_leg.launches, locate.launches, fused.launches)
+        runs[mode] = (rc, summ, results, wall, kern)
+        log(f"[demand] 19a main serve --selftest {SD_SELFTEST} --demand "
+            f"{mode} on {dev}: exit {rc} in {wall:.1f} s, p50 "
+            f"{summ['p50_us']} us, p99 {summ['p99_us']} us, fallback "
+            f"{summ['fallback_served']}; hand-kernel launches (ipm_leg, "
+            f"locate, arena_eval) {kern} -- ShardedDescent is plain torch")
+    (rc_on, _s, on, wall_on, _k), (rc_off, _s2, off, _w, _k2) = \
+        runs["on"], runs["off"]
+    if rc_on or rc_off or len(on) != SD_SELFTEST or len(off) != SD_SELFTEST:
+        fail(f"19a: exit {rc_on}/{rc_off}, {len(on)}/{len(off)} answers")
+    diff = sum(not same_result(a, b) for a, b in zip(on, off))
+    snap = load_demand(os.path.join(droot, "pend"))
+    served = [r.leaf for r in on if r.inside]
+    ids = snap.leaf_ids.tolist()
+    hits = float(snap.leaf_hits.sum())
+    rows = snap.meta["window"]["rows_total"]
+    # The hits decay with a 300 s half-life from the hub's clock: over
+    # this run they lose at most 0.5 ** (wall / 300) of the raw count.
+    floor = len(served) * 0.5 ** (wall_on / 300.0)
+    log(f"[demand] 19a: answers with --demand on bitwise those with it "
+        f"off on {SD_SELFTEST - diff} of {SD_SELFTEST}; snapshot "
+        f"{snap.meta['schema']} committed (npz sha256 "
+        f"{snap.meta['npz_sha256'][:12]}...): rows {rows} = served "
+        f"{len(served)}, decayed hits {hits:.3f} (>= {floor:.3f}), "
+        f"{len(ids)} leaves observed = {len(set(served))} served leaves, "
+        f"top-decile share {snap.top_decile_frac:.4f}")
+    if diff:
+        fail(f"19a: {diff} answers differ with --demand on")
+    if rows != len(served) or not floor - 1e-6 <= hits <= len(served) \
+            or sorted(ids) != sorted(set(served)):
+        fail(f"19a: the snapshot counts {rows} rows / {hits} hits / "
+             f"{len(ids)} leaves for {len(served)} served rows on "
+             f"{len(set(served))} leaves")
+    return {"served": len(served), "wall_s": wall_on}
+
+
+def demand_arena(dev, res, table, tmp: str) -> dict:
+    """19b: phase 8's arena (TENANTS tenants, CLIENTS closed-loop clients,
+    SD_REQUESTS requests, a publish_delta half-way) with demand capture
+    and SLO tracking on and off, in turns (SD_PAIRS pairs): every answer
+    of the first run with capture on bitwise the first run without it
+    wherever both were served by the same version, the torn-read audit
+    of phase 8 (0 dropped, 0 torn), each tenant's sketch (exact: its
+    clock frozen, SD_MAX_LEAVES above the tenant's leaves) equal to a
+    bincount of its served leaves, and the tracker's fallback budget
+    equal to the tenant's fallback count.  The first run with capture
+    on writes the demand snapshots under `<tmp>/19b.demand`."""
+    from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
+    from explicit_hybrid_mpc_tpu_torch.config import ServeConfig
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import DemandHub
+    from explicit_hybrid_mpc_tpu_torch.obs.slo import slo_from_serve_config
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+    from explicit_hybrid_mpc_tpu_torch.serve import (ArenaScheduler,
+                                                     FallbackPolicy)
+
+    ten = tenant_arenas(dev, res, table, os.path.join(tmp, "19b"))
+    tenants, v1_dir, d2_dir = ten["tenants"], ten["v1_dir"], ten["d2_dir"]
+    lb, ub, arena_v1 = ten["lb"], ten["ub"], ten["fresh"]
+    n_u = res.tree.n_u
+
+    names, th, out = serve_queries(tenants, lb, ub, SD_REQUESTS,
+                                   np.random.default_rng(SEED + 23))
+    scfg = ServeConfig(demand="on", slo="on",
+                       demand_max_leaves=SD_MAX_LEAVES)
+    droot = os.path.join(tmp, "19b.demand")
+    order = [m for i in range(SD_PAIRS)
+             for m in (("off", "on") if i % 2 == 0 else ("on", "off"))]
+    runs: list = []
+    for k, mode in enumerate(order):
+        arena = arena_v1()
+        path = os.path.join(tmp, f"19b.{k}.{mode}.obs.jsonl")
+        o = obs_lib.Obs("jsonl", path=path)
+        hub = tracker = None
+        if mode == "on":
+            hub = DemandHub(mode=scfg.demand, max_leaves=scfg.demand_max_leaves,
+                            decay_halflife_s=scfg.demand_decay_s,
+                            reservoir_k=scfg.demand_reservoir, obs=o,
+                            clock=lambda: 0.0)
+            tracker = slo_from_serve_config(scfg, obs=o)
+        sched = ArenaScheduler(arena, max_batch=MAX_BATCH,
+                               max_wait_us=MAX_WAIT_US,
+                               fallback=FallbackPolicy(lb, ub, mode="clamp",
+                                                       obs=o),
+                               obs=o, demand=hub, slo=tracker)
+        sw = {}
+
+        def swap(arena=arena, sw=sw):
+            arena.publish_delta("t0", "v2", d2_dir, v1_dir)
+            sw["t_flip"] = time.perf_counter()
+
+        fused.launches = 0
+        results, lat, t_sub, wall = closed_loop(sched, names, th, CLIENTS,
+                                                swap)
+        n_k3 = fused.launches
+        if tracker is not None:
+            tracker.tick(o.flush_metrics())    # the last interval's fold
+        if hub is not None and not any(r["mode"] == "on" for r in runs):
+            for n in tenants:
+                hub.snapshot(name=n, dir_path=os.path.join(droot, n))
+        o.close()
+        lat_us = lat * 1e6
+        runs.append(dict(mode=mode, results=results, wall=wall, n_k3=n_k3,
+                         batches=sched.n_batches, hub=hub, tracker=tracker,
+                         path=path, p50=float(np.percentile(lat_us, 50)),
+                         p99=float(np.percentile(lat_us, 99))))
+        late = sum(1 for j in range(SD_REQUESTS) if names[j] == "t0"
+                   and results[j].version == "v1" and t_sub[j] > sw["t_flip"])
+        log(f"[demand] 19b run {k} capture {mode}: {SD_REQUESTS} requests "
+            f"in {wall:.2f} s, p50 {runs[-1]['p50']:.1f} us, p99 "
+            f"{runs[-1]['p99']:.1f} us, {sched.n_batches} batches, "
+            f"arena_eval launches {n_k3}")
+        if dev.type == "cuda" and n_k3 != sched.n_batches:
+            fail(f"19b run {k}: {n_k3} arena_eval launches for "
+                 f"{sched.n_batches} batches")
+        if late:
+            fail(f"19b run {k}: {late} requests after the swap served by v1")
+    first = {m: next(r for r in runs if r["mode"] == m) for m in ("on", "off")}
+    on, off = first["on"]["results"], first["off"]["results"]
+    both = [j for j in range(SD_REQUESTS) if on[j].version == off[j].version]
+    diff = sum(not same_result(on[j], off[j]) for j in both)
+    # Torn-read audit (phase 8's): a reference arena with the same publish
+    # history answers every in-box row of the capture run on its version.
+    ref = arena_v1()
+
+    def torn(rows):
+        bad = 0
+        for lo in range(0, len(rows), MAX_BATCH):
+            chunk = rows[lo:lo + MAX_BATCH]
+            r = ref.evaluate([names[j] for j in chunk], th[chunk])
+            bad += sum(not (np.array_equal(on[j].u, r.u[i, :n_u]
+                                           .astype(np.float64))
+                            and on[j].cost == float(r.cost[i])
+                            and on[j].leaf == int(r.leaf[i]))
+                       for i, j in enumerate(chunk))
+        return bad
+
+    inbox = [j for j in range(SD_REQUESTS) if not out[j]]
+    n_torn = torn([j for j in inbox if on[j].version == "v1"])
+    ref.publish_delta("t0", "v2", d2_dir, v1_dir)
+    n_torn += torn([j for j in inbox if on[j].version == "v2"])
+    hub, tracker = first["on"]["hub"], first["on"]["tracker"]
+    ev = tracker.evaluate()
+    sketch_bad, budget_bad = [], []
+    for n in tenants:
+        leaves = [on[j].leaf for j in range(SD_REQUESTS)
+                  if names[j] == n and on[j].inside]
+        bc = np.bincount(leaves)
+        ids, hits = hub.ctl(n).sketch.items()
+        if hub.ctl(n).sketch.mode != "exact" or dict(zip(
+                ids.tolist(), hits.tolist())) != {
+                i: float(c) for i, c in enumerate(bc) if c}:
+            sketch_bad.append(n)
+        n_fb = sum(1 for j in range(SD_REQUESTS)
+                   if names[j] == n and on[j].fallback is not None)
+        row = ev.get(f"{n}.fallback")
+        if row is None or row["bad"] != n_fb \
+                or row["good"] + row["bad"] != names.count(n):
+            budget_bad.append((n, row and (row["good"], row["bad"]), n_fb))
+    ratio = {q: float(np.mean([r[q] for r in runs if r["mode"] == "on"])
+                      / np.mean([r[q] for r in runs if r["mode"] == "off"]))
+             for q in ("p50", "p99")}
+    log(f"[demand] 19b: capture on vs off, {SD_PAIRS} pairs in turns "
+        f"({', '.join(r['mode'] for r in runs)}): p50 ratio "
+        f"{ratio['p50']:.3f}, p99 ratio {ratio['p99']:.3f} (on over off, "
+        "means of each mode's runs; not held to a bound)")
+    log(f"[demand] 19b: {len(both) - diff} of {len(both)} requests served "
+        f"by the same version in both runs bitwise equal; torn reads "
+        f"{n_torn} of {len(inbox)} audited in-box rows; sketches exact and "
+        f"equal to the served leaves' bincount for "
+        f"{TENANTS - len(sketch_bad)} of {TENANTS} tenants ("
+        + ", ".join(f"{n} {hub.ctl(n).sketch.n_rows} rows on "
+                    f"{len(hub.ctl(n).sketch.items()[0])} leaves"
+                    for n in tenants)
+        + f"); SLO specs {len(ev)} ({sorted(ev)[:3]}...), fallback budgets "
+        + ", ".join(f"{n} {ev[f'{n}.fallback']['bad']:.0f} bad / "
+                    f"{ev[f'{n}.fallback']['good']:.0f} good"
+                    for n in tenants if f"{n}.fallback" in ev))
+    if diff or n_torn:
+        fail(f"19b: {diff} answers differ with capture on, {n_torn} torn")
+    if len(both) < SD_REQUESTS // 2:
+        fail(f"19b: only {len(both)} requests on the same version")
+    if sketch_bad or budget_bad:
+        fail(f"19b: sketches {sketch_bad} or fallback budgets {budget_bad} "
+             "do not match the served rows")
+    return {"droot": droot, "v1_dir": v1_dir, "tenant_arenas": ten,
+            "streams": [r["path"] for r in runs if r["mode"] == "on"],
+            "capture_launches": first["on"]["n_k3"], "ratio": ratio,
+            "p50": {m: [r["p50"] for r in runs if r["mode"] == m]
+                    for m in ("on", "off")},
+            "p99": {m: [r["p99"] for r in runs if r["mode"] == m]
+                    for m in ("on", "off")}}
+
+
+def online_subopt(dev, problem, res, table, ten: dict) -> dict:
+    """19c: the 19b traffic in the box (a clamped answer carries no
+    certificate at its query) on v1 only (v2's doubled payloads are off
+    any certificate), with demand_subopt_frac SD_SUBOPT_FRAC and
+    demand_subopt_eps SD_SUBOPT_EPS; the hub re-solves its stride sample
+    through its own Oracle on `dev` from its maintenance thread (K1 on
+    the card) while the worker launches K3.  Fails on any demand.error
+    event, no sample, or no K1 launch.  The hub's V* held to the plain
+    (CPU) oracle's on the same points within 1e-9 relative; every
+    sampled row on a certified leaf within eps + 1e-9; no health.subopt
+    at eps; at eps half the measured p99 the hub's own event fires and a
+    HealthMonitor's max_subopt rule fires on the gauges."""
+    import contextlib
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import DemandHub
+    from explicit_hybrid_mpc_tpu_torch.obs.health import HealthMonitor
+    from explicit_hybrid_mpc_tpu_torch.online import fused
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+    from explicit_hybrid_mpc_tpu_torch.serve import (ArenaScheduler,
+                                                     FallbackPolicy)
+
+    on_card = dev.type == "cuda"
+    tenants, lb, ub = ten["tenants"], ten["lb"], ten["ub"]
+    names, th, out = serve_queries(tenants, lb, ub, SD_REQUESTS,
+                                   np.random.default_rng(SEED + 23))
+    keep = np.flatnonzero(~out)
+    names, th = [names[j] for j in keep], th[keep]
+    arena = ten["fresh"]()
+    o = obs_lib.Obs("jsonl")
+    ora = RecordingOracle(Oracle(problem, backend=dev.type))
+    hub = DemandHub(mode="on", max_leaves=SD_MAX_LEAVES,
+                    subopt_frac=SD_SUBOPT_FRAC, subopt_eps=SD_SUBOPT_EPS,
+                    oracle=ora, obs=o)
+    sched = ArenaScheduler(arena, max_batch=MAX_BATCH,
+                           max_wait_us=MAX_WAIT_US,
+                           fallback=FallbackPolicy(lb, ub, mode="clamp"),
+                           obs=o, demand=hub)
+    worker = sched._worker.ident
+    ipm_leg.launches = fused.launches = 0
+    prof = None
+    ctx = contextlib.nullcontext()
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        ctx = prof = profile(activities=[ProfilerActivity.CUDA])
+    with ctx:
+        results, lat, _ts, wall = closed_loop(sched, names, th, CLIENTS)
+        n_thread_calls = len(ora.calls)
+        hub.close(snapshot=False)      # the last drain, on this thread
+        if on_card:
+            torch.cuda.synchronize()
+    n_k1, n_k3 = ipm_leg.launches, fused.launches
+    k1_ms = k3_ms = None
+    overlap = None
+    if prof is not None:
+        from torch.autograd import DeviceType
+
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        k1 = [e for e in rows if "ipm_leg" in e.key]
+        k3 = [e for e in rows if "arena_eval" in e.key]
+        k1_ms = sum(e.self_device_time_total for e in k1) / 1e3 if k1 else None
+        k3_ms = sum(e.self_device_time_total for e in k3) / 1e3 if k3 else None
+        # K1 (the hub's thread) and K3 (the worker) kernels that ran at
+        # the same time on the card, from the trace's device intervals.
+        spans: dict = {"k1": [], "k3": []}
+        for e in prof.events():
+            key = ("k1" if "ipm_leg" in e.name else
+                   "k3" if "arena_eval" in e.name else None)
+            tr = getattr(e, "time_range", None)
+            if key and tr is not None and e.device_type == DeviceType.CUDA:
+                spans[key].append((tr.start, tr.end))
+        overlap = (sum(1 for a0, a1 in spans["k1"] for b0, b1 in spans["k3"]
+                       if a0 < b1 and b0 < a1)
+                   if spans["k1"] and spans["k3"] else None)
+    errors = [r for r in o.sink.records if r.get("name") == "demand.error"]
+    cnt = o.metrics.snapshot()["counters"]
+    n_samples = sum(cnt.get(f"serve.ctl.{n}.subopt_samples", 0)
+                    for n in tenants)
+    threads = {c[3] for c in ora.calls[:n_thread_calls]}
+    log(f"[subopt] 19c: {len(names)} in-box requests in {wall:.2f} s "
+        f"(p99 {np.percentile(lat * 1e6, 99):.1f} us), {sched.n_batches} "
+        f"batches, arena_eval launches {n_k3}; the hub's oracle "
+        f"({dev.type}) re-solved {sum(len(c[0]) for c in ora.calls)} sampled "
+        f"rows in {len(ora.calls)} calls ({n_thread_calls} from the hub's "
+        f"thread {'(not the worker)' if worker not in threads else ''}, "
+        f"the rest in close()); ipm_leg launches {n_k1}, device time "
+        + (f"{k1_ms:.2f} ms" if k1_ms is not None else "not measured")
+        + "; arena_eval device time "
+        + (f"{k3_ms:.2f} ms" if k3_ms is not None else "not measured")
+        + (f"; the arena's stream {arena._stream.cuda_stream} (0 = the "
+           f"legacy default stream, which the hub's thread also uses), "
+           f"K1/K3 kernel pairs overlapping in time {overlap}"
+           if on_card else "")
+        + f"; subopt_samples {n_samples}; demand.error events {len(errors)}")
+    if errors:
+        fail(f"19c: demand.error events: {[e.get('msg') for e in errors[:3]]}")
+    if n_samples <= 0:
+        fail("19c: the hub folded no suboptimality sample")
+    if n_k1 <= 0:
+        fail("19c: the hub's re-solves launched no K1")
+    # V* against the plain oracle on the same points; the gaps by row.
+    plain = Oracle(problem, backend="cpu")
+    by_theta = {th[j].tobytes(): j for j in range(len(names))}
+    gaps, cert_flags, inbox_v_err, n_dmis = [], [], 0.0, 0
+    for pts, vstar, dstar, _tid in ora.calls:
+        ref = plain.solve_vertices(pts)
+        ok = (dstar >= 0) & np.isfinite(vstar) & (ref.dstar >= 0)
+        rel = np.abs(vstar[ok] - ref.Vstar[ok]) \
+            / np.maximum(1.0, np.abs(ref.Vstar[ok]))
+        inbox_v_err = max(inbox_v_err, float(rel.max()) if rel.size else 0.0)
+        n_dmis += int((dstar != ref.dstar).sum())
+        for i in np.flatnonzero((dstar >= 0) & np.isfinite(vstar)):
+            j = by_theta[pts[i].tobytes()]
+            gaps.append(max(0.0, results[j].cost - float(vstar[i])))
+            node = int(table.node_id[results[j].leaf])
+            cert_flags.append(bool(res.tree.certified_flags(
+                np.array([node]))[0]))
+    gaps, cert_flags = np.asarray(gaps), np.asarray(cert_flags, dtype=bool)
+    folded = np.sort(np.concatenate([np.asarray(hub.ctl(n).subopt._roll)
+                                     for n in tenants]))
+    p99 = float(np.percentile(folded, 99)) if folded.size else 0.0
+    cert_max = float(gaps[cert_flags].max()) if cert_flags.any() else 0.0
+    unc = gaps[~cert_flags]
+    subopt_events = [r for r in o.sink.records
+                     if r.get("name") == "health.subopt"]
+    log(f"[subopt] 19c: V* of the hub ({dev.type}) against the plain CPU "
+        f"oracle on the same {len(gaps)} rows: max relative difference "
+        f"{inbox_v_err:.2e} (limit 1e-9), d* differing on {n_dmis}; the "
+        f"folded gaps are the rows' served cost - V* "
+        f"({'equal' if np.array_equal(folded, np.sort(gaps)) else 'NOT equal'}"
+        f"); gaps p50 {np.percentile(gaps, 50):.3e}, p99 {p99:.3e}, max "
+        f"on {int(cert_flags.sum())} certified rows {cert_max:.3e} (eps "
+        f"{SD_SUBOPT_EPS:g}); {unc.size} rows on uncertified leaves, max "
+        f"{(unc.max() if unc.size else 0.0):.3e}; health.subopt events at "
+        f"eps {SD_SUBOPT_EPS:g}: {len(subopt_events)}")
+    if not inbox_v_err <= 1e-9:
+        fail(f"19c: the hub's V* differs from the plain oracle's by "
+             f"{inbox_v_err:.2e}")
+    if not np.array_equal(folded, np.sort(gaps)):
+        fail("19c: the hub's folded gaps are not served cost - V*")
+    if cert_max > SD_SUBOPT_EPS + 1e-9:
+        fail(f"19c: a certified row is {cert_max:.3e} suboptimal "
+             f"(> eps {SD_SUBOPT_EPS:g})")
+    if subopt_events:
+        fail(f"19c: health.subopt fired at eps {SD_SUBOPT_EPS:g}")
+    if p99 <= 0:
+        fail("19c: no positive gap to hold an alarm to")
+    # At eps = p99 / 2 the hub's own event fires (the same rows and V*
+    # replayed) and a HealthMonitor's max_subopt rule fires on the gauges.
+    vmap = {pts[i].tobytes(): (float(v[i]), int(d[i]))
+            for pts, v, d, _t in ora.calls for i in range(len(pts))}
+
+    class Replay:
+        def solve_vertices(self, pts):
+            from types import SimpleNamespace
+
+            vd = [vmap[p.tobytes()] for p in pts]
+            return SimpleNamespace(Vstar=np.array([v for v, _d in vd]),
+                                   dstar=np.array([d for _v, d in vd]))
+
+    o2 = obs_lib.Obs("jsonl")
+    low = p99 / 2
+    hub2 = DemandHub(mode="on", subopt_frac=1.0, subopt_eps=low,
+                     oracle=Replay(), obs=o2, clock=lambda: 0.0)
+    sampled = [by_theta[b] for b in vmap]
+    for n in tenants:
+        js = [j for j in sampled if names[j] == n]
+        if js:
+            hub2.record(n, th[js], np.array([results[j].leaf for j in js]),
+                        None, np.ones(len(js), dtype=bool),
+                        np.array([results[j].cost for j in js]))
+    hub2.close(snapshot=False)
+    mon = HealthMonitor({"max_subopt": low})
+    for r in list(o2.sink.records) + [o2.flush_metrics()]:
+        mon.feed(r)
+    fired = [e for e in o2.sink.records if e.get("name") == "health.subopt"]
+    adopted = [e["name"] for e in mon.events]
+    log(f"[subopt] 19c: at eps {low:.3e} (half the p99) the hub fires "
+        f"health.subopt for {sorted({e['controller'] for e in fired})}; a "
+        f"HealthMonitor(max_subopt={low:.3e}) fed that stream: "
+        f"{len(adopted)} events ({sorted(set(adopted))}), worst {mon.worst}")
+    if not fired or "health.subopt" not in adopted:
+        fail("19c: health.subopt did not fire below the measured p99")
+    return {"k1_launches": n_k1, "k1_ms": k1_ms, "k3_ms": k3_ms,
+            "samples": n_samples, "p99": p99, "cert_max": cert_max,
+            "overlap": overlap}
+
+
+def demand_rebuild(dev, problem, cfg, res, tmp: str, v1_dir: str,
+                   droot: str, refs: dict | None) -> dict:
+    """19d: RebuildService with demand_dir = 19b's snapshot root and the
+    lifecycle SLO tracker on, from phase 3's tree, controller t1: first
+    at eps_a REBUILD_TIGHT_EPS (phase 15b's revision: an unchanged one
+    invalidates only depth-capped cells that uniform traffic never
+    reaches, so its hint would be empty), then back at the build's
+    eps_a.  Its state starts as if it had published phase 3's tree as
+    t1's artifact (19b's v1 directory, whose rows the snapshot counts),
+    so the first generation maps the snapshot through that node_id
+    table: lifecycle.demand_priority fires, the hint ranks invalidated
+    leaves, the frontier's entry starts with the hinted ones in
+    descending weight, and the regions stay within SD_REGION_TOL of
+    phase 15b's unprioritized rebuild (`refs`: phase 15's regions and
+    K1 counts; None: within 2% of REBUILD_TIGHT_REF_REGIONS).  The
+    second generation's hint maps the snapshot through the first's
+    artifact (best effort, as the service does).  Then the depth-capped
+    DI case (capped_priority)."""
+    import contextlib
+    import threading
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
+    from explicit_hybrid_mpc_tpu_torch.lifecycle import (LifecycleConfig,
+                                                         RebuildService,
+                                                         Revision,
+                                                         RevisionSource)
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import (
+        load_demand, priority_from_snapshot)
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    on_card = dev.type == "cuda"
+    release = threading.Event()
+
+    class TwoRevisions(RevisionSource):
+        def __init__(self):
+            self.stages = [(lambda: True, 1, REBUILD_TIGHT_EPS),
+                           (release.is_set, 2, cfg.eps_a)]
+
+        def poll(self):
+            if self.stages and self.stages[0][0]():
+                _ready, seq, eps = self.stages.pop(0)
+                return [Revision(controller="t1", problem=cfg.problem,
+                                 problem_args=cfg.problem_args,
+                                 eps_a=eps, eps_r=cfg.eps_r, seq=seq,
+                                 t_observed=time.perf_counter(),
+                                 note=f"eps_a {eps:g}")]
+            return []
+
+    path = os.path.join(tmp, "19d.obs.jsonl")
+    o = obs_lib.Obs("jsonl", path=path)
+    lc = LifecycleConfig(artifacts_root=os.path.join(tmp, "19d.lc"),
+                         demand_dir=droot, slo=True,
+                         slo_dir=os.path.join(tmp, "19d.slo"))
+    svc = RebuildService(TwoRevisions(), cfg, cfg=lc, obs=o,
+                         prior={"t1": res})
+    # The service's record of t1's last full artifact: phase 3's tree as
+    # 19b served it (the delta base and the demand rows' node_id table).
+    svc._ctl["t1"].prior_dir, svc._ctl["t1"].prior_version = v1_dir, "v1"
+    real = ipm_leg.ipm_leg_cuda
+    legs: list = []
+    ipm_leg.ipm_leg_cuda = record_legs(real, legs)
+    ipm_leg.launches = 0
+    prof = None
+    ctx = contextlib.nullcontext()
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        ctx = prof = profile(activities=[ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    try:
+        with ctx:
+            svc.start()
+            ok1 = svc.wait_idle(timeout=600, target_generations=1)
+            if on_card:
+                torch.cuda.synchronize()
+    finally:
+        ipm_leg.ipm_leg_cuda = real
+    wall1 = time.perf_counter() - t0
+    n_k1 = ipm_leg.launches
+    st1 = dict(svc._ctl["t1"].prior.stats)
+    release.set()
+    ok2 = svc.wait_idle(timeout=600, target_generations=2)
+    svc.close()
+    o.close()
+    k1_ms = None
+    if prof is not None:
+        rows = [e for e in prof.key_averages()
+                if "ipm_leg" in e.key and e.self_device_time_total]
+        k1_ms = (sum(e.self_device_time_total for e in rows) / 1e3
+                 if rows else None)
+    lc_eval = hexed(svc.slo.evaluate()) if svc.slo is not None else {}
+    gens = svc.generations
+    if not (ok1 and ok2) or svc.n_failures or len(gens) != 2 \
+            or svc.worker_error is not None:
+        fail(f"19d: {len(gens)} generations, {svc.n_failures} failures, "
+             f"worker error {svc.worker_error}")
+    from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
+
+    recs = load_jsonl(path)
+    evs = [r for r in recs if r.get("name") == "lifecycle.demand_priority"]
+    skipped = [r for r in recs
+               if r.get("name") == "lifecycle.demand_priority_skipped"]
+    pr = priority_from_snapshot(load_demand(os.path.join(droot, "t1")),
+                                np.load(os.path.join(v1_dir, "node_id.npy")))
+    order, hint = st1["rebuild_priority_order"], st1["rebuild_priority_hint"]
+    k = min(len(order), hint)
+    w = [pr.get(n, 0.0) for n in order]
+    regions = st1["regions"]
+    summ = svc.summary()
+    tight = (refs or {}).get("tight", {})
+    ref_regions = tight.get("regions", REBUILD_TIGHT_REF_REGIONS)
+    tol = SD_REGION_TOL if refs else 0.02
+    una = (refs or {}).get("unchanged", {})
+    log(f"[demand] 19d RebuildService (demand_dir = 19b's snapshots, "
+        f"lifecycle SLO on) from phase 3's tree, t1 at eps_a "
+        f"{REBUILD_TIGHT_EPS:g}: generation 0 in {wall1:.1f} s, regions "
+        f"{regions} (phase 15b unprioritized "
+        f"{tight.get('regions', 'not run')}; reference {ref_regions} within "
+        f"{tol:.1%}), reuse {st1['rebuild_reuse_frac']}, invalidated "
+        f"{st1['rebuild_leaves_invalidated']}, hint {hint} of "
+        f"{len(pr)} hot nodes; lifecycle.demand_priority events {len(evs)} "
+        f"({[(e.get('seq'), e.get('hot_nodes'), e.get('hinted')) for e in evs]}"
+        f"), skipped {len(skipped)}; frontier entry {order[:8]}... weights "
+        f"{[round(x, 1) for x in w[:8]]}...; K1 {n_k1} launches ("
+        f"{len(legs)} recorded), device time "
+        + (f"{k1_ms:.2f} ms" if k1_ms is not None else "not measured")
+        + f" (phase 15b: {tight.get('k1_launches', 'not run')} launches; "
+        f"15a unchanged: {una.get('k1_launches', 'not run')} launches, "
+        + (f"{una['k1_ms']:.2f} ms" if una.get("k1_ms") is not None
+           else "not measured")
+        + f"); generation 1 (eps_a {cfg.eps_a:g}): regions "
+        f"{gens[1]['regions']}, reuse {gens[1]['reuse_frac']}, "
+        f"published {gens[1]['published']}; lifecycle SLO "
+        f"{ {n: (r['good'], r['bad']) for n, r in (summ['slo'] or {}).items()} }")
+    if not evs or evs[0].get("seq") != 1 or hint <= 0:
+        fail(f"19d: no demand priority on the first generation ({evs}, "
+             f"hint {hint})")
+    if any(x <= 0 for x in w[:k]) or w[:k] != sorted(w[:k], reverse=True) \
+            or any(x > 0 for x in w[k:]):
+        fail(f"19d: the frontier's entry is not the hinted nodes hottest "
+             f"first: {list(zip(order, w))}")
+    if abs(regions - ref_regions) > tol * ref_regions:
+        fail(f"19d: regions {regions} not within {tol:.1%} of "
+             f"{ref_regions}")
+    if n_k1 <= 0 and on_card:
+        fail("19d: the prioritized rebuild launched no K1")
+    if not summ["slo"] or "lifecycle.staleness" not in summ["slo"]:
+        fail(f"19d: the lifecycle tracker reports {summ['slo']}")
+    capped_priority(dev)
+    return {"k1_launches": n_k1, "k1_ms": k1_ms, "regions": regions,
+            "hint": hint, "slo_dir": lc.slo_dir, "sla_s": lc.sla_s,
+            "slo_goal": lc.slo_goal, "slo_interval_s": lc.slo_interval_s,
+            "lc_eval": lc_eval}
+
+
+def capped_priority(dev) -> None:
+    """19d's bit-identity case (the JAX package's depth-capped DI rebuild:
+    N=3, theta_box 1.5, eps_a 0.3, max_depth 6, on `dev`): its
+    invalidated leaves cannot split, so a hint that puts two of them
+    first gives the unhinted tree node for node."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.online import export
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    args = (("N", 3), ("theta_box", 1.5))
+    problem = make("double_integrator", **dict(args))
+    cfg = PartitionConfig(problem="double_integrator", problem_args=args,
+                          eps_a=0.3, backend=dev.type, batch_simplices=128,
+                          max_depth=6)
+    prior = build_partition(problem, cfg)
+    ra = warm_rebuild(problem, cfg, prior)
+    order = ra.stats["rebuild_priority_order"]
+    hot = [order[-1], order[min(3, len(order) - 1)]]
+    rb = warm_rebuild(problem, cfg, prior, priority={hot[0]: 100.0,
+                                                     hot[1]: 40.0})
+    sa, sb = ra.tree.__getstate__(), rb.tree.__getstate__()
+    differ = [k for k in ("children", "parent", "depth", "leaf_flags",
+                          "normal", "offset", "split_edge", "n",
+                          "n_regions") if not np.array_equal(sa[k], sb[k])]
+    ta, tb = export.export_leaves(ra.tree), export.export_leaves(rb.tree)
+    differ += [f for f, a, b in zip(ta._fields, ta, tb)
+               if not (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                       else a == b)]
+    log(f"[demand] 19d depth-capped DI (max_depth 6) on {dev}: "
+        f"{ra.stats['rebuild_leaves_invalidated']} leaves invalidated; "
+        f"hinted entry {rb.stats['rebuild_priority_order'][:3]} (hot "
+        f"{hot}); the hinted tree node for node the unhinted one: "
+        f"{not differ}")
+    if rb.stats["rebuild_priority_order"][:2] != hot or differ:
+        fail(f"19d: the depth-capped hinted rebuild differs in {differ}")
+
+
+_RELOAD = r"""
+import json, sys
+from explicit_hybrid_mpc_tpu_torch.obs.slo import SloTracker, lifecycle_slo_specs
+out = []
+for a in json.loads(sys.argv[1]):
+    specs = lifecycle_slo_specs(*a["lifecycle"]) if a["lifecycle"] else ()
+    tr = SloTracker(specs, interval_s=a["interval_s"], windows=a["windows"],
+                    burn_thresholds=a["burns"], state_dir=a["dir"],
+                    identity=a["identity"])
+    out.append({n: {k: [x.hex() for x in v] if isinstance(v, list)
+                    else v.hex() for k, v in row.items()}
+                for n, row in tr.evaluate().items()})
+print(json.dumps(out))
+"""
+
+
+def hexed(ev: dict) -> dict:
+    """evaluate()'s floats as their exact hex spelling."""
+    return {n: {k: [x.hex() for x in v] if isinstance(v, list) else v.hex()
+                for k, v in row.items()} for n, row in ev.items()}
+
+
+def reloaded(trackers: list) -> list:
+    """One fresh interpreter's evaluate() (hexed) of each tracker state
+    (state_dir, identity, interval_s, windows, burns, lifecycle_slo_specs
+    arguments or None)."""
+    arg = json.dumps([{"dir": d, "identity": i, "interval_s": iv,
+                       "windows": [list(w) for w in ws], "burns": list(bs),
+                       "lifecycle": lc}
+                      for d, i, iv, ws, bs, lc in trackers])
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", _RELOAD, arg], cwd=root,
+                         env={**os.environ, "PYTHONPATH": root},
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"19e: the reload failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def slo_durability(tmp: str, streams: list, reb: dict) -> dict:
+    """19e: a serving SloTracker (slo_from_serve_config's specs and
+    identity, windows SD_WINDOWS on 1 s slots, an injected clock: one
+    slot a snapshot) over 19b's first capture stream, and 19d's
+    lifecycle tracker, each saved and reloaded in a fresh interpreter
+    with evaluate() bitwise equal; fleet.slo_rollup over 19b's two
+    capture streams equal to the exact sum of their slo.<spec>
+    good/bad unit counters; a scripted sustained breach fires
+    health.slo_burn once (critical, fast pair, adopted by a
+    HealthMonitor) and a one-interval spike of the same size does not."""
+    from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
+    from explicit_hybrid_mpc_tpu_torch.config import ServeConfig
+    from explicit_hybrid_mpc_tpu_torch.obs import fleet, load_jsonl
+    from explicit_hybrid_mpc_tpu_torch.obs.health import HealthMonitor
+    from explicit_hybrid_mpc_tpu_torch.obs.slo import (
+        DEFAULT_BURN_THRESHOLDS, DEFAULT_WINDOWS, SloSpec, SloTracker,
+        slo_from_serve_config)
+
+    t0 = time.perf_counter()
+    sd = os.path.join(tmp, "19e.slo")
+    base = slo_from_serve_config(ServeConfig(slo="on", slo_dir=sd))
+    tr = SloTracker(interval_s=1.0, windows=SD_WINDOWS,
+                    burn_thresholds=SD_BURNS, state_dir=sd,
+                    identity=base.identity,
+                    serve_template=base.serve_template, clock=lambda: 0.0)
+    snaps = [r for r in load_jsonl(streams[0]) if r.get("kind") == "metrics"]
+    for i, s in enumerate(snaps):
+        tr.tick(s, now=float(i))
+    tr.flush()
+    serve_ev = tr.evaluate()
+    # With the lifecycle tracker of 19d, saved on the service's close().
+    lc_ev = reb["lc_eval"]
+    got, lc_got = reloaded([
+        (sd, base.identity, 1.0, SD_WINDOWS, SD_BURNS, None),
+        (reb["slo_dir"], "lifecycle", reb["slo_interval_s"],
+         DEFAULT_WINDOWS, DEFAULT_BURN_THRESHOLDS,
+         [reb["sla_s"], reb["slo_goal"]])])
+    serve_ok = got == hexed(serve_ev)
+    lc_ok = lc_got == lc_ev
+    # The fleet fold over the two capture streams.
+    infos = fleet.load_fleet(streams)
+    roll = fleet.slo_rollup(infos)
+    summed: dict = {}
+    for s in streams:
+        last = [r for r in load_jsonl(s) if r.get("kind") == "metrics"][-1]
+        for key, v in last["counters"].items():
+            if key.startswith("slo.") and key.endswith("_units"):
+                spec, field = key[4:].rsplit(".", 1)
+                summed.setdefault(spec, {"good": 0, "bad": 0})[
+                    field.split("_")[0]] += v
+    folded = {n: {"good": r["good"], "bad": r["bad"]}
+              for n, r in roll["specs"].items()}
+    # Burn alerts, scripted: cumulative counters, one snapshot a slot.
+    spec = SloSpec(name="scripted.avail", kind="counter", metric="bad",
+                   total=("total",))
+
+    def burns(ticks):
+        o = obs_lib.Obs("jsonl")
+        t = SloTracker([spec], interval_s=1.0, windows=SD_WINDOWS,
+                       burn_thresholds=SD_BURNS, obs=o)
+        for i, (bad, tot) in enumerate(ticks):
+            t.tick({"counters": {"bad": float(bad), "total": float(tot)}},
+                   now=float(i))
+        mon = HealthMonitor()
+        for r in o.sink.records:
+            mon.feed(r)
+        return [r for r in o.sink.records
+                if r.get("name") == "health.slo_burn"
+                and r.get("window") == "fast"], mon
+
+    sustained, mon = burns([(30 * i, 100 * i) for i in range(131)])
+    spike, _m = burns([(0, 100 * i) for i in range(61)] + [(30, 6100)]
+                      + [(30, 100 * i) for i in range(62, 70)])
+    log(f"[slo] 19e: a serving tracker over 19b's stream ({len(snaps)} "
+        f"snapshots, {len(serve_ev)} specs) reloaded in a fresh interpreter: "
+        f"evaluate() bitwise {serve_ok}; the lifecycle tracker of 19d "
+        f"({len(lc_ev)} specs): bitwise {lc_ok}; fleet.slo_rollup over "
+        f"{len(streams)} streams: {len(folded)} specs, the exact sum of "
+        f"their unit counters {folded == summed}; scripted sustained "
+        f"breach: {len(sustained)} fast health.slo_burn "
+        f"({[e['severity'] for e in sustained]}), the monitor's worst "
+        f"{mon.worst}; one-interval spike: {len(spike)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (serve_ok and lc_ok) or not serve_ev or not lc_ev:
+        fail("19e: a reloaded budget is not bitwise the saved one")
+    if folded != summed or not folded:
+        fail(f"19e: the rollup {folded} is not the sum {summed}")
+    if len(sustained) != 1 or sustained[0]["severity"] != "critical" \
+            or mon.worst != "critical" or spike:
+        fail(f"19e: burn alerts: sustained {len(sustained)}, spike "
+             f"{len(spike)}, monitor {mon.worst}")
+    return {"serve_specs": len(serve_ev), "lifecycle_specs": len(lc_ev)}
+
+
+def slo_demand_phase(dev, problem, cfg, res, table, tmp: str,
+                     refs: dict | None) -> dict:
+    """Phase 19: the SLO engine and demand telemetry on the card (19a-19e
+    above).  `refs`: phase 15's rebuilds (demand_rebuild).  Returns the
+    kernels line's additions."""
+    from explicit_hybrid_mpc_tpu_torch.post import partition_report
+
+    t0 = time.perf_counter()
+    # post/ on the card's machine (no matplotlib there: post/__init__
+    # reaches only post/analysis.py).
+    rep = partition_report(res.tree, res.roots)
+    log(f"[post] partition_report of phase 3's tree: regions "
+        f"{rep['n_regions']}, certified volume "
+        f"{rep['volume_certified_frac']:.6f}, best effort "
+        f"{rep['n_best_effort']}, depth {rep['depth_min']}-"
+        f"{rep['depth_max']}, {time.perf_counter() - t0:.1f} s")
+    if rep["n_regions"] != res.stats["regions"]:
+        fail(f"post: {rep['n_regions']} regions, the build "
+             f"{res.stats['regions']}")
+    demand_serve(dev, res, tmp)
+    arena = demand_arena(dev, res, table, tmp)
+    sub = online_subopt(dev, problem, res, table, arena["tenant_arenas"])
+    reb = demand_rebuild(dev, problem, cfg, res, tmp, arena["v1_dir"],
+                         arena["droot"], refs)
+    slo_durability(tmp, arena["streams"], reb)
+    log(f"[demand] phase 19 took {time.perf_counter() - t0:.1f} s")
+    return {"ipm_leg": {"subopt_launches": sub["k1_launches"],
+                        "subopt_ms": sub["k1_ms"],
+                        "demand_rebuild_launches": reb["k1_launches"],
+                        "demand_rebuild_ms": reb["k1_ms"]},
+            "arena_eval": {"capture_launches": arena["capture_launches"],
+                           "capture_p99_ratio": arena["ratio"]["p99"]}}
+
+
+def slo_demand_only() -> int:
+    """Phase 19 alone, for iterating on the card: the kernels built, a
+    flagship build standing in for phase 3's, then 19a-19e (19d held to
+    REBUILD_TIGHT_REF_REGIONS, phase 15 not having run).
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.slo_demand_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.online import export
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    problem = make("inverted_pendulum")
+    cfg = PartitionConfig(problem="inverted_pendulum", eps_a=1e-2)
+    res = build_partition(problem, cfg)
+    torch.cuda.synchronize()
+    log(f"[main] build: regions {res.stats['regions']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slo_") as tmp:
+        out = slo_demand_phase(dev, problem, cfg, res,
+                               export.export_leaves(res.tree), tmp, None)
+    log(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5077,6 +6002,16 @@ def main() -> int:
         diagnostics_phase(dev, problem, cfg, res, build_s, tmp)
     host.end("phase 18 (diagnostics)")
 
+    # -- phase 19: the SLO engine and demand telemetry (main serve with
+    # demand capture, the arena with capture and SLO tracking, the hub's
+    # suboptimality re-solves through K1, the demand-ordered rebuild,
+    # budget durability and the fleet fold) --------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slo_") as tmp:
+        sd = slo_demand_phase(dev, problem, cfg, res, table, tmp,
+                              reb["refs"])
+    host.end("phase 19 (SLO engine, demand telemetry)")
+    k3_entry.update(sd["arena_eval"])
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
@@ -5085,7 +6020,7 @@ def main() -> int:
          "library_ms": None, "build_ms": build_ms,
          "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
          "large": k1_large, "general": k1_general, "pruned": k1_pruned,
-         **reb["ipm_leg"]},
+         **reb["ipm_leg"], **sd["ipm_leg"]},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",

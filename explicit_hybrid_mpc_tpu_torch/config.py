@@ -448,10 +448,7 @@ class ServeConfig:
     RUN-scoped (a deploy restarts the server, never the build), and
     none of them can change a served value -- only latency, batching,
     and degraded-mode behavior.  Validated eagerly so a bad deploy
-    config dies at startup, not on the first oversized batch.  The
-    demand and SLO knobs belong to modules not yet ported: a
-    non-default value raises NotImplementedError naming the ROADMAP
-    item.
+    config dies at startup, not on the first oversized batch.
     """
 
     # Controller name in the registry (one scheduler per name).
@@ -478,7 +475,8 @@ class ServeConfig:
     # Observability mode/path, same semantics as PartitionConfig.obs.
     obs: str = "off"
     obs_path: Optional[str] = None
-    # Demand telemetry (ROADMAP A5: obs/demand.py).
+    # Demand telemetry (obs/demand.py): 'on' captures per-leaf visit
+    # counts, fallback geometry and sampled suboptimality re-solves.
     demand: str = "off"
     demand_max_leaves: int = 4096
     demand_decay_s: float = 300.0
@@ -495,7 +493,8 @@ class ServeConfig:
     tracing: str = "off"
     trace_exemplar_k: int = 8
     trace_window_s: float = 30.0
-    # SLO engine (ROADMAP A5: obs/slo.py).
+    # SLO engine (obs/slo.py): durable error budgets with
+    # multi-window burn-rate alerts over the serving metrics.
     slo: str = "off"
     slo_goal: float = 0.999
     slo_p99_target_us: float = 50_000.0
@@ -527,6 +526,21 @@ class ServeConfig:
         if self.obs not in ("off", "jsonl", "full"):
             raise ValueError(f"unknown obs mode {self.obs!r} "
                              "(expected 'off', 'jsonl', or 'full')")
+        if self.demand not in ("off", "on"):
+            raise ValueError(f"unknown demand mode {self.demand!r} "
+                             "(expected 'off' or 'on')")
+        if self.demand_max_leaves < 1:
+            raise ValueError("demand_max_leaves must be >= 1")
+        if self.demand_decay_s <= 0:
+            raise ValueError("demand_decay_s must be > 0")
+        if self.demand_reservoir < 1:
+            raise ValueError("demand_reservoir must be >= 1")
+        if not 0.0 <= self.demand_subopt_frac <= 1.0:
+            raise ValueError("demand_subopt_frac must be in [0, 1]")
+        if self.demand_subopt_eps < 0:
+            raise ValueError("demand_subopt_eps must be >= 0")
+        if self.demand_snapshot_every_s <= 0:
+            raise ValueError("demand_snapshot_every_s must be > 0")
         if self.tracing not in ("off", "on"):
             raise ValueError(f"unknown tracing mode {self.tracing!r} "
                              "(expected 'off' or 'on')")
@@ -534,22 +548,12 @@ class ServeConfig:
             raise ValueError("trace_exemplar_k must be >= 1")
         if self.trace_window_s <= 0:
             raise ValueError("trace_window_s must be > 0")
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for fld, item in _SERVE_UNPORTED:
-            if getattr(self, fld) != defaults[fld]:
-                raise NotImplementedError(
-                    f"ServeConfig.{fld} is not yet ported to the torch "
-                    f"package (ROADMAP {item})")
-
-
-#: Serving knobs whose modules wait for later port slices: (field,
-#: the ROADMAP item and the JAX package's module it waits for).  Any
-#: value other than the default raises.
-_SERVE_UNPORTED = tuple(
-    [(f, "A5: obs/demand.py") for f in (
-        "demand", "demand_max_leaves", "demand_decay_s",
-        "demand_reservoir", "demand_subopt_frac", "demand_subopt_eps",
-        "demand_snapshot_every_s", "demand_dir")]
-    + [(f, "A5: obs/slo.py") for f in (
-        "slo", "slo_goal", "slo_p99_target_us", "slo_interval_s",
-        "slo_dir")])
+        if self.slo not in ("off", "on"):
+            raise ValueError(f"unknown slo mode {self.slo!r} "
+                             "(expected 'off' or 'on')")
+        if not 0.0 < self.slo_goal < 1.0:
+            raise ValueError("slo_goal must be in (0, 1)")
+        if self.slo_p99_target_us <= 0:
+            raise ValueError("slo_p99_target_us must be > 0")
+        if self.slo_interval_s <= 0:
+            raise ValueError("slo_interval_s must be > 0")

@@ -49,10 +49,14 @@ overshoot past ``poll_s`` (``serve.host.stall_us``, ReqTrace.note_stall)
 are recorded beside the ``lifecycle.*`` metrics, so a GC-stalled
 rebuild worker is attributed to the host, not to the rebuild.
 
-Not yet ported from the JAX package's service: the staleness SLO
-tracker (``LifecycleConfig.slo*``; ROADMAP A5: obs/slo.py) and the
-demand-ordered rebuild (``LifecycleConfig.demand_dir``; A5:
-obs/demand.py) -- setting either raises NotImplementedError.
+Error budgets and demand (obs/slo.py, obs/demand.py): with
+``LifecycleConfig.slo`` and obs on, an ``SloTracker`` over the
+lifecycle objectives (SLA-miss ratio, rolling staleness p99) ticks
+from the watch loop and once more on ``close()``, and ``summary()``
+carries its evaluation; with ``LifecycleConfig.demand_dir`` set, each
+warm rebuild orders its invalidated leaves by the controller's latest
+committed demand snapshot, hottest first (``lifecycle.demand_priority``
+event).
 
 Failure containment: a failed rebuild/publish (solver error,
 provenance rejection, injected fault) leaves the PRIOR generation
@@ -144,21 +148,6 @@ class LifecycleConfig:
             raise ValueError("slo_goal must be in (0, 1)")
         if self.slo_interval_s <= 0:
             raise ValueError("slo_interval_s must be > 0")
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for fld, item in _LIFECYCLE_UNPORTED:
-            if getattr(self, fld) != defaults[fld]:
-                raise NotImplementedError(
-                    f"LifecycleConfig.{fld} is not yet ported to the torch "
-                    f"package (ROADMAP {item})")
-
-
-#: Service knobs whose modules wait for later port slices: (field, the
-#: ROADMAP item and the JAX package's module it waits for).  Any value
-#: other than the default raises.
-_LIFECYCLE_UNPORTED = (
-    ("demand_dir", "A5: obs/demand.py"),
-    ("slo", "A5: obs/slo.py"), ("slo_goal", "A5: obs/slo.py"),
-    ("slo_interval_s", "A5: obs/slo.py"), ("slo_dir", "A5: obs/slo.py"))
 
 
 class _ControllerState:
@@ -251,6 +240,18 @@ class RebuildService:
         self._serve_devices = ([torch.device("cpu")]
                                if build_cfg.backend in ("cpu", "serial")
                                else None)
+        # Durable staleness error budget (obs/slo.py), ticked from the
+        # watch loop at a bounded cadence; None when off -- the hub
+        # pattern the schedulers use.
+        self.slo = None
+        if self.cfg.slo and self.obs.enabled:
+            from explicit_hybrid_mpc_tpu_torch.obs import slo as slo_mod
+
+            self.slo = slo_mod.SloTracker(
+                slo_mod.lifecycle_slo_specs(self.cfg.sla_s,
+                                            goal=self.cfg.slo_goal),
+                interval_s=self.cfg.slo_interval_s, obs=self.obs,
+                state_dir=self.cfg.slo_dir, identity="lifecycle")
         # Host forensics (obs/reqtrace.py): GC pauses and watcher sleep
         # overshoot are attributed to the HOST, so a GC-stalled rebuild
         # worker stops blaming the rebuild.
@@ -301,7 +302,14 @@ class RebuildService:
         if self._gc_rec is not None:
             self._gc_rec.stop()
         if self.obs.enabled:
-            self.obs.flush_metrics()
+            rec = self.obs.flush_metrics()
+            # Final budget fold + durable commit before the stream
+            # closes, so a restarted service resumes the budget this
+            # one actually earned.
+            if self.slo is not None and rec is not None:
+                self.slo.tick(rec)
+        if self.slo is not None:
+            self.slo.flush()
 
     def __enter__(self) -> "RebuildService":
         return self.start()
@@ -358,7 +366,13 @@ class RebuildService:
 
     # -- watcher: source -> coalesced queue --------------------------------
 
+    #: Watch-loop slo tick cadence (wall seconds): the budget fold is
+    #: per-interval anyway, so ticking every poll (20 Hz default)
+    #: would only burn snapshot walks.
+    _SLO_TICK_S = 2.0
+
     def _watch_loop(self) -> None:
+        last_tick = time.perf_counter()
         while True:
             with self._lock:
                 if self._closed:
@@ -374,6 +388,13 @@ class RebuildService:
                 self._enqueue(rev)
             with self._lock:
                 self._polling = False
+            if self.slo is not None:
+                now = time.perf_counter()
+                if now - last_tick >= self._SLO_TICK_S:
+                    last_tick = now
+                    rec = self.obs.flush_metrics()
+                    if rec is not None:
+                        self.slo.tick(rec)
             t_sleep = time.perf_counter()
             time.sleep(self.cfg.poll_s)
             if self._host_trace is not None:
@@ -485,6 +506,7 @@ class RebuildService:
         with self._lock:
             st = self._ctl[name]
             prior = st.prior
+            prior_dir = st.prior_dir
             gen = st.generation
         problem = make(rev.problem, **dict(rev.problem_args))
         cfg2 = dataclasses.replace(
@@ -497,10 +519,17 @@ class RebuildService:
                                   obs=self.obs)
             reuse = None
         else:
+            priority = self._demand_priority(name, prior_dir)
             res = warm_rebuild(
                 problem, cfg2, prior, oracle=oracle, obs=self.obs,
-                strict_provenance=self.cfg.strict_provenance)
+                strict_provenance=self.cfg.strict_provenance,
+                priority=priority)
             reuse = res.stats.get("rebuild_reuse_frac")
+            if priority:
+                self.obs.event(
+                    "lifecycle.demand_priority", controller=name,
+                    seq=rev.seq, hot_nodes=len(priority),
+                    hinted=res.stats.get("rebuild_priority_hint"))
         rebuild_s = time.perf_counter() - t0
         row = self._publish(name, rev, res, gen)
         staleness = time.perf_counter() - rev.t_observed
@@ -552,6 +581,30 @@ class RebuildService:
                     f"{staleness:.1f}s after its revision was "
                     f"observed (SLA {self.cfg.sla_s:g}s): the rebuild "
                     "pipeline is not keeping up with plant drift")
+
+    def _demand_priority(self, name: str,
+                         prior_dir: Optional[str]
+                         ) -> Optional[dict[int, float]]:
+        """{node id: hits} hint from the controller's latest committed
+        demand snapshot (cfg.demand_dir), mapped through the PRIOR
+        artifact's node_id.npy -- the table the serving leaf rows
+        index.  Best-effort by contract: no snapshot dir, a torn
+        snapshot, or a missing prior artifact all return None (the
+        rebuild proceeds in default node order)."""
+        if self.cfg.demand_dir is None or prior_dir is None:
+            return None
+        from explicit_hybrid_mpc_tpu_torch.obs import demand as demand_mod
+        try:
+            snap = demand_mod.load_demand(
+                os.path.join(self.cfg.demand_dir, name))
+            node_id = np.load(os.path.join(prior_dir, "node_id.npy"))
+            pr = demand_mod.priority_from_snapshot(snap, node_id)
+        # The hint is best-effort: evented below, never fatal.
+        except Exception as e:  # noqa: BLE001
+            self.obs.event("lifecycle.demand_priority_skipped",
+                           controller=name, msg=repr(e))
+            return None
+        return pr or None
 
     def _publish(self, name: str, rev: Revision, res, gen: int) -> dict:
         """Delta-compressed publish + hot swap; returns the byte
@@ -652,9 +705,9 @@ class RebuildService:
         deltas = [g for g in gens if g.get("published") == "delta"]
         dfracs = [g["delta_bytes"] / g["full_bytes"] for g in deltas
                   if g.get("delta_bytes") and g.get("full_bytes")]
+        slo = self.slo.summary() if self.slo is not None else None
         return {
-            # The JAX package's SLO block; its tracker is not ported.
-            "slo": None,
+            "slo": slo,
             "generations": len(gens),
             "failures": failures,
             "staleness_p50_s": (round(float(np.percentile(stale, 50)), 3)

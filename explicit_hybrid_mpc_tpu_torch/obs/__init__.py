@@ -28,9 +28,10 @@ Diagnostics built on top: obs/recorder.py (flight recorder -- repro
 bundles on solver anomalies, replayed standalone by obs/replay.py),
 obs/health.py (streaming watchdog -- health.* events, fed in-build by
 the frontier engine; its first critical verdict opens the armed
-auto-profile capture) and obs/fleet.py (per-process streams merged
-into one view).  The SLO engine and demand telemetry are not yet ported
-(ROADMAP A5: obs/slo.py, obs/demand.py).
+auto-profile capture), obs/fleet.py (per-process streams merged
+into one view), obs/slo.py (durable error budgets with burn-rate
+alerts) and obs/demand.py (per-leaf demand, fallback geometry and
+sampled suboptimality, feeding the demand-ordered warm rebuild).
 """
 
 from __future__ import annotations
@@ -49,6 +50,9 @@ from explicit_hybrid_mpc_tpu_torch.obs.recorder import (  # noqa: F401
     BUNDLE_VERSION, FlightRecorder, load_bundle)
 from explicit_hybrid_mpc_tpu_torch.obs.sink import (  # noqa: F401
     SCHEMA_VERSION, JsonlSink, json_default, load_jsonl)
+from explicit_hybrid_mpc_tpu_torch.obs.slo import (  # noqa: F401
+    SloSpec, SloTracker, build_slo_specs, lifecycle_slo_specs,
+    serve_slo_specs, slo_from_serve_config)
 from explicit_hybrid_mpc_tpu_torch.obs.trace import Tracer  # noqa: F401
 
 MODES = ("off", "jsonl", "full")

@@ -346,10 +346,10 @@ def warm_rebuild(problem, cfg: PartitionConfig, prior,
     default shims them with a stats note and proceeds -- the sweep
     itself re-proves every kept certificate either way).
 
-    priority: optional {tree node id: weight} demand hint (the JAX
-    package's obs/demand.py ``priority_from_snapshot`` maps a serving
-    traffic snapshot's leaf rows to node ids; that module is not ported
-    yet, so the rebuild service always passes None).  Invalidated
+    priority: optional {tree node id: weight} demand hint
+    (obs/demand.py ``priority_from_snapshot`` maps a serving traffic
+    snapshot's leaf rows to node ids; lifecycle.RebuildService passes
+    it when ``LifecycleConfig.demand_dir`` is set).  Invalidated
     leaves re-enter the frontier hottest-first instead of in node
     order, so under an interrupted or wall-bounded rebuild the leaves
     live traffic actually visits are re-certified before cold

@@ -70,10 +70,12 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    default="off")
     p.add_argument("--obs-path", metavar="FILE", default=None)
     p.add_argument("--demand", choices=("off", "on"), default="off",
-                   help="demand telemetry (not yet ported: 'on' raises, "
-                        "ROADMAP A5: obs/demand.py)")
+                   help="demand telemetry (obs/demand.py): per-leaf "
+                        "traffic sketches + fallback geometry "
+                        "exemplars, snapshot to --demand-dir")
     p.add_argument("--demand-dir", metavar="DIR", default=None,
-                   help="demand snapshot root (not yet ported)")
+                   help="demand snapshot root "
+                        "(<dir>/<controller>/demand.{npz,json})")
     p.add_argument("--selftest", type=int, default=0, metavar="N",
                    help="serve N self-generated queries closed-loop, "
                         "print a JSON summary, and exit")
@@ -143,10 +145,14 @@ def serve_main(argv: list[str] | None = None) -> int:
         fallback = FallbackPolicy(lb, ub, mode=cfg.fallback,
                                   max_oracle_frac=cfg.max_oracle_frac,
                                   obs=o)
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import (
+        hub_from_serve_config)
+
+    demand = hub_from_serve_config(cfg, obs=o)
     sched = RequestScheduler(registry, cfg.controller,
                              max_batch=cfg.max_batch,
                              max_wait_us=cfg.max_wait_us,
-                             fallback=fallback, obs=o)
+                             fallback=fallback, obs=o, demand=demand)
     try:
         if args.selftest:
             rng = np.random.default_rng(0)
@@ -188,5 +194,7 @@ def serve_main(argv: list[str] | None = None) -> int:
         return 0
     finally:
         sched.close()
+        if demand is not None:
+            demand.close()  # final snapshot when --demand-dir is set
         if o is not obs_lib.NOOP:
             o.close()

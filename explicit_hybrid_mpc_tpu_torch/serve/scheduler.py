@@ -36,8 +36,16 @@ by construction), the ``queue_frac`` gauge, and the slowest-K exemplar
 ring.  Stamps are raw clock reads on the hot path; all emission happens
 at the batch fold.
 
-Demand capture and SLO tracking (ROADMAP A5) are not ported: their
-hooks accept only None.
+Demand capture (obs/demand.py): both schedulers optionally hold a
+``DemandHub`` and make exactly ONE batched ``record`` call per
+(controller, micro-batch) AFTER results scatter back to tickets --
+leaf rows, fallback tags, certified box and served costs, all host
+arrays the serve path already produced.  SLO tracking (obs/slo.py):
+an optional ``SloTracker`` ticks on the metrics snapshot each worker
+flushes every ``METRICS_FLUSH_S`` seconds, never per request, and
+persists its budget on ``close()``.  Both follow the off-mode
+contract of the trace hub: a hub that is off is dropped at
+construction.
 
 Observability: per-controller ``serve.ctl.<name>.*`` metrics (the
 request scheduler's latency histogram, queue-depth / batch-fill /
@@ -173,17 +181,11 @@ class _Pending:
         self.done = 0
 
 
-#: Scheduler hooks whose modules wait for later port slices: hook ->
-#: the ROADMAP item and the JAX package's module it waits for.
-_HOOK_ITEMS = {"demand": "A5: obs/demand.py", "slo": "A5: obs/slo.py"}
-
-
-def _unported(cls: str, **hooks) -> None:
-    for name, hub in hooks.items():
-        if hub is not None:
-            raise NotImplementedError(
-                f"{cls}({name}=...) is not yet ported to the "
-                f"torch package (ROADMAP {_HOOK_ITEMS[name]})")
+def _enabled(hub):
+    """The hub itself when it is on, else None: an off hub costs one
+    attribute test per micro-batch."""
+    return hub if hub is not None and getattr(hub, "enabled", False) \
+        else None
 
 
 class _MicroBatcher:
@@ -197,7 +199,7 @@ class _MicroBatcher:
     shutdown)."""
 
     def _setup(self, max_batch: int, max_wait_us: float, obs,
-               trace) -> None:
+               trace, demand, slo) -> None:
         if not config_mod.is_pow2(max_batch):
             raise ValueError(f"max_batch must be a power of two, "
                              f"got {max_batch}")
@@ -206,10 +208,13 @@ class _MicroBatcher:
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_us) * 1e-6
         self._obs = obs if obs is not None else obs_lib.NOOP
-        # Request-trace hub (obs/reqtrace.py ReqTrace) or None: a hub
-        # that is off is dropped here, so off costs one attribute test.
-        self.trace = trace if trace is not None \
-            and getattr(trace, "enabled", False) else None
+        # Request-trace hub (obs/reqtrace.py ReqTrace), demand hub
+        # (obs/demand.py DemandHub) and SLO tracker (obs/slo.py
+        # SloTracker), each None when off.  A serve_template tracker
+        # discovers controllers from their counters as they appear.
+        self.trace = _enabled(trace)
+        self.demand = _enabled(demand)
+        self.slo = _enabled(slo)
         # Batch-seal stamp of the batch being served, and the deadline
         # flush's sleep overshoot (traced only).
         self._t_seal_ns = 0
@@ -296,7 +301,11 @@ class _MicroBatcher:
                     self._last_flush = now
                     if self.trace is not None:
                         self.trace.flush()
-                    self._obs.flush_metrics()
+                    rec = self._obs.flush_metrics()
+                    # The budget fold reuses the snapshot just emitted:
+                    # one registry walk per flush, not two.
+                    if self.slo is not None and rec is not None:
+                        self.slo.tick(rec)
 
     def _serve(self, entries) -> None:
         raise NotImplementedError
@@ -321,6 +330,8 @@ class _MicroBatcher:
             self._closed = True
             self._cond.notify_all()
         self._worker.join(timeout)
+        if self.slo is not None:
+            self.slo.flush()
 
     def __enter__(self):
         return self
@@ -343,8 +354,7 @@ class RequestScheduler(_MicroBatcher):
                  max_batch: int = 256, max_wait_us: float = 2000.0,
                  fallback=None, obs: "obs_lib.Obs | None" = None,
                  demand=None, trace=None, slo=None):
-        self._setup(max_batch, max_wait_us, obs, trace)
-        _unported("RequestScheduler", demand=demand, slo=slo)
+        self._setup(max_batch, max_wait_us, obs, trace, demand, slo)
         self.registry = registry
         self.controller = controller
         self.fallback = fallback
@@ -520,6 +530,17 @@ class RequestScheduler(_MicroBatcher):
                     extent=getattr(srv, "n_leaves", None),
                     stall_ns=self._stall_over_ns)
             self._stall_over_ns = 0
+        # Demand capture: one batched call, AFTER tickets are filled
+        # (telemetry never sits between a result and its caller).
+        # `srv` outlives the lease as a plain object reference; the box
+        # lookup only reads its root_bary.
+        if self.demand is not None:
+            box = self.fallback.box(srv) \
+                if self.fallback is not None else None
+            self.demand.record(
+                self.controller, thetas, res.leaf, tags, res.inside,
+                res.cost, box=box,
+                n_leaves=getattr(srv, "n_leaves", None))
 
 
 class ArenaScheduler(_MicroBatcher):
@@ -553,8 +574,7 @@ class ArenaScheduler(_MicroBatcher):
                  max_wait_us: float = 2000.0, fallback=None,
                  obs: "obs_lib.Obs | None" = None, demand=None,
                  trace=None, slo=None):
-        self._setup(max_batch, max_wait_us, obs, trace)
-        _unported("ArenaScheduler", demand=demand, slo=slo)
+        self._setup(max_batch, max_wait_us, obs, trace, demand, slo)
         self.arena = arena
         self.fallback = fallback
         self._mix_roll: deque[int] = deque(maxlen=64)
@@ -734,3 +754,17 @@ class ArenaScheduler(_MicroBatcher):
                         extent=getattr(ext, "n_leaves", None),
                         stall_ns=self._stall_over_ns)
                 self._stall_over_ns = 0
+        # Demand capture, grouped per tenant (the hub's sketches are
+        # per-controller and ``res.leaf`` is controller-LOCAL, so the
+        # mixed batch splits cleanly); one batched call per tenant
+        # present, after tickets are filled.
+        if self.demand is not None:
+            names_arr = np.asarray(names)
+            for name in sorted(set(names)):
+                msk = names_arr == name
+                ext = self.arena.extent(name)
+                self.demand.record(
+                    name, thetas[msk], res.leaf[msk],
+                    [tags[i] for i in np.flatnonzero(msk)],
+                    res.served[msk], res.cost[msk],
+                    box=(ext.lb, ext.ub), n_leaves=ext.n_leaves)

@@ -433,7 +433,10 @@ def test_rebuild_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     # On the CPU nothing launches and no device time is measured.
     assert out == {"ipm_leg": {"rebuild_launches": 0, "rebuild_ms": None,
                                "rebuild_bound_ms": 0.0},
-                   "locate": {"rebuild_launches": 0}}
+                   "locate": {"rebuild_launches": 0},
+                   "refs": {"unchanged": {"regions": same, "k1_launches": 0,
+                                          "k1_ms": None},
+                            "tight": {"regions": tight, "k1_launches": 0}}}
 
 
 def test_a_wrong_rebuild_reference_fails_the_phase(tmp_path, monkeypatch):
@@ -849,3 +852,161 @@ def test_diagnostics_phase_d_e_f_rehearse_on_the_cpu(
                 "strict issues []", "[diag] 18e straggler_report",
                 "['health.serve_p99_us']", "p99): [], exit code 0"):
         assert tag in log, tag
+
+
+# -- phase 19: the SLO engine and demand telemetry ---------------------------
+
+
+def _counting_plain_leg(monkeypatch):
+    """The plain leg counted as a K1 launch (the CPU stands in for the
+    card: the phase counts the hub's re-solves through ipm_leg.launches)."""
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    real = ipm_leg.ipm_leg_torch
+
+    def counted(*a, **kw):
+        ipm_leg.launches += 1
+        return real(*a, **kw)
+    monkeypatch.setattr(ipm_leg, "ipm_leg_torch", counted)
+
+
+def _phase19_setup(small_pendulum, monkeypatch):
+    """Phase 19 at a small size: phase 15's references from the port's
+    CPU rebuilds of the small pendulum (the prior's eps 0.5, tightened to
+    0.4); the suboptimality bar at 2.0, above the gaps of the rows this
+    depth-capped build serves from its uncertified leaves (about 1.4)."""
+    import dataclasses
+
+    from explicit_hybrid_mpc_tpu_torch.online import export
+    from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
+
+    problem, cfg, res = small_pendulum
+    tight = warm_rebuild(problem, dataclasses.replace(cfg, eps_a=0.4),
+                         res.tree).stats
+    for k, v in dict(SD_SELFTEST=256, SD_REQUESTS=400, CLIENTS=4,
+                     MAX_BATCH=64, SD_SUBOPT_FRAC=0.25,
+                     SD_SUBOPT_EPS=2.0, REBUILD_TIGHT_EPS=0.4).items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    refs = {"unchanged": {"regions": res.stats["regions"],
+                          "k1_launches": 0, "k1_ms": None},
+            "tight": {"regions": tight["regions"], "k1_launches": 0}}
+    return problem, cfg, res, export.export_leaves(res.tree), refs
+
+
+def test_slo_demand_phase_rehearses_on_the_cpu(small_pendulum, tmp_path,
+                                               monkeypatch, capsys):
+    """Phase 19 (19a-19e) on the CPU from the small pendulum build, the
+    hub's re-solves through the plain leg counted as K1 launches."""
+    problem, cfg, res, table, refs = _phase19_setup(small_pendulum,
+                                                    monkeypatch)
+    _counting_plain_leg(monkeypatch)
+    out = chip_smoke.slo_demand_phase(torch.device("cpu"), problem, cfg,
+                                      res, table, str(tmp_path), refs)
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("[demand] 19a: answers with --demand on bitwise those with "
+                "it off on 256 of 256", "rows", "19b run 3 capture off",
+                "p99 ratio", "torn reads 0", "for 4 of 4 tenants",
+                "demand.error events 0", "max relative difference",
+                "health.subopt events at eps 2: 0",
+                "a HealthMonitor(max_subopt=",
+                "lifecycle.demand_priority events 2 ([(1, ",
+                "the hinted tree node for node the unhinted one: True",
+                "evaluate() bitwise True", "bitwise True; fleet.slo_rollup",
+                "the exact sum of their unit counters True",
+                "1 fast health.slo_burn (['critical'])",
+                "one-interval spike: 0", "[demand] phase 19 took"):
+        assert tag in log, tag
+    assert out["ipm_leg"]["subopt_launches"] > 0
+    assert out["arena_eval"]["capture_launches"] == 0   # plain on the CPU
+
+
+@pytest.mark.parametrize("fault", ["demand_error", "no_k1"])
+def test_slo_demand_phase_fails_on_a_hidden_device_fault(
+        fault, small_pendulum, tmp_path, monkeypatch):
+    """19c fails when the hub's maintenance thread swallowed an error
+    (a demand.error event) and when its re-solves launched no K1."""
+    from explicit_hybrid_mpc_tpu_torch.obs import demand
+
+    problem, _cfg, res, table, _refs = _phase19_setup(small_pendulum,
+                                                      monkeypatch)
+    arena = chip_smoke.demand_arena(torch.device("cpu"), res, table,
+                                    str(tmp_path))
+    if fault == "demand_error":
+        _counting_plain_leg(monkeypatch)
+        real = demand.DemandHub._drain_subopt
+        calls = [0]
+
+        def drain(self):
+            calls[0] += 1
+            if calls[0] == 1:
+                self._obs.event("demand.error",
+                                msg="RuntimeError('injected')")
+            return real(self)
+        monkeypatch.setattr(demand.DemandHub, "_drain_subopt", drain)
+    with pytest.raises(SystemExit):
+        chip_smoke.online_subopt(torch.device("cpu"), problem, res, table,
+                                 arena["tenant_arenas"])
+
+
+def test_serve_phases_rehearse_on_the_cpu(small_pendulum, tmp_path,
+                                          monkeypatch, capsys):
+    """Phases 6-8 on the CPU from the small pendulum's table: the arena
+    kernel's wrapper and its raw launch stand in as counted plain calls,
+    the device timers and the profiler as stubs; the serving run's swap,
+    fallback reconciliation and torn-read audit run as on the card."""
+    from explicit_hybrid_mpc_tpu_torch.online import export, fused
+
+    _problem, _cfg, res = small_pendulum
+    plain = fused.arena_eval_torch
+
+    def counted(bary, U, V, q, ext, plan=None, scratch=None):
+        fused.launches += 1
+        return plain(bary, U, V, q, ext)
+
+    def raw_k3(lib, arena, buf, B, chunks, parent):
+        q, e, _tiles = fused.split_queries(buf, B, arena.p + 1)
+        return (lambda: None), plain(arena.bary, arena.U, arena.V, q, e)
+
+    class Props:
+        multi_processor_count = 132
+
+    class NoProfile:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return []
+
+    for mod, k, v in ((fused, "arena_eval", counted),
+                      (fused, "arena_eval_cuda", counted),
+                      (fused, "_lib", lambda: None),
+                      (chip_smoke, "raw_k3", raw_k3),
+                      (chip_smoke, "graph_time", lambda fn, reps: 0.01),
+                      (chip_smoke, "cuda_time",
+                       lambda fn, reps, warmup=2: 0.01),
+                      (chip_smoke, "K3_SWEEP_B", (1, 16, 64)),
+                      (chip_smoke, "REQUESTS", 400),
+                      (chip_smoke, "PROFILED_REQUESTS", 100),
+                      (chip_smoke, "CLIENTS", 4),
+                      (torch.cuda, "synchronize", lambda *a: None),
+                      (torch.cuda, "get_device_properties",
+                       lambda d: Props),
+                      (torch.profiler, "profile", lambda **kw: NoProfile())):
+        monkeypatch.setattr(mod, k, v)
+    import numpy as np
+
+    entry = chip_smoke.serve_phases(
+        torch.device("cpu"), res, export.export_leaves(res.tree),
+        np.random.default_rng(0), str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("[arena] 4 tenants x", "[K3] B=64", "[serve] 400 requests "
+                "from 4 closed-loop clients", "torn reads 0 of",
+                "(reconciled with account_kernel)", "[batches]",
+                "K3's device time while serving: not measured"):
+        assert tag in log, tag
+    assert entry["name"] == "arena_eval" and entry["launches"] > 0

@@ -1163,3 +1163,73 @@ def test_kernel_only_probe_on_the_card_agrees(diag_bundles, path):
     plain = replay.replay_bundle(diag_bundles[path], kernel_only=True,
                                  kernel="torch")
     assert plain["kernel_vs_obs_conv_match"]
+
+
+# -- the demand hub's re-solves and the demand-ordered rebuild on the card ----
+
+
+def test_demand_hub_drain_on_the_card_matches_the_plain_oracle(gpu):
+    """The hub's suboptimality drain through an Oracle on the card
+    (K1, launched from the calling thread): the folded V_served - V*
+    equal the same hub's drain through the CPU oracle (V* to 1e-9
+    relative), with no demand.error event and K1 launched."""
+    from explicit_hybrid_mpc_tpu_torch.obs import Obs
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import DemandHub
+
+    prob = make("double_integrator", **dict(_DI_ARGS))
+    rng = np.random.default_rng(19)
+    thetas = rng.uniform(prob.theta_lb, prob.theta_ub, (256, 2))
+    costs = rng.uniform(0, 50, 256)
+    folded = {}
+    for backend in ("cuda", "cpu"):
+        o = Obs("jsonl")
+        hub = DemandHub(mode="on", subopt_frac=1 / 4, obs=o,
+                        oracle=oracle.Oracle(prob, backend=backend),
+                        clock=lambda: 0.0)
+        hub.record("di", thetas, np.zeros(256, dtype=np.int64), None,
+                   np.ones(256, dtype=bool), costs)
+        before = ipm_leg.launches
+        hub.drain_for_test()
+        torch.cuda.synchronize()
+        if backend == "cuda":
+            assert ipm_leg.launches > before
+        folded[backend] = np.asarray(hub._ctl["di"].subopt._roll)
+        hub.close(snapshot=False)
+        assert not [r for r in o.sink.records
+                    if r.get("name") == "demand.error"]
+    assert folded["cuda"].size == folded["cpu"].size > 0
+    assert (np.abs(folded["cuda"] - folded["cpu"])
+            <= 1e-9 * (1 + np.abs(costs).max())).all()
+
+
+def test_prioritized_rebuild_on_the_card_is_bit_identical(gpu):
+    """The JAX tests' depth-capped case on the card (double_integrator
+    N=3, theta_box 1.5, eps_a 0.3, max_depth 6): the hinted rebuild puts
+    the hot leaves first and its tree is node for node the unhinted
+    one's."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
+
+    problem = make("double_integrator", **dict(_DI_ARGS))
+    cfg = PartitionConfig(problem="double_integrator", problem_args=_DI_ARGS,
+                          eps_a=0.3, backend="cuda", batch_simplices=128,
+                          max_depth=6)
+    prior = build_partition(problem, cfg)
+    ra = warm_rebuild(problem, cfg, prior)
+    order = ra.stats["rebuild_priority_order"]
+    assert ra.stats["rebuild_leaves_invalidated"] > 3
+    hot = [order[-1], order[3]]
+    rb = warm_rebuild(problem, cfg, prior, priority={hot[0]: 100.0,
+                                                     hot[1]: 40.0})
+    assert rb.stats["rebuild_priority_order"][:2] == hot
+    assert rb.stats["device_failures"] == 0
+    sa, sb = ra.tree.__getstate__(), rb.tree.__getstate__()
+    for k in ("children", "parent", "depth", "leaf_flags", "normal",
+              "offset", "split_edge", "n", "n_regions"):
+        assert np.array_equal(sa[k], sb[k]), k
+    ta, tb = export.export_leaves(ra.tree), export.export_leaves(rb.tree)
+    for name, va, vb in zip(ta._fields, ta, tb):
+        assert (np.array_equal(va, vb) if isinstance(va, np.ndarray)
+                else va == vb), name

@@ -64,6 +64,7 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "oracle.socp", "oracle.soc_point",
                                  "oracle.soc_oracle", "obs.health",
                                  "obs.recorder", "obs.fleet",
-                                 "obs.replay"])
+                                 "obs.replay", "obs.slo", "obs.demand",
+                                 "post.analysis", "post.figures"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

@@ -557,9 +557,16 @@ def test_lifecycle_config_validates():
     ("slo_interval_s", 5.0, "obs/slo.py"), ("slo_dir", "x", "obs/slo.py"),
     ("demand_dir", "x", "obs/demand.py")])
 def test_unported_service_knobs_raise(field, value, module):
-    jservice.LifecycleConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=module):
-        LifecycleConfig(**{field: value})
+    """These knobs raised until `module` was ported; now both packages
+    take them alike and reject the same bad companions."""
+    mine, ref = LifecycleConfig(**{field: value}), \
+        jservice.LifecycleConfig(**{field: value})
+    assert getattr(mine, field) == getattr(ref, field) == value
+    for bad in (dict(slo_goal=1.0), dict(slo_interval_s=0.0)):
+        with pytest.raises(ValueError):
+            LifecycleConfig(**{field: value, **bad})
+        with pytest.raises(ValueError):
+            jservice.LifecycleConfig(**{field: value, **bad})
 
 
 # -- the CLI ------------------------------------------------------------------

@@ -14,6 +14,9 @@ import pytest
 from explicit_hybrid_mpc_tpu_torch import config
 from explicit_hybrid_mpc_tpu_torch import main as tmain
 from explicit_hybrid_mpc_tpu_torch.lifecycle import service
+from explicit_hybrid_mpc_tpu_torch.obs import Obs
+from explicit_hybrid_mpc_tpu_torch.obs.demand import hub_from_serve_config
+from explicit_hybrid_mpc_tpu_torch.obs.slo import slo_from_serve_config
 from explicit_hybrid_mpc_tpu_torch.serve import scheduler
 
 _JAX_PKG = os.path.join(os.path.dirname(os.path.dirname(
@@ -37,15 +40,9 @@ def _oracle_mesh():
 SITES = (
     [(f"PartitionConfig.{f}", lambda tmp, item=item: item)
      for f, _on, item in config._UNPORTED]
-    + [(f"ServeConfig.{f}", lambda tmp, item=item: item)
-       for f, item in config._SERVE_UNPORTED]
-    + [(f"LifecycleConfig.{f}", lambda tmp, item=item: item)
-       for f, item in service._LIFECYCLE_UNPORTED]
     + [(f"main {flag}", lambda tmp, flag=flag: _raised(
         lambda: tmain.main(["-e", "double_integrator", flag, "1"])))
        for flag in tmain._UNPORTED_FLAGS]
-    + [(f"scheduler hook {h}", lambda tmp, h=h: scheduler._HOOK_ITEMS[h])
-       for h in scheduler._HOOK_ITEMS]
     + [("Oracle mesh", lambda tmp: _raised(_oracle_mesh))])
 
 
@@ -75,10 +72,127 @@ def _main_flag(tmp, flags):
                        "-o", os.path.join(tmp, "p"), *flags]) == 0
 
 
-#: The surfaces ROADMAP A5's first half lifted: each now runs instead of
-#: refusing (its module ported: obs/recorder.py, obs/health.py,
-#: obs/fleet.py).
+def _hub(tmp, attr, want, **kw):
+    """ServeConfig(demand="on", **kw) builds an enabled hub whose
+    `attr` is `want`."""
+    hub = hub_from_serve_config(config.ServeConfig(demand="on", **kw))
+    try:
+        assert hub is not None and hub.enabled
+        assert getattr(hub, attr) == want, (attr, getattr(hub, attr))
+    finally:
+        hub.close(snapshot=False)
+
+
+def _demand_dir(tmp):
+    """--demand-dir's field: the hub's closing snapshot lands there."""
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import load_demand
+
+    hub = hub_from_serve_config(config.ServeConfig(demand="on",
+                                                   demand_dir=tmp))
+    hub.record("c", np.zeros((3, 2)), np.array([4, 4, 1]), None,
+               np.ones(3, dtype=bool), np.zeros(3))
+    hub.close()
+    assert load_demand(os.path.join(tmp, "c")).leaf_ids.tolist() == [4, 1]
+
+
+def _tracker(tmp, attr, want, **kw):
+    """ServeConfig(slo="on", **kw) builds a serving tracker whose `attr`
+    (a serve_template key when it starts with "tpl.") is `want`."""
+    tr = slo_from_serve_config(config.ServeConfig(slo="on", **kw))
+    assert tr is not None and tr.enabled
+    got = (tr.serve_template[attr[4:]] if attr.startswith("tpl.")
+           else getattr(tr, attr))
+    assert got == want, (attr, got)
+
+
+def _lifecycle(tmp, **kw):
+    """A RebuildService under LifecycleConfig(**kw) with obs on: built,
+    summarized and closed without a generation; with slo on its tracker
+    is attached and its state file lands in slo_dir."""
+    from explicit_hybrid_mpc_tpu_torch.lifecycle.revision import (
+        FileRevisionSource)
+
+    lc = service.LifecycleConfig(**kw)
+    o = Obs("jsonl")
+    svc = service.RebuildService(
+        FileRevisionSource(os.path.join(tmp, "revs.jsonl")),
+        config.PartitionConfig(backend="cpu"), lc, obs=o)
+    summ = svc.summary()
+    svc.close()
+    o.close()
+    assert (svc.slo is not None) == lc.slo
+    assert (summ["slo"] is not None) == lc.slo
+    if lc.slo_dir is not None:
+        assert os.path.isfile(os.path.join(lc.slo_dir,
+                                           "slo.lifecycle.state.json"))
+    if lc.slo:
+        assert svc.slo.interval_s == lc.slo_interval_s
+        assert {s.goal for s in svc.slo.specs} == {lc.slo_goal}
+
+
+def _hook(tmp, hook):
+    """RequestScheduler(demand=/slo=) holds an enabled hub and serves
+    without it: the slo tracker persists on close()."""
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import DemandHub
+    from explicit_hybrid_mpc_tpu_torch.obs.slo import SloTracker
+    from explicit_hybrid_mpc_tpu_torch.serve.registry import (
+        ControllerRegistry)
+
+    hub = (DemandHub(mode="on") if hook == "demand"
+           else SloTracker(interval_s=1.0, windows=((5.0, 60.0),),
+                           burn_thresholds=(14.4,), state_dir=tmp))
+    sched = scheduler.RequestScheduler(ControllerRegistry(), "c",
+                                       **{hook: hub})
+    assert getattr(sched, hook) is hub
+    sched.close()
+    if hook == "slo":
+        assert os.path.isfile(hub._state_path())
+    else:
+        hub.close()
+
+
+#: The surfaces ROADMAP A5 lifted: each now runs instead of refusing.
+#: The first half ported obs/recorder.py, obs/health.py and
+#: obs/fleet.py; the second obs/slo.py and obs/demand.py, whose
+#: ServeConfig fields, LifecycleConfig fields and scheduler hooks follow.
 LIFTED = {
+    "ServeConfig.demand": lambda tmp: _hub(tmp, "mode", "on"),
+    "ServeConfig.demand_max_leaves": lambda tmp: _hub(
+        tmp, "max_leaves", 77, demand_max_leaves=77),
+    "ServeConfig.demand_decay_s": lambda tmp: _hub(
+        tmp, "decay_halflife_s", 12.5, demand_decay_s=12.5),
+    "ServeConfig.demand_reservoir": lambda tmp: _hub(
+        tmp, "reservoir_k", 9, demand_reservoir=9),
+    "ServeConfig.demand_subopt_frac": lambda tmp: _hub(
+        tmp, "subopt_frac", 0.25, demand_subopt_frac=0.25),
+    "ServeConfig.demand_subopt_eps": lambda tmp: _hub(
+        tmp, "subopt_eps", 0.3, demand_subopt_eps=0.3),
+    "ServeConfig.demand_snapshot_every_s": lambda tmp: _hub(
+        tmp, "snapshot_every_s", 4.0, demand_snapshot_every_s=4.0),
+    "ServeConfig.demand_dir": _demand_dir,
+    "ServeConfig.slo": lambda tmp: _tracker(tmp, "identity",
+                                            "serve.default"),
+    "ServeConfig.slo_goal": lambda tmp: _tracker(
+        tmp, "tpl.goal", 0.99, slo_goal=0.99),
+    "ServeConfig.slo_p99_target_us": lambda tmp: _tracker(
+        tmp, "tpl.p99_target_us", 900.0, slo_p99_target_us=900.0),
+    "ServeConfig.slo_interval_s": lambda tmp: _tracker(
+        tmp, "interval_s", 30.0, slo_interval_s=30.0),
+    "ServeConfig.slo_dir": lambda tmp: _tracker(
+        tmp, "state_dir", tmp, slo_dir=tmp),
+    "LifecycleConfig.demand_dir": lambda tmp: _lifecycle(
+        tmp, demand_dir=tmp),
+    "LifecycleConfig.slo": lambda tmp: _lifecycle(tmp, slo=True),
+    "LifecycleConfig.slo_goal": lambda tmp: _lifecycle(
+        tmp, slo=True, slo_goal=0.99),
+    "LifecycleConfig.slo_interval_s": lambda tmp: _lifecycle(
+        tmp, slo=True, slo_interval_s=30.0),
+    "LifecycleConfig.slo_dir": lambda tmp: _lifecycle(
+        tmp, slo=True, slo_dir=os.path.join(tmp, "slo")),
+    "scheduler hook demand": lambda tmp: _hook(tmp, "demand"),
+    "scheduler hook slo": lambda tmp: _hook(tmp, "slo"),
     "PartitionConfig.obs_recorder": lambda tmp: config.PartitionConfig(
         backend="cpu", obs_recorder=True),
     "PartitionConfig.recorder_dir": lambda tmp: config.PartitionConfig(

@@ -500,15 +500,18 @@ def test_arena_scheduler_validation_and_unported_hooks(rng):
         ArenaScheduler(arena, max_batch=48)
     with pytest.raises(ValueError):
         ArenaScheduler(arena, max_wait_us=0.0)
-    for hook, item in (("demand", "A5: obs/demand.py"),
-                       ("slo", "A5: obs/slo.py")):
-        with pytest.raises(NotImplementedError, match=item):
-            ArenaScheduler(arena, **{hook: object()})
-    # The trace hook is ported: a hub that is off is dropped.
+    # Every hook is ported: a hub that is off is dropped, one that is
+    # on is held.
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import DemandHub
     from explicit_hybrid_mpc_tpu_torch.obs.reqtrace import ReqTrace
+    from explicit_hybrid_mpc_tpu_torch.obs.slo import SloTracker
 
-    with ArenaScheduler(arena, trace=ReqTrace(mode="off")) as sched:
-        assert sched.trace is None
+    with ArenaScheduler(arena, trace=ReqTrace(mode="off"),
+                        demand=DemandHub(mode="off")) as sched:
+        assert sched.trace is None and sched.demand is None
+    hub, tr = DemandHub(mode="on"), SloTracker()
+    with ArenaScheduler(arena, demand=hub, slo=tr) as sched:
+        assert sched.demand is hub and sched.slo is tr
 
 
 def test_scheduler_swap_during_traffic_has_no_torn_reads(rng):
@@ -645,11 +648,20 @@ def test_serve_config_has_the_jax_fields_and_checks():
             config.ServeConfig(**bad)
         with pytest.raises(ValueError):
             jconfig.ServeConfig(**bad)
-    for knob, val, item in (("demand", "on", "A5: obs/demand.py"),
-                            ("slo", "on", "A5: obs/slo.py")):
-        jconfig.ServeConfig(**{knob: val})
-        with pytest.raises(NotImplementedError, match=item):
-            config.ServeConfig(**{knob: val})
+    # The demand and SLO knobs are ported, with the JAX package's checks.
+    for knob, val in (("demand", "on"), ("slo", "on"),
+                      ("demand_subopt_frac", 0.5), ("slo_goal", 0.9)):
+        assert getattr(config.ServeConfig(**{knob: val}), knob) == val
+    for bad in (dict(demand="maybe"), dict(demand_max_leaves=0),
+                dict(demand_decay_s=0.0), dict(demand_reservoir=0),
+                dict(demand_subopt_frac=1.5), dict(demand_subopt_eps=-1.0),
+                dict(demand_snapshot_every_s=0.0), dict(slo="maybe"),
+                dict(slo_goal=1.0), dict(slo_p99_target_us=0.0),
+                dict(slo_interval_s=0.0)):
+        with pytest.raises(ValueError):
+            config.ServeConfig(**bad)
+        with pytest.raises(ValueError):
+            jconfig.ServeConfig(**bad)
     # The tracing knobs are ported, with the JAX package's checks.
     for knob, val in (("tracing", "on"), ("trace_exemplar_k", 4),
                       ("trace_window_s", 5.0)):
@@ -792,15 +804,18 @@ def test_request_scheduler_validation_and_unported_hooks(servers, rng):
         RequestScheduler(reg, "c", max_batch=48)
     with pytest.raises(ValueError):
         RequestScheduler(reg, "c", max_wait_us=0.0)
-    for hook, item in (("demand", "A5: obs/demand.py"),
-                       ("slo", "A5: obs/slo.py")):
-        with pytest.raises(NotImplementedError, match=item):
-            RequestScheduler(reg, "c", **{hook: object()})
-    # The trace hook is ported: a hub that is off is dropped.
+    # Every hook is ported: a hub that is off is dropped, one that is
+    # on is held.
+    from explicit_hybrid_mpc_tpu_torch.obs.demand import DemandHub
     from explicit_hybrid_mpc_tpu_torch.obs.reqtrace import ReqTrace
+    from explicit_hybrid_mpc_tpu_torch.obs.slo import SloTracker
 
-    with RequestScheduler(reg, "c", trace=ReqTrace(mode="off")) as sched:
-        assert sched.trace is None
+    with RequestScheduler(reg, "c", trace=ReqTrace(mode="off"),
+                          demand=DemandHub(mode="off")) as sched:
+        assert sched.trace is None and sched.demand is None
+    hub, tr = DemandHub(mode="on"), SloTracker()
+    with RequestScheduler(reg, "c", demand=hub, slo=tr) as sched:
+        assert sched.demand is hub and sched.slo is tr
     # A wrong-width submission raises on its submitter and never poisons
     # the co-batched healthy rows.
     with RequestScheduler(reg, "c", max_batch=32,
@@ -1163,9 +1178,8 @@ def test_serve_cli_defaults_to_the_gpu(jax_artifacts):
         ["--artifacts", "x"]).backend == "cuda"
     with pytest.raises(SystemExit, match="--backend cpu"):
         serve_main(["--artifacts", jax_artifacts, "--selftest", "4"])
-    with pytest.raises(NotImplementedError, match="A5: obs/demand.py"):
-        serve_main(["--artifacts", jax_artifacts, "--backend", "cpu",
-                    "--demand", "on"])
+    with pytest.raises(SystemExit, match="--backend cpu"):
+        serve_main(["--artifacts", jax_artifacts, "--demand", "on"])
     with pytest.raises(SystemExit):
         serve_main(["--artifacts", jax_artifacts, "--backend", "cpu",
                     "--max-batch", "48"])
