@@ -78,7 +78,23 @@ fails; V* held to the plain CPU oracle, certified rows within eps_a);
 19d RebuildService with demand_dir ordering phase 15b's tightened
 rebuild hottest-first (regions within 0.1% of 15b's) and the
 depth-capped DI case bitwise; 19e SLO state reloaded bitwise in a fresh
-interpreter, the fleet fold, and the burn alerts.  One
+interpreter, the fleet fold, and the burn alerts.  Phase 20 drives the
+multi-GPU paths: 20a MeshSolver on (batch, delta) meshes (1,1), (2,1),
+(1,2), (2,2) -- distinct cards where the machine has two or more, else
+cuda:0 repeated -- against the dense grid program on 1,024 flagship
+points (d*, conv, feas equal; the converged cells' floats and V* to
+1e-9; K1 launched by every block), each timed in turns with the dense
+call, and Oracle(mesh=) against the dense oracle; 20b the sharded build
+through the launcher (parallel/launch.py, each shard a `main
+--shard-frontier` process on the same card): the tier-1 DI fixture
+with the single-process tree and point solves exactly, then phase 3's
+flagship (0 fallback cells, no cell solved by two shards, regions
+within 2% of 11,670, uncertified <= 70, the merged tree compared
+canonically with phase 3's, each shard's K1 launches and device time,
+the straggler report; a differing tree is split by the same two builds
+without warm starts); 20c two gloo ranks building the DI fixture in
+lockstep on the global mesh, equal to each other and to the
+single-process build, rank 0 alone writing.  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -112,7 +128,10 @@ device time, summed bound) and its tightened rebuild's online batch
 (K1 launches from zero, device time), the "demand_rebuild_*" keys 19d's
 prioritized rebuild; arena_eval's "capture_launches" is 19b's first run
 with demand capture and SLO tracking on, "capture_p99_ratio" its p99
-over the runs without them.
+over the runs without them.  The "mesh_*" keys are 20a's (K1 launches a
+call, ms a call, the dense call's ms, by mesh shape), "sharded_*" 20b's
+(each shard's K1 launches and device time in the flagship build, and
+whether its tree is phase 3's), "lockstep_launches" 20c's ranks'.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -147,7 +166,11 @@ runs phase 18 alone (after a flagship build of its own), and
 
     python3 -c "import sys, chip_smoke as c; sys.exit(c.slo_demand_only())"
 
-phase 19 likewise.
+phase 19 likewise, and
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.multi_gpu_only())"
+
+phase 20.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -2917,7 +2940,7 @@ def rebuild_phase(dev, problem, cfg, res, build_s: float, tmp: str) -> dict:
     if len(legs) != n_k1 or (on_card and (n_k1 <= 0 or n_k2 <= 0)):
         fail(f"eps-tightened rebuild: a kernel never launched (ipm_leg "
              f"{n_k1}, {len(legs)} recorded; locate {n_k2})")
-    k2_b = n_k2
+    k1_b, k2_b = n_k1, n_k2
     hold_table(dev, Tree.load(out_b + ".tree.pkl"), problem, SEED + 17,
                f"rebuild eps {REBUILD_TIGHT_EPS:g}")
 
@@ -3049,7 +3072,7 @@ def rebuild_phase(dev, problem, cfg, res, build_s: float, tmp: str) -> dict:
             "refs": {"unchanged": {"regions": regions_a, "k1_launches": k1_a,
                                    "k1_ms": k1_ms},
                      "tight": {"regions": st["regions"],
-                               "k1_launches": n_k1}}}
+                               "k1_launches": k1_b}}}
 
 
 class HostVerdict:
@@ -3697,8 +3720,8 @@ def pruned_builds(dev, tmp: str, unpruned: dict) -> tuple[dict, dict]:
         made: list = []
         real_make = frontier.make_oracle
 
-        def capture(problem, cfg, strict=False):
-            made.append(real_make(problem, cfg, strict=strict))
+        def capture(problem, cfg, mesh=None, strict=False):
+            made.append(real_make(problem, cfg, mesh=mesh, strict=strict))
             return made[-1]
 
         times: list = []
@@ -4586,6 +4609,9 @@ SD_MAX_LEAVES = 16_384
 SD_WINDOWS = ((5.0, 60.0), (120.0, 600.0))
 SD_BURNS = (14.4, 1.0)
 SD_REGION_TOL = 1e-3
+# 19d's K1 launches against phase 15b's unprioritized rebuild at the same
+# eps: the hint reorders the frontier's entry, not the work.
+SD_K1_TOL = 0.10
 
 
 class RecordingOracle:
@@ -5194,6 +5220,10 @@ def demand_rebuild(dev, problem, cfg, res, tmp: str, v1_dir: str,
              f"{ref_regions}")
     if n_k1 <= 0 and on_card:
         fail("19d: the prioritized rebuild launched no K1")
+    if refs and abs(n_k1 - tight.get("k1_launches", 0)) \
+            > SD_K1_TOL * tight.get("k1_launches", 0):
+        fail(f"19d: {n_k1} K1 launches, not within {SD_K1_TOL:.0%} of "
+             f"phase 15b's {tight.get('k1_launches')}")
     if not summ["slo"] or "lifecycle.staleness" not in summ["slo"]:
         fail(f"19d: the lifecycle tracker reports {summ['slo']}")
     capped_priority(dev)
@@ -5445,8 +5475,922 @@ def slo_demand_only() -> int:
     return 0
 
 
+# -- phase 20: multi-GPU (the solve mesh, the sharded frontier, the lockstep
+# multi-process build) --------------------------------------------------------
+
+#: Phase 20.  20a: the mesh shapes MeshSolver is held to the dense grid at
+#: (the JAX tests' tolerance), on MESH_THETAS seeded flagship points, timed
+#: in turns MESH_REPS times.  20b: the shards of each sharded build (one
+#: card: they time-slice it) and the launcher's time limit.  20c: the ranks
+#: of the lockstep build, and its time limit.  The tier-1 DI fixture (20b's
+#: first build, 20c's) is the JAX package's tests/_mp_worker.py build.
+MESH_SHAPES = ((1, 1), (2, 1), (1, 2), (2, 2))
+MESH_THETAS = 1024
+MESH_REPS = 5
+MESH_TOL = 1e-9
+SHARDS = 2
+SHARD_TIMEOUT_S = 600.0
+LOCKSTEP_RANKS = 2
+DI_PROBLEM = ("double_integrator", (("N", 3), ("theta_box", 1.5)))
+DI_CFG = dict(eps_a=0.5, batch_simplices=32, max_depth=20)
+LOCKSTEP_TIMEOUT_S = 300.0
+
+_COUNTED_MAIN = ("import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.counted_main(sys.argv[1:]))")
+_LOCKSTEP = ("import sys, chip_smoke; "
+             "sys.exit(chip_smoke.lockstep_worker())")
+
+
+def _root() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def mesh_devices_for(dev, k: int) -> tuple[list, str]:
+    """k mesh entries on `dev`'s kind: distinct cards round-robin where
+    the machine has two or more, else `dev` repeated (named in the
+    second value)."""
+    import torch
+
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n >= 2:
+        return ([torch.device("cuda", i % n) for i in range(k)],
+                f"{min(n, k)} distinct cards")
+    return [dev] * k, f"{dev} repeated"
+
+
+def _sync_all(devs) -> None:
+    import torch
+
+    for d in {str(d) for d in devs}:
+        if d.startswith("cuda"):
+            torch.cuda.synchronize(torch.device(d))
+
+
+def wall_ms(fn, devs, reps: int) -> float:
+    """Median host wall of `fn` over `reps` calls, each synchronized on
+    every device in `devs` (blocks on distinct cards are timed whole)."""
+    fn()
+    _sync_all(devs)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync_all(devs)
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
+def _bits(t):
+    """`t` with its floats viewed as same-width integers: equal iff
+    bitwise equal (NaN payloads and signed zeros included)."""
+    import torch
+
+    if not t.is_floating_point():
+        return t
+    return t.contiguous().view({8: torch.int64, 4: torch.int32,
+                                2: torch.int16}[t.element_size()])
+
+
+def _same_rows(full, half):
+    """Whether `half` is bitwise `full` (or `full`'s first rows, where
+    `full` has twice `half`'s leading dimension); None where the two
+    cannot be lined up."""
+    import torch
+
+    if tuple(full.shape) != tuple(half.shape):
+        if not (full.dim() and half.dim()
+                and full.shape[1:] == half.shape[1:]
+                and full.shape[0] == 2 * half.shape[0]):
+            return None
+        full = full[:half.shape[0]]
+    return full.dtype == half.dtype and torch.equal(_bits(full), _bits(half))
+
+
+def batch_split_probe(ora, th) -> dict:
+    """Where 20a's block shapes part from the dense grid: the grid
+    program on the first half of the points against the same program on
+    all of them, op by op.
+
+    A TorchDispatchMode records every aten op's tensor inputs and outputs
+    of the half run, then holds the full run's ops to them row for row
+    (the full run's first half of each batch axis); uninitialized
+    allocations are not compared.  The first op whose inputs all agree
+    bitwise while an output does not is the batch-size-dependent one.  An
+    op that reads a differing input no earlier op produced reads what the
+    K1 leg wrote through its ctypes launch (outside aten).  Besides, every
+    K1 leg of the full run is relaunched on its inputs' first half and
+    held bitwise to its own outputs' first half: K1's batch independence
+    at the inputs 20a gives it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg, oracle
+
+    uninit = ("empty", "empty_like", "new_empty", "empty_strided")
+
+    def tensors(x):
+        return [t for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)]
+
+    class Tape(TorchDispatchMode):
+        def __init__(self, ref=None):
+            super().__init__()
+            self.ref, self.ops, self.i = ref, [], 0
+            self.first_read = self.first_op = self.misaligned = None
+            self.n_differ = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ins = [t.clone() for t in tensors((args, kwargs))]
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            outs = ([] if name in uninit
+                    else [t.clone() for t in tensors(out)])
+            if self.ref is None:
+                self.ops.append((str(func), ins, outs))
+                return out
+            i, self.i = self.i, self.i + 1
+            if self.misaligned is not None:
+                return out
+            if i >= len(self.ref) or self.ref[i][0] != str(func):
+                self.misaligned = (i, str(func))
+                return out
+            _, rins, routs = self.ref[i]
+            same_in = [_same_rows(a, b) for a, b in zip(ins, rins)]
+            same_out = [_same_rows(a, b) for a, b in zip(outs, routs)]
+            differs = False in same_out
+            self.n_differ += differs
+            if self.first_read is None and False in same_in:
+                self.first_read = (i, str(func))
+            if self.first_op is None and differs and False not in same_in:
+                self.first_op = (i, str(func), [tuple(t.shape) for t in ins],
+                                 [str(t.dtype) for t in ins])
+            return out
+
+    h = th.shape[0] // 2
+    legs = []
+    real = ipm_leg.ipm_leg
+
+    def leg(*a, n_iter):
+        res = real(*a, n_iter=n_iter)
+        legs.append((a, res, n_iter))
+        return res
+
+    def run(x):
+        return oracle._solve_points_grid(ora.prob, x, ora.point_n_iter,
+                                         ora.point_n_f32)[:8]
+
+    th_half = th[:h]
+    with Tape() as rec:
+        half = run(th_half)
+    with Tape(rec.ops) as cmp:
+        ipm_leg.ipm_leg = leg
+        try:
+            full = run(th)
+        finally:
+            ipm_leg.ipm_leg = real
+    conv = full[1][:h]
+    diff = {n: float((a[:h] - b)[conv].abs().max()) if conv.any() else 0.0
+            for n, a, b in zip(("V", "grad", "u0", "z"),
+                               (full[0], full[3], full[4], full[5]),
+                               (half[0], half[3], half[4], half[5]))}
+    k1_same = []
+    for a, res, n_iter in legs:
+        k = a[0].shape[0] // 2
+        again = real(*(t[:k].contiguous() for t in a), n_iter=n_iter)
+        k1_same.append(all(_same_rows(x, y) for x, y in zip(res, again)))
+    return {"n_ops": len(rec.ops), "ops_differing": cmp.n_differ,
+            "first_op": cmp.first_op, "first_read": cmp.first_read,
+            "misaligned": cmp.misaligned, "converged_diff": diff,
+            "k1_legs": len(legs), "k1_bitwise": k1_same}
+
+
+def mesh_solve_phase(dev, problem) -> dict:
+    """20a: MeshSolver on each of MESH_SHAPES against the dense grid
+    program of an Oracle on `dev` (two-phase and warm starts off, as
+    under a mesh) on MESH_THETAS seeded points: d*, conv and feas equal,
+    V, grad, u0, z on the converged cells and V* where finite to
+    MESH_TOL (relative and absolute), V's differences on the others
+    counted; first batch_split_probe, which names the op that makes the
+    floats follow the block shape and fails the phase where K1 does;
+    K1's launches a call counted from zero (a multiple of the block
+    count, each block on the card launching); each shape timed in
+    turns with the dense call (dense, mesh, mesh, dense).  Then
+    Oracle(mesh=) on the largest shape against the dense Oracle's
+    decisions.  Returns the kernels line's mesh counts."""
+    import math
+
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg, oracle
+    from explicit_hybrid_mpc_tpu_torch.parallel import MeshSolver, make_mesh
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    ora = oracle.Oracle(problem, backend=dev.type, two_phase=False,
+                        warm_start=False)
+    rng = np.random.default_rng(SEED + 20)
+    th = rng.uniform(problem.theta_lb, problem.theta_ub,
+                     (MESH_THETAS, problem.n_theta))
+    th_dev = torch.as_tensor(th, device=dev)
+
+    def dense():
+        return oracle._solve_points_grid(ora.prob, th_dev, ora.point_n_iter,
+                                         ora.point_n_f32)[:8]
+
+    ref = [t.cpu().numpy() for t in dense()]
+    names = ("V", "conv", "feas", "grad", "u0", "z", "Vstar", "dstar")
+    pr = batch_split_probe(ora, th_dev)
+    first = pr["first_op"]
+    log(f"[mesh] 20a batch split: the dense grid on the first "
+        f"{MESH_THETAS // 2} points against all {MESH_THETAS}, op by op "
+        f"({pr['n_ops']} aten ops recorded, {pr['ops_differing']} with an "
+        "output that differs): first op whose inputs agree bitwise and "
+        "output does not: " + (
+            f"#{first[0]} {first[1]} on {first[2]} {first[3]}" if first
+            else "none")
+        + "; first op reading a differing input: " + (
+            f"#{pr['first_read'][0]} {pr['first_read'][1]}"
+            if pr["first_read"] else "none")
+        + ("" if pr["misaligned"] is None else
+           f"; the op sequences part at #{pr['misaligned'][0]}")
+        + f"; K1 relaunched on the first half of each of its "
+        f"{pr['k1_legs']} legs' inputs: bitwise {pr['k1_bitwise']}; max "
+        f"|diff| on the converged cells " + ", ".join(
+            f"{n} {e:.1e}" for n, e in pr["converged_diff"].items()))
+    if on_card and not (pr["k1_legs"] and all(pr["k1_bitwise"])):
+        fail("20a: K1's result on a QP depends on the rest of its batch")
+    launches, times = {}, {}
+    for shape in MESH_SHAPES:
+        k = math.prod(shape)
+        devs, which = mesh_devices_for(dev, k)
+        ms = MeshSolver(ora.prob, make_mesh(shape, devs), ora.point_n_iter,
+                        ora.point_n_f32)
+        ipm_leg.launches = 0
+        got = [t.cpu().numpy() for t in ms(th)]
+        n_k1 = ipm_leg.launches
+        errs = {}
+        for name, a, b in zip(names, ref, got):
+            if a.shape != b.shape:
+                fail(f"20a {shape}: {name} shape {b.shape}, dense {a.shape}")
+            if a.dtype == bool or np.issubdtype(a.dtype, np.integer):
+                if not np.array_equal(a, b):
+                    fail(f"20a {shape}: {name} differs from the dense grid "
+                         f"on {int((a != b).sum())} cells")
+                continue
+            # A cell's floats on the cells that converged (conv is equal
+            # by now).  On the card qp_solve's batched matvecs round by
+            # the batch's size (batch_split_probe names the first; K1 is
+            # held batch independent there), and an unconverged cell's
+            # iterates amplify those last bits; the oracle discards them.
+            fin = np.isfinite(a) if name == "Vstar" else ref[1]
+            if name == "Vstar" and not np.array_equal(fin, np.isfinite(b)):
+                fail(f"20a {shape}: V*'s finite points differ")
+            d = np.abs(a[fin] - b[fin])
+            errs[name] = float(d.max()) if d.size else 0.0
+            if name == "V":
+                with np.errstate(invalid="ignore"):
+                    loose = ~ref[1] & ~((a == b) | (np.isnan(a)
+                                                    & np.isnan(b)))
+                n_loose = int(loose.sum())
+            if not np.all(d <= MESH_TOL + MESH_TOL * np.abs(a[fin])):
+                fail(f"20a {shape}: {name} differs from the dense grid by "
+                     f"{errs[name]:.2e} (rtol = atol = {MESH_TOL:g})")
+        if n_k1 % k or (on_card and n_k1 <= 0):
+            fail(f"20a {shape}: {n_k1} K1 launches for {k} blocks")
+        d1 = wall_ms(dense, [dev], MESH_REPS)
+        m1 = wall_ms(lambda: ms(th), devs, MESH_REPS)
+        m2 = wall_ms(lambda: ms(th), devs, MESH_REPS)
+        d2 = wall_ms(dense, [dev], MESH_REPS)
+        launches[f"{shape[0]}x{shape[1]}"] = n_k1
+        times[f"{shape[0]}x{shape[1]}"] = ((m1 + m2) / 2, (d1 + d2) / 2)
+        log(f"[mesh] 20a {shape} on {which}: {MESH_THETAS} points x "
+            f"{problem.canonical.n_delta} commutations; d*, conv, feas "
+            f"equal; max |diff| on the {int(ref[1].sum())} converged "
+            f"cells (V* where finite) " + ", ".join(f"{n} {e:.1e}"
+                                               for n, e in errs.items())
+            + f"; V differs on {n_loose} of the "
+            f"{int((~ref[1]).sum())} unconverged cells (not compared: "
+            "the oracle discards them)"
+            + f"; K1 {n_k1} launches a call ({n_k1 // k} a block); "
+            f"{(m1 + m2) / 2:.3f} ms a call ({m1:.3f}/{m2:.3f}) against "
+            f"the dense call's {(d1 + d2) / 2:.3f} ms ({d1:.3f}/{d2:.3f})")
+    shape = MESH_SHAPES[-1]
+    devs, which = mesh_devices_for(dev, math.prod(shape))
+    mo = oracle.Oracle(problem, backend=dev.type,
+                       mesh=make_mesh(shape, devs))
+    a, b = ora.solve_vertices(th), mo.solve_vertices(th)
+    same = (np.array_equal(a.dstar, b.dstar)
+            and np.array_equal(a.conv, b.conv)
+            and np.allclose(a.Vstar, b.Vstar, rtol=MESH_TOL, atol=MESH_TOL))
+    log(f"[mesh] 20a Oracle(mesh={shape} on {which}).solve_vertices: d*, "
+        f"conv and V* {'equal to' if same else 'DIFFERENT from'} the dense "
+        f"Oracle's; two_phase {mo.two_phase}, warm_start {mo.warm_start}")
+    if not same or mo.two_phase or mo.warm_start:
+        fail("20a: the mesh oracle's decisions differ from the dense one's")
+    log(f"[mesh] (20a took {time.perf_counter() - t_phase:.1f} s)")
+    return {"mesh_launches": launches,
+            "mesh_ms": {s: round(t[0], 4) for s, t in times.items()},
+            "mesh_dense_ms": {s: round(t[1], 4) for s, t in times.items()}}
+
+
+class CellRecorder:
+    """Notes every (point, commutation) cell the oracle's point solves
+    finished -- the cells oracle.point_solves counts: each grid row's
+    commutations and each pair -- as 8-byte hashes of the point's
+    float64 bytes and the commutation, by wrapping Oracle.wait_vertices
+    and the pair path's wait on the class; restored on exit."""
+
+    def __init__(self):
+        self.cells: list = []
+
+    def _note(self, thetas, ds) -> None:
+        import hashlib
+
+        th = np.ascontiguousarray(thetas, dtype=np.float64)
+        for row, d in zip(th, np.asarray(ds, dtype=np.int64)):
+            self.cells.append(int.from_bytes(hashlib.blake2b(
+                row.tobytes() + d.tobytes(), digest_size=8).digest(),
+                "little"))
+
+    def __enter__(self):
+        from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+
+        self._real = (Oracle.wait_vertices, Oracle._wait_pairs_all)
+        wv, wp = self._real
+        rec = self
+
+        def wait_vertices(o, handle):
+            sol = wv(o, handle)
+            if handle[0] == "chunks":
+                nd = o.can.n_delta
+                rec._note(np.repeat(handle[1], nd, axis=0),
+                          np.tile(np.arange(nd), handle[1].shape[0]))
+            return sol
+
+        def wait_pairs(o, handle):
+            out = wp(o, handle)
+            if handle[0] in ("chunks", "ws_chunks"):
+                rec._note(handle[1], handle[2])
+            return out
+
+        Oracle.wait_vertices, Oracle._wait_pairs_all = (wait_vertices,
+                                                        wait_pairs)
+        return self
+
+    def __exit__(self, *exc):
+        from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+
+        Oracle.wait_vertices, Oracle._wait_pairs_all = self._real
+        return False
+
+
+def counted_main(argv: list) -> int:
+    """`main(argv)` with K1's launches counted from zero (and, on the
+    card, each launch bracketed by a pair of CUDA events on its stream:
+    their summed span, which on a card shared with another process
+    also holds that process's work) and
+    the point-solve cells recorded (CellRecorder): the sharded builds'
+    entry in 20b, each shard a process of the launcher.  Writes
+    <output>.k1.p<RANK>.json and <output>.cells.p<RANK>.npy."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    out = argv[argv.index("-o") + 1]
+    real = ipm_leg.ipm_leg_cuda
+    events: list = []
+
+    def timed(Q, q, A, b, z, s, lam, n_iter):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        res = real(Q, q, A, b, z, s, lam, n_iter)
+        e1.record()
+        events.append((e0, e1))
+        return res
+
+    ipm_leg.ipm_leg_cuda = timed
+    ipm_leg.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with CellRecorder() as rec:
+            rc = tmain.main(argv)
+    finally:
+        ipm_leg.ipm_leg_cuda = real
+    if events:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_span = (sum(e0.elapsed_time(e1) for e0, e1 in events)
+               if events else None)
+    rank = os.environ.get("RANK", "0")
+    np.save(f"{out}.cells.p{rank}.npy", np.asarray(rec.cells,
+                                                   dtype=np.uint64))
+    with open(f"{out}.k1.p{rank}.json", "w") as f:
+        json.dump({"rank": int(rank), "rc": rc, "wall_s": wall,
+                   "k1_launches": ipm_leg.launches,
+                   "k1_event_wall_ms": k1_span}, f)
+    return rc
+
+
+def sharded_run(dev, cfg, tmp: str, name: str) -> dict:
+    """The launcher's SHARDS processes of `main --shard-frontier --obs
+    jsonl` with `cfg`'s build flags, every shard on `dev` through
+    counted_main: its stats, merged tree, per-shard K1 records and
+    point-solve cells, the streams' rollup and straggler report, and
+    the cells two shards both solved."""
+    from explicit_hybrid_mpc_tpu_torch.obs import fleet
+    from explicit_hybrid_mpc_tpu_torch.parallel.launch import launch_sharded
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+
+    out = os.path.join(tmp, name)
+    argv = ["-e", cfg.problem, "-a", repr(cfg.eps_a), "--batch",
+            str(cfg.batch_simplices), "--max-depth", str(cfg.max_depth),
+            "--obs", "jsonl", "-o", out,
+            *([] if dev.type == "cuda" else ["--backend", "cpu"]),
+            *([] if cfg.warm_start_tree else ["--no-warm-start"])]
+    for k, v in cfg.problem_args:
+        argv += ["--problem-arg", f"{k}={json.dumps(v)}"]
+    r = launch_sharded(argv, n_processes=SHARDS, timeout_s=SHARD_TIMEOUT_S,
+                       entry=[sys.executable, "-c", _COUNTED_MAIN],
+                       cwd=_root())
+    if r["rc"] != 0 or r["hung"]:
+        fail(f"20b {name}: the sharded build exited {r['rcs']} (hung "
+             f"{r['hung']}): {r['stderr']}")
+    with open(out + ".stats.json") as f:
+        st = json.load(f)
+    shards, cells = [], []
+    for i in range(SHARDS):
+        with open(f"{out}.k1.p{i}.json") as f:
+            shards.append(json.load(f))
+        cells.append(np.load(f"{out}.cells.p{i}.npy"))
+    streams = fleet.load_fleet(out + ".obs.p*.jsonl")
+    shared = set(cells[0].tolist())
+    for c in cells[1:]:
+        shared &= set(c.tolist())
+    return {"wall_s": r["wall_s"], "stats": st, "shards": shards,
+            "cells": [int(c.size) for c in cells],
+            "unique": [int(np.unique(c).size) for c in cells],
+            "both": len(shared), "cell_arrays": cells,
+            "tree": Tree.load(out + ".tree.pkl"),
+            "roll": fleet.fleet_rollup(streams),
+            "straggle": fleet.straggler_report(streams)}
+
+
+def cell_recorded_build(problem, cfg):
+    """build_partition(problem, cfg) with its point-solve cells recorded
+    (CellRecorder): (result, cells as uint64 hashes)."""
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+
+    with CellRecorder() as rec:
+        res = build_partition(problem, cfg)
+    return res, np.asarray(rec.cells, dtype=np.uint64)
+
+
+def solve_accounting(label: str, single, single_cells, sharded) -> dict:
+    """The summed point solves of a sharded build (`sharded`, from
+    sharded_run) against a single-process build's (`single`, recorded
+    by cell_recorded_build), cell by cell: the cells only one of them
+    solved and each one's repeats (a cell solved again by the same
+    process).  The
+    difference of the two counts is exactly (only sharded - only single)
+    + (sharded repeats - single repeats).  Logged; returned."""
+    if single_cells.size != single["point_solves"]:
+        fail(f"20b {label}: {single_cells.size} cells recorded against the "
+             f"single process's {single['point_solves']} point solves")
+    mine = set(single_cells.tolist())
+    theirs = set()
+    for c in sharded["cell_arrays"]:
+        theirs |= set(c.tolist())
+    acc = {"single": int(single_cells.size),
+           "sharded": int(sum(c.size for c in sharded["cell_arrays"])),
+           "only_single": len(mine - theirs),
+           "only_sharded": len(theirs - mine),
+           "single_repeats": int(single_cells.size) - len(mine),
+           "sharded_repeats": int(sum(c.size for c in sharded["cell_arrays"]))
+           - len(theirs)}
+    log(f"[shard]   {label}: point solves sharded {acc['sharded']} "
+        f"(summed), single process {acc['single']} (difference "
+        f"{acc['sharded'] - acc['single']:+d}); cells only the single "
+        f"process solved {acc['only_single']}, only the shards "
+        f"{acc['only_sharded']}; cells solved again by the same process: "
+        f"single {acc['single_repeats']}, shards {acc['sharded_repeats']}")
+    return acc
+
+
+def cold_warm_split(dev, problem, cfg, tmp: str) -> bool:
+    """Why a sharded flagship tree differs from the single-process one:
+    the same two builds without tree warm starts (`--no-warm-start`),
+    the single process also without speculation (a sharded frontier
+    never speculates).  A cell that comes through the exchange is solved
+    by its owner without the requester's warm start (exchange rows carry
+    no duals), and which shard solves a vertex first is a matter of
+    timing, so its last bits -- and a knife-edge convergence or
+    certificate with them -- follow.  Without warm starts every cell is
+    solved cold in both builds: the trees must then be canonically
+    identical for the difference to be the warm start's.  Logs the
+    comparison and the pair's point solves cell by cell
+    (solve_accounting) and returns whether the trees are identical."""
+    import dataclasses
+
+    from explicit_hybrid_mpc_tpu_torch.partition.shard import (
+        compare_trees_canonical)
+
+    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+
+    cold = dataclasses.replace(cfg, warm_start_tree=False)
+    ref, ref_cells = cell_recorded_build(
+        problem, dataclasses.replace(cold, speculate=False))
+    r = sharded_run(dev, cold, tmp, "flagship_cold")
+    diffs = compare_trees_canonical(ref.tree, r["tree"])
+    oa, ob = tree_outcomes(ref.tree), tree_outcomes(r["tree"])
+    cells, other = differing_cells(oa, ob)
+    log(f"[shard]   flagship without warm starts (--no-warm-start, both "
+        f"builds; --no-speculate, the single process): regions "
+        f"{r['stats']['regions']} sharded, "
+        f"{ref.stats['regions']} single process; canonical comparison: "
+        + ("identical" if not diffs else "; ".join(diffs))
+        + f" ({len(cells)} cells decided differently, {other} leaves with "
+        f"another commutation; cells solved by both shards {r['both']})"
+        + ("; so each differing cell of the default build is a warm-start "
+           "knife edge" if not diffs else
+           "; so each cell the default builds split and closed differently "
+           "is a warm-start knife edge (the leaves with another commutation "
+           "follow)" if not cells else
+           "; the warm start does not explain every differing cell"))
+    solve_accounting("flagship without warm starts", ref.stats, ref_cells, r)
+    # A leaf closed with another commutation: the two commutations' V at
+    # its vertices (a cold dense solve), side by side -- equal to the
+    # last bits is an exact tie, which goes to the lower index.
+    swapped = [k for k in oa.keys() & ob.keys()
+               if oa[k][0] == ob[k][0] == "leaf" and oa[k][1] != ob[k][1]]
+    ora = Oracle(problem, backend=dev.type, two_phase=False,
+                 warm_start=False)
+    p = ref.tree.p
+    for key in swapped[:5]:
+        verts = np.frombuffer(key, dtype=np.float64).reshape(p + 1, p)
+        V = ora.solve_vertices(verts).V
+        da, db = oa[key][1], ob[key][1]
+        with np.errstate(invalid="ignore"):  # inf - inf: unconverged
+            rel = np.abs(V[:, da] - V[:, db]) / np.maximum(
+                np.abs(V[:, db]), 1e-300)
+        log(f"[shard]     leaf {np.array2string(verts.ravel(), precision=6)}"
+            f": commutation {da} single process, {db} sharded; V[{da}] "
+            f"{V[:, da].tolist()}, V[{db}] {V[:, db].tolist()} at its "
+            f"vertices (relative gap {rel.tolist()})")
+    return not diffs
+
+
+def sharded_build_phase(dev, problem, cfg, res, build_s: float,
+                        tmp: str) -> dict:
+    """20b: the sharded build (sharded_run) of the tier-1 DI fixture and
+    of phase 3's flagship, every shard on `dev` (one card time-sliced:
+    the wall is the protocol's cost, not scaling).
+
+    Both: 0 fallback cells, and no (point, commutation) cell solved by
+    two shards (the ownership hash's zero-duplicate guarantee, read from
+    the cells each shard's point solves finished; each shard's cells are
+    its oracle.point_solves).  The DI fixture (one commutation: no
+    masked point solves, nothing to warm-start) must give the
+    single-process build's tree canonically and its point solves
+    exactly.  The flagship: the merged tree compared canonically with
+    phase 3's `res` (identical, or each differing cell named), regions
+    within 2% of REF_REGIONS, uncertified <= REF_UNCERTIFIED_MAX, the
+    summed point solves beside phase 3's and, cell by cell
+    (solve_accounting), beside a single-process build's without
+    speculation (phase 3 speculates; a sharded frontier never does),
+    with cold_warm_split where the trees or the counts differ; each
+    shard's K1 launches and the span of their event pairs, and the
+    straggler report.  Returns the kernels line's sharded counts."""
+    import dataclasses
+
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.partition.shard import (
+        compare_trees_canonical)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    name, args = DI_PROBLEM
+    di_cfg = PartitionConfig(problem=name, problem_args=args,
+                             backend=dev.type, **DI_CFG)
+    di_ref = build_partition(make(name, **dict(args)), di_cfg)
+    out = {}
+    for tag, c, ref in (("di", di_cfg, di_ref), ("flagship", cfg, res)):
+        r = sharded_run(dev, c, tmp, tag)
+        st, roll, shards = r["stats"], r["roll"], r["shards"]
+        solves = roll["counters"].get("oracle.point_solves")
+        per_shard = [s.get("point_solves") for s in st["per_shard"]]
+        diffs = compare_trees_canonical(ref.tree, r["tree"])
+        cells, other_delta = differing_cells(tree_outcomes(ref.tree),
+                                             tree_outcomes(r["tree"]))
+        log(f"[shard] 20b {tag}: main --shard-frontier, {SHARDS} shards on "
+            f"{dev} (the launcher, one process a shard): wall "
+            f"{r['wall_s']:.1f} s (each shard's main "
+            + ", ".join(f"{s['wall_s']:.1f}" for s in shards)
+            + f" s; the single-process build {build_s if tag == 'flagship' else di_ref.stats['wall_s']:.1f} s); "
+            f"regions {st['regions']} (single process: "
+            f"{ref.stats['regions']}), uncertified {st['uncertified']}, "
+            f"tree nodes {st['tree_nodes']} ({ref.stats['tree_nodes']}), "
+            f"point solves summed over {roll['n_streams']} streams {solves} "
+            f"(single process: {ref.stats['point_solves']}; per shard "
+            f"{per_shard}), simplex solves {st['simplex_solves']} "
+            f"({ref.stats['simplex_solves']}), remote cells "
+            f"{st['shard_remote_cells']}, served "
+            f"{st['shard_served_cells']}, fallback "
+            f"{st['shard_fallback_cells']}; point-solve cells recorded "
+            f"{r['cells']} ({r['unique']} distinct), solved by both "
+            f"shards {r['both']}")
+        for s in shards:
+            span = s["k1_event_wall_ms"]
+            log(f"[shard]   {tag} shard {s['rank']}: K1 {s['k1_launches']} "
+                "launches; their CUDA event pairs span " + (
+                    f"{span:.2f} ms in all" if span is not None
+                    else "not measured")
+                + " (not K1 device time: the shards time-slice one card, "
+                "so a pair also spans the other shard's work)")
+        log(f"[shard]   {tag}: canonical comparison with the single-process "
+            "tree: " + ("identical" if not diffs else "; ".join(diffs))
+            + f"; {len(cells)} cells decided differently (one build split, "
+            f"the other closed), {other_delta} leaves with another "
+            "commutation")
+        outs_ref, outs_sh = tree_outcomes(ref.tree), tree_outcomes(r["tree"])
+        for key in cells[:10]:
+            verts = np.frombuffer(key, dtype=np.float64).reshape(
+                ref.tree.p + 1, ref.tree.p)
+            log(f"[shard]     cell "
+                f"{np.array2string(verts.ravel(), precision=6)}: single "
+                f"process {outs_ref[key]}, sharded {outs_sh[key]}")
+        log(f"[shard]   {tag} straggler report: {json.dumps(r['straggle'])}")
+        if on_card and any(s["k1_launches"] <= 0 for s in shards):
+            fail(f"20b {tag}: a shard launched no K1 ({shards})")
+        if st["shard_fallback_cells"] != 0 or r["both"] != 0 \
+                or r["cells"] != per_shard or solves != sum(per_shard):
+            fail(f"20b {tag}: fallback cells {st['shard_fallback_cells']}, "
+                 f"cells solved by both shards {r['both']}, cells recorded "
+                 f"{r['cells']} against point solves {per_shard} (streams: "
+                 f"{solves})")
+        if tag == "di" and (diffs or solves != ref.stats["point_solves"]):
+            fail(f"20b di: the sharded build is not the single-process one "
+                 f"({diffs}; point solves {solves} against "
+                 f"{ref.stats['point_solves']})")
+        if tag == "flagship":
+            check_build("sharded build", st, REF_REGIONS if on_card
+                        else ref.stats["regions"], REF_UNCERTIFIED_MAX)
+            # Phase 3 speculates and a sharded frontier never does: the
+            # same single-process build without speculation, for its
+            # tree and its point solves.
+            ns, ns_cells = cell_recorded_build(
+                problem, dataclasses.replace(cfg, speculate=False))
+            ns_diffs = compare_trees_canonical(ref.tree, ns.tree)
+            log(f"[shard]   flagship single process without speculation "
+                f"(--no-speculate): regions {ns.stats['regions']}, point "
+                f"solves {ns.stats['point_solves']} (phase 3: "
+                f"{ref.stats['point_solves']}, of them speculative cells "
+                f"wasted {ref.stats['spec_waste']}, used "
+                f"{ref.stats['spec_hits']}); canonical comparison with "
+                "phase 3's tree: " + ("identical" if not ns_diffs
+                                      else "; ".join(ns_diffs)))
+            solve_accounting("flagship against the single process without "
+                             "speculation", ns.stats, ns_cells, r)
+            if diffs or solves != ref.stats["point_solves"]:
+                cold_warm_split(dev, problem, cfg, tmp)
+        out[tag] = {"launches": [s["k1_launches"] for s in shards],
+                    "ms": [s["k1_event_wall_ms"] for s in shards],
+                    "identical": not diffs, "differing_cells": len(cells),
+                    "point_solves": solves}
+    log(f"[shard] (20b took {time.perf_counter() - t0:.1f} s)")
+    return {"sharded_launches": out["flagship"]["launches"],
+            "sharded_k1_event_wall_ms": out["flagship"]["ms"],
+            "sharded_identical": out["flagship"]["identical"],
+            "sharded_differing_cells": out["flagship"]["differing_cells"],
+            "sharded_di_launches": out["di"]["launches"]}
+
+
+def lockstep_worker() -> int:
+    """One rank of 20c (started by lockstep_phase with RANK, WORLD_SIZE,
+    MASTER_ADDR/PORT, LOCKSTEP_OUT and LOCKSTEP_BACKEND): the tier-1 DI
+    build with the oracle's vertex grid on the global mesh (one entry a
+    rank, on this process's card or CPU), checkpoints every 2 steps
+    (only rank 0's land), rank 0 saving the tree; writes its view of the
+    result to LOCKSTEP_OUT.r<rank>.json."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+    from explicit_hybrid_mpc_tpu_torch.parallel import distributed
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    out, backend = os.environ["LOCKSTEP_OUT"], os.environ["LOCKSTEP_BACKEND"]
+    rank = distributed.init_distributed()
+    try:
+        # One card a rank where the machine has several, else all on
+        # the one.
+        dev = torch.device("cuda", rank % torch.cuda.device_count()) \
+            if backend == "cuda" else torch.device("cpu")
+        name, args = DI_PROBLEM
+        prob = make(name, **dict(args))
+        mesh = distributed.global_mesh(local_devices=[dev])
+        ipm_leg.launches = 0
+        oracle = Oracle(prob, backend=backend, mesh=mesh)
+        cfg = PartitionConfig(problem=name, problem_args=args,
+                              backend=backend, checkpoint_every=2,
+                              checkpoint_path=f"{out}.r{rank}.ckpt.pkl",
+                              **DI_CFG)
+        res = build_partition(prob, cfg, oracle=oracle)
+        owner = distributed.is_frontier_owner()
+        if owner:
+            res.tree.save(f"{out}.tree.pkl")
+        with open(f"{out}.r{rank}.json", "w") as f:
+            json.dump({"rank": rank, "owner": owner,
+                       "mesh": repr(mesh), "k1_launches": ipm_leg.launches,
+                       **{k: res.stats[k] for k in (
+                           "regions", "tree_nodes", "max_depth",
+                           "oracle_solves", "point_solves")}}, f)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def lockstep_phase(dev, tmp: str) -> dict:
+    """20c: LOCKSTEP_RANKS processes (gloo, every rank on `dev`) build the
+    tier-1 DI fixture in lockstep with the oracle's vertex grid on the
+    global mesh (lockstep_worker): every rank's regions, tree nodes, max
+    depth and solves equal to each other's and to a single-process build
+    on `dev` with the grid on a local mesh of the same shape (a mesh
+    oracle runs no two-phase cohort and no warm starts, so its solves
+    are its own), whose tree is the plain build's; only rank 0 writes its
+    checkpoint and the tree.  Returns the kernels line's lockstep
+    counts."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+    from explicit_hybrid_mpc_tpu_torch.parallel import make_mesh
+    from explicit_hybrid_mpc_tpu_torch.parallel.launch import (free_port,
+                                                               shard_env)
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    on_card = dev.type == "cuda"
+    name, args = DI_PROBLEM
+    prob = make(name, **dict(args))
+    # The ranks' checkpoint cadence too: a checkpoint drops the pipeline's
+    # lookahead, whose cells are solved again.
+    cfg = PartitionConfig(problem=name, problem_args=args, backend=dev.type,
+                          checkpoint_every=2,
+                          checkpoint_path=os.path.join(tmp, "ref.ckpt.pkl"),
+                          **DI_CFG)
+    plain = build_partition(prob, cfg).stats
+    ref = build_partition(prob, cfg, oracle=Oracle(
+        prob, backend=dev.type,
+        mesh=make_mesh((LOCKSTEP_RANKS, 1), [dev] * LOCKSTEP_RANKS))).stats
+    out = os.path.join(tmp, "lockstep")
+    port = free_port()
+    procs, files = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(LOCKSTEP_RANKS):
+            env = shard_env(os.environ, port, rank, LOCKSTEP_RANKS, "lockstep")
+            env.update(LOCKSTEP_OUT=out, LOCKSTEP_BACKEND=dev.type)
+            f = tempfile.TemporaryFile(mode="w+b")
+            files.append(f)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _LOCKSTEP], cwd=_root(), env=env,
+                stdout=f, stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=max(1.0, LOCKSTEP_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    tails = []
+    for f in files:
+        f.seek(0)
+        tails.append(f.read().decode("utf-8", errors="replace")[-3000:])
+        f.close()
+    if rcs is None or any(rcs):
+        fail(f"20c: the lockstep ranks exited {rcs} (None: timed out after "
+             f"{LOCKSTEP_TIMEOUT_S:.0f} s): {tails}")
+    ranks = []
+    for rank in range(LOCKSTEP_RANKS):
+        with open(f"{out}.r{rank}.json") as f:
+            ranks.append(json.load(f))
+    keys = ("regions", "tree_nodes", "max_depth", "oracle_solves",
+            "point_solves")
+    ckpts = [os.path.exists(f"{out}.r{r}.ckpt.pkl")
+             for r in range(LOCKSTEP_RANKS)]
+    log(f"[lockstep] 20c {LOCKSTEP_RANKS} ranks (gloo) on {dev}, the DI "
+        f"fixture {dict(args)} {DI_CFG} with the vertex grid on "
+        f"{ranks[0]['mesh']}: {wall:.1f} s; "
+        + "; ".join(f"rank {x['rank']}: " + ", ".join(f"{k} {x[k]}"
+                                                       for k in keys)
+                    + f", K1 {x['k1_launches']}" for x in ranks)
+        + "; single process, local mesh: " + ", ".join(f"{k} {ref[k]}"
+                                                        for k in keys)
+        + "; plain: " + ", ".join(f"{k} {plain[k]}" for k in keys)
+        + f"; owners {[x['owner'] for x in ranks]}, checkpoints written "
+        f"{ckpts}, tree written {os.path.exists(out + '.tree.pkl')}")
+    tree = ("regions", "tree_nodes", "max_depth")
+    if any({k: x[k] for k in keys} != {k: ref[k] for k in keys}
+           for x in ranks) or any(ref[k] != plain[k] for k in tree):
+        fail("20c: a rank's build differs from the single-process build")
+    if [x["owner"] for x in ranks] != [True] + [False] * (LOCKSTEP_RANKS - 1) \
+            or ckpts != [True] + [False] * (LOCKSTEP_RANKS - 1) \
+            or not os.path.exists(out + ".tree.pkl"):
+        fail("20c: outputs were written by another rank than rank 0")
+    if on_card and any(x["k1_launches"] <= 0 for x in ranks):
+        fail(f"20c: a rank launched no K1 ({ranks})")
+    return {"lockstep_launches": [x["k1_launches"] for x in ranks]}
+
+
+def multi_gpu_phase(dev, problem, cfg, res, build_s: float, tmp: str) -> dict:
+    """Phase 20 (20a-20c); returns the kernels line's ipm_leg counts."""
+    t0 = time.perf_counter()
+    out = mesh_solve_phase(dev, problem)
+    out.update(sharded_build_phase(dev, problem, cfg, res, build_s, tmp))
+    out.update(lockstep_phase(dev, tmp))
+    log(f"[multi] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def mesh_only() -> int:
+    """20a and 20c alone on every card of the machine: the mesh over
+    distinct cards, and one lockstep rank a card.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.mesh_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    global LOCKSTEP_RANKS
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    n = torch.cuda.device_count()
+    log(f"[device] {n} x {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    out = mesh_solve_phase(dev, make("inverted_pendulum"))
+    LOCKSTEP_RANKS = max(2, n)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        out.update(lockstep_phase(dev, tmp))
+    log(json.dumps(out))
+    return 0
+
+
+def multi_gpu_only() -> int:
+    """Phase 20 alone, for iterating on the card: the kernels built, a
+    flagship build standing in for phase 3's, then 20a-20c.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.multi_gpu_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    problem = make("inverted_pendulum")
+    cfg = PartitionConfig(problem="inverted_pendulum", eps_a=1e-2)
+    t0 = time.perf_counter()
+    res = build_partition(problem, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[main] build {build_s:.1f} s: regions {res.stats['regions']}, "
+        f"point solves {res.stats['point_solves']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        out = multi_gpu_phase(dev, problem, cfg, res, build_s, tmp)
+    log(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
+
+    t_script = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6012,6 +6956,13 @@ def main() -> int:
     host.end("phase 19 (SLO engine, demand telemetry)")
     k3_entry.update(sd["arena_eval"])
 
+    # -- phase 20: multi-GPU (the solve mesh against the dense grid, the
+    # sharded flagship build through the launcher, the lockstep
+    # multi-process build on the global mesh) -----------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        multi = multi_gpu_phase(dev, problem, cfg, res, build_s, tmp)
+    host.end("phase 20 (multi-GPU)")
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
@@ -6020,7 +6971,7 @@ def main() -> int:
          "library_ms": None, "build_ms": build_ms,
          "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
          "large": k1_large, "general": k1_general, "pruned": k1_pruned,
-         **reb["ipm_leg"], **sd["ipm_leg"]},
+         **reb["ipm_leg"], **sd["ipm_leg"], **multi},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",
@@ -6031,6 +6982,7 @@ def main() -> int:
          **reb["locate"]},
         k3_entry,
     ], "host": host.summary()}
+    log(f"[done] the script took {time.perf_counter() - t_script:.1f} s")
     log(card)
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {

@@ -73,7 +73,9 @@ class PartitionConfig:
     checkpoint_path: Optional[str] = None
     # Structured JSONL metrics stream (SURVEY.md section 6.5).
     log_path: Optional[str] = None
-    # Mesh axis size for sharding the solve batch (None = all local devices).
+    # Mesh axis size for sharding the solve batch, as in the JAX
+    # package, which reads it nowhere: a mesh reaches the oracle as
+    # Oracle(mesh=) / make_oracle(mesh=) (main --mesh D builds one).
     mesh_devices: Optional[int] = None
     # torch.profiler trace output directory (None disables).  The first
     # `profile_steps` frontier steps are traced (Chrome trace JSON;
@@ -432,9 +434,6 @@ class PartitionConfig:
 #: test, the ROADMAP item and the JAX package's module it waits for).
 #: Setting one raises instead of silently building without it.
 _UNPORTED = (
-    ("mesh_devices", lambda v: v is not None,
-     "A4: parallel/mesh.py"),
-    ("shard_frontier", bool, "A4: partition/shard.py"),
     ("recompile_guard", lambda v: v != "off",
      "A6: analysis/recompile_guard.py"),
 )

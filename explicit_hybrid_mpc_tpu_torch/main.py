@@ -55,6 +55,20 @@ bundles of solver anomalies, replayed by ``python -m
 explicit_hybrid_mpc_tpu_torch.obs.replay BUNDLE``; ``--obs-per-process``
 suffixes the obs stream with ``.pI-PID`` so several processes sharing
 one prefix write one stream each (obs/fleet.py merges them).
+``--mesh D`` splits the vertex-grid solves over a (D, 1) device mesh
+(parallel/mesh.py: D distinct cards, or D entries of the CPU device
+under ``--backend cpu``).  ``--shard-frontier`` builds this process's
+share of the roots (partition/shard.py), exchanging shared cells with
+its peers through files under ``--shard-dir`` (default PREFIX.shard);
+start the N processes with the launcher, which sets RANK / WORLD_SIZE
+and the rendezvous::
+
+    python -m explicit_hybrid_mpc_tpu_torch.parallel.launch -n 2 -- \
+        -e inverted_pendulum -a 1e-2 -o build/pend2
+
+Every process merges the same tree; rank 0 writes the outputs, each
+shard its own log (PREFIX.log.jsonl.pI), checkpoint (.pI) and, with
+``--obs``, obs stream.
 
 The JAX package's flags in _UNPORTED_FLAGS exit with "not yet ported"
 and the ROADMAP item that brings them.
@@ -72,10 +86,6 @@ import time
 #: Build flags of the JAX package whose modules are not ported yet:
 #: flag -> the ROADMAP item and the JAX package's module it waits for.
 _UNPORTED_FLAGS = {
-    "--mesh": "A4 (parallel/mesh.py)",
-    "--shard-frontier": "A4 (partition/shard.py)",
-    "--shard-dir": "A4 (partition/shard.py)",
-    "--shard-timeout": "A4 (partition/shard.py)",
     "--recompile-guard": "A6 (analysis/recompile_guard.py)",
 }
 
@@ -134,6 +144,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "plain torch version on cpu)")
     p.add_argument("--batch", type=int, default=256,
                    help="frontier simplices per device step")
+    p.add_argument("--mesh", type=int, default=None, metavar="D",
+                   help="split the vertex-grid solves over D devices "
+                        "(D distinct cards; D entries of the CPU device "
+                        "under --backend cpu)")
     p.add_argument("--max-depth", type=int, default=40)
     p.add_argument("--boundary-depth", type=int, default=None,
                    metavar="D", help="close mixed-feasibility simplices "
@@ -169,6 +183,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dedup-window", type=int, default=None, metavar="K",
                    help="max in-flight vertices tracked for cross-batch "
                    "solve dedup (default 8192)")
+    p.add_argument("--shard-frontier", action="store_true",
+                   help="sharded frontier (partition/shard.py): each "
+                        "process builds its own round-robin share of "
+                        "the root simplices, with cross-process vertex "
+                        "dedup through the exchange under --shard-dir; "
+                        "the merged tree is node-for-node the single-"
+                        "process build's (start the processes with "
+                        "python -m explicit_hybrid_mpc_tpu_torch."
+                        "parallel.launch)")
+    p.add_argument("--shard-dir", metavar="DIR", default=None,
+                   help="exchange/result directory shared by every "
+                        "shard (default PREFIX.shard)")
+    p.add_argument("--shard-timeout", type=float, default=None,
+                   metavar="S",
+                   help="remote-cell wait budget before a shard "
+                        "re-solves locally (default 300)")
     p.add_argument("--async-certify", action="store_true",
                    help="a background waiter resolves in-flight "
                    "lookahead programs while the host certifies (the "
@@ -298,6 +328,7 @@ def config_from_args(args: argparse.Namespace):
     """The PartitionConfig of a fresh build from parsed build flags, as
     the JAX package's CLI builds it from the same flags."""
     from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.parallel import distributed
 
     problem_args = _parse_problem_args(args.problem_arg)
     prefix = args.output
@@ -326,13 +357,20 @@ def config_from_args(args: argparse.Namespace):
         checkpoint_every=args.checkpoint_every,
         checkpoint_path=(f"{prefix}.ckpt.pkl"
                          if args.checkpoint_every else None),
-        log_path=f"{prefix}.log.jsonl",
+        # Per-process log stream under sharding (the engine suffixes
+        # the checkpoint itself): two shards appending one JSONL file
+        # would interleave torn lines.
+        log_path=(f"{prefix}.log.jsonl.p{distributed.process_index()}"
+                  if args.shard_frontier else f"{prefix}.log.jsonl"),
         precision=args.precision,
         profile_path=args.profile, profile_steps=args.profile_steps,
         obs=args.obs,
         obs_path=(args.obs_path or f"{prefix}.obs.jsonl"
                   if args.obs != "off" else None),
-        obs_per_process=args.obs_per_process,
+        # Sharded builds force per-process obs streams: N shards
+        # sharing one configured path would interleave one file.
+        obs_per_process=(args.obs_per_process
+                         or (args.shard_frontier and args.obs != "off")),
         auto_profile=args.auto_profile,
         # --recorder-dir implies --recorder: naming a bundle directory
         # and silently recording nothing would be the worst reading.
@@ -344,6 +382,11 @@ def config_from_args(args: argparse.Namespace):
         fault_plan=args.fault_plan,
         rebuild_from=args.rebuild_from,
         rebuild_strict_provenance=args.strict_provenance,
+        shard_frontier=args.shard_frontier,
+        shard_dir=(args.shard_dir or f"{prefix}.shard"
+                   if args.shard_frontier else args.shard_dir),
+        **({"shard_timeout_s": args.shard_timeout}
+           if args.shard_timeout is not None else {}),
         async_certify=args.async_certify)
 
 
@@ -430,15 +473,21 @@ def main(argv: list[str] | None = None) -> int:
                          "rebuild starts a NEW build from a prior "
                          "tree's certificates")
 
-    from explicit_hybrid_mpc_tpu_torch.problems.registry import make, names
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import names
     if args.list:
         print("\n".join(names()))
         return 0
 
+    from explicit_hybrid_mpc_tpu_torch.parallel import distributed
     from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
-        FrontierEngine, load_checkpoint, make_oracle)
-    from explicit_hybrid_mpc_tpu_torch.utils.logging import RunLog
+        load_checkpoint)
 
+    if args.shard_frontier and args.resume:
+        # Each shard resumes its OWN checkpoint (the engine suffixes it
+        # with .p<rank>); a single-shard run saved it unsuffixed.
+        cand = f"{args.resume}.p{distributed.process_index()}"
+        if os.path.exists(cand) or os.path.exists(cand + ".prev"):
+            args.resume = cand
     prefix = args.output
     os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
     cfg = config_from_args(args)
@@ -448,11 +497,40 @@ def main(argv: list[str] | None = None) -> int:
         # to the .prev generation on a torn file.
         snapshot = load_checkpoint(args.resume)
         cfg = resumed_config(cfg, snapshot["cfg"])
-    problem = make(cfg.problem, **dict(cfg.problem_args))
-    # strict: a --prune-rows that cannot take effect (--backend serial)
-    # is a command-line error, not a silent plain build.
+    # The rendezvous comes before any device is touched (a launch
+    # without RANK / WORLD_SIZE is a single-shard run, the plain build);
+    # a group the caller joined stays the caller's.
+    joined = args.shard_frontier and not distributed.initialized()
+    if joined:
+        distributed.init_distributed()
     try:
-        oracle = make_oracle(problem, cfg, strict=True)
+        return _build(args, cfg, snapshot, prefix)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _build(args, cfg, snapshot, prefix: str) -> int:
+    """main's build and its outputs, from the final config."""
+    from explicit_hybrid_mpc_tpu_torch.parallel import distributed
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        FrontierEngine, make_oracle)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+    from explicit_hybrid_mpc_tpu_torch.utils.logging import RunLog
+
+    problem = make(cfg.problem, **dict(cfg.problem_args))
+    mesh = None
+    if args.mesh:
+        from explicit_hybrid_mpc_tpu_torch.parallel.mesh import cli_mesh
+
+        try:
+            mesh = cli_mesh(args.mesh, cfg.backend)
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+    # strict: a --prune-rows that cannot take effect (--backend serial,
+    # --mesh) is a command-line error, not a silent plain build.
+    try:
+        oracle = make_oracle(problem, cfg, mesh=mesh, strict=True)
     except ValueError as e:
         raise SystemExit(str(e))
     log = RunLog(cfg.log_path, echo=True)
@@ -473,6 +551,11 @@ def main(argv: list[str] | None = None) -> int:
             raise SystemExit(f"rebuild: {e}")
     else:
         res = FrontierEngine(problem, oracle, cfg, log).run()
+    if args.shard_frontier and not distributed.is_frontier_owner():
+        # Every shard holds the identical merged result; only the owner
+        # writes the shared outputs (the per-shard trees and stats stay
+        # under the shard directory).
+        return 0
     res.tree.save(f"{prefix}.tree.pkl")
     with open(f"{prefix}.stats.json", "w") as f:
         json.dump(res.stats, f, indent=2)

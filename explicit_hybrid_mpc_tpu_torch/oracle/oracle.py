@@ -20,7 +20,9 @@ the kernel's plain torch version) and 'serial' (one point or one
 by oracle/host_qp.py: the baseline that oracle/bnb.py's branch-and-bound
 stand-in runs on, and that the benchmarks price the batched backends
 against).  'serial' is reached only by name: no 'cuda' oracle ever
-becomes one.  The mesh is not yet ported.
+becomes one.  A `mesh` (parallel/mesh.py) splits the vertex-grid
+solves over a (batch, delta) grid of devices; every other query runs
+on the oracle's own device.
 
 Asynchrony: `dispatch_*` only enqueues device work -- host inputs go
 through pinned memory without blocking and no result is read back -- so
@@ -337,6 +339,14 @@ class Oracle:
         ipm_kernel asks, two-phase and warm starts forced off, no
         mesh; the batched simplex programs run the plain leg).
 
+        mesh: a parallel.mesh.Mesh; solve_vertices then splits the
+        (points x commutations) grid over its devices
+        (parallel/mesh.py MeshSolver), each block through the leg of
+        its device (K1 on a card), instead of running on the oracle's
+        device.  Its devices must be of the backend's kind.  Two-phase
+        cohorts and warm starts are forced off under a mesh (the block
+        solver has no cohort or warm path), as in the JAX package.
+
         precision: 'f64' = every IPM iteration in float64; 'mixed' =
         two-thirds of n_iter as float32 iterations + the remaining third
         as warm-started float64 polish, to the same KKT tolerance.
@@ -366,16 +376,12 @@ class Oracle:
         if mesh is not None and backend == "serial":
             raise ValueError("backend='serial' is the one-solve-at-a-time "
                              "baseline; it cannot shard over a mesh")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded oracles are not yet ported to the torch "
-                "package (ROADMAP A4: parallel/mesh.py)")
         if backend not in ("cuda", "cpu", "serial"):
             raise ValueError(f"unknown backend {backend!r}")
         self.problem = problem
         self.can = problem.canonical
         self.backend = backend
-        self.mesh = None
+        self.mesh = mesh
         # Observability handle: per-class solve-time histograms + IPM
         # iteration counters flow through it.  NOOP by default; the
         # frontier engine re-points it at the build's own handle.
@@ -435,10 +441,12 @@ class Oracle:
                                    else int(phase1_iters_point))
         self.phase1_iters_simplex = (None if phase1_iters_simplex is None
                                      else int(phase1_iters_simplex))
-        # The serial baseline is the conservative fixed schedule: no
-        # cohort, no warm starts.
-        self.two_phase = bool(two_phase) and backend != "serial"
-        self.warm_start = bool(warm_start) and backend != "serial"
+        # The serial baseline is the conservative fixed schedule, and
+        # the mesh's block solver has no cohort or warm path: neither
+        # takes a cohort or warm starts.
+        plain_schedule = backend == "serial" or mesh is not None
+        self.two_phase = bool(two_phase) and not plain_schedule
+        self.warm_start = bool(warm_start) and not plain_schedule
 
         def _split(n_f64: int,
                    override: int | None) -> tuple[int, int]:
@@ -506,6 +514,19 @@ class Oracle:
         self.ipm_kernel = ipm.resolve_kernel(
             "auto" if backend == "serial" else ipm_kernel, self.device)
         self.prob = to_device(self.can, self.device)
+        self._mesh_solver = None
+        if mesh is not None:
+            from explicit_hybrid_mpc_tpu_torch.parallel.mesh import (
+                MeshSolver)
+
+            kinds = {mesh.devices[ij].type for ij in mesh.local_entries()}
+            if kinds != {self.device.type}:
+                raise ValueError(
+                    f"backend={backend!r} runs on {self.device.type}, but "
+                    f"the mesh's devices are {sorted(kinds)}")
+            self._mesh_solver = MeshSolver(self.prob, mesh,
+                                           n_iter=self.point_n_iter,
+                                           n_f32=self.point_n_f32)
         if backend == "serial":
             # One point / one pair per call through the chunk loops
             # below; each call runs the host programs on these arrays.
@@ -850,6 +871,10 @@ class Oracle:
         for lo in range(0, P, cap):
             chunk = thetas[lo:lo + cap]
             Pc = chunk.shape[0]
+            if self._mesh_solver is not None:
+                # Unpadded device tensors, every block launched.
+                chunks.append((self._mesh_solver(chunk), Pc))
+                continue
             Ppad = min(cap, max(8, 1 << (Pc - 1).bit_length()))
             self._note_shape("grid", Ppad)
             pad = np.zeros((Ppad - Pc, thetas.shape[1]))

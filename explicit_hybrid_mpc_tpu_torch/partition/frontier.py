@@ -250,12 +250,21 @@ class FrontierEngine:
                       geometry.box_triangulation(
                           problem.theta_lb, problem.theta_ub,
                           getattr(problem, "root_splits", None))]
-        # Pod-scale sharded frontier: not yet ported (ROADMAP A4;
-        # PartitionConfig rejects shard_frontier).  Every shard hook
+        # Sharded frontier (partition/shard.py): when active, THIS
+        # process's frontier holds only its round-robin share of the
+        # roots; cross-shard vertex dedup goes through the asynchronous
+        # exchange (requests posted at plan time, results collected
+        # before certify).  None on single-process runs -- every hook
         # below is a None-test.
         self._shard = None
+        if getattr(cfg, "shard_frontier", False):
+            from explicit_hybrid_mpc_tpu_torch.partition.shard import (
+                ShardContext)
+
+            self._shard = ShardContext.from_config(self, cfg)
         self.frontier: collections.deque[int] = collections.deque(
-            self.roots)
+            self.roots if self._shard is None
+            else self._shard.owned_roots(self.roots))
         self.cache = VertexCache()
         self.steps = 0
         self.n_uncertified = 0
@@ -1704,6 +1713,17 @@ class FrontierEngine:
             # stats snapshot below.
             self._pipe.cancel()
             wall = time.perf_counter() - t0
+            if self._shard is not None:
+                # Sharded epilogue (partition/shard.py): serve peer
+                # requests until every shard drains, then merge the
+                # shard trees -- every process merges identically, so
+                # callers see one global result on all shards.
+                res = self._shard.finalize(self, wall)
+                brief = {k: v for k, v in res.stats.items()
+                         if k != "per_shard"}
+                self.log.emit(done=True, **brief)
+                self.obs.event("build.done", **brief)
+                return res
             stats = self.stats_dict(wall)
             self.log.emit(done=True, **stats)
             self.obs.event("build.done", **stats)
@@ -1864,7 +1884,9 @@ class FrontierEngine:
         # lockstep; side effects belong to the owner (process 0) only.
         # A SHARDED frontier is the opposite: every shard's state is
         # distinct and every shard writes its own (suffixed) file.
-        if self._shard is None and not _is_frontier_owner():
+        from explicit_hybrid_mpc_tpu_torch.parallel import distributed
+
+        if self._shard is None and not distributed.is_frontier_owner():
             return
         snap = {
             "tree": self.tree, "roots": self.roots,
@@ -1989,6 +2011,11 @@ class FrontierEngine:
         # speculation gate reads it); the snapshot's frontier already
         # holds only this shard's open nodes, so no re-filter.
         eng._shard = None
+        if getattr(cfg, "shard_frontier", False):
+            from explicit_hybrid_mpc_tpu_torch.partition.shard import (
+                ShardContext)
+
+            eng._shard = ShardContext.from_config(eng, cfg)
         # Fresh pipeline: in-flight state is never serialized (the
         # checkpoint cancelled it), so a resumed build starts quiescent
         # and re-plans from the restored frontier.  Pre-pipeline
@@ -2081,25 +2108,16 @@ def load_checkpoint(path: str, fallback: bool = True) -> dict:
         "no valid checkpoint generation: " + "; ".join(tried))
 
 
-def _is_frontier_owner() -> bool:
-    """True on the process that owns checkpoint/output writing: rank 0
-    of an initialized torch.distributed group, else the lone process."""
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()
-                and dist.get_rank() != 0)
-
-
-def make_oracle(problem, cfg: PartitionConfig,
+def make_oracle(problem, cfg: PartitionConfig, mesh=None,
                 strict: bool = False) -> Oracle:
     """The oracle choice, shared by build_partition and the CLI: honors
     cfg.backend / precision / IPM schedules and the IPM leg dispatch,
-    and routes through PrunedOracle when cfg.prune_rows is set.  Pruning
-    covers the batched single-device backends only; strict=True raises
-    where it cannot take effect (the CLI surfaces the error),
-    strict=False silently builds the plain oracle (the library
-    default)."""
-    kw = dict(backend=cfg.backend, precision=cfg.precision,
+    splits the vertex grid over `mesh` (parallel/mesh.py), and routes
+    through PrunedOracle when cfg.prune_rows is set.  Pruning covers
+    the batched single-device backends only; strict=True raises where
+    it cannot take effect (the CLI surfaces the error), strict=False
+    silently builds the plain oracle (the library default)."""
+    kw = dict(backend=cfg.backend, mesh=mesh, precision=cfg.precision,
               point_schedule=getattr(cfg, "ipm_point_schedule", None),
               rescue_iter=getattr(cfg, "ipm_rescue_iters", 0),
               two_phase=getattr(cfg, "ipm_two_phase", False),
@@ -2111,7 +2129,7 @@ def make_oracle(problem, cfg: PartitionConfig,
               warm_start=getattr(cfg, "warm_start_tree", False),
               ipm_kernel=getattr(cfg, "ipm_kernel", "auto"))
     if getattr(cfg, "prune_rows", False):
-        if cfg.backend == "serial":
+        if cfg.backend == "serial" or mesh is not None:
             if strict:
                 raise ValueError(
                     "--prune-rows cannot take effect with --mesh or "

@@ -131,9 +131,7 @@ def test_cli_builds_and_evaluates_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-e", "double_integrator", "--shard-frontier"],
-    ["-e", "double_integrator", "--recompile-guard", "warn"],
-    ["-e", "double_integrator", "--mesh", "2"]])
+    ["-e", "double_integrator", "--recompile-guard", "warn"]])
 def test_cli_unported_surfaces_exit(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         tmain.main(argv)

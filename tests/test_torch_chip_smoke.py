@@ -390,16 +390,40 @@ def test_plain_leg_in_chunks_is_the_whole_batch(monkeypatch):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
 
+def _plain_leg_as_kernel(monkeypatch):
+    """The plain leg in the kernel's place on the CPU: every leg goes
+    through ipm_leg.ipm_leg_cuda, which runs the plain version and counts
+    one launch, so the phases' launch records and counts both see it."""
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    real = ipm_leg.ipm_leg_torch
+
+    def leg(Q, q, A, b, z, s, lam, n_iter):
+        if q.shape[0] == 0 or n_iter <= 0:
+            return z, s, lam
+        ipm_leg.launches += 1
+        return real(Q, q, A, b, z, s, lam, n_iter)
+
+    def dispatch(Q, q, A, b, z, s, lam, n_iter):
+        if n_iter <= 0:
+            return z, s, lam
+        return ipm_leg.ipm_leg_cuda(Q, q, A, b, z, s, lam, n_iter)
+    monkeypatch.setattr(ipm_leg, "ipm_leg_cuda", leg)
+    monkeypatch.setattr(ipm_leg, "ipm_leg", dispatch)
+
+
 def test_rebuild_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     """Phase 15 on the CPU from a small pendulum prior (eps_a 0.5, the
     tightened rebuild at 0.4; the port's CPU counts are the references):
     `main rebuild` unchanged and tightened, the tightened table held to
     the f64 host evaluator, the rebuild service over two drift revisions
     under 3 submitting threads with the torn-result audit, and `main
-    serve-rebuild`."""
+    serve-rebuild`.  The plain leg counts as K1, so the phase's K1
+    references are each its own rebuild's count (15b's, not 15c's)."""
     import dataclasses
 
     from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
     from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
         build_partition)
     from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
@@ -410,9 +434,14 @@ def test_rebuild_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
                           problem_args=(("N", 2),), eps_a=0.5,
                           backend="cpu", batch_simplices=64, max_depth=14)
     res = build_partition(problem, cfg)
-    same = warm_rebuild(problem, cfg, res.tree).stats["regions"]
-    tight = warm_rebuild(problem, dataclasses.replace(cfg, eps_a=0.4),
-                         res.tree).stats["regions"]
+    _plain_leg_as_kernel(monkeypatch)
+    counts = []
+    for eps in (0.5, 0.4):
+        ipm_leg.launches = 0
+        counts.append((warm_rebuild(problem, dataclasses.replace(
+            cfg, eps_a=eps), res.tree).stats["regions"], ipm_leg.launches))
+    (same, k1_same), (tight, k1_tight) = counts
+    assert 0 < k1_same < k1_tight
     for k, v in dict(REBUILD_REF_REGIONS=same, REBUILD_TIGHT_EPS=0.4,
                      REBUILD_TIGHT_REF_REGIONS=tight, QUERIES=512,
                      OTHER_HOLD=256, SERVICE_CLIENTS=3,
@@ -430,13 +459,16 @@ def test_rebuild_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
                 "0 dropped; 0 results not bitwise",
                 "[serve-rebuild] main serve-rebuild", "exit 0"):
         assert tag in log, tag
-    # On the CPU nothing launches and no device time is measured.
-    assert out == {"ipm_leg": {"rebuild_launches": 0, "rebuild_ms": None,
-                               "rebuild_bound_ms": 0.0},
-                   "locate": {"rebuild_launches": 0},
-                   "refs": {"unchanged": {"regions": same, "k1_launches": 0,
-                                          "k1_ms": None},
-                            "tight": {"regions": tight, "k1_launches": 0}}}
+    # The plain leg counted as K1; no device time is measured on the CPU.
+    assert out["refs"] == {
+        "unchanged": {"regions": same, "k1_launches": k1_same,
+                      "k1_ms": None},
+        "tight": {"regions": tight, "k1_launches": k1_tight}}
+    assert f"launches counted from zero: ipm_leg {k1_tight}," in log
+    assert out["ipm_leg"]["rebuild_launches"] == k1_same
+    assert out["ipm_leg"]["rebuild_ms"] is None
+    assert out["ipm_leg"]["rebuild_bound_ms"] > 0
+    assert out["locate"] == {"rebuild_launches": 0}
 
 
 def test_a_wrong_rebuild_reference_fails_the_phase(tmp_path, monkeypatch):
@@ -878,18 +910,23 @@ def _phase19_setup(small_pendulum, monkeypatch):
     import dataclasses
 
     from explicit_hybrid_mpc_tpu_torch.online import export
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
     from explicit_hybrid_mpc_tpu_torch.partition.rebuild import warm_rebuild
 
     problem, cfg, res = small_pendulum
-    tight = warm_rebuild(problem, dataclasses.replace(cfg, eps_a=0.4),
-                         res.tree).stats
+    with monkeypatch.context() as m:
+        _counting_plain_leg(m)
+        ipm_leg.launches = 0
+        tight = warm_rebuild(problem, dataclasses.replace(cfg, eps_a=0.4),
+                             res.tree).stats
+        k1_tight = ipm_leg.launches
     for k, v in dict(SD_SELFTEST=256, SD_REQUESTS=400, CLIENTS=4,
                      MAX_BATCH=64, SD_SUBOPT_FRAC=0.25,
                      SD_SUBOPT_EPS=2.0, REBUILD_TIGHT_EPS=0.4).items():
         monkeypatch.setattr(chip_smoke, k, v)
     refs = {"unchanged": {"regions": res.stats["regions"],
                           "k1_launches": 0, "k1_ms": None},
-            "tight": {"regions": tight["regions"], "k1_launches": 0}}
+            "tight": {"regions": tight["regions"], "k1_launches": k1_tight}}
     return problem, cfg, res, export.export_leaves(res.tree), refs
 
 
@@ -1010,3 +1047,185 @@ def test_serve_phases_rehearse_on_the_cpu(small_pendulum, tmp_path,
                 "K3's device time while serving: not measured"):
         assert tag in log, tag
     assert entry["name"] == "arena_eval" and entry["launches"] > 0
+
+
+# -- phase 20: multi-GPU --------------------------------------------------------
+
+
+def _di_fixture():
+    """The tier-1 DI fixture (phase 20c's) and its CPU build, standing in
+    for phase 3's flagship in the phase-20 rehearsals."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    problem = make("double_integrator", N=3, theta_box=1.5)
+    cfg = PartitionConfig(problem="double_integrator",
+                          problem_args=(("N", 3), ("theta_box", 1.5)),
+                          eps_a=0.5, backend="cpu", batch_simplices=32,
+                          max_depth=20)
+    return problem, cfg, build_partition(problem, cfg)
+
+
+def test_multi_gpu_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 20 on the CPU: 20a's mesh shapes on CPU entries (the plain
+    leg counted as K1: one launch a block; the DI's one commutation
+    padded on the delta axis), 20b's launcher builds and 20c's lockstep
+    ranks on the DI fixture (the fixture standing in for the flagship
+    too)."""
+    problem, cfg, res = _di_fixture()
+    monkeypatch.setattr(chip_smoke, "MESH_THETAS", 16)
+    monkeypatch.setattr(chip_smoke, "MESH_REPS", 1)
+    _plain_leg_as_kernel(monkeypatch)
+    out = chip_smoke.multi_gpu_phase(torch.device("cpu"), problem, cfg, res,
+                                     1.0, str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("[mesh] 20a (2, 2) on cpu repeated", "d*, conv, feas equal",
+                "equal to the dense Oracle's", "20b di: main --shard-frontier",
+                "20b flagship: main --shard-frontier",
+                "solved by both shards 0",
+                "canonical comparison with the single-process tree: "
+                "identical", "[lockstep] 20c 2 ranks (gloo) on cpu",
+                "owners [True, False], checkpoints written [True, False], "
+                "tree written True", "[multi] phase 20 took",
+                "[mesh] 20a batch split", "bitwise [True]",
+                "single process without speculation (--no-speculate)",
+                "against the single process without speculation: point "
+                "solves sharded 79 (summed), single process 79 "
+                "(difference +0)"):
+        assert tag in log, tag
+    assert out["mesh_launches"] == {"1x1": 1, "2x1": 2, "1x2": 2, "2x2": 4}
+    assert out["sharded_identical"] and out["sharded_differing_cells"] == 0
+
+
+def test_cold_warm_split_rehearses_on_the_cpu(tmp_path, monkeypatch,
+                                             capsys):
+    """20b's explanation of a differing sharded tree: both builds without
+    warm starts, canonically identical here (a small pendulum: four
+    commutations); then with one leaf's commutation changed in the
+    sharded tree's outcomes, that leaf listed with both commutations' V
+    at its vertices."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    problem = make("inverted_pendulum", N=2)
+    cfg = PartitionConfig(problem="inverted_pendulum",
+                          problem_args=(("N", 2),), eps_a=0.5,
+                          backend="cpu", batch_simplices=64, max_depth=14)
+    assert chip_smoke.cold_warm_split(torch.device("cpu"), problem, cfg,
+                                      str(tmp_path / "a"))
+    log = capsys.readouterr().out
+    assert "warm-start knife edge" in log
+    assert "flagship without warm starts: point solves sharded" in log
+    real, calls = chip_smoke.tree_outcomes, []
+
+    def swapped(tree):
+        out = real(tree)
+        calls.append(1)
+        if len(calls) == 2:
+            key = next(k for k, v in out.items() if v[0] == "leaf")
+            out[key] = ("leaf", (out[key][1] + 1) % 4, out[key][2])
+        return out
+    monkeypatch.setattr(chip_smoke, "tree_outcomes", swapped)
+    chip_smoke.cold_warm_split(torch.device("cpu"), problem, cfg,
+                               str(tmp_path / "b"))
+    log = capsys.readouterr().out
+    assert "1 leaves with another commutation" in log
+    assert "single process, " in log and " sharded; V[" in log
+    assert "relative gap" in log
+
+
+def test_a_sharded_build_that_solves_a_cell_twice_fails_20b(
+        tmp_path, monkeypatch):
+    """20b's zero-duplicate check: a shard set whose recorded cells
+    overlap fails the phase."""
+    problem, cfg, res = _di_fixture()
+    real = chip_smoke.sharded_run
+
+    def doubled(*a, **kw):
+        r = real(*a, **kw)
+        r["both"] = 1
+        return r
+    monkeypatch.setattr(chip_smoke, "sharded_run", doubled)
+    with pytest.raises(SystemExit):
+        chip_smoke.sharded_build_phase(torch.device("cpu"), problem, cfg,
+                                       res, 1.0, str(tmp_path))
+
+
+def _probe_inputs():
+    """A small pendulum's dense-grid oracle (no cohort, no warm starts,
+    as under a mesh) and 8 seeded points: batch_split_probe's inputs."""
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import oracle
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    problem = make("inverted_pendulum", N=2)
+    ora = oracle.Oracle(problem, backend="cpu", two_phase=False,
+                        warm_start=False)
+    th = np.random.default_rng(0).uniform(problem.theta_lb,
+                                          problem.theta_ub,
+                                          (8, problem.n_theta))
+    return ora, torch.as_tensor(th), 8 * problem.canonical.n_delta
+
+
+@pytest.mark.parametrize("where", ["none", "setup", "leg"])
+def test_batch_split_probe_names_the_op_that_follows_the_batch(
+        where, monkeypatch):
+    """20a's batch split on the CPU: the plain grid is batch independent
+    op for op; an op made to round by its batch's size is named as the
+    first whose inputs agree and output does not (the point QPs' matvec
+    here), and a leg made so fails the relaunch on its first half."""
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg, oracle
+
+    ora, th, K = _probe_inputs()
+    if where == "setup":
+        real = oracle._bmv
+        monkeypatch.setattr(oracle, "_bmv", lambda M, v: real(M, v) * (
+            1.0 + 2.0 ** -40 * (M.shape[0] == K)))
+    if where == "leg":
+        real_leg = ipm_leg.ipm_leg
+
+        def leg(*a, n_iter):
+            z, s, lam = real_leg(*a, n_iter=n_iter)
+            return z * (1.0 + 2.0 ** -40 * (z.shape[0] == K)), s, lam
+        monkeypatch.setattr(ipm_leg, "ipm_leg", leg)
+    pr = chip_smoke.batch_split_probe(ora, th)
+    assert pr["misaligned"] is None and pr["n_ops"] > 0
+    assert pr["k1_legs"] == 1
+    assert pr["k1_bitwise"] == [where != "leg"]
+    if where == "none":
+        assert pr["ops_differing"] == 0 and pr["first_op"] is None
+        assert pr["first_read"] is None
+        assert set(pr["converged_diff"].values()) == {0.0}
+    else:
+        assert pr["first_op"][1] == "aten.mul.Tensor"
+        assert pr["first_read"][0] == pr["first_op"][0] + 1
+        assert pr["ops_differing"] > 0
+
+
+def test_solve_accounting_splits_the_difference_of_two_counts(
+        monkeypatch, capsys):
+    """20b's cell-by-cell accounting: the difference of the summed counts
+    is the cells only one build solved plus the difference of the
+    repeats; a single build whose recorded cells are not its point
+    solves fails the phase."""
+    import numpy as np
+
+    single = np.array([1, 2, 3, 3, 4, 9], dtype=np.uint64)
+    sharded = {"cell_arrays": [np.array([1, 2, 2, 5], dtype=np.uint64),
+                               np.array([3, 4, 6, 6, 6], dtype=np.uint64)]}
+    acc = chip_smoke.solve_accounting("t", {"point_solves": 6}, single,
+                                      sharded)
+    assert acc == {"single": 6, "sharded": 9, "only_single": 1,
+                   "only_sharded": 2, "single_repeats": 1,
+                   "sharded_repeats": 3}
+    assert (acc["sharded"] - acc["single"]
+            == acc["only_sharded"] - acc["only_single"]
+            + acc["sharded_repeats"] - acc["single_repeats"])
+    assert "difference +3" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        chip_smoke.solve_accounting("t", {"point_solves": 7}, single,
+                                    sharded)

@@ -1233,3 +1233,76 @@ def test_prioritized_rebuild_on_the_card_is_bit_identical(gpu):
     for name, va, vb in zip(ta._fields, ta, tb):
         assert (np.array_equal(va, vb) if isinstance(va, np.ndarray)
                 else va == vb), name
+
+
+# -- the solve mesh and the sharded frontier on the card ---------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_mesh_solver_on_the_card_matches_the_dense_grid(gpu, shape):
+    """MeshSolver on the flagship's 32 commutations (cuda:0 repeated
+    where the machine has one card, else distinct cards): d*, conv and
+    feas equal to the dense grid program's, the converged cells' floats
+    and V* to 1e-9, each block launching K1 once."""
+    import math
+
+    from explicit_hybrid_mpc_tpu_torch.parallel.mesh import (MeshSolver,
+                                                             make_mesh)
+
+    problem = make("inverted_pendulum")
+    ora = oracle.Oracle(problem, backend="cuda", two_phase=False,
+                        warm_start=False)
+    th = np.random.default_rng(20).uniform(problem.theta_lb,
+                                           problem.theta_ub, (256, 2))
+    dense = [t.cpu().numpy() for t in oracle._solve_points_grid(
+        ora.prob, torch.as_tensor(th, device=gpu), ora.point_n_iter)[:8]]
+    k = math.prod(shape)
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % n) for i in range(k)]
+    ms = MeshSolver(ora.prob, make_mesh(shape, devs), ora.point_n_iter)
+    before = ipm_leg.launches
+    got = [t.cpu().numpy() for t in ms(th)]
+    assert ipm_leg.launches - before == k
+    conv = dense[1]
+    for j in (1, 2, 7):
+        np.testing.assert_array_equal(dense[j], got[j])
+    for j in (0, 3, 4, 5):
+        np.testing.assert_allclose(got[j][conv], dense[j][conv],
+                                   rtol=1e-9, atol=1e-9)
+    fin = np.isfinite(dense[6])
+    np.testing.assert_array_equal(fin, np.isfinite(got[6]))
+    np.testing.assert_allclose(got[6][fin], dense[6][fin], rtol=1e-9,
+                               atol=1e-9)
+
+
+def test_mesh_build_on_the_card_is_the_plain_build(gpu):
+    """The tier-1 DI build with the vertex grid on a (2, 1) mesh of the
+    card(s) is the plain card build's tree, node for node."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.parallel.mesh import make_mesh
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+
+    prob = make("double_integrator", N=3, theta_box=1.5)
+    cfg = PartitionConfig(problem="double_integrator",
+                          problem_args=(("N", 3), ("theta_box", 1.5)),
+                          eps_a=0.5, batch_simplices=64, max_depth=20)
+    n = torch.cuda.device_count()
+    mesh = make_mesh((2, 1), [torch.device("cuda", i % n)
+                              for i in range(2)])
+    plain = build_partition(prob, cfg)
+    got = build_partition(prob, cfg, oracle=oracle.Oracle(prob, mesh=mesh))
+    assert [v.tobytes() for v in got.tree.vertices] \
+        == [v.tobytes() for v in plain.tree.vertices]
+
+
+def test_cli_mesh_wider_than_the_cards_raises(gpu):
+    """--mesh D on the card takes D distinct cards and names the count
+    where fewer exist (no silent reuse of a card, no CPU fallback)."""
+    from explicit_hybrid_mpc_tpu_torch.parallel.mesh import cli_mesh
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"needs {n + 1} devices, have {n}"):
+        cli_mesh(n + 1, "cuda")
+    assert {d.index for d in cli_mesh(n, "cuda").devices.flat} \
+        == set(range(n))

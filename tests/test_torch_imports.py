@@ -65,6 +65,8 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "oracle.soc_oracle", "obs.health",
                                  "obs.recorder", "obs.fleet",
                                  "obs.replay", "obs.slo", "obs.demand",
-                                 "post.analysis", "post.figures"])
+                                 "post.analysis", "post.figures",
+                                 "partition.shard", "parallel.distributed",
+                                 "parallel.launch"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

@@ -63,6 +63,11 @@ ARGVS = {
                      "--health-rule", "min_regions_per_s=5",
                      "--auto-profile"],
     "obs_per_process": [*_DI, "--obs", "jsonl", "--obs-per-process"],
+    "shard_frontier": [*_DI, "--shard-frontier"],
+    "shard_flags": [*_DI, "-a", "0.5", "--shard-frontier", "--shard-dir",
+                    "ex", "--shard-timeout", "30", "--obs", "jsonl",
+                    "--checkpoint-every", "2"],
+    "mesh": [*_DI, "--mesh", "2"],
     "prune_rows": ["-e", "quadrotor", "-r", "0.1", "-a", "1",
                    "--problem-arg", 'param="pv"', "--problem-arg",
                    "pos_box=0.4", "--problem-arg", "vel_box=0.2",

@@ -162,9 +162,8 @@ def test_config_defaults_match_the_reference_except_backend():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("shard_frontier", True),
     ("recompile_guard", "raise"),
-    ("recompile_guard", "warn"), ("mesh_devices", 2)])
+    ("recompile_guard", "warn")])
 def test_unported_knobs_raise_naming_the_roadmap(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PartitionConfig(backend="cpu", **{field: value})
@@ -174,6 +173,18 @@ def test_unported_knobs_raise_naming_the_roadmap(field, value):
     ("obs_recorder", True), ("recorder_dir", "repro"),
     ("health_rules", (("stall_s", 1.0),))])
 def test_diagnostics_knobs_are_accepted_as_the_reference_accepts_them(
+        field, value):
+    from explicit_hybrid_mpc_tpu.config import PartitionConfig as JaxCfg
+
+    got = PartitionConfig(backend="cpu", **{field: value})
+    ref = JaxCfg(backend="cpu", **{field: value})
+    assert getattr(got, field) == getattr(ref, field) == value
+
+
+@pytest.mark.parametrize("field,value", [
+    ("shard_frontier", True), ("mesh_devices", 2), ("shard_dir", "ex"),
+    ("shard_timeout_s", 30.0)])
+def test_multi_gpu_knobs_are_accepted_as_the_reference_accepts_them(
         field, value):
     from explicit_hybrid_mpc_tpu.config import PartitionConfig as JaxCfg
 
@@ -202,13 +213,19 @@ def test_cuda_backend_without_a_gpu_raises():
 
 def test_oracle_rejects_unported_backends_and_kernel_requests():
     prob = make("double_integrator", N=3, theta_box=1.5)
-    # 'serial' is the host baseline now, and a mesh is still refused
-    # (for serial by contract: one solve at a time).
+    # 'serial' is the host baseline now, and refuses a mesh by contract
+    # (one solve at a time); a mesh must be of the backend's kind of
+    # device.
+    from explicit_hybrid_mpc_tpu_torch.parallel.mesh import make_mesh
+
     assert Oracle(prob, backend="serial").ipm_kernel == "torch"
     with pytest.raises(ValueError, match="serial"):
         Oracle(prob, backend="serial", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Oracle(prob, backend="cpu", mesh=object())
+    with pytest.raises(ValueError, match="mesh's devices"):
+        Oracle(prob, backend="cpu",
+               mesh=make_mesh((1, 1), [torch.device("cuda", 0)]))
+    assert Oracle(prob, backend="cpu", mesh=make_mesh(
+        (2, 1), [torch.device("cpu")] * 2)).mesh.shape["batch"] == 2
     with pytest.raises(ValueError, match="cuda"):
         Oracle(prob, backend="cpu", ipm_kernel="cuda")
     assert Oracle(prob, backend="cpu").ipm_kernel == "torch"

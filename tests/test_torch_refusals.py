@@ -29,21 +29,13 @@ def _raised(fn) -> str:
     return str(e.value)
 
 
-def _oracle_mesh():
-    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
-    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
-
-    Oracle(make("double_integrator", N=3), backend="cpu", mesh=object())
-
-
 #: (site, a callable giving the refusal's text; it takes a scratch dir).
 SITES = (
     [(f"PartitionConfig.{f}", lambda tmp, item=item: item)
      for f, _on, item in config._UNPORTED]
     + [(f"main {flag}", lambda tmp, flag=flag: _raised(
         lambda: tmain.main(["-e", "double_integrator", flag, "1"])))
-       for flag in tmain._UNPORTED_FLAGS]
-    + [("Oracle mesh", lambda tmp: _raised(_oracle_mesh))])
+       for flag in tmain._UNPORTED_FLAGS])
 
 
 @pytest.mark.parametrize("site,text", SITES, ids=[s for s, _ in SITES])
@@ -153,6 +145,131 @@ def _hook(tmp, hook):
         hub.close()
 
 
+_DI = ["-e", "double_integrator", "--problem-arg", "N=3", "--problem-arg",
+       "theta_box=1.5", "-a", "0.5", "--batch", "32", "--backend", "cpu"]
+
+
+def _tree_bytes(prefix: str) -> list:
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+
+    return sorted(v.tobytes() for v in Tree.load(prefix + ".tree.pkl")
+                  .vertices)
+
+
+def _main_di(tmp, flags, name="x") -> list:
+    """The tier-1 DI build through main with `flags`, against the plain
+    build: the same tree (canonical order); returns its vertex bytes."""
+    out = os.path.join(tmp, name)
+    assert tmain.main([*_DI, *flags, "-o", out]) == 0
+    assert tmain.main([*_DI, "-o", os.path.join(tmp, "plain")]) == 0
+    got = _tree_bytes(out)
+    assert got == _tree_bytes(os.path.join(tmp, "plain"))
+    return got
+
+
+def _lib_di(tmp, oracle_mesh=None, **kw):
+    """build_partition on the tier-1 DI under PartitionConfig(**kw) (and
+    an oracle on `oracle_mesh`): the plain build's tree."""
+    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    prob = make("double_integrator", N=3, theta_box=1.5)
+    cfg = dict(problem="double_integrator",
+               problem_args=(("N", 3), ("theta_box", 1.5)), eps_a=0.5,
+               backend="cpu", batch_simplices=32)
+    plain = build_partition(prob, config.PartitionConfig(**cfg))
+    oracle = None if oracle_mesh is None else Oracle(
+        prob, backend="cpu", mesh=oracle_mesh)
+    got = build_partition(prob, config.PartitionConfig(**cfg, **kw),
+                          oracle=oracle)
+    assert [v.tobytes() for v in got.tree.vertices] \
+        == [v.tobytes() for v in plain.tree.vertices]
+    return got
+
+
+def _cpu_mesh(n):
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.parallel import make_mesh
+
+    return make_mesh((n, 1), [torch.device("cpu")] * n)
+
+
+def _oracle_mesh(tmp):
+    """Oracle(mesh=) answers the plain oracle's vertex grid."""
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    prob = make("double_integrator", N=3)
+    th = np.random.default_rng(0).uniform(-1, 1, (9, 2))
+    a = Oracle(prob, backend="cpu", mesh=_cpu_mesh(4)).solve_vertices(th)
+    b = Oracle(prob, backend="cpu").solve_vertices(th)
+    assert np.array_equal(a.dstar, b.dstar)
+    assert np.allclose(a.Vstar, b.Vstar, rtol=1e-9, atol=0)
+
+
+def _shard_dir(tmp):
+    """--shard-dir: two launcher shards exchange cells there and leave
+    each shard's tree beside the manifest; the merged tree is the plain
+    build's."""
+    from explicit_hybrid_mpc_tpu_torch.parallel.launch import launch_sharded
+
+    ex, out = os.path.join(tmp, "ex"), os.path.join(tmp, "sh")
+    r = launch_sharded([*_DI, "--shard-dir", ex, "-o", out], n_processes=2,
+                       timeout_s=300)
+    assert r["rc"] == 0, r["stderr"]
+    assert {"manifest.json", "tree.p0.pkl", "tree.p1.pkl"} \
+        <= set(os.listdir(ex))
+    assert not os.path.exists(out + ".shard")
+    assert tmain.main([*_DI, "-o", os.path.join(tmp, "plain")]) == 0
+    assert _tree_bytes(out) == _tree_bytes(os.path.join(tmp, "plain"))
+
+
+def _shard_timeout(tmp):
+    """--shard-timeout S is the build's remote-cell budget; a lone shard
+    builds the plain tree."""
+    args = tmain.build_parser().parse_args(
+        [*_DI, "--shard-frontier", "--shard-timeout", "30"])
+    assert tmain.config_from_args(args).shard_timeout_s == 30.0
+    _main_di(tmp, ["--shard-frontier", "--shard-timeout", "30"])
+
+
+def _shard_resume(tmp):
+    """A lone shard's checkpoint resumes to the straight build."""
+    ck = os.path.join(tmp, "x")
+    assert tmain.main([*_DI, "--shard-frontier", "--max-steps", "3",
+                       "--checkpoint-every", "1", "-o", ck]) == 0
+    assert tmain.main([*_DI, "--shard-frontier", "-o",
+                       os.path.join(tmp, "r"), "--resume",
+                       ck + ".ckpt.pkl"]) == 0
+    assert tmain.main([*_DI, "-o", os.path.join(tmp, "plain")]) == 0
+    assert _tree_bytes(os.path.join(tmp, "r")) \
+        == _tree_bytes(os.path.join(tmp, "plain"))
+
+
+#: The surfaces ROADMAP A4 lifted (the solve mesh, the sharded frontier):
+#: each now runs on the CPU instead of refusing.
+LIFTED_A4 = {
+    # Accepted and read nowhere, as in the JAX package: the build is
+    # the plain one.
+    "PartitionConfig.mesh_devices": lambda tmp: _lib_di(tmp,
+                                                        mesh_devices=2),
+    "PartitionConfig.shard_frontier": lambda tmp: _lib_di(
+        tmp, shard_frontier=True),
+    "Oracle mesh": _oracle_mesh,
+    "Oracle mesh build": lambda tmp: _lib_di(tmp, oracle_mesh=_cpu_mesh(2)),
+    "main --mesh": lambda tmp: _main_di(tmp, ["--mesh", "2"]),
+    "main --shard-frontier": lambda tmp: _main_di(
+        tmp, ["--shard-frontier", "--obs", "jsonl"]),
+    "main --shard-dir": _shard_dir,
+    "main --shard-timeout": _shard_timeout,
+    "main --shard-frontier --resume": _shard_resume,
+}
+
 #: The surfaces ROADMAP A5 lifted: each now runs instead of refusing.
 #: The first half ported obs/recorder.py, obs/health.py and
 #: obs/fleet.py; the second obs/slo.py and obs/demand.py, whose
@@ -207,6 +324,7 @@ LIFTED = {
     "main --obs-per-process": lambda tmp: _main_flag(
         tmp, ["--obs", "jsonl", "--obs-per-process"]),
     "Obs per_process": _obs_per_process,
+    **LIFTED_A4,
 }
 
 
