@@ -94,7 +94,23 @@ canonically with phase 3's, each shard's K1 launches and device time,
 the straggler report; a differing tree is split by the same two builds
 without warm starts); 20c two gloo ranks building the DI fixture in
 lockstep on the global mesh, equal to each other and to the
-single-process build, rank 0 alone writing.  One
+single-process build, rank 0 alone writing.  Phase 21 drives the
+analysis package's recompile guard through the frontier: 21a the
+flagship through `main --recompile-guard` with obs on, first cold under
+warn (the guard fires after its 8-full-step warmup, as the JAX
+package's does on a hybrid build: each event names new shapes only),
+then under raise from an oracle warmed at every bucket (warm_buckets,
+bench.py's warm_oracle): exit 0 and 0 violations; both with phase 3's
+tree cell for cell and its K1 launches within 1%, the arm step, the
+steps checked, the ledger's size at the arm and the end, and the
+guard's share of the build wall; 21b the DI build with one real
+dispatch forced through the engine's oracle at a bucket the build never
+used right after the arm (one health.recompile, the monitor's worst
+verdict warn, the unguarded tree; under raise RecompileError out of
+step(); `main` in its own process exits non-zero); 21c kernels.loader
+watched in a fresh process over a build plus an online batch (growth =
+the libraries loaded: K1 and K2), and in this process from phase 3 to
+after 21a (0).  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -131,7 +147,10 @@ with demand capture and SLO tracking on, "capture_p99_ratio" its p99
 over the runs without them.  The "mesh_*" keys are 20a's (K1 launches a
 call, ms a call, the dense call's ms, by mesh shape), "sharded_*" 20b's
 (each shard's K1 launches and device time in the flagship build, and
-whether its tree is phase 3's), "lockstep_launches" 20c's ranks'.
+whether its tree is phase 3's), "lockstep_launches" 20c's ranks'; the
+"guard*" keys 21a's (the warmed build's K1 launches, the cold build's
+violations, the guard hook's share of the wall), "forced_k1_launches"
+21b's forced dispatch, "loader_growth" 21c's.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -170,7 +189,11 @@ phase 19 likewise, and
 
     python3 -c "import sys, chip_smoke as c; sys.exit(c.multi_gpu_only())"
 
-phase 20.
+phase 20, and
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.analysis_only())"
+
+phase 21.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -6387,6 +6410,449 @@ def multi_gpu_only() -> int:
     return 0
 
 
+# -- phase 21: the analysis package (the recompile guard through the
+# frontier on the card, the kernel-loader watch) --------------------------------
+
+#: 21b's build: the tier-1 DI fixture at batch 16 (48 of its 51 steps
+#: full), the JAX package's guard test build.
+GUARD_DI = ["-e", "double_integrator", "--problem-arg", "N=3",
+            "--problem-arg", "theta_box=1.5", "-a", "0.2", "--batch", "16"]
+GUARD_DI_CFG = dict(problem="double_integrator",
+                    problem_args=(("N", 3), ("theta_box", 1.5)), eps_a=0.2,
+                    batch_simplices=16)
+#: 21a's build: the flagship, as phase 3 builds it.
+GUARD_FLAGSHIP = ["-e", "inverted_pendulum", "-a", "1e-2"]
+#: How far 21a's K1 launches may sit from phase 3's: the flagship's
+#: count is not reproducible build to build with one tree (phase 3's
+#: own runs 724-730; the builds of one process 726 and 728), so the
+#: guarded builds are held to phase 3's within 1%.
+GUARD_K1_SPREAD = 0.01
+#: 21a's runs: cold under warn, then warmed under raise.
+GUARD_MODES = ("warn", "raise")
+#: 21c's online batch through the point-location kernel.
+GUARD_EVALUATE = 4096
+GUARD_TIMEOUT_S = 300.0
+_FORCED_MAIN = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.forced_main_worker())")
+_LOADER_WATCH = ("import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.loader_watch_worker())")
+
+
+def warm_buckets(oracle, problem) -> frozenset:
+    """bench.py's warm_oracle for the port's Oracle: every vertex-batch,
+    pair and simplex bucket launched once, so the oracle's ledger holds
+    every shape a build can dispatch ("warm shapes == run shapes");
+    the solve counters are reset after.  Returns the ledger."""
+    from explicit_hybrid_mpc_tpu_torch.partition import geometry
+
+    rng = np.random.default_rng(42)
+    nd = problem.canonical.n_delta
+
+    def buckets(cap):
+        b = 8
+        while b <= cap:
+            yield b
+            b *= 2
+
+    for b in buckets(oracle.max_points_per_call):
+        oracle.solve_vertices(rng.uniform(problem.theta_lb, problem.theta_ub,
+                                          (b, problem.n_theta)))
+    # Grid survivors compact into pair buckets on two-phase / warm /
+    # rescue oracles, even at one commutation.
+    if nd > 1 or oracle.two_phase or oracle.warm_start \
+            or oracle.rescue_iter > 0:
+        for b in buckets(oracle.max_pairs_per_call):
+            oracle.warm_pair_bucket(
+                rng.uniform(problem.theta_lb, problem.theta_ub,
+                            (b, problem.n_theta)), np.arange(b) % nd)
+    span = problem.theta_ub - problem.theta_lb
+    M1 = geometry.barycentric_matrix(np.vstack(
+        [problem.theta_lb, problem.theta_lb + 0.1 * np.diag(span)]))
+    for b in buckets(oracle.max_simplex_rows_per_call):
+        oracle.warm_simplex_bucket(np.tile(M1[None], (b, 1, 1)),
+                                   np.arange(b) % nd)
+    oracle.reset_stats()
+    return frozenset(oracle.compiled_shapes)
+
+
+class GuardProbe:
+    """While active, wraps FrontierEngine._guard_step to note, for the
+    engine it runs in: the step the guard armed at and the ledger's size
+    then, the full steps checked after, the ledger's size at the last
+    step, the seconds spent in the hook (arms and checks), and each
+    check that fired (step, the shapes it reported).  `force`, when
+    given, is called once with the engine right after an armed step
+    whose frontier holds a full batch (the next step is full)."""
+
+    def __init__(self, force=None):
+        self.force = force
+        self.armed_step = self.shapes_at_arm = self.shapes_end = None
+        self.checked = 0
+        self.hook_s = 0.0
+        self.fired: list = []
+        self.forced = None
+
+    def __enter__(self):
+        from explicit_hybrid_mpc_tpu_torch.partition import frontier
+
+        self._cls = frontier.FrontierEngine
+        real = self._real = self._cls._guard_step
+        probe = self
+
+        def hook(eng, batch):
+            warm = eng._GUARD_WARMUP_FULL_STEPS
+            full = batch >= eng.cfg.batch_simplices
+            n0 = eng._rc_guard.n_violations
+            pending = eng._rc_guard.new_shapes()
+            t0 = time.perf_counter()
+            try:
+                real(eng, batch)
+            finally:
+                probe.hook_s += time.perf_counter() - t0
+                probe.shapes_end = len(eng.oracle.compiled_shapes)
+                if full and eng._rc_steady_steps == warm:
+                    probe.armed_step = eng.steps
+                    probe.shapes_at_arm = probe.shapes_end
+                elif full and eng._rc_steady_steps > warm:
+                    probe.checked += 1
+                if eng._rc_guard.n_violations > n0:
+                    probe.fired.append((eng.steps, [tuple(s)
+                                                    for s in pending]))
+            if (probe.force is not None and probe.forced is None
+                    and eng._rc_steady_steps >= warm
+                    and len(eng.frontier) >= eng.cfg.batch_simplices):
+                probe.forced = probe.force(eng)
+
+        self._cls._guard_step = hook
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._guard_step = self._real
+        return False
+
+
+def force_new_bucket(eng) -> dict:
+    """One real dispatch through the engine's own oracle at a padded row
+    count the build never used: a vertex grid at the smallest
+    power-of-two bucket missing from its ledger.  Returns what it
+    launched."""
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    ora, prob = eng.oracle, eng.problem
+    rows = 8
+    while ("grid", rows) in ora.compiled_shapes:
+        rows *= 2
+    k1 = ipm_leg.launches
+    th = np.random.default_rng(SEED + 21).uniform(
+        prob.theta_lb, prob.theta_ub, (rows, prob.n_theta))
+    ora.solve_vertices(th)
+    return {"rows": rows, "k1": ipm_leg.launches - k1,
+            "step": eng.steps}
+
+
+def guarded_flagship(dev, res, n_k1: int, card: str, tmp: str) -> dict:
+    """21a: the flagship through the CLI with the guard on (`main -e
+    inverted_pendulum -a 1e-2 --obs jsonl`).  First from a cold oracle
+    under --recompile-guard warn: the JAX package's guard fires there too
+    (a hybrid build mints pair, cohort and stage-2 buckets after its 8
+    full warmup steps; tests/test_torch_recompile_guard.py), and each
+    event must name shapes no earlier event named.  Then under
+    --recompile-guard raise from an oracle warmed at every bucket
+    (warm_buckets; its launches are not the build's): exit 0, 0
+    violations.  Both: phase 3's tree cell for cell and phase 3's K1
+    launches within GUARD_K1_SPREAD."""
+    from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition import frontier
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+
+    on_card = dev.type == "cuda"
+    a = tree_outcomes(res.tree)
+    out = {}
+    for mode in GUARD_MODES:
+        prefix = os.path.join(tmp, f"21a_{mode}")
+        argv = [*GUARD_FLAGSHIP, "--backend", dev.type, "--obs", "jsonl",
+                "--recompile-guard", mode, "-o", prefix]
+        real_mo = frontier.make_oracle
+        warmed = {}
+
+        def make_oracle(problem, cfg, **kw):
+            o = real_mo(problem, cfg, **kw)
+            k0 = ipm_leg.launches
+            t0 = time.perf_counter()
+            warmed["shapes"] = warm_buckets(o, problem)
+            warmed["k1"] = ipm_leg.launches - k0
+            warmed["s"] = time.perf_counter() - t0
+            return o
+
+        if mode == "raise":
+            frontier.make_oracle = make_oracle
+        probe = GuardProbe()
+        try:
+            with probe:
+                rc, st, _ev, wall, _legs, k1, _k2, _p = run_main(argv,
+                                                                 on_card)
+        except Exception as e:  # noqa: BLE001 -- reported, then failed
+            fail(f"21a ({mode}): the guarded flagship build raised {e!r} "
+                 f"at step {probe.fired[-1][0] if probe.fired else '?'}")
+        finally:
+            frontier.make_oracle = real_mo
+        k1 -= warmed.get("k1", 0)
+        evs = [r for r in load_jsonl(prefix + ".obs.jsonl")
+               if r.get("name") == "health.recompile"]
+        b = tree_outcomes(Tree.load(prefix + ".tree.pkl")) if rc == 0 else {}
+        diff, other = differing_cells(a, b)
+        named = [s for _step, shapes in probe.fired for s in shapes]
+        log(f"[guard] 21a flagship, main --recompile-guard {mode}"
+            + (f" (oracle warmed at {len(warmed['shapes'])} bucket shapes "
+               f"in {warmed['s']:.1f} s, {warmed['k1']} K1 launches not "
+               "counted)" if mode == "raise" else " (cold oracle)")
+            + f": exit {rc}, {wall:.1f} s, steps {st.get('steps')}, regions "
+            f"{st.get('regions')}; armed after 8 full steps at step "
+            f"{probe.armed_step} with {probe.shapes_at_arm} ledger shapes, "
+            f"{probe.checked} full steps checked, {probe.shapes_end} shapes "
+            f"at the end; guard hook {1e3 * probe.hook_s:.2f} ms = "
+            f"{probe.hook_s / wall:.2e} of the build wall; "
+            f"{len(probe.fired)} violations ({len(evs)} health.recompile "
+            f"events)" + "".join(
+                f"; step {s} {', '.join(f'{f}[{r}]' for f, r in sh)}"
+                for s, sh in probe.fired)
+            + f"; K1 launches {k1} (phase 3: {n_k1}); tree "
+            f"{'equal to' if a == b else 'NOT equal to'} phase 3's cell "
+            f"for cell ({len(diff)} decided differently, {other} other "
+            f"commutations); {card}")
+        if rc != 0:
+            fail(f"21a ({mode}): main exited {rc}")
+        if a != b:
+            fail(f"21a ({mode}): the guarded build's tree is not phase 3's")
+        if abs(k1 - n_k1) > GUARD_K1_SPREAD * n_k1:
+            fail(f"21a ({mode}): {k1} K1 launches, phase 3 {n_k1} (more "
+                 f"than {GUARD_K1_SPREAD:.0%} apart)")
+        if len(evs) != len(probe.fired) or len(named) != len(set(named)):
+            fail(f"21a ({mode}): {len(evs)} events for {len(probe.fired)} "
+                 "violations, or a shape reported twice")
+        if mode == "raise" and probe.fired:
+            fail(f"21a: the warmed build minted {named} after the arm")
+        if probe.armed_step is None:
+            fail(f"21a ({mode}): the guard never armed")
+        out[mode] = {"violations": len(probe.fired), "k1": k1,
+                     "armed_step": probe.armed_step,
+                     "checked": probe.checked, "hook_s": probe.hook_s,
+                     "wall_s": wall, "shapes_end": probe.shapes_end}
+    return out
+
+
+def forced_violation(dev, tmp: str) -> dict:
+    """21b: the DI build on `dev` with obs on, the health monitor and the
+    guard in warn mode; right after the arm one real dispatch through
+    the engine's own oracle at a padded row count the build never used
+    (force_new_bucket, between steps): exactly one health.recompile
+    event in the stream, the monitor's worst verdict warn, the tree the
+    unguarded build's.  The same forcing under raise: RecompileError out
+    of the engine's step(), caught by nothing inside it; and a `main`
+    run that sees it (forced_main_worker, its own process) exits
+    non-zero."""
+    import dataclasses
+
+    from explicit_hybrid_mpc_tpu_torch.analysis.recompile_guard import (
+        RecompileError)
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        FrontierEngine, build_partition, make_oracle)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    prob = make("double_integrator", N=3, theta_box=1.5)
+    base = PartitionConfig(backend=dev.type, **GUARD_DI_CFG)
+    plain = tree_outcomes(build_partition(prob, base).tree)
+    stream = os.path.join(tmp, "21b.obs.jsonl")
+    cfg = dataclasses.replace(base, obs="jsonl", obs_path=stream,
+                              recompile_guard="warn",
+                              health_rules=(("stall_s", 300.0),))
+    ipm_leg.launches = 0
+    probe = GuardProbe(force=force_new_bucket)
+    with probe:
+        eng = FrontierEngine(prob, make_oracle(prob, cfg), cfg)
+        got = eng.run()
+    evs = [r for r in load_jsonl(stream)
+           if r.get("name") == "health.recompile"]
+    worst = eng._health.worst
+    same = tree_outcomes(got.tree) == plain
+    f = probe.forced or {}
+    log(f"[guard] 21b DI on {dev.type}, --recompile-guard warn: forced a "
+        f"grid dispatch of {f.get('rows')} rows after step {f.get('step')} "
+        f"(the guard armed at step {probe.armed_step}), {f.get('k1')} K1 "
+        f"launches; {len(evs)} health.recompile event(s) "
+        + "; ".join(f"step {e.get('step')}: {e.get('msg')}" for e in evs)
+        + f"; health monitor worst {worst}; tree "
+        f"{'equal to' if same else 'NOT equal to'} the unguarded build's")
+    if not f or (dev.type == "cuda" and f["k1"] < 1):
+        fail("21b: the forced dispatch did not run (or launched no K1)")
+    if len(evs) != 1 or ["grid", f["rows"]] not in evs[0]["shapes"]:
+        fail(f"21b: {len(evs)} health.recompile events, expected one "
+             f"naming grid[{f['rows']}]")
+    if worst != "warn":
+        fail(f"21b: the health monitor's worst verdict is {worst}")
+    if not same:
+        fail("21b: the guarded build's tree is not the unguarded build's")
+    # The same forcing under raise: RecompileError out of step().
+    cfg_r = dataclasses.replace(base, recompile_guard="raise")
+    eng = FrontierEngine(prob, make_oracle(prob, cfg_r), cfg_r)
+    raised = None
+    with GuardProbe(force=force_new_bucket) as probe_r:
+        try:
+            while eng.frontier:
+                eng.step()
+        except RecompileError as e:
+            raised = (eng.steps, str(e))
+    log(f"[guard] 21b --recompile-guard raise: RecompileError out of "
+        f"step() at step {raised and raised[0]} (forced after step "
+        f"{(probe_r.forced or {}).get('step')}): {raised and raised[1]}")
+    if raised is None:
+        fail("21b: under raise the forced growth did not abort the build")
+    # A `main` run that sees such growth exits non-zero.
+    env = dict(os.environ, GUARD_ARGV=json.dumps(
+        [*GUARD_DI, "--backend", dev.type, "--recompile-guard", "raise",
+         "-o", os.path.join(tmp, "21b_main")]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _FORCED_MAIN], cwd=_root(),
+                       env=env, capture_output=True, text=True,
+                       timeout=GUARD_TIMEOUT_S)
+    last = (r.stderr.strip().splitlines() or [""])[-1]
+    log(f"[guard] 21b main --recompile-guard raise with the forced "
+        f"dispatch, in its own process: exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; {last[:160]}")
+    if r.returncode == 0 or "RecompileError" not in r.stderr:
+        fail(f"21b: main exited {r.returncode} without a RecompileError")
+    return {"events": len(evs), "forced_k1": f["k1"],
+            "main_rc": r.returncode}
+
+
+def forced_main_worker() -> int:
+    """21b's `main` run (argv in GUARD_ARGV): force_new_bucket right after
+    the guard arms; the RecompileError it raises is left uncaught, so
+    the process exits non-zero."""
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+
+    with GuardProbe(force=force_new_bucket):
+        return tmain.main(json.loads(os.environ["GUARD_ARGV"]))
+
+
+def loader_watch_worker() -> int:
+    """21c's process: RecompileGuard(watch=[kernels.loader]) armed before
+    the first launch, checked after a DI build with --evaluate (argv in
+    GUARD_ARGV); prints the growth and the libraries loaded as JSON."""
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.analysis.recompile_guard import (
+        RecompileGuard)
+
+    g = RecompileGuard(watch=[kernels.loader], action="warn",
+                       label="loader_watch")
+    rc = tmain.main(json.loads(os.environ["GUARD_ARGV"]))
+    ev = g.check()
+    print(json.dumps({"rc": rc, "growth": ev["value"] if ev else 0,
+                      "loaded": sorted(kernels._libs),
+                      "built": sorted(kernels._built)}))
+    return rc
+
+
+def loader_watch(dev, tmp: str, loader_guard) -> dict:
+    """21c: the kernel-loader probe.  In a fresh process, the growth a
+    guard armed before the first launch sees over a DI build plus an
+    online batch (loader_watch_worker) equals the libraries loaded: on
+    the card K1 and K2.  In this process, `loader_guard` (armed right
+    after phase 3) sees 0: every library was built in phase 1."""
+    env = dict(os.environ, GUARD_ARGV=json.dumps(
+        [*GUARD_DI, "--backend", dev.type, "--evaluate",
+         str(GUARD_EVALUATE), "-o", os.path.join(tmp, "21c")]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _LOADER_WATCH], cwd=_root(),
+                       env=env, capture_output=True, text=True,
+                       timeout=GUARD_TIMEOUT_S)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith('{"rc"')]
+    got = json.loads(lines[-1]) if lines else {}
+    here = loader_guard.cache_growth()
+    want = ["ipm_leg", "locate"] if dev.type == "cuda" else []
+    log(f"[guard] 21c kernels.loader in a fresh process over main (DI "
+        f"build, --evaluate {GUARD_EVALUATE}): exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s, growth {got.get('growth')}, "
+        f"libraries loaded {got.get('loaded')}, built there "
+        f"{got.get('built')}; the guard armed after phase 3 sees {here} "
+        "after 21a")
+    if r.returncode != 0 or not got:
+        fail(f"21c: the loader-watch process exited {r.returncode}: "
+             f"{r.stderr[-400:]}")
+    if got["loaded"] != want or got["growth"] != len(got["loaded"]):
+        fail(f"21c: growth {got['growth']} for libraries {got['loaded']} "
+             f"(expected {want})")
+    if here != 0:
+        fail(f"21c: the guard armed after phase 3 saw {here} new "
+             "libraries")
+    return {"loader_growth": got["growth"], "loaded": got["loaded"]}
+
+
+def analysis_phase(dev, res, n_k1: int, card: str, tmp: str,
+                   loader_guard) -> dict:
+    """Phase 21 (21a-21c); returns the kernels line's ipm_leg keys."""
+    t0 = time.perf_counter()
+    flag = guarded_flagship(dev, res, n_k1, card, tmp)
+    forced = forced_violation(dev, tmp)
+    watch = loader_watch(dev, tmp, loader_guard)
+    log(f"[guard] phase 21 took {time.perf_counter() - t0:.1f} s")
+    return {"guarded_launches": flag["raise"]["k1"],
+            "guard_violations_cold": flag["warn"]["violations"],
+            "guard_hook_frac": flag["raise"]["hook_s"]
+            / flag["raise"]["wall_s"],
+            "forced_k1_launches": forced["forced_k1"],
+            "loader_growth": watch["loader_growth"]}
+
+
+def analysis_only() -> int:
+    """Phase 21 alone, for iterating on the card: the kernels built, a
+    flagship build standing in for phase 3's, then 21a-21c.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.analysis_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.analysis.recompile_guard import (
+        RecompileGuard)
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi unavailable"
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    problem = make("inverted_pendulum")
+    ipm_leg.launches = 0
+    res = build_partition(problem, PartitionConfig(
+        problem="inverted_pendulum", eps_a=1e-2))
+    n_k1 = ipm_leg.launches
+    for name in kernels.SOURCES:
+        kernels.library(name)
+    loader_guard = RecompileGuard(watch=[kernels.loader])
+    log(f"[main] build: regions {res.stats['regions']}, K1 {n_k1}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as tmp:
+        out = analysis_phase(dev, res, n_k1, card, tmp, loader_guard)
+    log(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6709,6 +7175,15 @@ def main() -> int:
     if st["uncertified"] > REF_UNCERTIFIED_MAX:
         fail(f"uncertified {st['uncertified']} > {REF_UNCERTIFIED_MAX}")
     host.end("phase 3 (flagship build, online batch)")
+    # Every kernel library is in this process from here on (built in
+    # phase 1, or loaded now): phase 21c's loader guard, armed here,
+    # must see none added by the time 21a has run.
+    from explicit_hybrid_mpc_tpu_torch.analysis.recompile_guard import (
+        RecompileGuard)
+
+    for name in kernels.SOURCES:
+        kernels.library(name)
+    loader_guard = RecompileGuard(watch=[kernels.loader])
 
     # -- phase 4: online results against the plain f64 evaluator -----------
     ref = evaluator.evaluate(dev_table, q_thetas)
@@ -6963,6 +7438,13 @@ def main() -> int:
         multi = multi_gpu_phase(dev, problem, cfg, res, build_s, tmp)
     host.end("phase 20 (multi-GPU)")
 
+    # -- phase 21: the analysis package (the recompile guard through the
+    # frontier: the guarded flagship through the CLI, a forced violation,
+    # the kernel-loader watch) ------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as tmp:
+        guard = analysis_phase(dev, res, n_k1, card, tmp, loader_guard)
+    host.end("phase 21 (recompile guard)")
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
@@ -6971,7 +7453,7 @@ def main() -> int:
          "library_ms": None, "build_ms": build_ms,
          "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
          "large": k1_large, "general": k1_general, "pruned": k1_pruned,
-         **reb["ipm_leg"], **sd["ipm_leg"], **multi},
+         **reb["ipm_leg"], **sd["ipm_leg"], **multi, **guard},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",

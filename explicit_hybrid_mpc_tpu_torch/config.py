@@ -433,10 +433,8 @@ class PartitionConfig:
 #: Knobs whose modules wait for later port slices: (field, "is set"
 #: test, the ROADMAP item and the JAX package's module it waits for).
 #: Setting one raises instead of silently building without it.
-_UNPORTED = (
-    ("recompile_guard", lambda v: v != "off",
-     "A6: analysis/recompile_guard.py"),
-)
+#: Empty since ROADMAP A6: every knob of the JAX package is ported.
+_UNPORTED: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -46,6 +46,8 @@ class KernelError(Exception):
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: Kernels whose library this process compiled.
+_built: set[str] = set()
 #: Kernel name -> ptxas resource report of the build that produced it
 #: (empty when the library was already on disk).
 ptxas_report: dict[str, str] = {}
@@ -113,6 +115,7 @@ def _build_locked(names: list, nvcc: str) -> dict[str, float]:
             failed.append(f"{SOURCES[name]}:\n{log}")
             continue
         os.replace(tmp, out)
+        _built.add(name)
     if failed:
         raise KernelError("nvcc failed for " + "\n".join(failed))
     return took
@@ -131,6 +134,20 @@ def library(name: str) -> ctypes.CDLL:
                     from e
             _libs[name] = lib
         return lib
+
+
+class _LoaderProbe:
+    """The kernel loader as the recompile guard sees it
+    (analysis/recompile_guard.py ``watch=``): ``_cache_size()`` counts
+    the kernels whose library this process built or loaded -- the
+    port's counterpart of a jit cache's compiled variants, so a guarded
+    phase that builds or loads a kernel mid-run is caught."""
+
+    def _cache_size(self) -> int:
+        return len(_built.union(_libs))
+
+
+loader = _LoaderProbe()
 
 
 if __name__ == "__main__":

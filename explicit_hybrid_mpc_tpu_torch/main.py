@@ -85,9 +85,8 @@ import time
 
 #: Build flags of the JAX package whose modules are not ported yet:
 #: flag -> the ROADMAP item and the JAX package's module it waits for.
-_UNPORTED_FLAGS = {
-    "--recompile-guard": "A6 (analysis/recompile_guard.py)",
-}
+#: Empty since ROADMAP A6: every build flag of the JAX package runs.
+_UNPORTED_FLAGS: dict = {}
 
 #: PartitionConfig fields that belong to one run, not to the partition
 #: being built: a resumed build takes them from its own command line and
@@ -265,6 +264,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "see obs.health.DEFAULT_RULES).  Any override "
                         "activates the in-build watchdog: health.* "
                         "events land in the obs stream (needs --obs)")
+    p.add_argument("--recompile-guard", choices=("warn", "raise"),
+                   default=None,
+                   help="runtime recompile sentinel "
+                        "(analysis/recompile_guard.py): after the "
+                        "steady-state warmup, any NEW oracle shape on a "
+                        "full-size frontier step emits a "
+                        "health.recompile event (warn) or aborts the "
+                        "build (raise)")
     p.add_argument("--problem-arg", action="append", default=[],
                    metavar="K=V", help="problem constructor overrides, "
                    "e.g. --problem-arg N=5")
@@ -378,6 +385,7 @@ def config_from_args(args: argparse.Namespace):
         recorder_dir=(args.recorder_dir or f"{prefix}.repro"
                       if args.recorder or args.recorder_dir else None),
         health_rules=_parse_health_rules(args.health_rule),
+        recompile_guard=args.recompile_guard or "off",
         solve_timeout_s=args.solve_timeout,
         fault_plan=args.fault_plan,
         rebuild_from=args.rebuild_from,

@@ -111,6 +111,7 @@ def export_descent(tree: Tree, roots: list[int], table: LeafTable,
     return stage_table(host, device) if stage else host
 
 
+# tpulint: device-region
 def descend_from(table: DescentTable, thetas: torch.Tensor,
                  node: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Descend from per-query start nodes ((B,) int): max_depth rounds
@@ -130,6 +131,7 @@ def descend_from(table: DescentTable, thetas: torch.Tensor,
     return table.leaf_row[node], node.to(torch.int32)
 
 
+# tpulint: device-region
 def locate_descent(table: DescentTable, thetas: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Leaf-table row per query (i32 (B,)), plus the tree node id.
@@ -147,6 +149,7 @@ def locate_descent(table: DescentTable, thetas: torch.Tensor
     return descend_from(table, thetas, table.root_node[best_root])
 
 
+# tpulint: device-region
 def evaluate_rows(dev: DeviceLeafTable, thetas: torch.Tensor,
                   row: torch.Tensor, tol: float = 1e-9) -> EvalResult:
     """Barycentric-interpolated PWA evaluation at already-located leaf

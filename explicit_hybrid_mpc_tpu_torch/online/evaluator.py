@@ -56,7 +56,7 @@ def stage(table: LeafTable, device=None,
 
 
 def evaluate(dev: DeviceLeafTable, thetas: torch.Tensor,
-             tol: float = 1e-9) -> EvalResult:
+             tol: float = 1e-9) -> EvalResult:  # tpulint: device-region
     """Batched PWA evaluation: thetas (B, p) -> EvalResult, in float64
     on the table's device."""
     thetas = torch.as_tensor(thetas, dtype=torch.float64,

@@ -260,6 +260,7 @@ def _check(bary, U, V, q, ext) -> tuple[int, int, int]:
     return pp1, C, B
 
 
+# tpulint: device-region
 def arena_eval_torch(bary: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
                      q: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
     """Plain version, on the tensors' device: the semantics of the JAX
@@ -324,6 +325,7 @@ def _lib():
     return lib
 
 
+# tpulint: device-region
 def arena_eval_cuda(bary: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
                     q: torch.Tensor, ext: torch.Tensor, plan: Plan,
                     scratch: Scratch) -> torch.Tensor:
@@ -386,7 +388,7 @@ def arena_eval_cuda(bary: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
 
 
 def arena_eval(bary: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
-               q: torch.Tensor, ext: torch.Tensor,
+               q: torch.Tensor, ext: torch.Tensor,  # tpulint: device-region
                plan: Optional[Plan] = None,
                scratch: Optional[Scratch] = None) -> torch.Tensor:
     """The CUDA kernel for CUDA tensors (with `plan` and `scratch`), the

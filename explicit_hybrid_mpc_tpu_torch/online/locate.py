@@ -75,6 +75,7 @@ def _th1(thetas: torch.Tensor) -> torch.Tensor:
                                          device=thetas.device)], dim=1)
 
 
+# tpulint: device-region
 def locate_torch(bary: torch.Tensor, thetas: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (leaf (B,) int32, score (B,) float32), computed on
@@ -133,6 +134,7 @@ def _lib():
     return lib
 
 
+# tpulint: device-region
 def locate_cuda(bary: torch.Tensor, thetas: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel (and, when the leaves are split across
@@ -176,7 +178,7 @@ def locate_cuda(bary: torch.Tensor, thetas: torch.Tensor
     return leaf, score
 
 
-def locate(ltable: LocateTable, thetas: torch.Tensor
+def locate(ltable: LocateTable, thetas: torch.Tensor  # tpulint: device-region
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Best-containing leaf per query: (leaf_idx (B,) int32, score (B,)
     float32).  score >= -tol  <=>  theta is inside leaf_idx's simplex.
@@ -189,6 +191,7 @@ def locate(ltable: LocateTable, thetas: torch.Tensor
     return locate_torch(ltable.bary, thetas)
 
 
+# tpulint: device-region
 def evaluate(ltable: LocateTable, dev_table: DeviceLeafTable,
              thetas: torch.Tensor, tol: float = 1e-4) -> EvalResult:
     """Kernel-located, f64-interpolated PWA evaluation: the located

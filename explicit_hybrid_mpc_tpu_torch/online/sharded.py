@@ -120,7 +120,7 @@ def _put(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 def _serve_shard(dt: DescentTable, leaves: DeviceLeafTable,
                  thetas: torch.Tensor, node0: torch.Tensor,
-                 tol: float) -> torch.Tensor:
+                 tol: float) -> torch.Tensor:  # tpulint: device-region
     """Descend + interpolate one shard's batch, packed as one (pad,
     n_u + 3) float64 tensor [u | cost | inside | row] so the host reads
     every shard of a device in one copy (rows are < 2^53, exact)."""
@@ -131,6 +131,7 @@ def _serve_shard(dt: DescentTable, leaves: DeviceLeafTable,
                       row[:, None].to(f64)], dim=1)
 
 
+# tpulint: device-region
 def _locate_shard(dt: DescentTable, thetas: torch.Tensor,
                   node0: torch.Tensor) -> torch.Tensor:
     row, node = descent_mod.descend_from(dt, thetas, node0)

@@ -86,6 +86,7 @@ def _bmtv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(v.unsqueeze(-2), M).squeeze(-2)
 
 
+# tpulint: device-region
 def _run_leg(Q, q, A, b, start, n_iter: int, plain: bool = False):
     """One fixed-iteration leg; ipm_leg dispatches on the tensors'
     device (the CUDA kernel or its plain version), or the plain version
@@ -111,7 +112,7 @@ def cho_solve(L: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def qp_solve(Q: torch.Tensor, q: torch.Tensor, A: torch.Tensor,
              b: torch.Tensor, n_iter: int = 30, tol: float = 1e-8,
              n_f32: int = 0, warm_start: tuple | None = None,
-             plain_leg: bool = False) -> QPSolution:
+             plain_leg: bool = False) -> QPSolution:  # tpulint: device-region
     """Solve a batch of dense convex QPs with Mehrotra predictor-corrector.
 
     Shapes: Q (K,nz,nz) PD, q (K,nz), A (K,nc,nz), b (K,nc), one dtype

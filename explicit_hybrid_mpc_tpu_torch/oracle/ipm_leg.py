@@ -169,6 +169,7 @@ def fraction_to_boundary(v: torch.Tensor, dv: torch.Tensor,
     return torch.minimum(one, tau * torch.amin(ratio, dim=-1))
 
 
+# tpulint: device-region
 def ipm_leg_torch(Q, q, A, b, z, s, lam, n_iter: int):
     """Plain torch version of the leg: (K, ...) batch, dtype of Q."""
     nc = b.shape[-1]
@@ -244,7 +245,7 @@ def _lib():
     return lib
 
 
-def ipm_leg_cuda(Q, q, A, b, z, s, lam, n_iter: int):
+def ipm_leg_cuda(Q, q, A, b, z, s, lam, n_iter: int):  # tpulint: device-region
     """Launch the CUDA kernel on CUDA tensors; raises on anything it does
     not take (device, dtype, shapes, contiguity, the large path's
     ceiling) and on a refused launch.  Does not synchronize."""
@@ -295,7 +296,7 @@ def ipm_leg_cuda(Q, q, A, b, z, s, lam, n_iter: int):
     return zo, so, lo
 
 
-def ipm_leg(Q, q, A, b, z, s, lam, n_iter: int):
+def ipm_leg(Q, q, A, b, z, s, lam, n_iter: int):  # tpulint: device-region
     """One Mehrotra leg: the CUDA kernel for CUDA tensors, the plain
     torch version for CPU tensors."""
     if n_iter <= 0:

@@ -110,6 +110,7 @@ def point_qp(prob: DeviceProblem, thetas: torch.Tensor, ds: torch.Tensor):
     return prob.H[ds], q, prob.G[ds], b
 
 
+# tpulint: device-region
 def _solve_pairs(prob: DeviceProblem, thetas: torch.Tensor,
                  ds: torch.Tensor, n_iter: int, n_f32: int = 0, warm=None):
     """Fixed-commutation QPs at (point, commutation) pairs: thetas
@@ -135,6 +136,7 @@ def _solve_pairs(prob: DeviceProblem, thetas: torch.Tensor,
             sol.s, sol.rp, sol.warm_ok)
 
 
+# tpulint: device-region
 def reduce_deltas(V: torch.Tensor, conv: torch.Tensor):
     """V*(theta), delta*(theta) from the (P, nd) grid values.  First
     minimum = deterministic tie-break (torch.argmin returns the first
@@ -146,7 +148,7 @@ def reduce_deltas(V: torch.Tensor, conv: torch.Tensor):
 
 
 def _solve_points_grid(prob: DeviceProblem, thetas: torch.Tensor,
-                       n_iter: int, n_f32: int = 0):
+                       n_iter: int, n_f32: int = 0):  # tpulint: device-region
     """(P points) x (nd commutations) in one batched solve: returns
     (V, conv, feas, grad, u0, z, Vstar, dstar, lam, s, rp), the per-cell
     fields shaped (P, nd, ...)."""
@@ -203,6 +205,7 @@ def simplex_feas_qp(prob: DeviceProblem, bary_M: torch.Tensor,
     return Q, q, A, b
 
 
+# tpulint: device-region
 def _simplex_feas(prob: DeviceProblem, bary_M: torch.Tensor,
                   ds: torch.Tensor, n_iter: int, n_f32: int = 0):
     """Joint phase-1 over simplices: t* = min violation of commutation
@@ -265,6 +268,7 @@ def simplex_min_qp(prob: DeviceProblem, bary_M: torch.Tensor,
     return Hj, qj, Gj, bj
 
 
+# tpulint: device-region
 def _solve_simplex_min(prob: DeviceProblem, bary_M: torch.Tensor,
                        ds: torch.Tensor, n_iter: int, n_f32: int = 0,
                        rho_elastic: float = 1e4, warm=None):
@@ -575,7 +579,7 @@ class Oracle:
     def _n_grid_out(self) -> int:
         return 11 if self._point_full_out else 8
 
-    def _solve_points(self, thetas: torch.Tensor):
+    def _solve_points(self, thetas: torch.Tensor):  # tpulint: device-region
         """Grid program: 11 outputs when full-output (phase-1 cohort or
         warm-start donors), else the first 8."""
         if self.backend == "serial":
@@ -583,26 +587,27 @@ class Oracle:
         return _solve_points_grid(self.prob, thetas, self._point_leg1,
                                   self.point_n_f32)[:self._n_grid_out]
 
+    # tpulint: device-region
     def _solve_pairs_ws(self, th, ds, zw, sw, lw, hw):
         """Warm-capable pair phase-1 (tree warm-start dispatch)."""
         return _solve_pairs(self.prob, th, ds, self._point_leg1,
                             self.point_n_f32, warm=(zw, sw, lw, hw))
 
-    def _solve_pairs_p2(self, th, ds, zw, sw, lw):
+    def _solve_pairs_p2(self, th, ds, zw, sw, lw):  # tpulint: device-region
         """Phase-2 cohort finisher: pure-f64 remainder, warm-started from
         each survivor's own phase-1 iterates (merit-gated)."""
         valid = torch.ones(th.shape[0], dtype=torch.bool, device=th.device)
         return _solve_pairs(self.prob, th, ds, self.point_p2, 0,
                             warm=(zw, sw, lw, valid))
 
-    def _solve_fixed(self, th, ds):
+    def _solve_fixed(self, th, ds):  # tpulint: device-region
         if self.backend == "serial":
             return self._host_pairs(th, ds, self.point_n_iter,
                                     self.point_n_f32)
         return _solve_pairs(self.prob, th, ds, self.point_n_iter,
                             self.point_n_f32)[:6]
 
-    def _solve_rescue(self, th, ds):
+    def _solve_rescue(self, th, ds):  # tpulint: device-region
         if self.backend == "serial":
             return self._host_pairs(th, ds, self.rescue_iter, 0)
         return _solve_pairs(self.prob, th, ds, self.rescue_iter, 0)[:6]
@@ -655,16 +660,16 @@ class Oracle:
         return [torch.from_numpy(a) for a in
                 (V, conv, feas, grad, u0, z, Vstar, dstar)]
 
-    def _simplex_min(self, Ms, ds):
+    def _simplex_min(self, Ms, ds):  # tpulint: device-region
         it = self.simplex_p1 if self._simplex_cohort else self.n_iter
         return _solve_simplex_min(self.prob, Ms, ds, it, self.n_f32)
 
-    def _simplex_min_p2(self, Ms, ds, zw, sw, lw):
+    def _simplex_min_p2(self, Ms, ds, zw, sw, lw):  # tpulint: device-region
         valid = torch.ones(Ms.shape[0], dtype=torch.bool, device=Ms.device)
         return _solve_simplex_min(self.prob, Ms, ds, self.simplex_p2, 0,
                                   warm=(zw, sw, lw, valid))
 
-    def _simplex_feas(self, Ms, ds):
+    def _simplex_feas(self, Ms, ds):  # tpulint: device-region
         return _simplex_feas(self.prob, Ms, ds, self.n_iter, self.n_f32)
 
     # -- iteration ledger + metrics --------------------------------------
@@ -1219,6 +1224,63 @@ class Oracle:
             self._iters(n * self.n_f32, n * self.n_iter, n * self.n_iter)
         out[idx] = np.where(conv, V, -_INF)
         feasible_somewhere[idx] |= conv & (t_el <= 1e-6)
+
+    def warm_pair_bucket(self, thetas: np.ndarray, ds: np.ndarray) -> None:
+        """Launch every pair-class program (phase-1 -- warm-capable or
+        legacy -- plus the phase-2 cohort finisher and the rescue
+        program when enabled) at the padded bucket of `thetas` without
+        counting solves, noting each shape in the ledger.  A warmup
+        over every bucket makes the ledger hold the EXACT program set a
+        build dispatches ("warm shapes == run shapes"): the cohort
+        re-pads survivors into the same {8..cap} bucket family, so one
+        zero-warm call per bucket covers phase 2 too."""
+        thetas = np.atleast_2d(np.asarray(thetas, dtype=np.float64))
+        ds = np.asarray(ds, dtype=np.int64)
+        tj, dj, _Kc = self._pad_pairs(thetas, ds)
+        K = int(tj.shape[0])
+        nz, nc = self.can.nz, self.can.nc
+        zeros = (torch.zeros((K, nz), dtype=torch.float64,
+                             device=self.device),
+                 torch.zeros((K, nc), dtype=torch.float64,
+                             device=self.device),
+                 torch.zeros((K, nc), dtype=torch.float64,
+                             device=self.device))
+        if self._point_full_out:
+            self._solve_pairs_ws(tj, dj, *zeros, torch.zeros(
+                K, dtype=torch.bool, device=self.device))
+        else:
+            self._solve_fixed(tj, dj)
+        if self._point_cohort:
+            self._note_shape("pairs_p2", K)
+            self._solve_pairs_p2(tj, dj, *zeros)
+        if self.rescue_iter > 0:
+            self._note_shape("rescue", K)
+            self._solve_rescue(tj, dj)
+
+    def warm_simplex_bucket(self, Ms: np.ndarray, ds: np.ndarray) -> None:
+        """Launch BOTH joint-QP programs (elastic min + phase-1) at the
+        padded bucket of `Ms` without counting solves.  A warmup must hit
+        every bucket directly: going through solve_simplex_min runs the
+        second program of the active stage-2 order only on a
+        data-dependent subset."""
+        Mj, dj = self._pad_simplex(np.asarray(Ms),
+                                   np.asarray(ds, dtype=np.int64),
+                                   family="simplex_min")
+        self._note_shape("simplex_feas", Mj.shape[0])
+        self._simplex_min(Mj, dj)
+        self._simplex_feas(Mj, dj)
+        if self._simplex_cohort:
+            # Phase-2 cohort buckets run at the SAME padded sizes
+            # (survivor compaction re-pads into the {8..cap} set), so
+            # one zero-warm call per bucket covers them.
+            self._note_shape("simplex_p2", Mj.shape[0])
+            K = int(Mj.shape[0])
+            dim_z = self.can.nz + self.can.n_theta + 1
+            dim_c = self.can.nc + int(Mj.shape[1]) + 1
+            self._simplex_min_p2(
+                Mj, dj, *(torch.zeros((K, d), dtype=torch.float64,
+                                      device=self.device)
+                          for d in (dim_z, dim_c, dim_c)))
 
     def _run_simplex_feas(self, Ms: np.ndarray, ds: np.ndarray
                           ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

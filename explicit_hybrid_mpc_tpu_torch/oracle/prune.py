@@ -220,11 +220,11 @@ class PrunedOracle(Oracle):
 
     # -- the reduced programs (the oracle's IPM leg at the reduced shape) --
 
-    def _solve_pairs_red(self, th, ds):
+    def _solve_pairs_red(self, th, ds):  # tpulint: device-region
         return _solve_pairs(self._red_dev, th, ds, self.point_n_iter,
                             self.point_n_f32)[:6]
 
-    def _simplex_min_red(self, Ms, ds):
+    def _simplex_min_red(self, Ms, ds):  # tpulint: device-region
         # Pruned elastic simplex-min: same joint program on the reduced
         # rows/vars.  Its bound is sound UNCONDITIONALLY (dropping rows
         # relaxes the min), and exact whenever the witness satisfies the
@@ -232,7 +232,7 @@ class PrunedOracle(Oracle):
         return _solve_simplex_min(self._red_dev, Ms, ds, self.n_iter,
                                   self.n_f32)[:5]
 
-    def _point_feas_red(self, th, ds):
+    def _point_feas_red(self, th, ds):  # tpulint: device-region
         # Reduced phase-1, the gate behind _stalled_need_resolve: full
         # schedule for the same reason as the base feasibility (phase-1
         # returns no convergence flag, so a schedule miss has no rescue
@@ -240,6 +240,25 @@ class PrunedOracle(Oracle):
         red = self._red_dev
         return ipm.phase1(red.G[ds], red.w[ds] + _bmv(red.S[ds], th),
                           n_iter=self.n_iter, n_f32=self.n_f32)
+
+    def warm_pair_bucket(self, thetas: np.ndarray, ds: np.ndarray) -> None:
+        """Launch the reduced pair program at this bucket too: the base
+        method covers only the full-problem programs (the verified
+        fallback path), while the hot path runs reduced."""
+        super().warm_pair_bucket(thetas, ds)
+        if self._red_dev is not None:
+            thetas = np.atleast_2d(np.asarray(thetas, dtype=np.float64))
+            tj, dj, _Kc = self._pad_pairs(
+                thetas, np.asarray(ds, dtype=np.int64), family="pairs_red")
+            self._solve_pairs_red(tj, dj)
+
+    def warm_simplex_bucket(self, Ms: np.ndarray, ds: np.ndarray) -> None:
+        super().warm_simplex_bucket(Ms, ds)
+        if self._red_dev is not None:
+            Mj, dj = self._pad_simplex(np.asarray(Ms),
+                                       np.asarray(ds, dtype=np.int64),
+                                       family="simplex_min_red")
+            self._simplex_min_red(Mj, dj)
 
     # -- helpers -----------------------------------------------------------
 

@@ -73,7 +73,7 @@ class SOCOracle(Oracle):
     # programs (_simplex_min / _simplex_feas) stay on the linear
     # relaxation by design (module docstring).
 
-    def _soc_pairs(self, th, ds):
+    def _soc_pairs(self, th, ds):  # tpulint: device-region
         """(V, conv, feas, grad, u0, z) of the SOCPs at pairs (th, ds)."""
         prob = self.prob
         sol, V, u0 = soc_pairs(prob, self._Ac, self._bc, th, ds,
@@ -83,7 +83,7 @@ class SOCOracle(Oracle):
                 + prob.pvec[ds] - _bmtv(prob.S[ds], sol.lam_l))
         return V, sol.converged, sol.feasible, grad, u0, sol.z
 
-    def _solve_points(self, thetas):
+    def _solve_points(self, thetas):  # tpulint: device-region
         nd = self.can.n_delta
         P = thetas.shape[0]
         th = thetas.repeat_interleave(nd, dim=0)
@@ -96,7 +96,7 @@ class SOCOracle(Oracle):
         Vstar, dstar = reduce_deltas(V, conv)
         return V, conv, feas, grad, u0, z, Vstar, dstar
 
-    def _solve_fixed(self, th, ds):
+    def _solve_fixed(self, th, ds):  # tpulint: device-region
         return self._soc_pairs(th, ds)
 
     def cpu_twin(self, problem) -> "SOCOracle":

@@ -31,6 +31,7 @@ from explicit_hybrid_mpc_tpu_torch.oracle.oracle import _bmv, _np, to_device
 from explicit_hybrid_mpc_tpu_torch.oracle.socp import socp_solve
 
 
+# tpulint: device-region
 def soc_pairs(prob, Ac: torch.Tensor, bc: torch.Tensor,
               thetas: torch.Tensor, ds: torch.Tensor, n_iter: int):
     """The fixed-commutation SOCPs at (point, commutation) pairs: thetas
@@ -65,6 +66,7 @@ class SOCPointOracle:
         self.n_solves = 0
         self.n_point_solves = 0
 
+    # tpulint: device-region
     def _solve(self, thetas: np.ndarray, ds: np.ndarray):
         th = torch.as_tensor(thetas, dtype=torch.float64).to(self.device)
         dj = torch.as_tensor(ds, dtype=torch.int64).to(self.device)

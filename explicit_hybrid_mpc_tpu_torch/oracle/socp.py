@@ -83,7 +83,7 @@ def _J(u):
     return torch.cat([u[..., :1], -u[..., 1:]], dim=-1)
 
 
-def _jordan_mul(u, v):
+def _jordan_mul(u, v):  # tpulint: device-region
     """u o v = (u'v, u0 v1 + v0 u1)."""
     return torch.cat([_dot(u, v)[..., None],
                       u[..., :1] * v[..., 1:] + v[..., :1] * u[..., 1:]],
@@ -101,7 +101,7 @@ def _arw_inv_apply(v, r):
     return torch.cat([out0, out1], dim=-1)
 
 
-def _nt_scaling(s, lam):
+def _nt_scaling(s, lam):  # tpulint: device-region
     """(wbar, eta) of the NT scaling for each cone pair: wbar the
     NORMALIZED NT point (det wbar = 1), W = eta * V(wbar), so that
     W^2 lam = eta^2 P(wbar) lam = s with eta = (det s / det lam)^{1/4}
@@ -133,7 +133,7 @@ def _Winv_apply(wbar, eta, x):
     return _J(y) / eta[..., None]
 
 
-def _cone_step(s, ds, tau=0.995):
+def _cone_step(s, ds, tau=0.995):  # tpulint: device-region
     """Max alpha in (0, 1] with s + alpha ds in SOC (s in int SOC), per
     cone."""
     a = _det(ds)
@@ -179,7 +179,7 @@ def _max_init(x, init: float):
                      dim=-1).amax(dim=-1)
 
 
-def _ftb(u, du, tau=1.0):
+def _ftb(u, du, tau=1.0):  # tpulint: device-region
     """Fraction to the boundary of the linear slacks/duals, per row."""
     neg = du < 0
     ratio = torch.where(neg, -u / torch.where(neg, du, -torch.ones_like(du)),
@@ -224,6 +224,7 @@ def _interior(u):
     return torch.cat([u0[..., None], u[..., 1:]], dim=-1)
 
 
+# tpulint: device-region
 def socp_solve(Q: torch.Tensor, q: torch.Tensor, Al: torch.Tensor,
                bl: torch.Tensor, Ac: torch.Tensor, bc: torch.Tensor,
                n_iter: int = 40, tol: float = 1e-8) -> SOCPSolution:

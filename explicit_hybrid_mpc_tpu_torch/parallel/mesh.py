@@ -176,6 +176,7 @@ def sharded_grid_solver(mesh: Mesh, n_iter: int, n_f32: int = 0):
     Every block is launched before the function returns; nothing is
     read back."""
 
+    # tpulint: device-region
     def fn(probs: dict, thetas: dict, delta_mask: dict) -> dict:
         out = {}
         for ij in mesh.local_entries():
@@ -228,6 +229,7 @@ class MeshSolver:
         pow2 = max(1, 1 << max(0, (P_ - 1).bit_length()))
         return -(-max(pow2, self.n_batch) // self.n_batch) * self.n_batch
 
+    # tpulint: device-region
     def _gather(self, blocks: dict) -> dict:
         """Every entry's blocks on this process's first device; across
         processes through the host (gloo)."""

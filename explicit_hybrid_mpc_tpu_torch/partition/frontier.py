@@ -412,6 +412,57 @@ class FrontierEngine:
                 out_dir, steps=self.cfg.profile_steps,
                 device=self.oracle.device)
         self._auto_prof_seen_events = 0
+        # Runtime recompile sentinel (cfg.recompile_guard): armed after
+        # the first _GUARD_WARMUP_FULL_STEPS full-size batches, checked
+        # on every later full-size step -- see _guard_step.
+        self._rc_guard = None
+        self._rc_steady_steps = 0
+        mode = getattr(self.cfg, "recompile_guard", "off")
+        if mode and mode != "off":
+            from explicit_hybrid_mpc_tpu_torch.analysis.recompile_guard import (
+                RecompileGuard)
+
+            self._rc_guard = RecompileGuard(oracle=self.oracle,
+                                            obs=self.obs, action=mode,
+                                            label="frontier_steady_state")
+
+    # Full-size steps before the recompile sentinel arms.  The first
+    # few full batches legitimately mint the steady-state shape set
+    # (grid bucket, pair buckets, the stage-2 simplex buckets whose row
+    # counts still vary pow-2-wise early on); by this many full waves
+    # the ledger has plateaued on every measured config, so growth PAST
+    # it is the recompile bug the guard exists to catch.  The JAX
+    # package's value.
+    _GUARD_WARMUP_FULL_STEPS = 8
+
+    def _guard_step(self, batch: int) -> None:
+        """Per-step recompile sentinel hook (no-op unless
+        cfg.recompile_guard is on and the step ran a FULL batch --
+        ramp-up/drain-down batches mint new pow-2 buckets by design).
+        Under 'warn' the violation event also feeds the in-build
+        HealthMonitor so the campaign verdict reflects it; under
+        'raise' RecompileError propagates and aborts the build."""
+        if batch < self.cfg.batch_simplices:
+            # Partial waves are exempt BY DESIGN -- but a full-size
+            # step's check measures growth since the last arm(), so an
+            # armed guard must re-arm here or a backlog dip's
+            # legitimately-minted small bucket would be attributed to
+            # the NEXT full-size step (a false positive that would
+            # abort a healthy build under 'raise').  A full step's own
+            # mints are still caught: its check runs at the end of the
+            # same step, before any partial-step re-arm.
+            if self._rc_steady_steps >= self._GUARD_WARMUP_FULL_STEPS:
+                self._rc_guard.arm()
+            return
+        self._rc_steady_steps += 1
+        if self._rc_steady_steps < self._GUARD_WARMUP_FULL_STEPS:
+            return
+        if self._rc_steady_steps == self._GUARD_WARMUP_FULL_STEPS:
+            self._rc_guard.arm()
+            return
+        ev = self._rc_guard.check(step=self.steps)
+        if ev is not None and self._health is not None:
+            self._health.feed(ev)
 
     def _health_device_failure(self, e: BaseException) -> None:
         """Record a device failure where every health consumer can see
@@ -1634,6 +1685,8 @@ class FrontierEngine:
                 every = int(self._health.rules["metrics_every_steps"])
                 if every > 0 and self.steps % every == 0:
                     self._health.feed(o.flush_metrics())
+        if self._rc_guard is not None:
+            self._guard_step(B)
         if self._auto_prof is not None:
             self._poll_auto_profile()
         self._last_step_end = time.perf_counter()

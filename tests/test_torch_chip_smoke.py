@@ -1229,3 +1229,88 @@ def test_solve_accounting_splits_the_difference_of_two_counts(
     with pytest.raises(SystemExit):
         chip_smoke.solve_accounting("t", {"point_solves": 7}, single,
                                     sharded)
+
+
+# -- phase 21: the analysis package -----------------------------------------------
+
+
+def test_analysis_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 21 on the CPU, the plain leg counted as K1: 21a with the small
+    pendulum standing in for the flagship (cold under warn: the guard
+    fires after its warmup, as the JAX package's does; warmed under
+    raise: 0 violations; both phase 3's tree and K1 launches), 21b's
+    forced dispatch on the DI fixture (one event, monitor warn, the
+    unguarded tree; raise out of step(); `main` in its own process
+    exits non-zero), 21c's loader watch (no library loads on the
+    CPU)."""
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.analysis.recompile_guard import (
+        RecompileGuard)
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    _plain_leg_as_kernel(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "GUARD_FLAGSHIP", [
+        "-e", "inverted_pendulum", "--problem-arg", "N=2", "-a", "0.5",
+        "--batch", "16", "--max-depth", "14"])
+    ipm_leg.launches = 0
+    res = build_partition(make("inverted_pendulum", N=2), PartitionConfig(
+        problem="inverted_pendulum", problem_args=(("N", 2),), eps_a=0.5,
+        backend="cpu", batch_simplices=16, max_depth=14))
+    n_k1 = ipm_leg.launches
+    loader_guard = RecompileGuard(watch=[kernels.loader])
+    out = chip_smoke.analysis_phase(torch.device("cpu"), res, n_k1,
+                                    "a card, 700 W", str(tmp_path),
+                                    loader_guard)
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("--recompile-guard warn (cold oracle): exit 0",
+                "step 15 pairs[16]", "--recompile-guard raise (oracle "
+                "warmed at", "0 violations (0 health.recompile events)",
+                f"K1 launches {n_k1} (phase 3: {n_k1}); tree equal to "
+                "phase 3's cell for cell", "1 health.recompile event(s)",
+                "health monitor worst warn; tree equal to the unguarded",
+                "RecompileError out of step()", "with the forced dispatch, "
+                "in its own process: exit 1", "growth 0, libraries loaded []",
+                "the guard armed after phase 3 sees 0", "a card, 700 W"):
+        assert tag in log, tag
+    assert out["guarded_launches"] == n_k1
+    assert out["guard_violations_cold"] >= 1
+    assert out["forced_k1_launches"] >= 1 and out["loader_growth"] == 0
+
+
+def test_a_guarded_flagship_that_mints_a_shape_fails_21a(tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    """21a fails (and names the shape) when the warmed build still mints
+    one after the arm: here the warmup skips the pair buckets."""
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    monkeypatch.setattr(chip_smoke, "GUARD_FLAGSHIP", [
+        "-e", "inverted_pendulum", "--problem-arg", "N=2", "-a", "0.5",
+        "--batch", "16", "--max-depth", "14"])
+    real = chip_smoke.warm_buckets
+
+    def partial_warm(oracle, problem):
+        oracle.max_pairs_per_call, cap = 4, oracle.max_pairs_per_call
+        try:
+            return real(oracle, problem)
+        finally:
+            oracle.max_pairs_per_call = cap
+    monkeypatch.setattr(chip_smoke, "warm_buckets", partial_warm)
+    res = build_partition(make("inverted_pendulum", N=2), PartitionConfig(
+        problem="inverted_pendulum", problem_args=(("N", 2),), eps_a=0.5,
+        backend="cpu", batch_simplices=16, max_depth=14))
+    monkeypatch.setattr(chip_smoke, "GUARD_MODES", ("raise",))
+    with pytest.raises(SystemExit):
+        chip_smoke.guarded_flagship(torch.device("cpu"), res, 0, "card",
+                                    str(tmp_path))
+    log = capsys.readouterr().out
+    assert "chip_smoke: FAIL: 21a (raise): the guarded flagship build " \
+        "raised RecompileError" in log and "pairs[" in log, log

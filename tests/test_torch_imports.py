@@ -3,7 +3,7 @@ nor the JAX package.
 
 Checked in a fresh interpreter (this test process has both loaded):
 every module under ``explicit_hybrid_mpc_tpu_torch`` is imported, the
-serving and lifecycle subpackages included, and then ``sys.modules``
+serving, lifecycle and analysis subpackages included, and then ``sys.modules``
 must hold no ``jax`` / ``jax.*`` and no ``explicit_hybrid_mpc_tpu`` /
 ``explicit_hybrid_mpc_tpu.*`` entry."""
 
@@ -67,6 +67,14 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "obs.replay", "obs.slo", "obs.demand",
                                  "post.analysis", "post.figures",
                                  "partition.shard", "parallel.distributed",
-                                 "parallel.launch"])
+                                 "parallel.launch", "analysis",
+                                 "analysis.engine", "analysis.cli",
+                                 "analysis.recompile_guard",
+                                 "analysis.rules",
+                                 "analysis.rules.host_sync",
+                                 "analysis.rules.recompile",
+                                 "analysis.rules.dtype",
+                                 "analysis.rules.obs_hot",
+                                 "analysis.rules.silent_except"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

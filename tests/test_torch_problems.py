@@ -164,7 +164,20 @@ def test_config_defaults_match_the_reference_except_backend():
 @pytest.mark.parametrize("field,value", [
     ("recompile_guard", "raise"),
     ("recompile_guard", "warn")])
-def test_unported_knobs_raise_naming_the_roadmap(field, value):
+def test_unported_knobs_raise_naming_the_roadmap(field, value, monkeypatch):
+    """The last unported knob (ROADMAP A6) now runs: accepted as the
+    reference accepts it, the refusal table empty.  A knob put back in
+    the table still raises naming its ROADMAP item."""
+    from explicit_hybrid_mpc_tpu.config import PartitionConfig as JaxCfg
+
+    from explicit_hybrid_mpc_tpu_torch import config
+
+    assert config._UNPORTED == ()
+    got = PartitionConfig(backend="cpu", **{field: value})
+    assert getattr(got, field) == getattr(
+        JaxCfg(backend="cpu", **{field: value}), field) == value
+    monkeypatch.setattr(config, "_UNPORTED", (
+        (field, lambda v: v != "off", "A6: analysis/recompile_guard.py"),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PartitionConfig(backend="cpu", **{field: value})
 

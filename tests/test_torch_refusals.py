@@ -1,6 +1,7 @@
 """Torch port: every refusal of a surface that is not ported yet names
 its ROADMAP item and the JAX package's module it waits for, and that
-module is a file of the JAX package.
+module is a file of the JAX package.  Since ROADMAP A6 there is none
+left: the tables stay, empty, and every lifted surface runs.
 
 A refusal names the module, not only the item number, so that a later
 renumbering of ROADMAP.md cannot strand it.  The check reads paths
@@ -30,6 +31,8 @@ def _raised(fn) -> str:
 
 
 #: (site, a callable giving the refusal's text; it takes a scratch dir).
+#: Empty since ROADMAP A6 lifted the last refusal; a future one lands
+#: here through the two tables.
 SITES = (
     [(f"PartitionConfig.{f}", lambda tmp, item=item: item)
      for f, _on, item in config._UNPORTED]
@@ -38,15 +41,63 @@ SITES = (
        for flag in tmain._UNPORTED_FLAGS])
 
 
-@pytest.mark.parametrize("site,text", SITES, ids=[s for s, _ in SITES])
-def test_a_refusal_names_its_item_and_an_existing_jax_module(site, text,
-                                                             tmp_path):
-    msg = text(str(tmp_path))
+def _check_refusal(site: str, msg: str) -> None:
+    """A refusal's text names an A<n> ROADMAP label and a module that is
+    a file of the JAX package."""
     assert re.search(r"\bA\d+\b", msg), msg
     modules = re.findall(r"[\w/]+\.py\b", msg)
     assert modules, msg
     for m in modules:
         assert os.path.isfile(os.path.join(_JAX_PKG, m)), (site, m)
+
+
+#: The cases the check runs on: every refusal in the tables, or, while
+#: they are empty, the tables' emptiness itself (so the parametrization
+#: never collects zero cases).
+CASES = SITES or [("no refusal left", None)]
+
+
+@pytest.mark.parametrize("site,text", CASES, ids=[s for s, _ in CASES])
+def test_a_refusal_names_its_item_and_an_existing_jax_module(site, text,
+                                                             tmp_path):
+    if text is None:
+        assert config._UNPORTED == () and tmain._UNPORTED_FLAGS == {}
+        return
+    _check_refusal(site, text(str(tmp_path)))
+
+
+@pytest.mark.parametrize("msg,ok", [
+    ("PartitionConfig.x is not yet ported to the torch package (ROADMAP "
+     "A6: analysis/recompile_guard.py)", True),
+    ("--x: not yet ported to the torch package (ROADMAP "
+     "A6 (analysis/recompile_guard.py))", True),
+    ("not yet ported (ROADMAP analysis/recompile_guard.py)", False),
+    ("not yet ported (ROADMAP A6: analysis/no_such_module.py)", False),
+    ("not yet ported (ROADMAP A6)", False)])
+def test_a_future_refusal_must_name_a_label_and_a_jax_module(msg, ok):
+    """The check any future refusal goes through, on the texts the two
+    tables format: a label and an existing JAX module pass; a missing
+    label, a missing module or a module the JAX package lacks fail."""
+    if ok:
+        _check_refusal("future", msg)
+    else:
+        with pytest.raises(AssertionError):
+            _check_refusal("future", msg)
+
+
+def _guard_di(tmp, flags=(), **kw):
+    """The tier-1 DI build under the recompile guard (warn), through
+    main or PartitionConfig, on the CPU: the plain build's tree, no
+    health event."""
+    from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
+
+    obs = os.path.join(tmp, "g.obs.jsonl")
+    if flags:
+        _main_di(tmp, [*flags, "--obs", "jsonl", "--obs-path", obs])
+    else:
+        _lib_di(tmp, obs="jsonl", obs_path=obs, **kw)
+    assert not [r for r in load_jsonl(obs)
+                if str(r.get("name", "")).startswith("health.")]
 
 
 def _obs_per_process(tmp):
@@ -270,6 +321,15 @@ LIFTED_A4 = {
     "main --shard-frontier --resume": _shard_resume,
 }
 
+#: The surfaces ROADMAP A6 lifted (analysis/recompile_guard.py): each
+#: runs a DI build on the CPU under the guard in warn mode.
+LIFTED_A6 = {
+    "PartitionConfig.recompile_guard": lambda tmp: _guard_di(
+        tmp, recompile_guard="warn"),
+    "main --recompile-guard": lambda tmp: _guard_di(
+        tmp, ["--recompile-guard", "warn"]),
+}
+
 #: The surfaces ROADMAP A5 lifted: each now runs instead of refusing.
 #: The first half ported obs/recorder.py, obs/health.py and
 #: obs/fleet.py; the second obs/slo.py and obs/demand.py, whose
@@ -325,6 +385,7 @@ LIFTED = {
         tmp, ["--obs", "jsonl", "--obs-per-process"]),
     "Obs per_process": _obs_per_process,
     **LIFTED_A4,
+    **LIFTED_A6,
 }
 
 
