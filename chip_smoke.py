@@ -110,7 +110,22 @@ verdict warn, the unguarded tree; under raise RecompileError out of
 step(); `main` in its own process exits non-zero); 21c kernels.loader
 watched in a fresh process over a build plus an online batch (growth =
 the libraries loaded: K1 and K2), and in this process from phase 3 to
-after 21a (0).  One
+after 21a (0).  Phase 22 drives the robustness gate (tools/): 22a the
+chaos suite's five fault schedules on the card at the JAX package's
+configuration (the tier-1 DI fixture at eps 0.2), with the card's
+verdicts -- schedules 1 and 2 end with NoCpuFallback chained to their
+injected fault (exit 69, no tree, the process gone within the hang
+plus 3 s of the fault), 3 resumes from .prev to the clean card tree
+node for node, 4 ends its faulted shard with NoCpuFallback while the
+launcher returns non-zero within its limit, 5 leaves generation 0
+committed and bitwise the fault-free run's -- each child's K1 launches
+counted; 22b phase 3's flagship under the supervisor, killed between
+rotation and write of its 2nd checkpoint (every 20 steps) and resumed
+from .prev: regions within 2% of 11,670, uncertified <= 70, the tree
+compared cell for cell with phase 3's (each differing cell listed),
+the resumed process's K1 launches from zero; 22c the drift smoke (three
+drift revisions into RebuildService under a RequestScheduler load, 0
+dropped, 0 torn, staleness and request p50/p99).  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -150,7 +165,11 @@ call, ms a call, the dense call's ms, by mesh shape), "sharded_*" 20b's
 whether its tree is phase 3's), "lockstep_launches" 20c's ranks'; the
 "guard*" keys 21a's (the warmed build's K1 launches, the cold build's
 violations, the guard hook's share of the wall), "forced_k1_launches"
-21b's forced dispatch, "loader_growth" 21c's.
+21b's forced dispatch, "loader_growth" 21c's; the "chaos_*" keys 22a's
+(each schedule's verdict, wall and K1 launches a process), the
+"resumed_*" keys 22b's (the resumed process's K1 launches, regions,
+tree identity with phase 3's), the "drift_*" keys 22c's (K1 launches,
+staleness and request p50/p99).
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -193,7 +212,11 @@ phase 20, and
 
     python3 -c "import sys, chip_smoke as c; sys.exit(c.analysis_only())"
 
-phase 21.
+phase 21, and
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.robustness_only())"
+
+phase 22.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -6853,6 +6876,279 @@ def analysis_only() -> int:
     return 0
 
 
+# -- phase 22: the robustness gate (the chaos suite, the supervised
+# flagship resumed from .prev, the drift smoke) ------------------------------
+
+#: 22a: the chaos suite at the JAX package's configuration (the tier-1
+#: DI fixture, N=3, theta_box=1.5, eps 0.2, 64 simplices a batch).
+CHAOS_EPS = 0.2
+CHAOS_BATCH = 64
+CHAOS_TIMEOUT_S = 300.0
+_CHAOS_MAIN = ("import sys, chip_smoke; "
+               "sys.exit(chip_smoke.counted_cli(sys.argv[1:]))")
+#: 22b: phase 3's flagship under the supervisor, checkpointed every 20
+#: steps, the process killed between rotation and write of its 2nd
+#: checkpoint and resumed from the surviving .prev.
+ROBUST_FLAGSHIP = ["-e", "inverted_pendulum", "-a", "1e-2"]
+ROBUST_CKPT_EVERY = 20
+ROBUST_CRASH_AT = 2
+ROBUST_TIMEOUT_S = 600.0
+#: At most this many differing cells are listed one by one in 22b.
+ROBUST_CELLS_LISTED = 50
+#: 22c: the drift smoke at the chaos configuration.
+DRIFT_EPS = 0.2
+
+
+def counted_cli(argv: list) -> int:
+    """`main.cli(argv)` with K1's launches counted from zero, appended
+    with the argv to the JSON-lines file CHAOS_K1_LOG names when the
+    process ends by returning (a process killed by its fault plan
+    leaves no line): the chaos suite's children in 22a."""
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+    ipm_leg.launches = 0
+    rc = None
+    try:
+        rc = tmain.cli(argv)
+        return rc
+    finally:
+        with open(os.environ["CHAOS_K1_LOG"], "a") as f:
+            f.write(json.dumps({"argv": argv, "rc": rc,
+                                "rank": os.environ.get("RANK"),
+                                "k1": ipm_leg.launches}) + "\n")
+
+
+def _chaos_run_name(argv: list) -> str:
+    """The schedule (or "reference") a chaos child's argv belongs to."""
+    for flag in ("-o", "--artifacts-root"):
+        if flag in argv:
+            base = os.path.basename(argv[argv.index(flag) + 1])
+            return {"base": "reference", "lc_ref": "lifecycle_publish_crash",
+                    "lc_crash": "lifecycle_publish_crash"}.get(base, base)
+    return "?"
+
+
+def chaos_phase(dev, tmp: str) -> dict:
+    """22a: tools/chaos_suite.py's five schedules on `dev`'s backend at
+    the JAX package's configuration, every child through counted_cli
+    (K1 launches a run).  On the card the verdicts are the card's
+    (schedules 1, 2 and 4 end with NoCpuFallback; 3 and 5 as on the
+    CPU); on the CPU the JAX package's.  Fails on any failed schedule
+    and, on the card, on a build that launched no K1."""
+    from explicit_hybrid_mpc_tpu_torch.tools import chaos_suite
+
+    wd = os.path.join(tmp, "22a")
+    os.makedirs(wd)
+    k1_log = os.path.join(tmp, "22a_k1.jsonl")
+    os.environ["CHAOS_K1_LOG"] = k1_log
+    t0 = time.perf_counter()
+    try:
+        v = chaos_suite.run_suite(
+            wd, CHAOS_EPS, CHAOS_BATCH, dev.type, timeout_s=CHAOS_TIMEOUT_S,
+            entry=[sys.executable, "-c", _CHAOS_MAIN])
+    finally:
+        os.environ.pop("CHAOS_K1_LOG", None)
+    wall = time.perf_counter() - t0
+    k1: dict = {}
+    if os.path.exists(k1_log):
+        with open(k1_log) as f:
+            for ln in f:
+                rec = json.loads(ln)
+                k1.setdefault(_chaos_run_name(rec["argv"]), []).append(
+                    rec["k1"])
+    ref = v.get("reference", {})
+    log(f"[chaos] 22a tools/chaos_suite on {dev.type} (eps {CHAOS_EPS}, "
+        f"batch {CHAOS_BATCH}): reference build exit {ref.get('rc')} in "
+        f"{ref.get('wall_s', 0.0):.1f} s, {ref.get('stats')}, K1 launches "
+        f"{k1.get('reference')}")
+    out = {}
+    for name, row in v["schedules"].items():
+        extra = {k: row[k] for k in (
+            "rc", "rcs", "exception_chain", "fault_shard_chain",
+            "exit_after_fault_s", "tree_written", "shard0", "shard0_tail",
+            "stats", "tree_diffs", "gen1_committed") if k in row}
+        if "supervise" in row:
+            extra["attempts"] = [(a["rc"], a["resumed_from"] and
+                                  os.path.basename(a["resumed_from"]))
+                                 for a in row["supervise"]["attempts"]]
+        log(f"[chaos]   {name}: {'ok' if row['ok'] else 'FAILED'} in "
+            f"{row.get('wall_s', 0.0):.1f} s; K1 launches by process "
+            f"{k1.get(name)}; {json.dumps(extra, default=str)}")
+        out[f"chaos_{name}"] = {"verdict": "ok" if row["ok"] else "failed",
+                                "wall_s": row.get("wall_s"),
+                                "k1_launches": k1.get(name)}
+    log(f"[chaos] 22a took {wall:.1f} s")
+    if v["failures"] or len(v["schedules"]) != len(chaos_suite.SCHEDULES):
+        fail("22a: " + "; ".join(v["failures"] or ["schedules missing"]))
+    if dev.type == "cuda" and not all(k1.get("reference") or [0]):
+        fail(f"22a: the reference build launched no K1 ({k1})")
+    out["chaos_wall_s"] = wall
+    return out
+
+
+def supervised_flagship(dev, res, n_k1: int, tmp: str) -> dict:
+    """22b: phase 3's flagship through tools/supervise_build.py with
+    --checkpoint-every ROBUST_CKPT_EVERY, the child killed (os._exit)
+    between rotation and write of its ROBUST_CRASH_AT-th checkpoint, the
+    restart resumed from the surviving .prev; each attempt through
+    counted_main, so the resumed process's K1 launches count from zero.
+    Bar: regions within 2% of REF_REGIONS, uncertified <=
+    REF_UNCERTIFIED_MAX, no fallback; the tree compared cell for cell
+    with phase 3's `res`, each differing cell listed with both builds'
+    outcomes."""
+    from explicit_hybrid_mpc_tpu_torch.partition.tree import Tree
+    from explicit_hybrid_mpc_tpu_torch.tools.supervise_build import (
+        run_supervised)
+
+    out = os.path.join(tmp, "22b")
+    argv = [*ROBUST_FLAGSHIP, "--backend", dev.type, "--checkpoint-every",
+            str(ROBUST_CKPT_EVERY), "-o", out]
+    plan = os.path.join(tmp, "22b.plan.json")
+    with open(plan, "w") as f:
+        json.dump({"seed": 7, "process_exit": True, "faults": [
+            {"site": "checkpoint.write", "kind": "crash",
+             "at": ROBUST_CRASH_AT}]}, f)
+    env = dict(os.environ, EHM_FAULT_PLAN=plan)
+    t0 = time.perf_counter()
+    with open(out + ".log", "wb") as f:
+        sup = run_supervised(argv, out + ".ckpt.pkl", max_restarts=2,
+                             attempt_timeout_s=ROBUST_TIMEOUT_S,
+                             entry=[sys.executable, "-c", _COUNTED_MAIN],
+                             env=env, stdout=f, stderr=subprocess.STDOUT)
+    wall = time.perf_counter() - t0
+    att = sup["attempts"]
+    log(f"[robust] 22b flagship under tools/supervise_build "
+        f"(--checkpoint-every {ROBUST_CKPT_EVERY}, crash at checkpoint "
+        f"write {ROBUST_CRASH_AT}): {wall:.1f} s, attempts "
+        + ", ".join(f"exit {a['rc']} in {a['wall_s']:.1f} s"
+                    + (f" resumed from {os.path.basename(a['resumed_from'])}"
+                       if a["resumed_from"] else "") for a in att)
+        + f", {sup['final']}")
+    if sup["rc"] != 0 or len(att) != 2 or att[0]["rc"] != 43 \
+            or not (att[1]["resumed_from"] or "").endswith(".prev"):
+        with open(out + ".log", "rb") as f:
+            tail = f.read()[-2000:].decode("utf-8", errors="replace")
+        fail(f"22b: the supervised build did not crash once and resume "
+             f"from .prev to the end ({sup}): {tail}")
+    with open(out + ".stats.json") as f:
+        st = json.load(f)
+    with open(out + ".k1.p0.json") as f:
+        k1 = json.load(f)
+    a = tree_outcomes(res.tree)
+    b = tree_outcomes(Tree.load(out + ".tree.pkl"))
+    cells, other = differing_cells(a, b)
+    log(f"[robust]   resumed build: regions {st['regions']} (phase 3: "
+        f"{res.stats['regions']}), uncertified {st['uncertified']}, steps "
+        f"{st['steps']} (phase 3: {res.stats['steps']}), point solves "
+        f"{st['point_solves']} (phase 3: {res.stats['point_solves']}); the "
+        f"resumed process's K1 launches {k1['k1_launches']} counted from "
+        f"zero (phase 3's whole build: {n_k1}); tree "
+        f"{'equal to' if a == b else 'NOT equal to'} phase 3's cell for "
+        f"cell ({len(a)} / {len(b)} cells, {len(cells)} decided "
+        f"differently, {other} leaves with another commutation)")
+    p = res.tree.p
+    for key in cells[:ROBUST_CELLS_LISTED]:
+        verts = np.frombuffer(key, dtype=np.float64).reshape(p + 1, p)
+        log(f"[robust]     cell {np.array2string(verts.ravel(), precision=6)}"
+            f": phase 3 {a[key]}, resumed {b[key]}")
+    if len(cells) > ROBUST_CELLS_LISTED:
+        log(f"[robust]     ... and {len(cells) - ROBUST_CELLS_LISTED} more")
+    for key in [k for k in a.keys() & b.keys() if a[k][0] == b[k][0]
+                == "leaf" and a[k][1] != b[k][1]][:ROBUST_CELLS_LISTED]:
+        verts = np.frombuffer(key, dtype=np.float64).reshape(p + 1, p)
+        log(f"[robust]     leaf {np.array2string(verts.ravel(), precision=6)}"
+            f": commutation {a[key][1]} in phase 3, {b[key][1]} resumed")
+    check_build("22b resumed build", st, REF_REGIONS if dev.type == "cuda"
+                else res.stats["regions"], REF_UNCERTIFIED_MAX)
+    if dev.type == "cuda" and k1["k1_launches"] <= 0:
+        fail("22b: the resumed process launched no K1")
+    return {"resumed_launches": k1["k1_launches"],
+            "resumed_regions": st["regions"],
+            "resumed_identical": a == b,
+            "resumed_differing_cells": len(cells), "resumed_wall_s": wall}
+
+
+def drift_phase(dev, tmp: str) -> dict:
+    """22c: tools/drift_smoke.py on `dev`'s backend in this process, K1
+    counted from zero over the service's rebuilds; every verdict of the
+    JAX script, and its staleness and request p50/p99."""
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.tools import drift_smoke
+
+    wd = os.path.join(tmp, "22c")
+    os.makedirs(wd)
+    ipm_leg.launches = 0
+    t0 = time.perf_counter()
+    v = drift_smoke.run_smoke(wd, eps=DRIFT_EPS, backend=dev.type)
+    wall = time.perf_counter() - t0
+    n_k1 = ipm_leg.launches
+    s = v.get("summary", {})
+    log(f"[drift] 22c tools/drift_smoke on {dev.type} (eps {DRIFT_EPS}): "
+        f"{wall:.1f} s, generations {s.get('generations')} "
+        f"({s.get('delta_publishes')} delta, failures "
+        f"{s.get('failures')}), requests {v.get('served')} served, "
+        f"{v.get('dropped')} dropped, {v.get('torn')} torn, versions "
+        f"{len(v.get('versions_served', []))}; staleness p50/p99 "
+        f"{v.get('staleness_p50_s')} / {v.get('staleness_p99_s')} s; "
+        f"request p50/p99 {v.get('request_p50_ms')} / "
+        f"{v.get('request_p99_ms')} ms; demand leaves "
+        f"{v.get('demand_leaves')}, trace phases {v.get('trace_phases')}, "
+        f"SLO compliance {v.get('slo_compliance')}; K1 launches {n_k1}")
+    if v["failures"]:
+        fail("22c: " + "; ".join(v["failures"]))
+    if dev.type == "cuda" and n_k1 <= 0:
+        fail("22c: the service's rebuilds launched no K1")
+    return {"drift_launches": n_k1,
+            "drift_staleness_p50_s": v["staleness_p50_s"],
+            "drift_staleness_p99_s": v["staleness_p99_s"],
+            "drift_request_p50_ms": v["request_p50_ms"],
+            "drift_request_p99_ms": v["request_p99_ms"]}
+
+
+def robustness_phase(dev, res, n_k1: int, tmp: str) -> dict:
+    """Phase 22 (22a-22c); returns the kernels line's ipm_leg keys."""
+    t0 = time.perf_counter()
+    out = chaos_phase(dev, tmp)
+    out.update(supervised_flagship(dev, res, n_k1, tmp))
+    out.update(drift_phase(dev, tmp))
+    log(f"[robust] phase 22 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def robustness_only() -> int:
+    """Phase 22 alone, for iterating on the card: the kernels built, a
+    flagship build standing in for phase 3's, then 22a-22c.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.robustness_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    ipm_leg.launches = 0
+    res = build_partition(make("inverted_pendulum"), PartitionConfig(
+        problem="inverted_pendulum", eps_a=1e-2))
+    n_k1 = ipm_leg.launches
+    log(f"[main] build: regions {res.stats['regions']}, K1 {n_k1}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_robust_") as tmp:
+        out = robustness_phase(dev, res, n_k1, tmp)
+    log(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7445,6 +7741,12 @@ def main() -> int:
         guard = analysis_phase(dev, res, n_k1, card, tmp, loader_guard)
     host.end("phase 21 (recompile guard)")
 
+    # -- phase 22: the robustness gate (the chaos suite's schedules on the
+    # card, the supervised flagship resumed from .prev, the drift smoke) ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_robust_") as tmp:
+        robust = robustness_phase(dev, res, n_k1, tmp)
+    host.end("phase 22 (robustness gate)")
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
@@ -7453,7 +7755,8 @@ def main() -> int:
          "library_ms": None, "build_ms": build_ms,
          "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
          "large": k1_large, "general": k1_general, "pruned": k1_pruned,
-         **reb["ipm_leg"], **sd["ipm_leg"], **multi, **guard},
+         **reb["ipm_leg"], **sd["ipm_leg"], **multi, **guard,
+         **robust},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",

@@ -17,6 +17,12 @@ class NoCpuFallback(Exception):
     RuntimeError, so no device-failure handler can swallow it."""
 
 
+#: Exit code of a `main` process that ended with NoCpuFallback
+#: (``main.cli``): a dead device, which no restart mends, so the build
+#: supervisor (tools/supervise_build.py) does not restart such a child.
+NO_CPU_FALLBACK_EXIT = 69
+
+
 def resolve(device: "str | torch.device | None" = None) -> torch.device:
     """'cuda' / None -> cuda:0 (RuntimeError without a CUDA device);
     'cpu' -> cpu; a torch.device passes through, checked the same way."""

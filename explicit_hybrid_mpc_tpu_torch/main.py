@@ -631,5 +631,22 @@ def simulate_to(path: str, problem, tree, oracle, T: int,
     return sim_stats
 
 
+def cli(argv: list[str] | None = None) -> int:
+    """main() as its process runs it: a NoCpuFallback (a card build's
+    device failure) prints its traceback, the failure it was chained to
+    included, and exits with device.NO_CPU_FALLBACK_EXIT, which tells a
+    supervisor that no restart can mend it.  In-process callers of
+    main() see the exception itself."""
+    import traceback
+
+    from explicit_hybrid_mpc_tpu_torch import device as device_lib
+
+    try:
+        return main(argv)
+    except device_lib.NoCpuFallback:
+        traceback.print_exc()
+        return device_lib.NO_CPU_FALLBACK_EXIT
+
+
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(cli())

@@ -1314,3 +1314,61 @@ def test_a_guarded_flagship_that_mints_a_shape_fails_21a(tmp_path,
     log = capsys.readouterr().out
     assert "chip_smoke: FAIL: 21a (raise): the guarded flagship build " \
         "raised RecompileError" in log and "pairs[" in log, log
+
+
+def test_robustness_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
+                                               capsys):
+    """Phase 22 on the CPU, the DI fixture only, the plain leg counted as
+    K1: 22a the chaos suite's five schedules with the CPU's verdicts (the
+    JAX package's), each child through counted_cli; 22b the fixture
+    standing in for the flagship under the supervisor (checkpoints every
+    2 steps, killed at the 2nd write, resumed from .prev): the fixture's
+    tree cell for cell; 22c the drift smoke in this process."""
+    from explicit_hybrid_mpc_tpu_torch.tools import chaos_suite
+
+    problem, cfg, res = _di_fixture()
+    _plain_leg_as_kernel(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "CHAOS_EPS", 0.5)
+    monkeypatch.setattr(chip_smoke, "DRIFT_EPS", 0.5)
+    monkeypatch.setattr(chip_smoke, "ROBUST_FLAGSHIP", [
+        "-e", "double_integrator", "--problem-arg", "N=3", "--problem-arg",
+        "theta_box=1.5", "-a", "0.5", "--batch", "32", "--max-depth", "20"])
+    monkeypatch.setattr(chip_smoke, "ROBUST_CKPT_EVERY", 2)
+    out = chip_smoke.robustness_phase(torch.device("cpu"), res, 0,
+                                      str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("[chaos] 22a tools/chaos_suite on cpu (eps 0.5",
+                "reference build exit 0", "kill_mid_checkpoint: ok",
+                "sharded_device_failure: ok", "[chaos] 22a took",
+                "crash at checkpoint write 2", "exit 43 in",
+                "resumed from 22b.ckpt.pkl.prev", "tree equal to phase 3's "
+                "cell for cell", "[drift] 22c tools/drift_smoke on cpu",
+                "0 dropped, 0 torn", "[robust] phase 22 took"):
+        assert tag in log, tag
+    for name in chaos_suite.SCHEDULES:
+        assert out[f"chaos_{name}"]["verdict"] == "ok", name
+    # The reference and each finished build left their K1 count (0: the
+    # children run the plain leg, which launches no kernel).
+    assert out["chaos_device_failure"]["k1_launches"] == [0]
+    assert out["resumed_identical"] and out["resumed_differing_cells"] == 0
+    assert out["resumed_regions"] == res.stats["regions"]
+    assert out["drift_launches"] > 0
+    assert out["drift_staleness_p99_s"] is not None
+
+
+def test_a_failed_chaos_schedule_fails_22a(tmp_path, monkeypatch, capsys):
+    from explicit_hybrid_mpc_tpu_torch.tools import chaos_suite
+
+    def failed(wd, *a, **kw):
+        return {"reference": {"rc": 0}, "schedules": {
+            n: {"ok": n != "solve_timeout", "wall_s": 1.0}
+            for n in chaos_suite.SCHEDULES},
+            "failures": ["solve_timeout: the process exited 9.1 s after "
+                         "the fault"]}
+    monkeypatch.setattr(chaos_suite, "run_suite", failed)
+    with pytest.raises(SystemExit):
+        chip_smoke.chaos_phase(torch.device("cpu"), str(tmp_path))
+    log = capsys.readouterr().out
+    assert "solve_timeout: FAILED" in log
+    assert "chip_smoke: FAIL: 22a: solve_timeout: the process exited" in log

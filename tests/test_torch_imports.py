@@ -75,6 +75,8 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "analysis.rules.recompile",
                                  "analysis.rules.dtype",
                                  "analysis.rules.obs_hot",
-                                 "analysis.rules.silent_except"])
+                                 "analysis.rules.silent_except",
+                                 "tools", "tools.supervise_build",
+                                 "tools.chaos_suite", "tools.drift_smoke"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]
