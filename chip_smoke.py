@@ -125,7 +125,22 @@ from .prev: regions within 2% of 11,670, uncertified <= 70, the tree
 compared cell for cell with phase 3's (each differing cell listed),
 the resumed process's K1 launches from zero; 22c the drift smoke (three
 drift revisions into RebuildService under a RequestScheduler load, 0
-dropped, 0 torn, staleness and request p50/p99).  One
+dropped, 0 torn, staleness and request p50/p99).  Phase 23 drives the
+operator's tools (tools/) over the card's own builds: 23a the fleet
+smoke at the JAX script's defaults (the same DI fixture) -- the
+supervised chain killed at its 2nd checkpoint boundary, its two
+per-process streams reconciled bit-exactly with the single-process
+build and its tree node for node, then the two-shard build, its
+counters bit-equal and its tree canonically the single process's, each
+with `obs_report --fleet --strict` exit 0 -- every child's K1 launches
+counted; 23b the watchdog following a live `main --obs jsonl` build to
+build.done (exit 0), and a build stopped with SIGSTOP after its first
+build.step (exit 2 with health.stall under stall_s 3); 23c the report
+over 23b's and 23a's streams (regions equal to .stats.json, --drift
+against itself with no flag, no bench read) and `--fleet --strict`
+over 23a's per-process streams; 23d `preflight --only lint,drift_smoke`
+(verdict ok; tier1 needs the JAX package, which the card's machine
+lacks, and the chaos suite is 22a's).  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -169,7 +184,9 @@ violations, the guard hook's share of the wall), "forced_k1_launches"
 (each schedule's verdict, wall and K1 launches a process), the
 "resumed_*" keys 22b's (the resumed process's K1 launches, regions,
 tree identity with phase 3's), the "drift_*" keys 22c's (K1 launches,
-staleness and request p50/p99).
+staleness and request p50/p99); the "fleet_*" keys 23a's (K1 launches
+a process by build, walls), the "watch_*" keys 23b's, "report_*" 23c's
+regions, "preflight_walls_s" 23d's and "operator_wall_s" phase 23's.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -216,7 +233,11 @@ phase 21, and
 
     python3 -c "import sys, chip_smoke as c; sys.exit(c.robustness_only())"
 
-phase 22.
+phase 22, and
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.operator_tools_only())"
+
+phase 23.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -6902,21 +6923,40 @@ DRIFT_EPS = 0.2
 def counted_cli(argv: list) -> int:
     """`main.cli(argv)` with K1's launches counted from zero, appended
     with the argv to the JSON-lines file CHAOS_K1_LOG names when the
-    process ends by returning (a process killed by its fault plan
-    leaves no line): the chaos suite's children in 22a."""
+    process ends: by returning, by SIGTERM (turned into exit 143 here),
+    or by its fault plan's crash (`os._exit`, wrapped here to write the
+    line first; only SIGKILL leaves none).  The children of the chaos
+    suite (22a), of the fleet smoke (23a) and of 23b's watched builds."""
+    import signal
+
     from explicit_hybrid_mpc_tpu_torch import main as tmain
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
 
+    def note(rc) -> None:
+        with open(os.environ["CHAOS_K1_LOG"], "a") as f:
+            f.write(json.dumps({"argv": argv, "rc": rc,
+                                "rank": os.environ.get("RANK"),
+                                "pid": os.getpid(),
+                                "k1": ipm_leg.launches}) + "\n")
+
+    real_exit = os._exit
+
+    def crash(code: int) -> None:
+        note(code)
+        real_exit(code)
+
+    os._exit = crash
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     ipm_leg.launches = 0
     rc = None
     try:
         rc = tmain.cli(argv)
         return rc
+    except SystemExit as e:
+        rc = e.code
+        raise
     finally:
-        with open(os.environ["CHAOS_K1_LOG"], "a") as f:
-            f.write(json.dumps({"argv": argv, "rc": rc,
-                                "rank": os.environ.get("RANK"),
-                                "k1": ipm_leg.launches}) + "\n")
+        note(rc)
 
 
 def _chaos_run_name(argv: list) -> str:
@@ -7145,6 +7185,329 @@ def robustness_only() -> int:
     log(f"[main] build: regions {res.stats['regions']}, K1 {n_k1}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_robust_") as tmp:
         out = robustness_phase(dev, res, n_k1, tmp)
+    log(json.dumps(out))
+    return 0
+
+
+# -- phase 23: the operator's tools (the fleet smoke in both modes, the
+# watchdog over live and stopped card builds, the report over the card's
+# own streams, the preflight battery) ---------------------------------------
+
+#: 23a: tools/fleet_smoke at the JAX script's defaults (the tier-1 DI
+#: fixture, eps 0.2, 64 simplices a batch, checkpoints every 4 steps).
+FLEET_EPS = 0.2
+FLEET_BATCH = 64
+FLEET_TIMEOUT_S = 300.0
+#: 23b: the watched builds (the same fixture through `main --obs jsonl`),
+#: the stall rule for the stopped one, and the watcher's wall limit.
+WATCH_STALL_S = 3.0
+WATCH_MAX_WALL_S = 300.0
+WATCH_POLL_S = 0.005
+#: 23d: the preflight run.  tier1 is not asked for: it holds the port
+#: against the JAX package, which the card's machine does not have
+#: (preflight lists it under not_run), and the chaos suite is 22a's.
+PREFLIGHT_ARGV = ["--only", "lint,drift_smoke"]
+
+
+def _k1_log(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def fleet_smoke_phase(dev, tmp: str) -> dict:
+    """23a: tools/fleet_smoke.py on `dev`'s backend in both modes, every
+    child through counted_cli: the supervised chain killed at its 2nd
+    checkpoint boundary (its two streams reconciled bit-exactly with the
+    single-process build, the tree node for node), then --sharded (two
+    shards, the sharded counters bit-equal, the tree canonically the
+    single process's, `obs_report --fleet --strict` exit 0).  Fails on
+    any failure of the smoke and, on the card, on a process that launched
+    no K1."""
+    from types import SimpleNamespace
+
+    from explicit_hybrid_mpc_tpu_torch.tools import fleet_smoke
+
+    args = SimpleNamespace(eps=FLEET_EPS, batch=FLEET_BATCH,
+                           backend=dev.type, timeout=FLEET_TIMEOUT_S)
+    entry = [sys.executable, "-c", _CHAOS_MAIN]
+    out: dict = {}
+    for mode, run in (("chain", fleet_smoke.run_chain_smoke),
+                      ("sharded", fleet_smoke.run_sharded_smoke)):
+        wd = os.path.join(tmp, f"23a_{mode}")
+        os.makedirs(wd)
+        k1_log = os.path.join(tmp, f"23a_{mode}_k1.jsonl")
+        os.environ["CHAOS_K1_LOG"] = k1_log
+        verdict: dict = {}
+        failures: list = []
+        t0 = time.perf_counter()
+        try:
+            rc = run(wd, args, verdict, failures, entry=entry)
+        finally:
+            os.environ.pop("CHAOS_K1_LOG", None)
+        wall = time.perf_counter() - t0
+        k1 = {}
+        for rec in _k1_log(k1_log):
+            run_name = os.path.basename(rec["argv"][rec["argv"].index("-o")
+                                                    + 1])
+            k1.setdefault(run_name, []).append(rec["k1"])
+        builds = {k: verdict[k] for k in ("reference", "fleet", "sharded")
+                  if k in verdict}
+        log(f"[operator] 23a tools/fleet_smoke {mode} on {dev.type} (eps "
+            f"{FLEET_EPS}, batch {FLEET_BATCH}): exit {rc} in {wall:.1f} "
+            f"s, {verdict.get('regions')} regions, "
+            f"{verdict.get('n_fleet_streams')} streams, obs_report --fleet "
+            f"--strict exit {verdict.get('obs_report_rc')}; builds "
+            + json.dumps(builds, default=str) + "; reconciliation "
+            + json.dumps(verdict.get("reconciliation")) + "; tree diffs "
+            f"{verdict.get('tree_diffs')}; K1 launches by process {k1}")
+        if rc or failures:
+            fail(f"23a ({mode}): exit {rc}; " + "; ".join(failures))
+        n_proc = 3  # the reference, then two restarts or two shards
+        if dev.type == "cuda" and (sum(len(v) for v in k1.values()) != n_proc
+                                   or not all(all(v) for v in k1.values())):
+            fail(f"23a ({mode}): K1 launches by process {k1}, expected "
+                 f"{n_proc} processes each with a launch")
+        out[f"fleet_{mode}_k1_launches"] = k1
+        out[f"fleet_{mode}_wall_s"] = wall
+        out[f"fleet_{mode}_dir"] = wd
+    return out
+
+
+def _watched_build(dev, prefix: str, k1_log: str):
+    """`main` on the DI fixture (the chaos suite's build argv) with --obs
+    jsonl through counted_cli, as a child process; (process, stream
+    path)."""
+    from explicit_hybrid_mpc_tpu_torch.tools import chaos_suite
+
+    argv = chaos_suite.build_argv(prefix, FLEET_EPS, FLEET_BATCH,
+                                  dev.type) + ["--obs", "jsonl"]
+    env = dict(os.environ, CHAOS_K1_LOG=k1_log)
+    env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
+    with open(prefix + ".log", "wb") as f:
+        proc = subprocess.Popen([sys.executable, "-c", _CHAOS_MAIN] + argv,
+                                cwd=_root(), env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    return proc, prefix + ".obs.jsonl"
+
+
+def _wait_for(pred, proc, what: str, limit_s: float) -> None:
+    t0 = time.perf_counter()
+    while not pred():
+        if proc.poll() is not None or time.perf_counter() - t0 > limit_s:
+            fail(f"23b: {what} never came (the build exited "
+                 f"{proc.poll()})")
+        time.sleep(WATCH_POLL_S)
+
+
+def _has_step(path: str) -> bool:
+    if not os.path.exists(path):
+        return False
+    with open(path) as f:
+        return '"build.step"' in f.read()
+
+
+def watch_phase(dev, tmp: str) -> dict:
+    """23b: tools/obs_watch.py following two live builds of the DI
+    fixture on `dev`: one to its build.done (the watcher must return 0),
+    one stopped with SIGSTOP after its first build.step record and
+    watched with stall_s WATCH_STALL_S (the watcher must return 2 with
+    health.stall), then terminated.  Each build's K1 launches through
+    counted_cli."""
+    import io
+    import signal
+
+    from explicit_hybrid_mpc_tpu_torch.tools import obs_watch
+
+    k1_log = os.path.join(tmp, "23b_k1.jsonl")
+    out: dict = {}
+    # The followed build: the watcher starts as soon as the stream exists.
+    live = os.path.join(tmp, "23b_live")
+    proc, path = _watched_build(dev, live, k1_log)
+    _wait_for(lambda: os.path.exists(path), proc, "the live stream",
+              WATCH_MAX_WALL_S)
+    t0 = time.perf_counter()
+    rc, mon = obs_watch.watch(path, interval=0.05,
+                              max_wall=WATCH_MAX_WALL_S, out=io.StringIO())
+    watch_s = time.perf_counter() - t0
+    build_rc = proc.wait(timeout=WATCH_MAX_WALL_S)
+    summ = mon.summary()
+    log(f"[operator] 23b obs_watch following a live build on {dev.type}: "
+        f"exit {rc} after {watch_s:.1f} s, {summ['n_records']} records, "
+        f"{summ['n_events']} health events, verdict {summ['worst']}; the "
+        f"build exited {build_rc}")
+    if rc != 0 or build_rc != 0:
+        fail(f"23b: the watcher of the live build exited {rc} "
+             f"({[e['name'] for e in mon.events]}), the build {build_rc}")
+    out["watch_live_records"] = summ["n_records"]
+    out["watch_live_dir"] = live
+
+    # The stopped build: frozen mid-run, the stall rule must fire.
+    stopped = os.path.join(tmp, "23b_stopped")
+    proc, spath = _watched_build(dev, stopped, k1_log)
+    _wait_for(lambda: _has_step(spath), proc, "a build.step record",
+              WATCH_MAX_WALL_S)
+    os.kill(proc.pid, signal.SIGSTOP)
+    try:
+        t0 = time.perf_counter()
+        rc, mon = obs_watch.watch(spath, rules={"stall_s": WATCH_STALL_S},
+                                  interval=0.1, max_wall=WATCH_MAX_WALL_S,
+                                  out=io.StringIO())
+        watch_s = time.perf_counter() - t0
+    finally:
+        proc.terminate()
+        os.kill(proc.pid, signal.SIGCONT)
+        try:
+            build_rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            build_rc = proc.wait(timeout=60)
+    names = [e["name"] for e in mon.events]
+    summ = mon.summary()
+    log(f"[operator] 23b obs_watch --rule stall_s={WATCH_STALL_S:g} over "
+        f"the build stopped after its first build.step: exit {rc} after "
+        f"{watch_s:.1f} s, events {names}, {summ['n_records']} records; "
+        f"the build terminated (exit {build_rc})")
+    if rc != 2 or "health.stall" not in names:
+        fail(f"23b: the watcher of the stopped build exited {rc} with "
+             f"{names}, expected 2 with health.stall")
+    k1 = {os.path.basename(r["argv"][r["argv"].index("-o") + 1]): r["k1"]
+          for r in _k1_log(k1_log)}
+    log(f"[operator] 23b K1 launches by build {k1}")
+    if dev.type == "cuda" and k1.get("23b_live", 0) <= 0:
+        fail(f"23b: the live build launched no K1 ({k1})")
+    out["watch_k1_launches"] = k1
+    return out
+
+
+def report_phase(dev, tmp: str, fleet: dict, watched: dict) -> dict:
+    """23c: tools/obs_report.py over the card's own streams: 23b's live
+    build and 23a's single-process reference (regions equal to their
+    .stats.json, `--drift` against itself with no flag, the JSON's bench
+    null), and `--fleet --strict` over 23a's per-process streams of both
+    modes (exit 0, two streams)."""
+    import contextlib
+    import glob
+    import io
+
+    from explicit_hybrid_mpc_tpu_torch.tools import obs_report
+
+    def quiet(argv):
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = obs_report.main(argv)
+        return rc, buf.getvalue()
+
+    streams = {"23b live": (watched["watch_live_dir"] + ".obs.jsonl",
+                            watched["watch_live_dir"] + ".stats.json")}
+    ref = os.path.join(fleet["fleet_chain_dir"], "straight")
+    (ref_stream,) = glob.glob(ref + ".obs.p*.jsonl")
+    streams["23a reference"] = (ref_stream, ref + ".stats.json")
+    out: dict = {}
+    for name, (path, stats_path) in streams.items():
+        j = path + ".report.json"
+        rc, text = quiet([path, "--drift", path, "--strict", "--json", j])
+        with open(j) as f:
+            doc = json.load(f)
+        with open(stats_path) as f:
+            st = json.load(f)
+        rep = doc["report"]
+        regions = rep.get("build", {}).get("regions")
+        log(f"[operator] 23c obs_report {name}: exit {rc}, regions "
+            f"{regions} (.stats.json {st['regions']}), bench "
+            f"{doc['bench']}, drift {doc['drift']} flags "
+            f"{doc['drift_flags']}; " + " | ".join(text.splitlines()[:4]))
+        if rc != 0 or regions != st["regions"] or doc["bench"] is not None \
+                or doc["drift_flags"] or doc["bench_flags"] \
+                or doc["drift"].get("compiled_shapes") is None:
+            fail(f"23c: the report of {name} (exit {rc}, regions "
+                 f"{regions} against {st['regions']}, bench {doc['bench']},"
+                 f" drift {doc['drift']}, flags {doc['drift_flags']} "
+                 f"{doc['bench_flags']})")
+        out[f"report_{name.split()[1]}_regions"] = regions
+    for mode, stem in (("chain", "fleet"), ("sharded", "sharded")):
+        pat = os.path.join(fleet[f"fleet_{mode}_dir"],
+                           f"{stem}.obs.p*.jsonl")
+        j = os.path.join(tmp, f"23c_{mode}.json")
+        rc, text = quiet([pat, "--fleet", "--strict", "--json", j])
+        with open(j) as f:
+            frep = json.load(f)["fleet"]
+        log(f"[operator] 23c obs_report --fleet --strict over 23a's "
+            f"{mode} streams: exit {rc}, {frep['n_streams']} streams, "
+            f"sharded {frep['sharded']}, issues {frep['issues']}, rollup "
+            f"regions {frep['rollup']['regions']} (sum "
+            f"{frep['rollup']['regions_sum']})")
+        if rc != 0 or frep["n_streams"] != 2 or frep["issues"]:
+            fail(f"23c: obs_report --fleet --strict over 23a's {mode} "
+                 f"streams exited {rc} ({frep['n_streams']} streams, "
+                 f"{frep['issues']})")
+    return out
+
+
+def preflight_phase(dev, tmp: str) -> dict:
+    """23d: tools/preflight.py with PREFLIGHT_ARGV on `dev`'s backend: the
+    verdict ok, each check's exit 0 and wall logged."""
+    import contextlib
+    import io
+
+    from explicit_hybrid_mpc_tpu_torch.tools import preflight
+
+    out_dir = os.path.join(tmp, "23d")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = preflight.main(PREFLIGHT_ARGV + ["--backend", dev.type,
+                                              "--out-dir", out_dir])
+    with open(os.path.join(out_dir, "preflight.json")) as f:
+        v = json.load(f)
+    log(f"[operator] 23d tools/preflight {' '.join(PREFLIGHT_ARGV)} on "
+        f"{dev.type}: exit {rc}, ok {v['ok']} in {v['wall_s']} s; "
+        + ", ".join(f"{c['name']} exit {c['exit']} in {c['wall_s']} s"
+                    for c in v["checks"])
+        + f"; not run: {sorted(v['not_run'])}")
+    if rc != 0 or not v["ok"] or not v["checks"] \
+            or any(c["exit"] != 0 for c in v["checks"]):
+        tails = []
+        for c in v["checks"]:
+            if c["exit"] != 0:
+                with open(c["log"], "rb") as f:
+                    tails.append(f.read()[-1500:].decode(errors="replace"))
+        fail(f"23d: preflight exited {rc}: {v['checks']} {tails}")
+    return {"preflight_walls_s": {c["name"]: c["wall_s"]
+                                  for c in v["checks"]}}
+
+
+def operator_tools_phase(dev, tmp: str) -> dict:
+    """Phase 23 (23a-23d); returns the kernels line's ipm_leg keys."""
+    t0 = time.perf_counter()
+    fleet = fleet_smoke_phase(dev, tmp)
+    watched = watch_phase(dev, tmp)
+    out = {k: v for k, v in {**fleet, **watched}.items()
+           if not k.endswith("_dir")}
+    out.update(report_phase(dev, tmp, fleet, watched))
+    out.update(preflight_phase(dev, tmp))
+    out["operator_wall_s"] = time.perf_counter() - t0
+    log(f"[operator] phase 23 took {out['operator_wall_s']:.1f} s")
+    return out
+
+
+def operator_tools_only() -> int:
+    """Phase 23 alone, for iterating on the card: the kernels built,
+    then 23a-23d.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.operator_tools_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_operator_") as tmp:
+        out = operator_tools_phase(dev, tmp)
     log(json.dumps(out))
     return 0
 
@@ -7747,6 +8110,13 @@ def main() -> int:
         robust = robustness_phase(dev, res, n_k1, tmp)
     host.end("phase 22 (robustness gate)")
 
+    # -- phase 23: the operator's tools (the fleet smoke's restart chain
+    # and sharded build, the watchdog over a live and a stopped build, the
+    # report over the card's own streams, the preflight battery) ---------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_operator_") as tmp:
+        operator = operator_tools_phase(dev, tmp)
+    host.end("phase 23 (operator's tools)")
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
@@ -7756,7 +8126,7 @@ def main() -> int:
          "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
          "large": k1_large, "general": k1_general, "pruned": k1_pruned,
          **reb["ipm_leg"], **sd["ipm_leg"], **multi, **guard,
-         **robust},
+         **robust, **operator},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",

@@ -1372,3 +1372,40 @@ def test_a_failed_chaos_schedule_fails_22a(tmp_path, monkeypatch, capsys):
     log = capsys.readouterr().out
     assert "solve_timeout: FAILED" in log
     assert "chip_smoke: FAIL: 22a: solve_timeout: the process exited" in log
+
+
+def test_operator_tools_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
+                                                   capsys):
+    """Phase 23 on the CPU at eps 0.5: 23a the fleet smoke's restart
+    chain and sharded build, every child through counted_cli (the
+    crashed process too); 23b the watcher following a live build to 0
+    and a stopped one to 2 with health.stall; 23c the report over both
+    streams and the fleet folds; 23d preflight with --quick."""
+    monkeypatch.setattr(chip_smoke, "FLEET_EPS", 0.5)
+    monkeypatch.setattr(chip_smoke, "PREFLIGHT_ARGV",
+                        ["--only", "lint,drift_smoke", "--quick"])
+    out = chip_smoke.operator_tools_phase(torch.device("cpu"),
+                                          str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("[operator] 23a tools/fleet_smoke chain on cpu (eps 0.5",
+                "[operator] 23a tools/fleet_smoke sharded on cpu",
+                "obs_report --fleet --strict exit 0",
+                "23b obs_watch following a live build on cpu: exit 0",
+                "over the build stopped after its first build.step: exit 2",
+                "'health.stall'", "23c obs_report 23b live: exit 0",
+                "bench None", "23c obs_report --fleet --strict over 23a's "
+                "sharded streams: exit 0, 2 streams",
+                "23d tools/preflight --only lint,drift_smoke --quick on cpu:"
+                " exit 0, ok True", "[operator] phase 23 took"):
+        assert tag in log, tag
+    # Three processes a mode, the crashed one of the chain included; the
+    # children run the plain leg, which launches no kernel.
+    assert out["fleet_chain_k1_launches"] == {"straight": [0],
+                                              "fleet": [0, 0]}
+    assert out["fleet_sharded_k1_launches"] == {"straight": [0],
+                                                "sharded": [0, 0]}
+    assert set(out["watch_k1_launches"]) == {"23b_live", "23b_stopped"}
+    assert out["report_live_regions"] == out["report_reference_regions"] \
+        == 122
+    assert set(out["preflight_walls_s"]) == {"lint", "drift_smoke"}

@@ -10,9 +10,10 @@ fails in both after the same ``corrupt`` injection, the faulted CPU
 builds equal the JAX package's clean build node for node (vertices
 bitwise, leaf ids, the leaf payloads delta, U and V), and quarantine,
 the degrade cap and the checkpoint generations give the JAX package's
-stats and counters.  Not ported here: the obs_report faults block
-(``obs_report`` is not ported) and the JAX bench script's history
-append (the port's ``append_line_fsync`` is held below).
+stats and counters.  Not here: the obs_report faults block (held in
+tests/test_torch_obs_tools.py::test_obs_report_renders_faults_block) and
+the JAX bench script's history append (the port's ``append_line_fsync``
+is held below).
 
 Trees are compared through their arrays, never by loading one
 package's pickle with the other's Tree (a pickle names its package's

@@ -3,7 +3,7 @@ nor the JAX package.
 
 Checked in a fresh interpreter (this test process has both loaded):
 every module under ``explicit_hybrid_mpc_tpu_torch`` is imported, the
-serving, lifecycle and analysis subpackages included, and then ``sys.modules``
+serving, lifecycle, analysis and tools subpackages included, and then ``sys.modules``
 must hold no ``jax`` / ``jax.*`` and no ``explicit_hybrid_mpc_tpu`` /
 ``explicit_hybrid_mpc_tpu.*`` entry."""
 
@@ -77,6 +77,8 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "analysis.rules.obs_hot",
                                  "analysis.rules.silent_except",
                                  "tools", "tools.supervise_build",
-                                 "tools.chaos_suite", "tools.drift_smoke"])
+                                 "tools.chaos_suite", "tools.drift_smoke",
+                                 "tools.obs_report", "tools.obs_watch",
+                                 "tools.fleet_smoke", "tools.preflight"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]
