@@ -91,17 +91,18 @@ with the single-process tree and point solves exactly, then phase 3's
 flagship (0 fallback cells, no cell solved by two shards, regions
 within 2% of 11,670, uncertified <= 70, the merged tree compared
 canonically with phase 3's, each shard's K1 launches and device time,
-the straggler report; a differing tree is split by the same two builds
-without warm starts); 20c two gloo ranks building the DI fixture in
-lockstep on the global mesh, equal to each other and to the
-single-process build, rank 0 alone writing.  Phase 21 drives the
+the straggler report); 20c two gloo ranks
+building the DI fixture in lockstep on the global mesh, equal to each
+other and to the single-process build, rank 0 alone writing.  Phase 21 drives the
 analysis package's recompile guard through the frontier: 21a the
 flagship through `main --recompile-guard` with obs on, first cold under
 warn (the guard fires after its 8-full-step warmup, as the JAX
 package's does on a hybrid build: each event names new shapes only),
 then under raise from an oracle warmed at every bucket (warm_buckets,
-bench.py's warm_oracle): exit 0 and 0 violations; both with phase 3's
-tree cell for cell and its K1 launches within 1%, the arm step, the
+bench.py's warm_oracle): exit 0 and 0 violations; all three builds
+(these two and an unguarded one) without speculation, whose dispatch
+follows timing, so that both guarded builds hold phase 3's tree cell
+for cell and the unguarded build's K1 launches exactly, the arm step, the
 steps checked, the ledger's size at the arm and the end, and the
 guard's share of the build wall; 21b the DI build with one real
 dispatch forced through the engine's oracle at a bucket the build never
@@ -140,7 +141,24 @@ over 23b's and 23a's streams (regions equal to .stats.json, --drift
 against itself with no flag, no bench read) and `--fleet --strict`
 over 23a's per-process streams; 23d `preflight --only lint,drift_smoke`
 (verdict ok; tier1 needs the JAX package, which the card's machine
-lacks, and the chaos suite is 22a's).  One
+lacks, and the chaos suite is 22a's).  Phase 24 drives the capture
+tools (tools/), each a process of its own through counted_tool, which
+tallies K1 by route, path and dtype over the process and each build:
+24b tune_schedule at the JAX script's defaults (the seven schedule
+rows, the parity builds, the all-f64 row's µs a QP beside the fastest
+mixed row's); 24c onset_probe over both families' ladders under
+precision mixed (every rung complete and within the JAX package's own
+span of regions, 2% or 1 region; each build's K1 by path and dtype:
+the float32 leg at the general and the large path in full builds);
+24d long_build on the flagship at eps 1e-2, checkpointed every 20
+steps, its first process SIGKILLed after its 2nd progress row and a
+second resumed to a drained frontier (phase 3's bar, resumed from the
+2nd checkpoint, the progress rows continuous); 24a precision_check at
+the JAX defaults against the same tool on the CPU (started before phase
+23, on half the host's cores): f32_accept_rate within 0.02 and the same
+verdict, then the acceptance step alone at the 5b and 4c sub-boxes on
+the card and on the CPU (the large and the general path's float32 leg
+on real problem data).  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -186,7 +204,13 @@ violations, the guard hook's share of the wall), "forced_k1_launches"
 tree identity with phase 3's), the "drift_*" keys 22c's (K1 launches,
 staleness and request p50/p99); the "fleet_*" keys 23a's (K1 launches
 a process by build, walls), the "watch_*" keys 23b's, "report_*" 23c's
-regions, "preflight_walls_s" 23d's and "operator_wall_s" phase 23's.
+regions, "preflight_walls_s" 23d's and "operator_wall_s" phase 23's; the
+"tune_*" keys 24b's, "onset_*" 24c's, "long_*" 24d's, "prec_*" 24a's
+(each with its K1 record by route, path and dtype: "cuda:large:float32"
+and so on) and "capture_wall_s" phase 24's.  The ipm_leg entry's
+"build_ms" is K1's device time in phase 9's profiled window of the
+flagship build (its steps "build_window_steps"), beside the summed
+bound of the launches recorded in that window.
 
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
@@ -237,7 +261,11 @@ phase 22, and
 
     python3 -c "import sys, chip_smoke as c; sys.exit(c.operator_tools_only())"
 
-phase 23.
+phase 23, and
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.capture_tools_only())"
+
+phase 24.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -500,6 +528,9 @@ SERVE_REBUILD_ARGS = ("-e", "double_integrator", "--problem-arg", "N=3",
 SERIAL_POINTS = 64
 SERIAL_RTOL, SERIAL_ATOL = 1e-6, 1e-8
 PROFILE_STEPS = 3
+#: Phase 9: the flagship build is under the profiler from the end of its
+#: first step here to the end of its second (steps 41-60).
+PROFILE_WINDOW = (40, 60)
 TRACE_EXEMPLAR_K = 8
 HOST_INTERVAL_S = 1.0
 
@@ -525,7 +556,7 @@ SOC_ARGS = (("N", 3), ("h_box", 0.3), ("omega_box", 0.03))
 SOC_CFG = (("eps_a", 2.0), ("eps_r", 0.3), ("batch_simplices", 64),
            ("max_depth", 24), ("semi_explicit_boundary_depth", 10))
 SOC_REF_REGIONS = 1440
-SOC_THETAS = 64
+SOC_THETAS = 16
 SOC_SAMPLES = 192
 
 
@@ -3160,10 +3191,12 @@ class HostVerdict:
         self.blind = first is None or first[0] == 0
         self.mon.start()
         self._mark = 0
+        self._t = time.perf_counter()
 
     def end(self, name: str) -> str:
         samples = self.mon._samples[self._mark:]
         self._mark += len(samples)
+        t, self._t = self._t, time.perf_counter()
         if self.blind:
             text = ("not measured (this host's /proc/stat counts no CPU "
                     "time, so other processes' load cannot be seen)")
@@ -3174,7 +3207,8 @@ class HostVerdict:
                     f"{mean > self.mon.threshold} ({len(samples)} samples)")
         else:
             text = "no sample (the phase was shorter than the interval)"
-        log(f"[host] {name}: {text}")
+        log(f"[host] {name}: {text} (wall since the last verdict "
+            f"{self._t - t:.1f} s)")
         return text
 
     def summary(self) -> dict:
@@ -5911,52 +5945,204 @@ class CellRecorder:
         return False
 
 
-def counted_main(argv: list) -> int:
-    """`main(argv)` with K1's launches counted from zero (and, on the
-    card, each launch bracketed by a pair of CUDA events on its stream:
-    their summed span, which on a card shared with another process
-    also holds that process's work) and
-    the point-solve cells recorded (CellRecorder): the sharded builds'
-    entry in 20b, each shard a process of the launcher.  Writes
-    <output>.k1.p<RANK>.json and <output>.cells.p<RANK>.npy."""
-    import torch
+class K1Tally:
+    """While active, every IPM leg tallied by route ('cuda': the kernel,
+    counted where ipm_leg's own count moves; 'plain': its plain
+    version), K1 path and dtype, each CUDA launch bracketed by a pair of
+    CUDA events on its stream.  Restores the legs on exit."""
 
-    from explicit_hybrid_mpc_tpu_torch import main as tmain
+    def __init__(self):
+        self.rows: dict = {}
+
+    def __enter__(self):
+        from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+        self._real = (ipm_leg.ipm_leg_cuda, ipm_leg.ipm_leg_torch)
+        ipm_leg.ipm_leg_cuda = self._wrap(self._real[0], "cuda")
+        ipm_leg.ipm_leg_torch = self._wrap(self._real[1], "plain")
+        return self
+
+    def __exit__(self, *exc):
+        from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+        ipm_leg.ipm_leg_cuda, ipm_leg.ipm_leg_torch = self._real
+        return False
+
+    def _wrap(self, real, route: str):
+        import torch
+
+        from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+
+        def leg(Q, q, A, b, z, s, lam, n_iter):
+            n0 = ipm_leg.launches
+            ev = None
+            if Q.is_cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = real(Q, q, A, b, z, s, lam, n_iter)
+            went = (ipm_leg.launches > n0 if route == "cuda"
+                    else q.shape[0] > 0 and n_iter > 0)
+            if went:
+                key = (route, k1_path(q.shape[1], b.shape[1]),
+                       str(Q.dtype).replace("torch.", ""))
+                row = self.rows.setdefault(key, [0, []])
+                row[0] += 1
+                if ev is not None:
+                    ev[1].record()
+                    row[1].append(ev)
+            return out
+        return leg
+
+    def summary(self, timed: bool = True) -> dict:
+        """{"route:path:dtype": {"launches", "ms"}}: ms is the launches'
+        summed event spans (synchronizes), None without events or when
+        not `timed`."""
+        import torch
+
+        if timed and any(r[1] for r in self.rows.values()):
+            torch.cuda.synchronize()
+        return {":".join(k): {"launches": n, "ms": (
+            sum(a.elapsed_time(b) for a, b in evs) if evs and timed
+            else None)} for k, (n, evs) in sorted(self.rows.items())}
+
+
+#: The environment variable naming the JSON-lines file a counted child
+#: (counted_main, counted_cli, counted_tool) appends its K1 record to.
+K1_LOG_ENV = "K1_LOG"
+
+
+def counted(run, argv: list, record: dict, cells: str | None = None) -> int:
+    """`run(argv)` in this process with ipm_leg's count from zero and K1
+    tallied (K1Tally) over the whole run and over each build_partition
+    call.  Appends one JSON line to the file K1_LOG names when the
+    process ends: by returning, by SIGTERM (exit 143 here), or by a fault
+    plan's crash (os._exit, wrapped to write the line first; only SIGKILL
+    leaves none).  SIGUSR1 appends a line marked partial (launches only,
+    untimed) and the run goes on, so that a process about to be SIGKILLed
+    can leave its count.  The line holds `record`'s keys, "pid", "rank",
+    "rc", "partial", "wall_s", "k1" (ipm_leg's count), "k1_by"
+    ({"route:path:dtype": {"launches", "ms"}}), "k1_ms" (the kernel's
+    summed event spans; None off the card and when partial) and "builds"
+    (regions, truncated, wall_s and k1_by of each call of
+    frontier.build_partition through the module: the tools' builds).
+    With `cells`, the point-solve cells (CellRecorder) also go to
+    <cells>.cells.p<RANK>.npy."""
+    import contextlib
+    import signal
+
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition import frontier
 
-    out = argv[argv.index("-o") + 1]
-    real = ipm_leg.ipm_leg_cuda
-    events: list = []
+    tally = K1Tally()
+    builds: list = []
+    real_build, real_exit = frontier.build_partition, os._exit
+    rank = os.environ.get("RANK", "0")
+    t0 = time.perf_counter()
 
-    def timed(Q, q, A, b, z, s, lam, n_iter):
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        res = real(Q, q, A, b, z, s, lam, n_iter)
-        e1.record()
-        events.append((e0, e1))
+    def build_partition(*a, **kw):
+        with K1Tally() as t:
+            res = real_build(*a, **kw)
+        builds.append({"regions": res.stats.get("regions"),
+                       "truncated": res.stats.get("truncated"),
+                       "wall_s": res.stats.get("wall_s"),
+                       "k1_by": t.summary()})
         return res
 
-    ipm_leg.ipm_leg_cuda = timed
+    def note(rc, partial: bool = False) -> None:
+        by = tally.summary(not partial)
+        ms = [v["ms"] for k, v in by.items() if k.startswith("cuda:")]
+        with open(os.environ[K1_LOG_ENV], "a") as f:
+            f.write(json.dumps({
+                **record, "pid": os.getpid(), "rank": int(rank), "rc": rc,
+                "partial": partial, "wall_s": time.perf_counter() - t0,
+                "k1": ipm_leg.launches, "k1_by": by,
+                "k1_ms": (sum(ms) if ms and None not in ms else None),
+                "builds": builds}) + "\n")
+
+    def crash(code: int) -> None:
+        note(code)
+        real_exit(code)
+
+    frontier.build_partition = build_partition
+    os._exit = crash
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    signal.signal(signal.SIGUSR1, lambda *_: note(None, True))
     ipm_leg.launches = 0
-    t0 = time.perf_counter()
+    rec = CellRecorder() if cells else contextlib.nullcontext()
+    rc = None
     try:
-        with CellRecorder() as rec:
-            rc = tmain.main(argv)
+        with tally, rec:
+            rc = run(argv)
+        return rc
+    except SystemExit as e:
+        rc = e.code
+        raise
     finally:
-        ipm_leg.ipm_leg_cuda = real
-    if events:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1_span = (sum(e0.elapsed_time(e1) for e0, e1 in events)
-               if events else None)
-    rank = os.environ.get("RANK", "0")
-    np.save(f"{out}.cells.p{rank}.npy", np.asarray(rec.cells,
-                                                   dtype=np.uint64))
-    with open(f"{out}.k1.p{rank}.json", "w") as f:
-        json.dump({"rank": int(rank), "rc": rc, "wall_s": wall,
-                   "k1_launches": ipm_leg.launches,
-                   "k1_event_wall_ms": k1_span}, f)
-    return rc
+        frontier.build_partition, os._exit = real_build, real_exit
+        if cells:
+            np.save(f"{cells}.cells.p{rank}.npy",
+                    np.asarray(rec.cells, dtype=np.uint64))
+        note(rc)
+
+
+def counted_main(argv: list) -> int:
+    """`main(argv)` through `counted`, the point-solve cells recorded
+    beside its output (-o): each shard of 20b's sharded builds, a process
+    of the launcher, and each attempt of 22b's supervised build."""
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+
+    return counted(tmain.main, argv, {"argv": argv},
+                   cells=argv[argv.index("-o") + 1])
+
+
+def counted_cli(argv: list) -> int:
+    """`main.cli(argv)` through `counted`: the children of the chaos
+    suite (22a), of the fleet smoke (23a) and of 23b's watched builds."""
+    from explicit_hybrid_mpc_tpu_torch import main as tmain
+
+    return counted(tmain.cli, argv, {"argv": argv})
+
+
+def counted_tool(argv: list) -> int:
+    """`python -m explicit_hybrid_mpc_tpu_torch.tools.<argv[0]>
+    argv[1:]` through `counted`: phase 24's children."""
+    import importlib
+
+    tool = importlib.import_module(
+        f"explicit_hybrid_mpc_tpu_torch.tools.{argv[0]}")
+    return counted(tool.main, argv[1:], {"tool": argv[0], "argv": argv[1:]})
+
+
+def k1_records(path: str, **match) -> list:
+    """The K1 records (`counted`) in the file at `path`, in order: those
+    whose keys equal `match`'s, every one without."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f]
+    return [r for r in recs if all(r.get(k) == v for k, v in match.items())]
+
+
+def _output_of(argv: list) -> str:
+    """The output prefix (-o) of a main argv."""
+    return argv[argv.index("-o") + 1]
+
+
+class k1_log_env:
+    """K1_LOG set to `path` in this process's environment while active,
+    so that every counted child started meanwhile appends there."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        os.environ[K1_LOG_ENV] = self.path
+        return self.path
+
+    def __exit__(self, *exc):
+        os.environ.pop(K1_LOG_ENV, None)
+        return False
 
 
 def sharded_run(dev, cfg, tmp: str, name: str) -> dict:
@@ -5977,19 +6163,22 @@ def sharded_run(dev, cfg, tmp: str, name: str) -> dict:
             *([] if cfg.warm_start_tree else ["--no-warm-start"])]
     for k, v in cfg.problem_args:
         argv += ["--problem-arg", f"{k}={json.dumps(v)}"]
-    r = launch_sharded(argv, n_processes=SHARDS, timeout_s=SHARD_TIMEOUT_S,
-                       entry=[sys.executable, "-c", _COUNTED_MAIN],
-                       cwd=_root())
+    with k1_log_env(out + ".k1.jsonl") as k1_log:
+        r = launch_sharded(argv, n_processes=SHARDS,
+                           timeout_s=SHARD_TIMEOUT_S,
+                           entry=[sys.executable, "-c", _COUNTED_MAIN],
+                           cwd=_root())
     if r["rc"] != 0 or r["hung"]:
         fail(f"20b {name}: the sharded build exited {r['rcs']} (hung "
              f"{r['hung']}): {r['stderr']}")
     with open(out + ".stats.json") as f:
         st = json.load(f)
-    shards, cells = [], []
-    for i in range(SHARDS):
-        with open(f"{out}.k1.p{i}.json") as f:
-            shards.append(json.load(f))
-        cells.append(np.load(f"{out}.cells.p{i}.npy"))
+    shards = sorted(k1_records(k1_log, partial=False),
+                    key=lambda x: x["rank"])
+    if [x["rank"] for x in shards] != list(range(SHARDS)):
+        fail(f"20b {name}: K1 records of ranks "
+             f"{[x['rank'] for x in shards]}, expected {SHARDS}")
+    cells = [np.load(f"{out}.cells.p{i}.npy") for i in range(SHARDS)]
     streams = fleet.load_fleet(out + ".obs.p*.jsonl")
     shared = set(cells[0].tolist())
     for c in cells[1:]:
@@ -6045,69 +6234,6 @@ def solve_accounting(label: str, single, single_cells, sharded) -> dict:
     return acc
 
 
-def cold_warm_split(dev, problem, cfg, tmp: str) -> bool:
-    """Why a sharded flagship tree differs from the single-process one:
-    the same two builds without tree warm starts (`--no-warm-start`),
-    the single process also without speculation (a sharded frontier
-    never speculates).  A cell that comes through the exchange is solved
-    by its owner without the requester's warm start (exchange rows carry
-    no duals), and which shard solves a vertex first is a matter of
-    timing, so its last bits -- and a knife-edge convergence or
-    certificate with them -- follow.  Without warm starts every cell is
-    solved cold in both builds: the trees must then be canonically
-    identical for the difference to be the warm start's.  Logs the
-    comparison and the pair's point solves cell by cell
-    (solve_accounting) and returns whether the trees are identical."""
-    import dataclasses
-
-    from explicit_hybrid_mpc_tpu_torch.partition.shard import (
-        compare_trees_canonical)
-
-    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import Oracle
-
-    cold = dataclasses.replace(cfg, warm_start_tree=False)
-    ref, ref_cells = cell_recorded_build(
-        problem, dataclasses.replace(cold, speculate=False))
-    r = sharded_run(dev, cold, tmp, "flagship_cold")
-    diffs = compare_trees_canonical(ref.tree, r["tree"])
-    oa, ob = tree_outcomes(ref.tree), tree_outcomes(r["tree"])
-    cells, other = differing_cells(oa, ob)
-    log(f"[shard]   flagship without warm starts (--no-warm-start, both "
-        f"builds; --no-speculate, the single process): regions "
-        f"{r['stats']['regions']} sharded, "
-        f"{ref.stats['regions']} single process; canonical comparison: "
-        + ("identical" if not diffs else "; ".join(diffs))
-        + f" ({len(cells)} cells decided differently, {other} leaves with "
-        f"another commutation; cells solved by both shards {r['both']})"
-        + ("; so each differing cell of the default build is a warm-start "
-           "knife edge" if not diffs else
-           "; so each cell the default builds split and closed differently "
-           "is a warm-start knife edge (the leaves with another commutation "
-           "follow)" if not cells else
-           "; the warm start does not explain every differing cell"))
-    solve_accounting("flagship without warm starts", ref.stats, ref_cells, r)
-    # A leaf closed with another commutation: the two commutations' V at
-    # its vertices (a cold dense solve), side by side -- equal to the
-    # last bits is an exact tie, which goes to the lower index.
-    swapped = [k for k in oa.keys() & ob.keys()
-               if oa[k][0] == ob[k][0] == "leaf" and oa[k][1] != ob[k][1]]
-    ora = Oracle(problem, backend=dev.type, two_phase=False,
-                 warm_start=False)
-    p = ref.tree.p
-    for key in swapped[:5]:
-        verts = np.frombuffer(key, dtype=np.float64).reshape(p + 1, p)
-        V = ora.solve_vertices(verts).V
-        da, db = oa[key][1], ob[key][1]
-        with np.errstate(invalid="ignore"):  # inf - inf: unconverged
-            rel = np.abs(V[:, da] - V[:, db]) / np.maximum(
-                np.abs(V[:, db]), 1e-300)
-        log(f"[shard]     leaf {np.array2string(verts.ravel(), precision=6)}"
-            f": commutation {da} single process, {db} sharded; V[{da}] "
-            f"{V[:, da].tolist()}, V[{db}] {V[:, db].tolist()} at its "
-            f"vertices (relative gap {rel.tolist()})")
-    return not diffs
-
-
 def sharded_build_phase(dev, problem, cfg, res, build_s: float,
                         tmp: str) -> dict:
     """20b: the sharded build (sharded_run) of the tier-1 DI fixture and
@@ -6126,8 +6252,7 @@ def sharded_build_phase(dev, problem, cfg, res, build_s: float,
     summed point solves beside phase 3's and, cell by cell
     (solve_accounting), beside a single-process build's without
     speculation (phase 3 speculates; a sharded frontier never does),
-    with cold_warm_split where the trees or the counts differ; each
-    shard's K1 launches and the span of their event pairs, and the
+    each differing cell named; each shard's K1 launches and the span of their event pairs, and the
     straggler report.  Returns the kernels line's sharded counts."""
     import dataclasses
 
@@ -6171,8 +6296,8 @@ def sharded_build_phase(dev, problem, cfg, res, build_s: float,
             f"{r['cells']} ({r['unique']} distinct), solved by both "
             f"shards {r['both']}")
         for s in shards:
-            span = s["k1_event_wall_ms"]
-            log(f"[shard]   {tag} shard {s['rank']}: K1 {s['k1_launches']} "
+            span = s["k1_ms"]
+            log(f"[shard]   {tag} shard {s['rank']}: K1 {s['k1']} "
                 "launches; their CUDA event pairs span " + (
                     f"{span:.2f} ms in all" if span is not None
                     else "not measured")
@@ -6191,7 +6316,7 @@ def sharded_build_phase(dev, problem, cfg, res, build_s: float,
                 f"{np.array2string(verts.ravel(), precision=6)}: single "
                 f"process {outs_ref[key]}, sharded {outs_sh[key]}")
         log(f"[shard]   {tag} straggler report: {json.dumps(r['straggle'])}")
-        if on_card and any(s["k1_launches"] <= 0 for s in shards):
+        if on_card and any(s["k1"] <= 0 for s in shards):
             fail(f"20b {tag}: a shard launched no K1 ({shards})")
         if st["shard_fallback_cells"] != 0 or r["both"] != 0 \
                 or r["cells"] != per_shard or solves != sum(per_shard):
@@ -6222,10 +6347,8 @@ def sharded_build_phase(dev, problem, cfg, res, build_s: float,
                                       else "; ".join(ns_diffs)))
             solve_accounting("flagship against the single process without "
                              "speculation", ns.stats, ns_cells, r)
-            if diffs or solves != ref.stats["point_solves"]:
-                cold_warm_split(dev, problem, cfg, tmp)
-        out[tag] = {"launches": [s["k1_launches"] for s in shards],
-                    "ms": [s["k1_event_wall_ms"] for s in shards],
+        out[tag] = {"launches": [s["k1"] for s in shards],
+                    "ms": [s["k1_ms"] for s in shards],
                     "identical": not diffs, "differing_cells": len(cells),
                     "point_solves": solves}
     log(f"[shard] (20b took {time.perf_counter() - t0:.1f} s)")
@@ -6464,13 +6587,12 @@ GUARD_DI = ["-e", "double_integrator", "--problem-arg", "N=3",
 GUARD_DI_CFG = dict(problem="double_integrator",
                     problem_args=(("N", 3), ("theta_box", 1.5)), eps_a=0.2,
                     batch_simplices=16)
-#: 21a's build: the flagship, as phase 3 builds it.
-GUARD_FLAGSHIP = ["-e", "inverted_pendulum", "-a", "1e-2"]
-#: How far 21a's K1 launches may sit from phase 3's: the flagship's
-#: count is not reproducible build to build with one tree (phase 3's
-#: own runs 724-730; the builds of one process 726 and 728), so the
-#: guarded builds are held to phase 3's within 1%.
-GUARD_K1_SPREAD = 0.01
+#: 21a's build: the flagship, as phase 3 builds it, but without
+#: speculation: speculative dispatch is gated on the device's measured
+#: share of the wall (partition/pipeline.py SPEC_DEVICE_FRAC_MAX), so
+#: with it the K1 count moves build to build with one tree (phase 3 gave
+#: 720-730 on the card); without it the count is a function of the tree.
+GUARD_FLAGSHIP = ["-e", "inverted_pendulum", "-a", "1e-2", "--no-speculate"]
 #: 21a's runs: cold under warn, then warmed under raise.
 GUARD_MODES = ("warn", "raise")
 #: 21c's online batch through the point-location kernel.
@@ -6603,8 +6725,10 @@ def guarded_flagship(dev, res, n_k1: int, card: str, tmp: str) -> dict:
     event must name shapes no earlier event named.  Then under
     --recompile-guard raise from an oracle warmed at every bucket
     (warm_buckets; its launches are not the build's): exit 0, 0
-    violations.  Both: phase 3's tree cell for cell and phase 3's K1
-    launches within GUARD_K1_SPREAD."""
+    violations.  Before them the same build unguarded; all three without
+    speculation (GUARD_FLAGSHIP).  Both guarded builds: phase 3's tree
+    cell for cell and the unguarded build's K1 launches exactly (phase
+    3's `n_k1`, with speculation, logged beside them)."""
     from explicit_hybrid_mpc_tpu_torch.obs import load_jsonl
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
     from explicit_hybrid_mpc_tpu_torch.partition import frontier
@@ -6612,6 +6736,19 @@ def guarded_flagship(dev, res, n_k1: int, card: str, tmp: str) -> dict:
 
     on_card = dev.type == "cuda"
     a = tree_outcomes(res.tree)
+    prefix = os.path.join(tmp, "21a_unguarded")
+    rc, st, _ev, wall, _legs, k1_ref, _k2, _p = run_main(
+        [*GUARD_FLAGSHIP, "--backend", dev.type, "-o", prefix], on_card)
+    ref_same = rc == 0 and tree_outcomes(
+        Tree.load(prefix + ".tree.pkl")) == a
+    log(f"[guard] 21a flagship, main {' '.join(GUARD_FLAGSHIP)} unguarded: "
+        f"exit {rc}, {wall:.1f} s, regions {st.get('regions')}, K1 launches "
+        f"{k1_ref} (phase 3, with speculation: {n_k1}); tree "
+        f"{'equal to' if ref_same else 'NOT equal to'} phase 3's cell for "
+        "cell")
+    if not ref_same:
+        fail(f"21a: the unguarded build without speculation exited {rc} "
+             "or its tree is not phase 3's")
     out = {}
     for mode in GUARD_MODES:
         prefix = os.path.join(tmp, f"21a_{mode}")
@@ -6661,7 +6798,7 @@ def guarded_flagship(dev, res, n_k1: int, card: str, tmp: str) -> dict:
             f"events)" + "".join(
                 f"; step {s} {', '.join(f'{f}[{r}]' for f, r in sh)}"
                 for s, sh in probe.fired)
-            + f"; K1 launches {k1} (phase 3: {n_k1}); tree "
+            + f"; K1 launches {k1} (unguarded: {k1_ref}); tree "
             f"{'equal to' if a == b else 'NOT equal to'} phase 3's cell "
             f"for cell ({len(diff)} decided differently, {other} other "
             f"commutations); {card}")
@@ -6669,9 +6806,9 @@ def guarded_flagship(dev, res, n_k1: int, card: str, tmp: str) -> dict:
             fail(f"21a ({mode}): main exited {rc}")
         if a != b:
             fail(f"21a ({mode}): the guarded build's tree is not phase 3's")
-        if abs(k1 - n_k1) > GUARD_K1_SPREAD * n_k1:
-            fail(f"21a ({mode}): {k1} K1 launches, phase 3 {n_k1} (more "
-                 f"than {GUARD_K1_SPREAD:.0%} apart)")
+        if k1 != k1_ref:
+            fail(f"21a ({mode}): {k1} K1 launches, the unguarded build "
+                 f"{k1_ref}")
         if len(evs) != len(probe.fired) or len(named) != len(set(named)):
             fail(f"21a ({mode}): {len(evs)} events for {len(probe.fired)} "
                  "violations, or a shape reported twice")
@@ -6683,6 +6820,7 @@ def guarded_flagship(dev, res, n_k1: int, card: str, tmp: str) -> dict:
                      "armed_step": probe.armed_step,
                      "checked": probe.checked, "hook_s": probe.hook_s,
                      "wall_s": wall, "shapes_end": probe.shapes_end}
+    out["unguarded_k1"] = k1_ref
     return out
 
 
@@ -6847,6 +6985,7 @@ def analysis_phase(dev, res, n_k1: int, card: str, tmp: str,
     log(f"[guard] phase 21 took {time.perf_counter() - t0:.1f} s")
     return {"guarded_launches": flag["raise"]["k1"],
             "guard_violations_cold": flag["warn"]["violations"],
+            "guard_unguarded_launches": flag["unguarded_k1"],
             "guard_hook_frac": flag["raise"]["hook_s"]
             / flag["raise"]["wall_s"],
             "forced_k1_launches": forced["forced_k1"],
@@ -6920,45 +7059,6 @@ ROBUST_CELLS_LISTED = 50
 DRIFT_EPS = 0.2
 
 
-def counted_cli(argv: list) -> int:
-    """`main.cli(argv)` with K1's launches counted from zero, appended
-    with the argv to the JSON-lines file CHAOS_K1_LOG names when the
-    process ends: by returning, by SIGTERM (turned into exit 143 here),
-    or by its fault plan's crash (`os._exit`, wrapped here to write the
-    line first; only SIGKILL leaves none).  The children of the chaos
-    suite (22a), of the fleet smoke (23a) and of 23b's watched builds."""
-    import signal
-
-    from explicit_hybrid_mpc_tpu_torch import main as tmain
-    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
-
-    def note(rc) -> None:
-        with open(os.environ["CHAOS_K1_LOG"], "a") as f:
-            f.write(json.dumps({"argv": argv, "rc": rc,
-                                "rank": os.environ.get("RANK"),
-                                "pid": os.getpid(),
-                                "k1": ipm_leg.launches}) + "\n")
-
-    real_exit = os._exit
-
-    def crash(code: int) -> None:
-        note(code)
-        real_exit(code)
-
-    os._exit = crash
-    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
-    ipm_leg.launches = 0
-    rc = None
-    try:
-        rc = tmain.cli(argv)
-        return rc
-    except SystemExit as e:
-        rc = e.code
-        raise
-    finally:
-        note(rc)
-
-
 def _chaos_run_name(argv: list) -> str:
     """The schedule (or "reference") a chaos child's argv belongs to."""
     for flag in ("-o", "--artifacts-root"):
@@ -6980,23 +7080,15 @@ def chaos_phase(dev, tmp: str) -> dict:
 
     wd = os.path.join(tmp, "22a")
     os.makedirs(wd)
-    k1_log = os.path.join(tmp, "22a_k1.jsonl")
-    os.environ["CHAOS_K1_LOG"] = k1_log
     t0 = time.perf_counter()
-    try:
+    with k1_log_env(os.path.join(tmp, "22a_k1.jsonl")) as k1_log:
         v = chaos_suite.run_suite(
             wd, CHAOS_EPS, CHAOS_BATCH, dev.type, timeout_s=CHAOS_TIMEOUT_S,
             entry=[sys.executable, "-c", _CHAOS_MAIN])
-    finally:
-        os.environ.pop("CHAOS_K1_LOG", None)
     wall = time.perf_counter() - t0
     k1: dict = {}
-    if os.path.exists(k1_log):
-        with open(k1_log) as f:
-            for ln in f:
-                rec = json.loads(ln)
-                k1.setdefault(_chaos_run_name(rec["argv"]), []).append(
-                    rec["k1"])
+    for rec in k1_records(k1_log, partial=False):
+        k1.setdefault(_chaos_run_name(rec["argv"]), []).append(rec["k1"])
     ref = v.get("reference", {})
     log(f"[chaos] 22a tools/chaos_suite on {dev.type} (eps {CHAOS_EPS}, "
         f"batch {CHAOS_BATCH}): reference build exit {ref.get('rc')} in "
@@ -7051,6 +7143,7 @@ def supervised_flagship(dev, res, n_k1: int, tmp: str) -> dict:
              "at": ROBUST_CRASH_AT}]}, f)
     env = dict(os.environ, EHM_FAULT_PLAN=plan)
     t0 = time.perf_counter()
+    env[K1_LOG_ENV] = out + ".k1.jsonl"
     with open(out + ".log", "wb") as f:
         sup = run_supervised(argv, out + ".ckpt.pkl", max_restarts=2,
                              attempt_timeout_s=ROBUST_TIMEOUT_S,
@@ -7073,8 +7166,9 @@ def supervised_flagship(dev, res, n_k1: int, tmp: str) -> dict:
              f"from .prev to the end ({sup}): {tail}")
     with open(out + ".stats.json") as f:
         st = json.load(f)
-    with open(out + ".k1.p0.json") as f:
-        k1 = json.load(f)
+    # The crashed attempt writes its record too (os._exit); the resumed
+    # one is the last.
+    k1 = k1_records(out + ".k1.jsonl", partial=False)[-1]
     a = tree_outcomes(res.tree)
     b = tree_outcomes(Tree.load(out + ".tree.pkl"))
     cells, other = differing_cells(a, b)
@@ -7082,7 +7176,7 @@ def supervised_flagship(dev, res, n_k1: int, tmp: str) -> dict:
         f"{res.stats['regions']}), uncertified {st['uncertified']}, steps "
         f"{st['steps']} (phase 3: {res.stats['steps']}), point solves "
         f"{st['point_solves']} (phase 3: {res.stats['point_solves']}); the "
-        f"resumed process's K1 launches {k1['k1_launches']} counted from "
+        f"resumed process's K1 launches {k1['k1']} counted from "
         f"zero (phase 3's whole build: {n_k1}); tree "
         f"{'equal to' if a == b else 'NOT equal to'} phase 3's cell for "
         f"cell ({len(a)} / {len(b)} cells, {len(cells)} decided "
@@ -7101,9 +7195,9 @@ def supervised_flagship(dev, res, n_k1: int, tmp: str) -> dict:
             f": commutation {a[key][1]} in phase 3, {b[key][1]} resumed")
     check_build("22b resumed build", st, REF_REGIONS if dev.type == "cuda"
                 else res.stats["regions"], REF_UNCERTIFIED_MAX)
-    if dev.type == "cuda" and k1["k1_launches"] <= 0:
-        fail("22b: the resumed process launched no K1")
-    return {"resumed_launches": k1["k1_launches"],
+    if dev.type == "cuda" and (k1["rc"] != 0 or k1["k1"] <= 0):
+        fail(f"22b: the resumed process launched no K1 ({k1})")
+    return {"resumed_launches": k1["k1"],
             "resumed_regions": st["regions"],
             "resumed_identical": a == b,
             "resumed_differing_cells": len(cells), "resumed_wall_s": wall}
@@ -7209,13 +7303,6 @@ WATCH_POLL_S = 0.005
 PREFLIGHT_ARGV = ["--only", "lint,drift_smoke"]
 
 
-def _k1_log(path: str) -> list:
-    if not os.path.exists(path):
-        return []
-    with open(path) as f:
-        return [json.loads(ln) for ln in f]
-
-
 def fleet_smoke_phase(dev, tmp: str) -> dict:
     """23a: tools/fleet_smoke.py on `dev`'s backend in both modes, every
     child through counted_cli: the supervised chain killed at its 2nd
@@ -7237,21 +7324,16 @@ def fleet_smoke_phase(dev, tmp: str) -> dict:
                       ("sharded", fleet_smoke.run_sharded_smoke)):
         wd = os.path.join(tmp, f"23a_{mode}")
         os.makedirs(wd)
-        k1_log = os.path.join(tmp, f"23a_{mode}_k1.jsonl")
-        os.environ["CHAOS_K1_LOG"] = k1_log
         verdict: dict = {}
         failures: list = []
         t0 = time.perf_counter()
-        try:
+        with k1_log_env(os.path.join(tmp, f"23a_{mode}_k1.jsonl")) as k1_log:
             rc = run(wd, args, verdict, failures, entry=entry)
-        finally:
-            os.environ.pop("CHAOS_K1_LOG", None)
         wall = time.perf_counter() - t0
         k1 = {}
-        for rec in _k1_log(k1_log):
-            run_name = os.path.basename(rec["argv"][rec["argv"].index("-o")
-                                                    + 1])
-            k1.setdefault(run_name, []).append(rec["k1"])
+        for rec in k1_records(k1_log, partial=False):
+            k1.setdefault(os.path.basename(_output_of(rec["argv"])),
+                          []).append(rec["k1"])
         builds = {k: verdict[k] for k in ("reference", "fleet", "sharded")
                   if k in verdict}
         log(f"[operator] 23a tools/fleet_smoke {mode} on {dev.type} (eps "
@@ -7283,7 +7365,7 @@ def _watched_build(dev, prefix: str, k1_log: str):
 
     argv = chaos_suite.build_argv(prefix, FLEET_EPS, FLEET_BATCH,
                                   dev.type) + ["--obs", "jsonl"]
-    env = dict(os.environ, CHAOS_K1_LOG=k1_log)
+    env = dict(os.environ, **{K1_LOG_ENV: k1_log})
     env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
     with open(prefix + ".log", "wb") as f:
         proc = subprocess.Popen([sys.executable, "-c", _CHAOS_MAIN] + argv,
@@ -7372,8 +7454,8 @@ def watch_phase(dev, tmp: str) -> dict:
     if rc != 2 or "health.stall" not in names:
         fail(f"23b: the watcher of the stopped build exited {rc} with "
              f"{names}, expected 2 with health.stall")
-    k1 = {os.path.basename(r["argv"][r["argv"].index("-o") + 1]): r["k1"]
-          for r in _k1_log(k1_log)}
+    k1 = {os.path.basename(_output_of(r["argv"])): r["k1"]
+          for r in k1_records(k1_log, partial=False)}
     log(f"[operator] 23b K1 launches by build {k1}")
     if dev.type == "cuda" and k1.get("23b_live", 0) <= 0:
         fail(f"23b: the live build launched no K1 ({k1})")
@@ -7508,6 +7590,813 @@ def operator_tools_only() -> int:
     log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_operator_") as tmp:
         out = operator_tools_phase(dev, tmp)
+    log(json.dumps(out))
+    return 0
+
+
+# -- phase 24: the capture tools (precision_check, tune_schedule,
+# onset_probe, long_build), each tool a process of its own ------------------
+
+_COUNTED_TOOL = ("import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.counted_tool(sys.argv[1:]))")
+CAPTURE_TIMEOUT_S = 900.0
+#: 24a: tools/precision_check at the JAX script's defaults (the flagship
+#: pendulum, eps 0.1, 256 points; PREC_ENV adds knobs), on the device and,
+#: as the reference, on the CPU at the same seed (precision_reference:
+#: the whole script starts it before phase 23 and it shares the host with
+#: phases 23 and 24).  Every phase-24 child runs its CPU work on at most
+#: CAPTURE_THREADS threads, so that two children never ask for more
+#: threads than the host has cores.  The JAX package's CPU capture
+#: (artifacts/precision_cpu.json): regions and tree nodes of its mixed and
+#: f64 builds.
+PREC_ENV: dict = {}
+CAPTURE_THREADS = 4
+PREC_JAX_BUILDS = {"mixed": (2146, 4288), "f64": (2150, 4296)}
+PREC_TOL = 0.02
+#: The acceptance step alone at phase 14's sub-boxes ("5b": K1's large
+#: path, "4c": its general path), at this many thetas (256 and 432 QPs;
+#: the CPU reference, in the same background process as precision_check's,
+#: spends about a minute on the 5b grid), and the path each must launch
+#: on the card.
+PREC_SUBBOXES = (
+    ("5b", "quadrotor", (("param", "pv"), ("pos_box", 0.4),
+                         ("vel_box", 0.2)), "large"),
+    ("4c", "satellite", (("axes", 3), ("omega_box", 0.03),
+                         ("h_box", 0.3)), "general"))
+PREC_SUBBOX_POINTS = 16
+#: K1's float32 leg timed alone (f32_leg_cells) at the shapes 24a's builds
+#: give it -- the flagship's point (5, 35) and joint (8, 39) QPs, the 5b
+#: and 4c point QPs -- on F32_K QPs as qp_solve hands them to the leg,
+#: F32_ITERS iterations (the mixed schedule's float32 share).
+F32_K = 256
+F32_ITERS = 20
+#: How the float32 leg is held against its plain version on those inputs.
+#: Float32 iterates near an IPM's end move with the last bits of every
+#: operation (the joint QPs are elastic, rho 1e4, with a 1e-9 ridge; most
+#: random point QPs are infeasible and diverge), so the limits come from
+#: two witnesses of how far the plain leg itself moves on the same rows:
+#: the plain leg on the CPU (another summation order; after F32_ITERS only
+#: on the first F32_CPU_ROWS rows the plain leg on the card finishes,
+#: since on all 256 it takes about a minute at 5b and half one at 4c),
+#: and the plain leg on the card with q, A and b moved by one float32 ulp
+#: (F32_ULP_SEED).
+#: After F32_SHORT_ITERS iteration, before that movement compounds, every
+#: row is held: the kernel's largest relative gap to the plain leg at most
+#: F32_SHORT_X times the witnesses' largest.  After F32_ITERS: the rows
+#: more than F32_OFF apart at most F32_ROWS_X times the witnesses' (as a
+#: share of the rows each compares) plus max(2, 2% of the rows); the
+#: kernel's count of finite rows as far from the plain leg's as F32_ROWS_X
+#: times the moved inputs' plus that; and against the float64 iterates
+#: from the same start (the plain leg in float64), the kernel's rows more
+#: than F32_OFF apart at most F32_ROWS_X times the plain float32 leg's
+#: share plus that.
+F32_SHORT_ITERS = 1
+F32_SHORT_X = 10.0
+F32_OFF = 1e-3
+F32_ROWS_X = 2
+F32_ULP_SEED = 24
+F32_CPU_ROWS = 64
+#: The float64 iterations that polish the row the kernel puts farthest
+#: from its plain version, from each leg's result (the mixed schedule's
+#: float64 share): logged, to show whether the two starts end alike.
+F32_POLISH_ITERS = 10
+#: 24b: tools/tune_schedule at the JAX script's defaults (the flagship,
+#: 512 points, eps 0.2; TUNE_ENV adds knobs).
+TUNE_ENV: dict = {}
+#: 24c: tools/onset_probe's default families over their whole ladders
+#: (ONSET_ENV adds knobs), each build's budget, and the JAX package's
+#: regions a rung as (least, most) over its own CPU runs under precision
+#: mixed on two hosts: artifacts/onset_probes.json (29 / 96 / 1,208 for
+#: the quadrotor), and `BENCH_PLATFORM=cpu ONSET_FAMILIES=quadrotor
+#: ONSET_BUDGET=900 python3 scripts/onset_probe.py` run twice on another
+#: host, 24 / 96 / 1,253 both times (PERF.md section 6; the script takes
+#: no seed).  The quadrotor's float32 leg goes non-finite on about a
+#: fifth of its joint QPs, a different fifth in each implementation
+#: (ROADMAP section C), and the reference's own mixed trees differ
+#: between those two hosts.  A rung is held to that span within
+#: 2% or 1 region, whichever is larger (exact ties in a vertex's best
+#: commutation).
+#: Only the quadrotor's top rung (248.6 s in the JAX capture) may be cut
+#: by its budget.
+ONSET_ENV: dict = {}
+ONSET_BUDGET_S = 90
+ONSET_JAX_REGIONS = {"satellite": ((720, 720), (1224, 1224), (7744, 7744)),
+                     "quadrotor": ((24, 29), (96, 96), (1208, 1253))}
+ONSET_MAY_TRUNCATE = ("quadrotor", 0.1)
+#: The K1 path each family's QPs take (satellite nz 24, quadrotor nz 60).
+ONSET_PATHS = {"satellite": "general", "quadrotor": "large"}
+#: 24d: tools/long_build on the flagship at eps 1e-2, checkpointed every
+#: 20 steps, its batch and depth at PartitionConfig's defaults (phase 3's
+#: build); the first process is SIGKILLed after its 2nd progress row and
+#: a second one resumes it.  Held to phase 3's bar (LONG_REF: regions,
+#: uncertified at most).
+LONG_ENV = {"LONG_EPS": "1e-2", "LONG_CKPT_EVERY": "20",
+            "LONG_BATCH": "256", "LONG_MAX_DEPTH": "40"}
+LONG_KILL_AFTER_ROWS = 2
+LONG_REF = (REF_REGIONS, REF_UNCERTIFIED_MAX)
+CAPTURE_POLL_S = 0.05
+
+
+def _tool_child(dev, name: str, argv: list, env_extra: dict, tmp: str,
+                tag: str):
+    """One counted_tool child (`name` with `argv`, on `dev`'s backend
+    unless argv names one, on CAPTURE_THREADS threads), its output in
+    <tmp>/<tag>.log; the process."""
+    env = dict(os.environ, **{K1_LOG_ENV: os.path.join(tmp, "24_k1.jsonl")},
+               OMP_NUM_THREADS=str(CAPTURE_THREADS), **env_extra)
+    env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
+    if "--backend" not in argv:
+        argv = ["--backend", dev.type] + argv
+    with open(os.path.join(tmp, f"{tag}.log"), "wb") as f:
+        return subprocess.Popen(
+            [sys.executable, "-c", _COUNTED_TOOL, name] + argv,
+            cwd=_root(), env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def _tool_done(proc, tmp: str, tag: str, what: str) -> int:
+    """Waits for a _tool_child; fails the phase when it outlives
+    CAPTURE_TIMEOUT_S (the process killed first), with the log's tail."""
+    try:
+        return proc.wait(CAPTURE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        with open(os.path.join(tmp, f"{tag}.log"), "rb") as f:
+            tail = f.read()[-2000:].decode(errors="replace")
+        fail(f"{what}: no exit within {CAPTURE_TIMEOUT_S:.0f} s\n{tail}")
+
+
+def _tool_k1(tmp: str, pid: int) -> list:
+    """The K1 records (counted_tool) of process `pid`, in order."""
+    return k1_records(os.path.join(tmp, "24_k1.jsonl"), pid=pid)
+
+
+def _read_json(path: str) -> dict | None:
+    """A tool's JSON, or None while it is absent or half written."""
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _k1_text(k1: dict) -> str:
+    return ", ".join(
+        f"{k} {v['launches']}" + (f" ({v['ms']:.2f} ms)" if v["ms"]
+                                  is not None else "")
+        for k, v in k1.items()) or "none"
+
+
+def _need_k1(what: str, k1: dict, paths, dtypes=("float32", "float64")):
+    """On the card: fail unless the kernel ran at every one of `paths` in
+    every one of `dtypes`."""
+    for p in paths:
+        for d in dtypes:
+            if not k1.get(f"cuda:{p}:{d}", {}).get("launches"):
+                fail(f"{what}: K1's {p} path never launched in {d} "
+                     f"({_k1_text(k1)})")
+
+
+def _tool_failed(what: str, rc: int, res: dict | None, tmp: str,
+                 tag: str) -> None:
+    if res is None or "error" in res:
+        with open(os.path.join(tmp, f"{tag}.log"), "rb") as f:
+            tail = f.read()[-3000:].decode(errors="replace")
+        fail(f"{what}: exit {rc}, error "
+             f"{(res or {}).get('error', 'no JSON written')}\n{tail}")
+
+
+def leg_rows(xs, ys):
+    """Per row of two legs' (z, s, lam): whether each finished (every
+    entry finite), and the largest |x - y| / (1 + |y|) over the three in
+    f64 where both did (0 elsewhere)."""
+    import torch
+
+    fx, fy = (torch.stack([torch.isfinite(t).all(1) for t in v]).all(0)
+              for v in (xs, ys))
+    gap = torch.stack([((x.double() - y.double()).abs()
+                        / (1 + y.double().abs())).amax(1)
+                       for x, y in zip(xs, ys)]).amax(0)
+    return fx, fy, torch.where(fx & fy, gap, torch.zeros_like(gap))
+
+
+def f32_leg_verdict(label: str, short: dict, long: dict) -> dict:
+    """24a's hold on K1's float32 leg at one shape.  `short` and `long`:
+    the legs' (z, s, lam) after F32_SHORT_ITERS and F32_ITERS iterations
+    on the same inputs, by name: "kernel", "plain" (its plain version on
+    the card) and the witnesses "plain_cpu" and "plain_ulp" (see
+    F32_SHORT_X; a row the CPU witness did not run is NaN); `long` also
+    holds "f64", the plain leg in float64 from the same start.  Fails where the kernel leaves a row unfinished after
+    the short leg that the plain leg finishes, where its short gap
+    exceeds F32_SHORT_X times the witnesses' largest, or where its rows
+    apart, its finite count or its rows apart from the float64 iterates
+    after the long leg exceed what the witnesses allow; returns the
+    figures."""
+    import math
+
+    K = short["plain"][0].shape[0]
+    slack = max(2, math.ceil(0.02 * K))
+    v: dict = {}
+    for n, legs in (("short", short), ("long", long)):
+        fk, fp, gk = leg_rows(legs["kernel"], legs["plain"])
+        v[n] = {"finite": {"kernel": int(fk.sum()), "plain": int(fp.sum())},
+                "max_gap": {"kernel": float(gk.max())},
+                "apart": {"kernel": int((gk > F32_OFF).sum())},
+                "rows": {"kernel": int((fk & fp).sum())}}
+        if n == "short":
+            v[n]["lost"] = int((fp & ~fk).sum())
+        for w in ("plain_cpu", "plain_ulp"):
+            fw, _fp, gw = leg_rows(legs[w], legs["plain"])
+            v[n]["finite"][w] = int(fw.sum())
+            v[n]["max_gap"][w] = float(gw.max())
+            v[n]["apart"][w] = int((gw > F32_OFF).sum())
+            v[n]["rows"][w] = int((fw & fp).sum())
+    sh, lo = v["short"], v["long"]
+    fk, fp, gk = leg_rows(long["kernel"], long["plain"])
+    fk64, _f, gk64 = leg_rows(long["kernel"], long["f64"])
+    fp64, _f, gp64 = leg_rows(long["plain"], long["f64"])
+    far = int(gk.argmax())
+    lo["to_f64"] = {"kernel": int((gk64 > F32_OFF).sum()),
+                    "plain": int((gp64 > F32_OFF).sum()),
+                    "rows_kernel": int(fk64.sum()),
+                    "rows_plain": int(fp64.sum()),
+                    "max_kernel": float(gk64.max()),
+                    "max_plain": float(gp64.max()),
+                    "farthest_row": far, "farthest_kernel": float(gk64[far]),
+                    "farthest_plain": float(gp64[far])}
+    wit = ("plain_cpu", "plain_ulp")
+    v["short_limit"] = F32_SHORT_X * max(sh["max_gap"][w] for w in wit)
+    v["apart_limit"] = F32_ROWS_X * lo["rows"]["kernel"] * max(
+        lo["apart"][w] / max(1, lo["rows"][w]) for w in wit) + slack
+    v["finite_limit"] = F32_ROWS_X * abs(
+        lo["finite"]["plain_ulp"] - lo["finite"]["plain"]) + slack
+    t64 = lo["to_f64"]
+    v["f64_limit"] = F32_ROWS_X * t64["rows_kernel"] * t64["plain"] / max(
+        1, t64["rows_plain"]) + slack
+    if sh["lost"]:
+        fail(f"24a K1 float32 leg {label}: after {F32_SHORT_ITERS} "
+             f"iteration the kernel leaves {sh['lost']} rows unfinished that "
+             "its plain version finishes")
+    if sh["max_gap"]["kernel"] > v["short_limit"]:
+        fail(f"24a K1 float32 leg {label}: after {F32_SHORT_ITERS} "
+             f"iteration the kernel is {sh['max_gap']['kernel']:.3e} from "
+             f"its plain version, the witnesses {sh['max_gap']} (limit "
+             f"{v['short_limit']:.3e})")
+    if lo["apart"]["kernel"] > v["apart_limit"]:
+        fail(f"24a K1 float32 leg {label}: after {F32_ITERS} iterations "
+             f"{lo['apart']['kernel']} rows lie more than {F32_OFF:g} from "
+             f"the plain version, the witnesses {lo['apart']} of "
+             f"{lo['rows']} (limit {v['apart_limit']:.1f})")
+    if abs(lo["finite"]["kernel"] - lo["finite"]["plain"]) \
+            > v["finite_limit"]:
+        fail(f"24a K1 float32 leg {label}: after {F32_ITERS} iterations "
+             f"finite rows {lo['finite']} (limit "
+             f"{v['finite_limit']} off the plain version's)")
+    if t64["kernel"] > v["f64_limit"]:
+        fail(f"24a K1 float32 leg {label}: after {F32_ITERS} iterations "
+             f"{t64['kernel']} of {t64['rows_kernel']} rows lie more than "
+             f"{F32_OFF:g} from the float64 iterates, the plain version "
+             f"{t64['plain']} of {t64['rows_plain']} (limit "
+             f"{v['f64_limit']:.1f})")
+    return v
+
+
+def ulp_moved(args, seed: int):
+    """The leg's inputs with q, A and b each moved by one float32 ulp up
+    or down (random signs from `seed`, made on the host)."""
+    import torch
+
+    g = np.random.default_rng(seed)
+    out = list(args)
+    for i in (1, 2, 3):
+        t = args[i]
+        sign = torch.as_tensor(g.choice((-1.0, 1.0), t.shape),
+                               dtype=t.dtype, device=t.device)
+        out[i] = t * (1 + sign * 2.0 ** -24)
+    return tuple(out)
+
+
+def f32_leg_inputs(prob, kind: str, g, dev, K: int) -> tuple:
+    """The float32 leg's inputs (Q, q, A, b, z, s, lam) as ipm.qp_solve
+    hands them to it under the mixed schedule, on `dev`: K point QPs of
+    `prob` at random thetas and commutations (`kind` "point") or its
+    elastic joint QPs over small simplices ("joint"), drawn from `g`."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm, ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.oracle.oracle import (
+        Oracle, point_qp, simplex_min_qp)
+    from explicit_hybrid_mpc_tpu_torch.partition import geometry
+
+    o = Oracle(prob, backend=dev.type, precision="mixed")
+    ds = torch.as_tensor(g.integers(0, prob.canonical.n_delta, K),
+                         device=dev)
+    lb, ub = prob.theta_lb, prob.theta_ub
+    if kind == "point":
+        th = torch.as_tensor(g.uniform(lb, ub, (K, prob.n_theta)),
+                             device=dev)
+        qp = point_qp(o.prob, th, ds)
+    else:
+        lo = lb + 0.8 * (ub - lb) * g.random((K, prob.n_theta))
+        Ms = np.stack([geometry.barycentric_matrix(np.vstack(
+            [v, v + 0.1 * np.diag(ub - lb)])) for v in lo])
+        qp = simplex_min_qp(o.prob, torch.as_tensor(Ms, device=dev), ds)
+    keep: dict = {}
+    name = "ipm_leg_cuda" if dev.type == "cuda" else "ipm_leg_torch"
+    real = getattr(ipm_leg, name)
+
+    def capture(Q, q, A, b, z, s, lam, n_iter):
+        if Q.dtype == torch.float32:
+            keep["args"] = tuple(t.clone() for t in (Q, q, A, b, z, s, lam))
+        return real(Q, q, A, b, z, s, lam, n_iter)
+    setattr(ipm_leg, name, capture)
+    try:
+        ipm.qp_solve(*qp, n_iter=o.n_iter, n_f32=o.n_f32)
+    finally:
+        setattr(ipm_leg, name, real)
+    return keep["args"]
+
+
+def f32_leg_cells(dev) -> list:
+    """On the card, K1's float32 leg at each F32 shape: its inputs
+    captured from ipm.qp_solve's float32 call (random thetas or small
+    simplices of the problem, F32_K QPs), F32_ITERS iterations timed by
+    CUDA events (the timed launch bitwise the wrapper's) beside the
+    plain version's time and the bound at the float32 rate, and the
+    kernel held against its plain version after F32_SHORT_ITERS and
+    F32_ITERS iterations by f32_leg_verdict."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    if dev.type != "cuda":
+        return []
+    g = np.random.default_rng(SEED + 24)
+    pend = make("inverted_pendulum")
+    cases = [("flagship point", pend, "point"),
+             ("flagship joint", pend, "joint")] + [
+        (f"{tag} point", make(name, **dict(args)), "point")
+        for tag, name, args, _path in PREC_SUBBOXES]
+    rows = []
+    real = ipm_leg.ipm_leg_cuda
+    for label, prob, kind in cases:
+        args = f32_leg_inputs(prob, kind, g, dev, F32_K)
+        K, nz = args[1].shape
+        nc = args[3].shape[1]
+        lib = ipm_leg._lib()
+        launch, out = raw_leg(lib.ipm_leg_f32, args, F32_ITERS)
+        launch()
+        wrapped = real(*args, F32_ITERS)
+        torch.cuda.synchronize()
+        if not all(a.view(torch.int32).equal(b.view(torch.int32))
+                   for a, b in zip(out, wrapped)):
+            fail(f"24a K1 float32 leg {label}: the timed launch is not "
+                 "bitwise the wrapper's")
+        host = tuple(t.cpu() for t in args)
+        moved = ulp_moved(args, F32_ULP_SEED)
+        legs = {}
+        for n in (F32_SHORT_ITERS, F32_ITERS):
+            plain = plain_leg(args, n)
+            rows_p = torch.stack([torch.isfinite(t).all(1)
+                                  for t in plain]).all(0).nonzero()[:, 0]
+            rows_p = (torch.arange(K, device=dev) if n == F32_SHORT_ITERS
+                      else rows_p[:F32_CPU_ROWS])
+            cpu = tuple(torch.full_like(t, float("nan")) for t in plain)
+            if rows_p.numel():
+                on_cpu = plain_leg(tuple(t[rows_p.cpu()] for t in host), n)
+                for c, t in zip(cpu, on_cpu):
+                    c[rows_p] = t.to(dev)
+            legs[n] = {"kernel": out if n == F32_ITERS else real(*args, n),
+                       "plain": plain, "plain_cpu": cpu,
+                       "plain_ulp": plain_leg(moved, n)}
+        legs[F32_ITERS]["f64"] = plain_leg(tuple(t.double() for t in args),
+                                           F32_ITERS)
+        torch.cuda.synchronize()
+        v = f32_leg_verdict(f"{label} ({nz}, {nc})", legs[F32_SHORT_ITERS],
+                            legs[F32_ITERS])
+        ms = cuda_time(launch, 10)
+        plain_ms = cuda_time(lambda: plain_leg(args, F32_ITERS), 1, 0)
+        nbytes, flops = ipm_leg_cost(K, nz, nc, F32_ITERS, 4)
+        bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
+        by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_S \
+            else "operations"
+        sh, lg = v["short"], v["long"]
+        rows.append({"label": label, "nz": nz, "nc": nc, "K": K,
+                     "n_iter": F32_ITERS, "path": k1_path(nz, nc),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": None, "held": v})
+        log(f"[capture] 24a K1 float32 leg, {label} QPs ({nz}, {nc}), K "
+            f"{K}, {F32_ITERS} iterations ({k1_path(nz, nc)} path): kernel "
+            f"{ms:.4f} ms (CUDA events, 10 launches), plain version "
+            f"{plain_ms:.2f} ms, bound {bound:.5f} ms ({by}, float32 "
+            f"{PEAK_F32_S / 1e12:.0f} TFLOP/s)")
+        log(f"[capture]   against the plain version on the card, witnesses "
+            f"the plain version on the CPU / on inputs one ulp moved: after "
+            f"{F32_SHORT_ITERS} iteration largest gap kernel "
+            f"{sh['max_gap']['kernel']:.3e}, witnesses "
+            f"{sh['max_gap']['plain_cpu']:.3e} / "
+            f"{sh['max_gap']['plain_ulp']:.3e} (limit "
+            f"{v['short_limit']:.3e}); after {F32_ITERS}: finite rows kernel "
+            f"{lg['finite']['kernel']}, plain {lg['finite']['plain']}, "
+            f"witnesses {lg['finite']['plain_cpu']} (of the "
+            f"{min(lg['finite']['plain'], F32_CPU_ROWS)} it ran) / "
+            f"{lg['finite']['plain_ulp']} of {K} (limit "
+            f"{v['finite_limit']} off); rows more than {F32_OFF:g} apart "
+            f"kernel {lg['apart']['kernel']} of {lg['rows']['kernel']}, "
+            f"witnesses {lg['apart']['plain_cpu']} of "
+            f"{lg['rows']['plain_cpu']} / {lg['apart']['plain_ulp']} of "
+            f"{lg['rows']['plain_ulp']} (limit {v['apart_limit']:.1f}); "
+            "largest gap kernel "
+            f"{lg['max_gap']['kernel']:.3e}, witnesses "
+            f"{lg['max_gap']['plain_cpu']:.3e} / "
+            f"{lg['max_gap']['plain_ulp']:.3e}")
+        t64 = lg["to_f64"]
+        far = t64["farthest_row"]
+        objs = []
+        for start in (legs[F32_ITERS]["kernel"], legs[F32_ITERS]["plain"]):
+            row = tuple(t[far:far + 1].double() for t in (*args[:4], *start))
+            z = plain_leg(row, F32_POLISH_ITERS)[0][0]
+            Q, q = row[0][0], row[1][0]
+            objs.append(float(0.5 * z @ Q @ z + q @ z))
+        log(f"[capture]   against the float64 iterates from the same start "
+            f"(the plain version in float64): rows more than {F32_OFF:g} "
+            f"apart kernel {t64['kernel']} of {t64['rows_kernel']}, plain "
+            f"version {t64['plain']} of {t64['rows_plain']} (limit "
+            f"{v['f64_limit']:.1f}), largest gap kernel "
+            f"{t64['max_kernel']:.3e}, plain version {t64['max_plain']:.3e}; "
+            f"the row the kernel lies farthest from its plain version "
+            f"({t64['farthest_row']}) lies {t64['farthest_kernel']:.3e} from "
+            f"the float64 iterates, the plain version "
+            f"{t64['farthest_plain']:.3e}; polished in float64 for "
+            f"{F32_POLISH_ITERS} iterations from each, its objective "
+            f"{objs[0]!r} from the kernel's, {objs[1]!r} from the plain "
+            "version's")
+    return rows
+
+
+def precision_phase(dev, tmp: str, ref_proc) -> dict:
+    """24a: precision_check on `dev` against its run on the CPU
+    (`ref_proc`, started by the caller): f32_accept_rate within PREC_TOL,
+    the same verdict (regions equal, eps-sound, the exit rule), both
+    builds' regions and tree nodes beside the JAX package's capture, K1
+    by path and dtype; then the acceptance step at PREC_SUBBOXES on
+    `dev` and on the CPU, f32_accept_rate and converged_frac within
+    PREC_TOL, and on the card each sub-box's path launched in both
+    dtypes."""
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+    from explicit_hybrid_mpc_tpu_torch.tools import precision_check
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    out_dev = os.path.join(tmp, "24a_device.json")
+    proc = _tool_child(dev, "precision_check",
+                       ["--out", out_dev, "--sentinel",
+                        os.path.join(tmp, "24a.sentinel")], PREC_ENV, tmp,
+                       "24a_device")
+    rc = _tool_done(proc, tmp, "24a_device", "24a precision_check")
+    wall = time.perf_counter() - t0
+    res = _read_json(out_dev)
+    _tool_failed("24a precision_check", rc, res, tmp, "24a_device")
+    k1 = _tool_k1(tmp, proc.pid)[-1]
+    rc_ref = _tool_done(ref_proc, tmp, "24a_cpu", "24a precision_check on "
+                        "the CPU")
+    ref = _read_json(os.path.join(tmp, "24a_cpu.json"))
+    _tool_failed("24a precision_check on the CPU", rc_ref, ref, tmp,
+                 "24a_cpu")
+    verdict = {}
+    for name, r, c in (("device", res, rc), ("cpu", ref, rc_ref)):
+        verdict[name] = (r.get("mixed_vs_f64_regions_equal"),
+                         r.get("mixed_eps_sound"), c)
+        log(f"[capture] 24a precision_check ({r['problem']}, "
+            f"{r['sampled_instances']} instances) on {name} "
+            f"({r['platform']}): f32_accept_rate {r['f32_accept_rate']} "
+            f"(converged {r['f32_accept_rate_converged']}), converged_frac "
+            f"mixed {r['mixed_kkt']['converged_frac']} / f64 "
+            f"{r['f64_kkt']['converged_frac']}, max |dobj| "
+            f"{r['max_obj_diff_mixed_vs_f64']}; builds "
+            + ", ".join(f"{p} {b['regions']} regions / {b['tree_nodes']} "
+                        f"nodes in {b['wall_s']} s"
+                        for p, b in r["builds"].items())
+            + f" (the JAX package's CPU capture: "
+            + ", ".join(f"{p} {n[0]} / {n[1]}"
+                        for p, n in PREC_JAX_BUILDS.items())
+            + f"); regions_equal {verdict[name][0]}, eps_sound "
+            f"{verdict[name][1]} {r.get('mixed_sound_sampled')}, exit "
+            f"{c}")
+    log(f"[capture] 24a K1 on {dev.type} (the whole process, {wall:.1f} "
+        f"s): {_k1_text(k1['k1_by'])}; by build: " + "; ".join(
+            f"{b['regions']} regions: {_k1_text(b['k1_by'])}"
+            for b in k1["builds"]))
+    gap = abs(res["f32_accept_rate"] - ref["f32_accept_rate"])
+    if gap > PREC_TOL:
+        fail(f"24a: f32_accept_rate {res['f32_accept_rate']} on {dev.type} "
+             f"against {ref['f32_accept_rate']} on the CPU")
+    if verdict["device"] != verdict["cpu"]:
+        fail(f"24a: the verdict on {dev.type} {verdict['device']} is not "
+             f"the CPU's {verdict['cpu']} (regions_equal, eps_sound, exit)")
+    if on_card:
+        _need_k1("24a", k1["k1_by"], ("register",))
+    out = {"prec_accept": res["f32_accept_rate"],
+           "prec_accept_cpu": ref["f32_accept_rate"],
+           "prec_verdict": list(verdict["device"]),
+           "prec_builds": {p: [b["regions"], b["tree_nodes"]]
+                           for p, b in res["builds"].items()},
+           "prec_k1": k1["k1_by"], "prec_wall_s": wall}
+    with open(os.path.join(tmp, "24a_subbox_cpu.json")) as f:
+        sub_ref = json.load(f)
+    for tag, name, args, path in PREC_SUBBOXES:
+        prob = make(name, **dict(args))
+        with K1Tally() as t:
+            acc = precision_check.acceptance(prob, dev, PREC_SUBBOX_POINTS)
+        sub_k1 = t.summary()
+        acc_ref = sub_ref[tag]
+        c, c_ref = (a["mixed_kkt"]["converged_frac"] for a in (acc, acc_ref))
+        log(f"[capture] 24a acceptance step at {tag} ({name} "
+            f"{dict(args)}, nz {prob.canonical.nz}, nc {prob.canonical.nc}, "
+            f"{acc['sampled_instances']} instances): f32_accept_rate "
+            f"{acc['f32_accept_rate']} on {dev.type}, "
+            f"{acc_ref['f32_accept_rate']} on the CPU; converged_frac mixed "
+            f"{c} / {c_ref}, f64 {acc['f64_kkt']['converged_frac']} / "
+            f"{acc_ref['f64_kkt']['converged_frac']}; K1 {_k1_text(sub_k1)}")
+        if abs(acc["f32_accept_rate"] - acc_ref["f32_accept_rate"]) \
+                > PREC_TOL or abs(c - c_ref) > PREC_TOL:
+            fail(f"24a {tag}: f32_accept_rate {acc['f32_accept_rate']} / "
+                 f"{acc_ref['f32_accept_rate']}, converged_frac {c} / {c_ref}"
+                 f" ({dev.type} / CPU) differ by more than {PREC_TOL}")
+        if on_card:
+            _need_k1(f"24a {tag}", sub_k1, (path,))
+        out[f"prec_{tag}"] = {"accept": acc["f32_accept_rate"],
+                              "accept_cpu": acc_ref["f32_accept_rate"],
+                              "converged": c, "converged_cpu": c_ref,
+                              "k1": sub_k1}
+    out["prec_f32_cells"] = f32_leg_cells(dev)
+    return out
+
+
+def tune_phase(dev, tmp: str) -> dict:
+    """24b: tune_schedule on `dev`: the seven rows, the fastest schedule
+    that keeps parity, the all-f64 row's µs a QP beside the fastest
+    mixed row's.  No bar on speed; fails on an error, and on the card
+    unless K1 ran in both dtypes."""
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "24b.json")
+    proc = _tool_child(dev, "tune_schedule",
+                       ["--out", path, "--sentinel",
+                        os.path.join(tmp, "24b.sentinel")], TUNE_ENV, tmp,
+                       "24b")
+    rc = _tool_done(proc, tmp, "24b", "24b tune_schedule")
+    wall = time.perf_counter() - t0
+    res = _read_json(path)
+    _tool_failed("24b tune_schedule", rc, res, tmp, "24b")
+    k1 = _tool_k1(tmp, proc.pid)[-1]
+    rows = res["schedules"]
+    for r in rows:
+        log(f"[capture] 24b {json.dumps(r)}")
+    ok = [r for r in rows if "error" not in r]
+    f64 = [r for r in ok if r["n_f32"] == 0]
+    mixed = sorted((r for r in ok if r["n_f32"] > 0),
+                   key=lambda r: r["point_us_per_qp"])
+    log(f"[capture] 24b tune_schedule ({res['problem']}, {res['n_points']} "
+        f"points) on {dev.type} in {wall:.1f} s: fastest_parity_ok "
+        f"{res.get('fastest_parity_ok')}, parity builds "
+        f"{json.dumps(res.get('parity_builds'))}; point µs/QP all-f64 "
+        + (f"{f64[0]['point_us_per_qp']}" if f64 else "n/a")
+        + " against the fastest mixed row's "
+        + (f"{mixed[0]['point_us_per_qp']} ("
+           + json.dumps({k: mixed[0].get(k)
+                         for k in ("n_f32", "n_f64", "point", "rescue")})
+           + ")" if mixed else "n/a")
+        + "; simplex µs/QP all-f64 "
+        + (f"{f64[0]['simplex_us_per_qp']}" if f64 else "n/a")
+        + f"; K1 {_k1_text(k1['k1_by'])}")
+    if len(ok) != len(rows):
+        fail(f"24b: a schedule row failed: "
+             f"{[r for r in rows if 'error' in r]}")
+    if dev.type == "cuda":
+        _need_k1("24b", k1["k1_by"], ("register",))
+    return {"tune_rows": rows,
+            "tune_fastest_parity_ok": res.get("fastest_parity_ok"),
+            "tune_k1": k1["k1_by"], "tune_wall_s": wall}
+
+
+def onset_phase(dev, tmp: str) -> dict:
+    """24c: onset_probe on `dev` under ONSET_BUDGET_S a build: every rung
+    complete and within 2% (or 1 region) of ONSET_JAX_REGIONS, but for
+    ONSET_MAY_TRUNCATE, which may be cut by its budget (reported); each
+    build's K1 by path and dtype, and on the card each family's path in
+    both dtypes."""
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "24c.json")
+    proc = _tool_child(dev, "onset_probe",
+                       ["--out", path, "--sentinel",
+                        os.path.join(tmp, "24c.sentinel")],
+                       {"ONSET_BUDGET": str(ONSET_BUDGET_S), **ONSET_ENV},
+                       tmp, "24c")
+    rc = _tool_done(proc, tmp, "24c", "24c onset_probe")
+    wall = time.perf_counter() - t0
+    res = _read_json(path)
+    _tool_failed("24c onset_probe", rc, res, tmp, "24c")
+    k1 = _tool_k1(tmp, proc.pid)[-1]
+    builds = iter(k1["builds"])
+    out: dict = {"onset_rows": {}, "onset_cut": []}
+    for fam, rows in res["families"].items():
+        ref = ONSET_JAX_REGIONS.get(fam, ())
+        for i, r in enumerate(rows):
+            b = next(builds)
+            jax_r = ref[i] if i < len(ref) else None
+            span = (None if jax_r is None else str(jax_r[0])
+                    if jax_r[0] == jax_r[1] else f"{jax_r[0]}-{jax_r[1]}")
+            log(f"[capture] 24c {fam} scale {r['scale']}: {r['regions']} "
+                f"regions (JAX {span}), uncertified {r['uncertified']}, "
+                f"truncated {r['truncated']}, volume_certified_frac "
+                f"{r['volume_certified_frac']}, projected "
+                f"{r['projected_full_box_regions']}, {r['wall_s']} s; K1 "
+                f"{_k1_text(b['k1_by'])}")
+            out["onset_rows"][f"{fam}@{r['scale']}"] = {
+                "regions": r["regions"], "complete": r["complete"],
+                "wall_s": r["wall_s"], "k1": b["k1_by"]}
+            if not r["complete"] and (fam, r["scale"]) == ONSET_MAY_TRUNCATE \
+                    and r["truncated"]:
+                log(f"[capture] 24c {fam} scale {r['scale']} was cut by "
+                    f"its {ONSET_BUDGET_S} s budget (not held to the JAX "
+                    "rung)")
+                out["onset_cut"].append(f"{fam}@{r['scale']}")
+                continue
+            if not r["complete"]:
+                fail(f"24c {fam} scale {r['scale']}: not complete ({r})")
+            if jax_r is not None and not (
+                    jax_r[0] - max(1, 0.02 * jax_r[0]) <= r["regions"]
+                    <= jax_r[1] + max(1, 0.02 * jax_r[1])):
+                fail(f"24c {fam} scale {r['scale']}: {r['regions']} regions "
+                     f"against the JAX package's {span}")
+        if dev.type == "cuda" and fam in ONSET_PATHS:
+            fam_k1: dict = {}
+            for row in rows:
+                for k, v in out["onset_rows"][
+                        f"{fam}@{row['scale']}"]["k1"].items():
+                    fam_k1.setdefault(k, {"launches": 0, "ms": None})
+                    fam_k1[k]["launches"] += v["launches"]
+            _need_k1(f"24c {fam}", fam_k1, (ONSET_PATHS[fam],))
+    log(f"[capture] 24c onset_probe on {dev.type} took {wall:.1f} s; K1 "
+        f"{_k1_text(k1['k1_by'])}")
+    out.update(onset_k1=k1["k1_by"], onset_wall_s=wall)
+    return out
+
+
+def long_build_phase(dev, tmp: str) -> dict:
+    """24d: long_build on the flagship (LONG_ENV), its first process
+    SIGKILLed after LONG_KILL_AFTER_ROWS progress rows (SIGUSR1 first, for
+    its K1 count), a second one resumed to a drained frontier: the
+    regions and uncertified within LONG_REF's bar, resumed_from_step the
+    last killed row's step, the progress rows continuous across the
+    restart, each process's K1 and the online µs a query."""
+    import signal
+
+    t0 = time.perf_counter()
+    wd = os.path.join(tmp, "24d")
+    os.makedirs(wd)
+    path = os.path.join(wd, "long_build.json")
+    argv = ["--out", path, "--sentinel", os.path.join(wd, "sentinel")]
+    proc = _tool_child(dev, "long_build", argv, LONG_ENV, tmp, "24d_1")
+    rows: list = []
+    while len(rows) < LONG_KILL_AFTER_ROWS:
+        if proc.poll() is not None:
+            fail(f"24d: the first process exited {proc.returncode} after "
+                 f"{len(rows)} progress rows")
+        if time.perf_counter() - t0 > CAPTURE_TIMEOUT_S:
+            proc.kill()
+            fail("24d: no 2nd progress row in time")
+        time.sleep(CAPTURE_POLL_S)
+        rows = (_read_json(path) or {}).get("progress", [])
+    proc.send_signal(signal.SIGUSR1)
+    while not _tool_k1(tmp, proc.pid) and proc.poll() is None:
+        time.sleep(CAPTURE_POLL_S)
+    proc.send_signal(signal.SIGKILL)
+    proc.wait()
+    killed_rows = (_read_json(path) or {}).get("progress", [])
+    k1_first = (_tool_k1(tmp, proc.pid) or [{"k1_by": {}}])[-1]["k1_by"]
+    t1 = time.perf_counter()
+    proc2 = _tool_child(dev, "long_build", argv, LONG_ENV, tmp, "24d_2")
+    rc = _tool_done(proc2, tmp, "24d_2", "24d long_build (resumed)")
+    res = _read_json(path)
+    _tool_failed("24d long_build (resumed)", rc, res, tmp, "24d_2")
+    k1_second = _tool_k1(tmp, proc2.pid)[-1]["k1_by"]
+    st = res["stats"]
+    steps = [r["steps"] for r in res["progress"]]
+    every = int(LONG_ENV["LONG_CKPT_EVERY"])
+    log(f"[capture] 24d long_build ({res['problem']}, eps "
+        f"{res['eps_a']}, {res['precision']}, checkpoints every {every} "
+        f"steps) on {dev.type}: the first process SIGKILLed after "
+        f"{len(killed_rows)} progress rows (steps "
+        f"{[r['steps'] for r in killed_rows]}); the second resumed from "
+        f"step {res.get('resumed_from_step')} to {res.get('stop_reason')} in "
+        f"{time.perf_counter() - t1:.1f} s: {st['regions']} regions, "
+        f"uncertified {st['uncertified']}, {st['steps']} steps, progress "
+        f"steps {steps}; online {res.get('online_us_per_query')} µs/query "
+        f"over {res.get('online_leaves')} leaves (descent; sharded "
+        f"{res.get('online_us_per_query_sharded')}); K1 first process "
+        f"{_k1_text(k1_first)}, second {_k1_text(k1_second)}")
+    if res.get("stop_reason") != "drained":
+        fail(f"24d: stop_reason {res.get('stop_reason')}")
+    check_build("24d long_build", st, *LONG_REF)
+    if res.get("resumed_from_step") != killed_rows[-1]["steps"] \
+            or steps[:len(killed_rows)] != [r["steps"] for r in killed_rows] \
+            or steps != list(range(every, every * len(steps) + 1, every)):
+        fail(f"24d: resumed from step {res.get('resumed_from_step')}, "
+             f"killed rows {[r['steps'] for r in killed_rows]}, progress "
+             f"{steps}")
+    if dev.type == "cuda":
+        for what, k in (("first", k1_first), ("second", k1_second)):
+            if not any(v["launches"] for key, v in k.items()
+                       if key.startswith("cuda:")):
+                fail(f"24d: the {what} process launched no K1 ({k})")
+    return {"long_regions": st["regions"],
+            "long_resumed_from_step": res.get("resumed_from_step"),
+            "long_k1": [k1_first, k1_second],
+            "long_online_us_per_query": res.get("online_us_per_query"),
+            "long_wall_s": time.perf_counter() - t0}
+
+
+_REFERENCE = ("import sys, chip_smoke; "
+              "sys.exit(chip_smoke.reference_worker(sys.argv[1:]))")
+
+
+def reference_worker(argv: list) -> int:
+    """24a's CPU reference, one process: precision_check --backend cpu
+    through counted_tool into <tmp>/24a_cpu.json, then the acceptance
+    step on the CPU at each sub-box into <tmp>/24a_subbox_cpu.json.
+    argv: tmp, then a JSON of {"points", "subboxes"} (PREC_SUBBOX_*)."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+    from explicit_hybrid_mpc_tpu_torch.tools import precision_check
+
+    tmp, spec = argv[0], json.loads(argv[1])
+    rc = counted_tool(["precision_check", "--backend", "cpu", "--out",
+                       os.path.join(tmp, "24a_cpu.json"), "--sentinel",
+                       os.path.join(tmp, "24a_cpu.sentinel")])
+    subs = {tag: precision_check.acceptance(
+        make(name, **dict(args)), torch.device("cpu"), spec["points"])
+        for tag, name, args, _path in spec["subboxes"]}
+    with open(os.path.join(tmp, "24a_subbox_cpu.json"), "w") as f:
+        json.dump(subs, f)
+    return rc
+
+
+def precision_reference(dev, tmp: str):
+    """24a's reference (reference_worker) as a child on CAPTURE_THREADS
+    threads, its output in <tmp>/24a_cpu.log; the process, which
+    precision_phase waits for."""
+    env = dict(os.environ, **{K1_LOG_ENV: os.path.join(tmp, "24_k1.jsonl")},
+               OMP_NUM_THREADS=str(CAPTURE_THREADS), **PREC_ENV)
+    env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
+    spec = json.dumps({"points": PREC_SUBBOX_POINTS,
+                       "subboxes": PREC_SUBBOXES})
+    with open(os.path.join(tmp, "24a_cpu.log"), "wb") as f:
+        return subprocess.Popen(
+            [sys.executable, "-c", _REFERENCE, tmp, spec], cwd=_root(),
+            env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def capture_tools_phase(dev, tmp: str, ref_proc) -> dict:
+    """Phase 24 (24b, 24c, 24d, 24a) in `tmp`, beside 24a's CPU reference
+    `ref_proc` started earlier in the same `tmp` (precision_reference);
+    returns the kernels line's ipm_leg keys."""
+    t0 = time.perf_counter()
+    try:
+        out = tune_phase(dev, tmp)
+        out.update(onset_phase(dev, tmp))
+        out.update(long_build_phase(dev, tmp))
+        out.update(precision_phase(dev, tmp, ref_proc))
+    finally:
+        if ref_proc.poll() is None:
+            ref_proc.kill()
+            ref_proc.wait()
+    out["capture_wall_s"] = time.perf_counter() - t0
+    log(f"[capture] phase 24 took {out['capture_wall_s']:.1f} s")
+    return out
+
+
+def capture_tools_only() -> int:
+    """Phase 24 alone, for iterating on the card: the kernels built,
+    then 24a-24d.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.capture_tools_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as tmp:
+        out = capture_tools_phase(dev, tmp, precision_reference(dev, tmp))
     log(json.dumps(out))
     return 0
 
@@ -7982,56 +8871,87 @@ def main() -> int:
     host.end("phases 6-8 (arena serving, K3)")
 
     # -- phase 9: where the device time of a build goes --------------------
-    # A second flagship build under torch.profiler (device activity
-    # only): the device's busy share is the summed time of every CUDA
-    # kernel over the wall (one stream, so kernels do not overlap); the
-    # profiler's own overhead lengthens the wall, so the share is a
-    # lower bound.
+    # A second flagship build, steps PROFILE_WINDOW of it under
+    # torch.profiler (device activity only; profiling the whole build
+    # spent four times the build in the profiler's teardown): the
+    # device's busy share of that window is the summed time of every
+    # CUDA kernel over its wall (one stream, so kernels do not overlap);
+    # the profiler's own overhead lengthens the wall, so the share is a
+    # lower bound.  K1's device time in the window is held against the
+    # summed bound of the launches recorded in the same window.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        FrontierEngine)
+
     prof_legs: list = []
+    window: dict = {}
+    real_step = FrontierEngine.step
+
+    def windowed_step(eng):
+        if eng.steps == PROFILE_WINDOW[0]:
+            torch.cuda.synchronize()
+            window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["legs0"] = len(prof_legs)
+            window["t0"] = time.perf_counter()
+        real_step(eng)
+        if eng.steps == PROFILE_WINDOW[1] and "t0" in window \
+                and "wall" not in window:
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - window["t0"]
+            window["legs1"] = len(prof_legs)
+            window["prof"].__exit__(None, None, None)
+
     ipm_leg.ipm_leg_cuda = record_legs(real_cuda, prof_legs)
+    FrontierEngine.step = windowed_step
     torch.cuda.synchronize()
     t_prof = time.perf_counter()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            build_partition(problem, cfg)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
+        build_partition(problem, cfg)
+        torch.cuda.synchronize()
     finally:
+        FrontierEngine.step = real_step
         ipm_leg.ipm_leg_cuda = real_cuda
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+        if "t0" in window and "wall" not in window:
+            window["wall"] = time.perf_counter() - window["t0"]
+            window["legs1"] = len(prof_legs)
+            window["prof"].__exit__(None, None, None)
+    prof_wall = window.get("wall")
+    rows = ([(e.key, e.self_device_time_total, e.count)
+             for e in window["prof"].key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0] if prof_wall else [])
     busy_us = sum(r[1] for r in rows)
     if busy_us > 0:
-        log(f"[profile] build under the profiler {prof_wall:.1f} s; device "
-            f"busy {busy_us / 1e6:.2f} s = {busy_us / 1e6 / prof_wall:.3f} "
-            f"of the wall (idle {1 - busy_us / 1e6 / prof_wall:.3f})")
+        log(f"[profile] steps {PROFILE_WINDOW[0] + 1}-{PROFILE_WINDOW[1]} "
+            f"of a flagship build under the profiler {prof_wall:.1f} s; "
+            f"device busy {busy_us / 1e6:.2f} s = "
+            f"{busy_us / 1e6 / prof_wall:.3f} of the wall (idle "
+            f"{1 - busy_us / 1e6 / prof_wall:.3f})")
         for key, us, n in sorted(rows, key=lambda r: -r[1])[:6]:
             log(f"[profile]   {us / 1e6:8.3f} s  {n:7d} x  {key[:70]}")
-        log(f"[profile] (phase took {time.perf_counter() - t_prof:.0f} s)")
     else:
         log("[profile] the profiler recorded no device time: device busy "
             "share not measured")
-    # K1's own row: its summed device time in this build against the
-    # summed bound of the launches recorded in the same build.
+    log(f"[profile] (phase took {time.perf_counter() - t_prof:.0f} s)")
     k1_rows = [r for r in rows if "ipm_leg" in r[0]]
     k1_us = sum(r[1] for r in k1_rows)
-    log("[profile] K1 launches of the profiled build:")
-    build_bound_ms = leg_histogram(prof_legs)
+    log(f"[profile] K1 launches of the build ({len(prof_legs)}):")
+    leg_histogram(prof_legs)
+    win_legs = prof_legs[window.get("legs0", 0):window.get("legs1", 0)]
+    log(f"[profile] K1 launches in the window ({len(win_legs)}):")
+    build_bound_ms = leg_histogram(win_legs)
     build_ms = k1_us / 1e3 if k1_rows else None
     if k1_rows:
-        log(f"[profile] K1 (ipm_leg): {k1_us / 1e6:.4f} s of device time in "
-            f"{sum(r[2] for r in k1_rows)} launches ({len(prof_legs)} "
-            f"recorded) = {k1_us / busy_us:.3f} of the build's device time; "
-            f"{k1_us / 1e3 / build_bound_ms:.0f}x the summed bound "
-            f"{build_bound_ms:.4f} ms")
+        log(f"[profile] K1 (ipm_leg) in the window: {k1_us / 1e6:.4f} s of "
+            f"device time in {sum(r[2] for r in k1_rows)} launches "
+            f"({len(win_legs)} recorded) = {k1_us / busy_us:.3f} of the "
+            f"window's device time; {k1_us / 1e3 / build_bound_ms:.0f}x "
+            f"the summed bound {build_bound_ms:.4f} ms")
     else:
-        log("[profile] K1's device time in the build: not measured (no "
+        log("[profile] K1's device time in the window: not measured (no "
             "profiler row)")
     host.end("phase 9 (profiled build)")
 
@@ -8110,12 +9030,29 @@ def main() -> int:
         robust = robustness_phase(dev, res, n_k1, tmp)
     host.end("phase 22 (robustness gate)")
 
-    # -- phase 23: the operator's tools (the fleet smoke's restart chain
-    # and sharded build, the watchdog over a live and a stopped build, the
-    # report over the card's own streams, the preflight battery) ---------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_operator_") as tmp:
-        operator = operator_tools_phase(dev, tmp)
-    host.end("phase 23 (operator's tools)")
+    # 24a's CPU reference (precision_check on the CPU, on half the host's
+    # cores) starts here and runs beside phases 23 and 24.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as cap:
+        ref_proc = precision_reference(dev, cap)
+        try:
+            # -- phase 23: the operator's tools (the fleet smoke's restart
+            # chain and sharded build, the watchdog over a live and a
+            # stopped build, the report over the card's own streams, the
+            # preflight battery) -------------------------------------------
+            with tempfile.TemporaryDirectory(
+                    prefix="chip_smoke_operator_") as tmp:
+                operator = operator_tools_phase(dev, tmp)
+            host.end("phase 23 (operator's tools)")
+
+            # -- phase 24: the capture tools (tune_schedule; onset_probe
+            # and the checkpointed long_build; precision_check against
+            # its CPU run) ---------------------------------------------
+            capture = capture_tools_phase(dev, cap, ref_proc)
+            host.end("phase 24 (capture tools)")
+        finally:
+            if ref_proc.poll() is None:
+                ref_proc.kill()
+                ref_proc.wait()
 
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
@@ -8123,10 +9060,12 @@ def main() -> int:
          "replaces": "explicit_hybrid_mpc_tpu/oracle/pallas_ipm.py:217",
          "launches": n_k1, "max_abs_err": k1_err, **k1_entry,
          "library_ms": None, "build_ms": build_ms,
-         "build_bound_ms": build_bound_ms, "sim_launches": sim["sim_k1"],
+         "build_bound_ms": build_bound_ms,
+         "build_window_steps": list(PROFILE_WINDOW),
+         "sim_launches": sim["sim_k1"],
          "large": k1_large, "general": k1_general, "pruned": k1_pruned,
          **reb["ipm_leg"], **sd["ipm_leg"], **multi, **guard,
-         **robust, **operator},
+         **robust, **operator, **capture},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",

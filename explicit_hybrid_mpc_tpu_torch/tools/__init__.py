@@ -14,9 +14,20 @@
 - ``fleet_smoke``: a restart chain's (or, ``--sharded``, two shards')
   per-process streams reconciled bit-exactly with one process's build;
 - ``preflight``: the pre-merge battery (lint, the tier-1 tests and the
-  three smokes) with one verdict.
+  three smokes) with one verdict;
+- ``precision_check``: the float32 leg's acceptance by the float64
+  merit gate, and a mixed build against a float64 build;
+- ``tune_schedule``: the IPM schedules' cost a QP and convergence, and
+  the fastest that keeps the tree;
+- ``onset_probe``: the satellite and quadrotor families built at a
+  ladder of sub-box scales;
+- ``long_build``: a checkpointed campaign resumed across sessions, with
+  its progress rows, health halt and online figure;
+- ``capture``: the helpers those four share (the JAX package's bench.py
+  helpers of the same names).
 
-The builds and smokes run on the CUDA device unless ``--backend cpu``
-is given, and refuse to start without a card otherwise; the report and
+The builds, smokes and captures run on the CUDA device unless
+``--backend cpu`` is given (for the captures also ``BENCH_PLATFORM=cpu``),
+and refuse to start without a card otherwise; the report and
 the watcher read streams and touch no device.
 """

@@ -1100,43 +1100,6 @@ def test_multi_gpu_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert out["sharded_identical"] and out["sharded_differing_cells"] == 0
 
 
-def test_cold_warm_split_rehearses_on_the_cpu(tmp_path, monkeypatch,
-                                             capsys):
-    """20b's explanation of a differing sharded tree: both builds without
-    warm starts, canonically identical here (a small pendulum: four
-    commutations); then with one leaf's commutation changed in the
-    sharded tree's outcomes, that leaf listed with both commutations' V
-    at its vertices."""
-    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
-    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
-
-    problem = make("inverted_pendulum", N=2)
-    cfg = PartitionConfig(problem="inverted_pendulum",
-                          problem_args=(("N", 2),), eps_a=0.5,
-                          backend="cpu", batch_simplices=64, max_depth=14)
-    assert chip_smoke.cold_warm_split(torch.device("cpu"), problem, cfg,
-                                      str(tmp_path / "a"))
-    log = capsys.readouterr().out
-    assert "warm-start knife edge" in log
-    assert "flagship without warm starts: point solves sharded" in log
-    real, calls = chip_smoke.tree_outcomes, []
-
-    def swapped(tree):
-        out = real(tree)
-        calls.append(1)
-        if len(calls) == 2:
-            key = next(k for k, v in out.items() if v[0] == "leaf")
-            out[key] = ("leaf", (out[key][1] + 1) % 4, out[key][2])
-        return out
-    monkeypatch.setattr(chip_smoke, "tree_outcomes", swapped)
-    chip_smoke.cold_warm_split(torch.device("cpu"), problem, cfg,
-                               str(tmp_path / "b"))
-    log = capsys.readouterr().out
-    assert "1 leaves with another commutation" in log
-    assert "single process, " in log and " sharded; V[" in log
-    assert "relative gap" in log
-
-
 def test_a_sharded_build_that_solves_a_cell_twice_fails_20b(
         tmp_path, monkeypatch):
     """20b's zero-duplicate check: a shard set whose recorded cells
@@ -1255,11 +1218,11 @@ def test_analysis_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     _plain_leg_as_kernel(monkeypatch)
     monkeypatch.setattr(chip_smoke, "GUARD_FLAGSHIP", [
         "-e", "inverted_pendulum", "--problem-arg", "N=2", "-a", "0.5",
-        "--batch", "16", "--max-depth", "14"])
+        "--batch", "16", "--max-depth", "14", "--no-speculate"])
     ipm_leg.launches = 0
     res = build_partition(make("inverted_pendulum", N=2), PartitionConfig(
         problem="inverted_pendulum", problem_args=(("N", 2),), eps_a=0.5,
-        backend="cpu", batch_simplices=16, max_depth=14))
+        backend="cpu", batch_simplices=16, max_depth=14, speculate=False))
     n_k1 = ipm_leg.launches
     loader_guard = RecompileGuard(watch=[kernels.loader])
     out = chip_smoke.analysis_phase(torch.device("cpu"), res, n_k1,
@@ -1270,14 +1233,17 @@ def test_analysis_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     for tag in ("--recompile-guard warn (cold oracle): exit 0",
                 "step 15 pairs[16]", "--recompile-guard raise (oracle "
                 "warmed at", "0 violations (0 health.recompile events)",
-                f"K1 launches {n_k1} (phase 3: {n_k1}); tree equal to "
+                f"K1 launches {n_k1} (phase 3, with speculation: {n_k1}); "
+                "tree equal to phase 3's cell for cell",
+                f"K1 launches {n_k1} (unguarded: {n_k1}); tree equal to "
                 "phase 3's cell for cell", "1 health.recompile event(s)",
                 "health monitor worst warn; tree equal to the unguarded",
                 "RecompileError out of step()", "with the forced dispatch, "
                 "in its own process: exit 1", "growth 0, libraries loaded []",
                 "the guard armed after phase 3 sees 0", "a card, 700 W"):
         assert tag in log, tag
-    assert out["guarded_launches"] == n_k1
+    assert out["guarded_launches"] == out["guard_unguarded_launches"] \
+        == n_k1
     assert out["guard_violations_cold"] >= 1
     assert out["forced_k1_launches"] >= 1 and out["loader_growth"] == 0
 
@@ -1294,7 +1260,7 @@ def test_a_guarded_flagship_that_mints_a_shape_fails_21a(tmp_path,
 
     monkeypatch.setattr(chip_smoke, "GUARD_FLAGSHIP", [
         "-e", "inverted_pendulum", "--problem-arg", "N=2", "-a", "0.5",
-        "--batch", "16", "--max-depth", "14"])
+        "--batch", "16", "--max-depth", "14", "--no-speculate"])
     real = chip_smoke.warm_buckets
 
     def partial_warm(oracle, problem):
@@ -1409,3 +1375,248 @@ def test_operator_tools_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
     assert out["report_live_regions"] == out["report_reference_regions"] \
         == 122
     assert set(out["preflight_walls_s"]) == {"lint", "drift_smoke"}
+
+
+def test_capture_tools_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
+                                                  capsys):
+    """Phase 24 on the CPU at the tools' smoke knobs: 24b tune_schedule,
+    24c onset_probe (satellite_z at 0.5) and 24d long_build on the DI
+    fixture (the first process SIGKILLed after its 2nd progress row, the
+    second resumed to drain), then 24a precision_check against its
+    reference run (both on the CPU here), every child through
+    counted_tool, whose K1 records count the plain leg by path and dtype;
+    24a's acceptance step at the real 5b and 4c sub-boxes (2 thetas) with
+    the plain leg counted as K1, at the large and the general path in
+    both dtypes."""
+    _plain_leg_as_kernel(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "PREC_ENV", {
+        "PREC_PROBLEM": "double_integrator", "PREC_EPS": "0.5",
+        "PREC_POINTS": "32", "PREC_SOUND_SAMPLES": "64"})
+    monkeypatch.setattr(chip_smoke, "PREC_JAX_BUILDS",
+                        {"mixed": (1566, 3130), "f64": (1566, 3130)})
+    monkeypatch.setattr(chip_smoke, "PREC_SUBBOX_POINTS", 2)
+    monkeypatch.setattr(chip_smoke, "TUNE_ENV", {
+        "TUNE_POINTS": "16", "TUNE_EPS": "0.5",
+        "TUNE_PROBLEM": "double_integrator"})
+    monkeypatch.setattr(chip_smoke, "ONSET_ENV", {
+        "ONSET_FAMILIES": "satellite_z", "ONSET_SCALES": "0.5"})
+    monkeypatch.setattr(chip_smoke, "ONSET_JAX_REGIONS",
+                        {"satellite_z": ((12, 12),)})
+    monkeypatch.setattr(chip_smoke, "LONG_ENV", {
+        "LONG_PROBLEM": "double_integrator",
+        "LONG_PROBLEM_ARGS": '{"N": 3, "theta_box": 1.5}',
+        "LONG_EPS": "0.2", "LONG_CKPT_EVERY": "4", "LONG_BATCH": "64"})
+    monkeypatch.setattr(chip_smoke, "LONG_REF", (392, 0))
+    cpu = torch.device("cpu")
+    out = chip_smoke.capture_tools_phase(
+        cpu, str(tmp_path), chip_smoke.precision_reference(cpu,
+                                                           str(tmp_path)))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("[capture] 24b tune_schedule (double_integrator, 16 points)"
+                " on cpu", "fastest_parity_ok True",
+                "[capture] 24c satellite_z scale 0.5: 12 regions (JAX 12)",
+                "the first process SIGKILLed after 2 progress rows (steps "
+                "[4, 8])", "resumed from step 8 to drained",
+                "progress steps [4, 8, 12, 16]",
+                "24a precision_check (double_integrator, 32 instances) on "
+                "device (cpu)", "on cpu (cpu)", "regions_equal True, "
+                "eps_sound True", "24a acceptance step at 5b (quadrotor",
+                "24a acceptance step at 4c (satellite",
+                "[capture] phase 24 took"):
+        assert tag in log, tag
+    for key in ("tune_k1", "onset_k1", "prec_k1"):
+        assert {"plain:register:float32", "plain:register:float64"} \
+            <= set(out[key]), key
+    first, second = out["long_k1"]
+    assert first["plain:register:float32"]["launches"] > 0
+    assert second["plain:register:float64"]["launches"] > 0
+    for tag, path in (("5b", "large"), ("4c", "general")):
+        k1 = out[f"prec_{tag}"]["k1"]
+        for dtype in ("float32", "float64"):
+            assert k1[f"cuda:{path}:{dtype}"]["launches"] > 0, (tag, dtype)
+        assert out[f"prec_{tag}"]["accept"] \
+            == out[f"prec_{tag}"]["accept_cpu"]
+    assert out["prec_verdict"] == [True, True, 0]
+    assert out["long_regions"] == 392 and out["long_resumed_from_step"] == 8
+    assert len(out["tune_rows"]) == 7 and out["onset_cut"] == []
+
+
+def test_a_differing_precision_verdict_fails_24a(tmp_path, monkeypatch,
+                                                 capsys):
+    """24a fails where the device's verdict is not the CPU's: here the
+    reference run's JSON says its builds differ."""
+    from explicit_hybrid_mpc_tpu_torch.tools import precision_check
+
+    monkeypatch.setattr(chip_smoke, "PREC_ENV", {
+        "PREC_PROBLEM": "double_integrator", "PREC_EPS": "0.5",
+        "PREC_POINTS": "8", "PREC_SOUND_SAMPLES": "8"})
+    monkeypatch.setattr(chip_smoke, "PREC_SUBBOXES", ())
+    real = chip_smoke._read_json
+
+    def read(path):
+        res = real(path)
+        if res is not None and path.endswith("24a_cpu.json"):
+            res["mixed_vs_f64_regions_equal"] = False
+        return res
+    monkeypatch.setattr(chip_smoke, "_read_json", read)
+    ref = chip_smoke.precision_reference(torch.device("cpu"), str(tmp_path))
+    with pytest.raises(SystemExit):
+        chip_smoke.precision_phase(torch.device("cpu"), str(tmp_path), ref)
+    assert "chip_smoke: FAIL: 24a: the verdict on cpu (True, True, 0) is " \
+        "not the CPU's (False, True, 0)" in capsys.readouterr().out
+    assert precision_check.verdict({"mixed_eps_sound": True}) == 0
+
+
+def test_counted_tool_writes_its_count_on_sigusr1(tmp_path):
+    """A counted_tool child (long_build on the DI fixture) answers
+    SIGUSR1 with a partial record (launches only) and writes its final
+    record when it returns."""
+    import json
+    import signal
+    import time
+
+    env = {"LONG_PROBLEM": "double_integrator",
+           "LONG_PROBLEM_ARGS": '{"N": 3, "theta_box": 1.5}',
+           "LONG_EPS": "0.5", "LONG_CKPT_EVERY": "2", "LONG_BATCH": "32"}
+    out = tmp_path / "lb.json"
+    proc = chip_smoke._tool_child(
+        torch.device("cpu"), "long_build",
+        ["--out", str(out), "--sentinel", str(tmp_path / "s")], env,
+        str(tmp_path), "lb")
+    while not (chip_smoke._read_json(str(out)) or {}).get("progress") \
+            and proc.poll() is None:
+        time.sleep(0.02)
+    proc.send_signal(signal.SIGUSR1)
+    assert proc.wait(300) == 0
+    recs = chip_smoke._tool_k1(str(tmp_path), proc.pid)
+    assert [r["partial"] for r in recs] == [True, False]
+    assert all(v["ms"] is None for v in recs[0]["k1_by"].values())
+    assert recs[1]["rc"] == 0 and recs[1]["tool"] == "long_build"
+    assert recs[1]["k1_by"]["plain:register:float64"]["launches"] \
+        >= recs[0]["k1_by"]["plain:register:float64"]["launches"] > 0
+    assert recs[1]["k1"] == 0 and recs[1]["k1_ms"] is None
+    assert json.loads(json.dumps(recs[1]))["builds"] == []
+
+
+def test_a_counted_cli_child_writes_its_record_on_sigterm(tmp_path):
+    """counted_cli writes the same record as counted_tool: a `main` child
+    on the DI fixture, terminated after its first checkpoint, ends with
+    exit 143 and one record (rc 143, its argv, K1 by route, path and
+    dtype); a child that returns writes one with rc 0."""
+    import signal
+    import time
+
+    log = tmp_path / "k1.jsonl"
+    env = dict(os.environ, K1_LOG=str(log))
+    env["PYTHONPATH"] = chip_smoke._root()
+    runs = {}
+    for name, stop in (("stopped", True), ("done", False)):
+        prefix = str(tmp_path / name)
+        argv = ["-e", "double_integrator", "--problem-arg", "N=3",
+                "--problem-arg", "theta_box=1.5", "-a", "0.2", "--batch",
+                "8", "--backend", "cpu", "--checkpoint-every", "2", "-o",
+                prefix]
+        proc = subprocess.Popen([sys.executable, "-c",
+                                 chip_smoke._CHAOS_MAIN] + argv,
+                                cwd=chip_smoke._root(), env=env,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        if stop:
+            while not os.path.exists(prefix + ".ckpt.pkl") \
+                    and proc.poll() is None:
+                time.sleep(0.02)
+            proc.send_signal(signal.SIGTERM)
+        runs[name] = (proc.wait(300), proc.pid)
+    assert runs["stopped"][0] == 143 and runs["done"][0] == 0
+    for name, (rc, pid) in runs.items():
+        (rec,) = chip_smoke.k1_records(str(log), pid=pid)
+        assert rec["rc"] == rc and not rec["partial"]
+        assert chip_smoke._output_of(rec["argv"]) == str(tmp_path / name)
+        assert rec["k1"] == 0 and rec["k1_ms"] is None
+        assert rec["k1_by"]["plain:register:float64"]["launches"] > 0
+
+
+@pytest.fixture(scope="module")
+def f32_joint_legs():
+    """The plain float32 leg on 64 of the flagship's elastic joint QPs
+    (their inputs as qp_solve hands them to the leg on the CPU) after
+    F32_SHORT_ITERS and F32_ITERS iterations, as 24a's f32_leg_verdict
+    takes them: here the plain leg on the CPU is both the plain version
+    and the CPU witness, beside the witness on inputs one ulp moved and a
+    stand-in kernel (the plain leg on inputs moved by another seed)."""
+    import numpy as np
+
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    args = chip_smoke.f32_leg_inputs(
+        make("inverted_pendulum"), "joint",
+        np.random.default_rng(chip_smoke.SEED + 24), torch.device("cpu"),
+        64)
+    legs = {}
+    for n in (chip_smoke.F32_SHORT_ITERS, chip_smoke.F32_ITERS):
+        plain = chip_smoke.plain_leg(args, n)
+        legs[n] = {"plain": plain, "plain_cpu": plain,
+                   "plain_ulp": chip_smoke.plain_leg(
+                       chip_smoke.ulp_moved(args, chip_smoke.F32_ULP_SEED),
+                       n),
+                   "kernel": chip_smoke.plain_leg(
+                       chip_smoke.ulp_moved(args, 7), n)}
+    legs[chip_smoke.F32_ITERS]["f64"] = chip_smoke.plain_leg(
+        tuple(t.double() for t in args), chip_smoke.F32_ITERS)
+    return legs
+
+
+def _nan_rows(leg, rows):
+    out = tuple(t.clone() for t in leg)
+    out[2][rows] = float("nan")
+    return out
+
+
+def _scaled_row(leg, row, by):
+    out = tuple(t.clone() for t in leg)
+    out[2][row] *= by
+    return out
+
+
+@pytest.mark.parametrize("fault,message", [
+    (None, None),
+    ("unfinished", "iteration the kernel leaves 1 rows unfinished"),
+    ("one row off", "iteration the kernel is "),
+    ("rows swapped", "rows lie more than 0.001 from the plain version"),
+    ("finite rows lost", "iterations finite rows"),
+    ("far from float64", "from the float64 iterates, the plain version 0"),
+])
+def test_f32_leg_verdict_holds_the_kernel_to_the_witnesses(
+        f32_joint_legs, capsys, fault, message):
+    """24a's hold on K1's float32 leg: a kernel whose rows move as the
+    plain leg's own do under one ulp passes; a row left unfinished or 1%
+    off after one iteration, rows swapped or finite rows lost after
+    F32_ITERS, or rows apart from float64 iterates that the plain leg
+    meets, fail it, each named."""
+    short = dict(f32_joint_legs[chip_smoke.F32_SHORT_ITERS])
+    long = dict(f32_joint_legs[chip_smoke.F32_ITERS])
+    if fault == "unfinished":
+        short["kernel"] = _nan_rows(short["kernel"], [3])
+    elif fault == "one row off":
+        short["kernel"] = _scaled_row(short["kernel"], 5, 1.01)
+    elif fault == "rows swapped":
+        long["kernel"] = tuple(t.roll(1, 0) for t in long["kernel"])
+    elif fault == "finite rows lost":
+        long["kernel"] = _nan_rows(long["kernel"], list(range(20)))
+    elif fault == "far from float64":
+        long["f64"] = long["plain"]
+    if fault is None:
+        v = chip_smoke.f32_leg_verdict("joint", short, long)
+        assert v["short"]["lost"] == 0
+        assert v["short"]["max_gap"]["kernel"] <= v["short_limit"]
+        assert 0 < v["long"]["apart"]["plain_ulp"]
+        assert v["long"]["apart"]["kernel"] <= v["apart_limit"]
+        assert v["long"]["apart"]["plain_cpu"] == 0
+        assert v["long"]["to_f64"]["kernel"] <= v["f64_limit"]
+        return
+    with pytest.raises(SystemExit):
+        chip_smoke.f32_leg_verdict("joint", short, long)
+    out = capsys.readouterr().out
+    assert "chip_smoke: FAIL: 24a K1 float32 leg joint: after" in out
+    assert message in out, out

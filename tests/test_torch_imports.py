@@ -4,8 +4,9 @@ nor the JAX package.
 Checked in a fresh interpreter (this test process has both loaded):
 every module under ``explicit_hybrid_mpc_tpu_torch`` is imported, the
 serving, lifecycle, analysis and tools subpackages included, and then ``sys.modules``
-must hold no ``jax`` / ``jax.*`` and no ``explicit_hybrid_mpc_tpu`` /
-``explicit_hybrid_mpc_tpu.*`` entry."""
+must hold no ``jax`` / ``jax.*``, no ``explicit_hybrid_mpc_tpu`` /
+``explicit_hybrid_mpc_tpu.*`` and no ``bench`` (the JAX package's
+bench.py) entry."""
 
 import json
 import os
@@ -24,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "explicit_hybrid_mpc_tpu")
+             if m in ("jax", "jaxlib", "explicit_hybrid_mpc_tpu", "bench")
              or m.startswith(("jax.", "jaxlib.", "explicit_hybrid_mpc_tpu.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -79,6 +80,9 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "tools", "tools.supervise_build",
                                  "tools.chaos_suite", "tools.drift_smoke",
                                  "tools.obs_report", "tools.obs_watch",
-                                 "tools.fleet_smoke", "tools.preflight"])
+                                 "tools.fleet_smoke", "tools.preflight",
+                                 "tools.capture", "tools.precision_check",
+                                 "tools.tune_schedule", "tools.onset_probe",
+                                 "tools.long_build"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]
