@@ -19,8 +19,9 @@ step to a plain f64 reference, then `main --simulate` once); the
 `main serve` entry point (`serve --selftest 20000` on the card by
 default, ShardedDescent held to the f64 host evaluator, a hot swap
 under 16 submitting threads with a bitwise audit); and sharded
-descent at 1,474,560 synthetic leaves (flat against 8 shards, µs per
-query, CUDA kernels a batch, device-resident bytes).  Phase 14 builds
+descent at 368,640 synthetic leaves (flat against 8 shards, µs per
+query, CUDA kernels a batch, device-resident bytes; phase 25 times the
+1,474,560-leaf tree).  Phase 14 builds
 the quadrotor's and the satellite's published sub-boxes through the
 build CLI's main() on the card, held to the JAX package's region counts
 and through the point-location kernel to the f64 host evaluator (both
@@ -112,7 +113,8 @@ step(); `main` in its own process exits non-zero); 21c kernels.loader
 watched in a fresh process over a build plus an online batch (growth =
 the libraries loaded: K1 and K2), and in this process from phase 3 to
 after 21a (0).  Phase 22 drives the robustness gate (tools/): 22a the
-chaos suite's five fault schedules on the card at the JAX package's
+chaos suite's five fault schedules on the card (three at a time after
+the reference build) at the JAX package's
 configuration (the tier-1 DI fixture at eps 0.2), with the card's
 verdicts -- schedules 1 and 2 end with NoCpuFallback chained to their
 injected fault (exit 69, no tree, the process gone within the hang
@@ -139,9 +141,9 @@ build.done (exit 0), and a build stopped with SIGSTOP after its first
 build.step (exit 2 with health.stall under stall_s 3); 23c the report
 over 23b's and 23a's streams (regions equal to .stats.json, --drift
 against itself with no flag, no bench read) and `--fleet --strict`
-over 23a's per-process streams; 23d `preflight --only lint,drift_smoke`
-(verdict ok; tier1 needs the JAX package, which the card's machine
-lacks, and the chaos suite is 22a's).  Phase 24 drives the capture
+over 23a's per-process streams; 23d `preflight --only lint` (verdict
+ok; tier1 needs the JAX package, which the card's machine lacks, the
+chaos suite is 22a's and the drift smoke 22c's).  Phase 24 drives the capture
 tools (tools/), each a process of its own through counted_tool, which
 tallies K1 by route, path and dtype over the process and each build:
 24b tune_schedule at the JAX script's defaults (the seven schedule
@@ -150,15 +152,30 @@ mixed row's); 24c onset_probe over both families' ladders under
 precision mixed (every rung complete and within the JAX package's own
 span of regions, 2% or 1 region; each build's K1 by path and dtype:
 the float32 leg at the general and the large path in full builds);
-24d long_build on the flagship at eps 1e-2, checkpointed every 20
+24d long_build on the flagship at eps 0.1, checkpointed every 5
 steps, its first process SIGKILLed after its 2nd progress row and a
-second resumed to a drained frontier (phase 3's bar, resumed from the
-2nd checkpoint, the progress rows continuous); 24a precision_check at
+second resumed to a drained frontier (regions within 2% of the CPU
+build's, resumed from the 2nd checkpoint, the progress rows
+continuous); 24a precision_check at
 the JAX defaults against the same tool on the CPU (started before phase
 23, on half the host's cores): f32_accept_rate within 0.02 and the same
 verdict, then the acceptance step alone at the 5b and 4c sub-boxes on
 the card and on the CPU (the large and the general path's float32 leg
-on real problem data).  One
+on real problem data).  Phase 25 drives the bench tool
+(tools/bench.py), each mode a process through bench_worker (counted:
+K1 by route, path and dtype, K2's count; the multichip mode's builds
+through counted_cli): the default mode alone at its card defaults --
+the flagship at eps 1e-2, f64, max_depth 56, 512 simplices a batch,
+the 1,474,560-leaf synthetic tree -- held to the JAX package's build at
+those settings (regions within 2% of 13,152, uncertified <= 70, not
+truncated), its online figure through K2, its large-L flat and sharded
+outputs held to the synthetic tree's law as phase 13 holds its own,
+both baselines, the online and large-L µs a query finite and positive
+and K1's tile time present; then the rebuild mode at eps 0.1,
+the drift walk over 5 revisions and the multichip mode at its defaults
+together (no error, reuse in (0, 1], at least 5 generations, parity
+held); every row's history row appended to its own file, and the JAX
+package's BENCH_HISTORY.jsonl unchanged byte for byte.  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -207,7 +224,10 @@ a process by build, walls), the "watch_*" keys 23b's, "report_*" 23c's
 regions, "preflight_walls_s" 23d's and "operator_wall_s" phase 23's; the
 "tune_*" keys 24b's, "onset_*" 24c's, "long_*" 24d's, "prec_*" 24a's
 (each with its K1 record by route, path and dtype: "cuda:large:float32"
-and so on) and "capture_wall_s" phase 24's.  The ipm_leg entry's
+and so on) and "capture_wall_s" phase 24's; the "bench_*" keys phase
+25's (K1 launches and the bench process's K1 event ms by mode, each
+mode's wall, the default row's headline figures), and the locate
+entry's "bench_launches" the default mode's K2 launches.  The ipm_leg entry's
 "build_ms" is K1's device time in phase 9's profiled window of the
 flagship build (its steps "build_window_steps"), beside the summed
 bound of the launches recorded in that window.
@@ -265,7 +285,11 @@ phase 23, and
 
     python3 -c "import sys, chip_smoke as c; sys.exit(c.capture_tools_only())"
 
-phase 24.
+phase 24, and
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.bench_only())"
+
+phase 25.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -366,12 +390,15 @@ SWAP_CLIENTS = 16
 SWAP_REQUESTS = 250
 
 #: Phase 13, the large partition (bench.py's large_l_metrics): a
-#: synthetic depth-11 tree over the unit box in p = 6 (720 Kuhn roots,
-#: the satellite's root layout), 1,474,560 leaves; the batch, the shard
-#: count, the timed repetitions, the queries held to the tree's exact law
-#: and, of those, the ones held to the brute f64 host evaluator.
+#: synthetic depth-9 tree over the unit box in p = 6 (720 Kuhn roots,
+#: the satellite's root layout), 368,640 leaves -- phase 25's bench row
+#: drives the depth-11 tree, 1,474,560 leaves, through the same export,
+#: flat and sharded paths and holds them to the same law (large_law);
+#: the batch, the shard count, the timed
+#: repetitions, the queries held to the tree's exact law and, of those,
+#: the ones held to the brute f64 host evaluator.
 LARGE_P = 6
-LARGE_DEPTH = 11
+LARGE_DEPTH = 9
 LARGE_B = 8192
 LARGE_SHARDS = 8
 LARGE_REPS = 10
@@ -529,7 +556,8 @@ SERIAL_POINTS = 64
 SERIAL_RTOL, SERIAL_ATOL = 1e-6, 1e-8
 PROFILE_STEPS = 3
 #: Phase 9: the flagship build is under the profiler from the end of its
-#: first step here to the end of its second (steps 41-60).
+#: first step here to the end of its second (steps 41-60), and stops
+#: there (phase 3 holds the whole build).
 PROFILE_WINDOW = (40, 60)
 TRACE_EXEMPLAR_K = 8
 HOST_INTERVAL_S = 1.0
@@ -2139,38 +2167,68 @@ def large_partition_phase(dev) -> None:
             f"{nb['leaves'] + nb['descent']} (leaf tables {nb['leaves']}, "
             f"descent arrays {nb['descent']}); allocated after both "
             f"{mem} bytes")
-        # Held: the synthetic law is u = A theta, cost = sum(theta)
-        # (partition/synthetic.leaf_payload), reproduced exactly by the
-        # barycentric interpolation; and the brute f64 host evaluator on
-        # a few queries (it scores every leaf: about 0.1 s a query here).
-        sub = qs[:LARGE_HOLD]
-        A = (np.arange(1)[:, None] + 1.0) * (np.arange(p)[None, :] + 1.0)
-        u_law, c_law = sub @ A.T, sub.sum(axis=1)
-        u_np = np.stack([evaluator.evaluate_np(table, sub[k])
-                         for k in range(LARGE_NP_HOLD)])
-        for name, o in (("flat", out_f), ("sharded", out_s)):
-            u = o.u.cpu().numpy() if torch.is_tensor(o.u) else o.u
-            c = o.cost.cpu().numpy() if torch.is_tensor(o.cost) else o.cost
-            ins = o.inside.cpu().numpy() if torch.is_tensor(o.inside) \
-                else o.inside
-            du = float(np.abs(u[:LARGE_HOLD] - u_law).max())
-            dc = float(np.abs(c[:LARGE_HOLD] - c_law).max())
-            if not ins[:LARGE_HOLD].all() or du > 1e-9 or dc > 1e-9:
-                fail(f"large {name}: {int((~ins[:LARGE_HOLD]).sum())} "
-                     f"outside, |du| {du:.2e}, |dcost| {dc:.2e} against "
-                     "the tree's law")
-            dn = float(np.abs(u[:LARGE_NP_HOLD] - u_np).max())
-            if dn > 1e-9:
-                fail(f"large {name}: |du| {dn:.2e} against the f64 host "
-                     "evaluator")
+        law = large_law(table, qs, {"flat": out_f, "sharded": out_s})
+        bad = large_law_failures(law)
+        if bad:
+            fail("; ".join(bad))
+        for name, h in law.items():
             log(f"[large] {name}: {LARGE_HOLD} queries inside, max |du| "
-                f"{du:.2e}, |dcost| {dc:.2e} against the tree's exact law; "
-                f"{LARGE_NP_HOLD} of them max |du| {dn:.2e} against the "
-                "f64 host evaluator")
+                f"{h['du_law']:.2e}, |dcost| {h['dcost_law']:.2e} against "
+                f"the tree's exact law; {LARGE_NP_HOLD} of them max |du| "
+                f"{h['du_host']:.2e} against the f64 host evaluator")
         del srv, dt_dev, lt, out_f, out_s
         if on_card:
             torch.cuda.empty_cache()
     log(f"[large] (phase took {time.perf_counter() - t_phase:.1f} s)")
+
+
+def large_law(table, qs, outs: dict) -> dict:
+    """Each output of `outs` (name -> a flat or sharded descent's output
+    over the host queries `qs` on the synthetic tree) held on LARGE_HOLD
+    queries to the tree's law u = A theta, cost = sum(theta)
+    (partition/synthetic.leaf_payload, reproduced exactly by the
+    barycentric interpolation), and on LARGE_NP_HOLD of them to the brute
+    f64 host evaluator (it scores every leaf): name -> {"outside",
+    "du_law", "dcost_law", "du_host"}."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.online import evaluator
+
+    def host(x):
+        return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    p = qs.shape[1]
+    sub = qs[:LARGE_HOLD]
+    A = (np.arange(1)[:, None] + 1.0) * (np.arange(p)[None, :] + 1.0)
+    u_law, c_law = sub @ A.T, sub.sum(axis=1)
+    u_np = np.stack([evaluator.evaluate_np(table, sub[k])
+                     for k in range(LARGE_NP_HOLD)])
+    law = {}
+    for name, o in outs.items():
+        u, c, ins = host(o.u), host(o.cost), host(o.inside)
+        law[name] = {
+            "outside": int((~ins[:LARGE_HOLD].astype(bool)).sum()),
+            "du_law": float(np.abs(u[:LARGE_HOLD] - u_law).max()),
+            "dcost_law": float(np.abs(c[:LARGE_HOLD] - c_law).max()),
+            "du_host": float(np.abs(u[:LARGE_NP_HOLD] - u_np).max())}
+    return law
+
+
+def large_law_failures(law) -> list:
+    """large_law's verdict on the flat and the sharded output: 1e-9 for
+    each distance, every held query inside."""
+    if not law or set(law) != {"flat", "sharded"}:
+        return [f"large-L outputs not held to the tree's law ({law})"]
+    bad = []
+    for name, h in law.items():
+        if h["outside"] or not h["du_law"] <= 1e-9 \
+                or not h["dcost_law"] <= 1e-9:
+            bad.append(f"large {name}: {h['outside']} outside, |du| "
+                       f"{h['du_law']:.2e}, |dcost| {h['dcost_law']:.2e} "
+                       "against the tree's law")
+        if not h["du_host"] <= 1e-9:
+            bad.append(f"large {name}: |du| {h['du_host']:.2e} against the "
+                       "f64 host evaluator")
+    return bad
 
 
 def plain_leg(args, n_iter: int):
@@ -6023,14 +6081,16 @@ def counted(run, argv: list, record: dict, cells: str | None = None) -> int:
     can leave its count.  The line holds `record`'s keys, "pid", "rank",
     "rc", "partial", "wall_s", "k1" (ipm_leg's count), "k1_by"
     ({"route:path:dtype": {"launches", "ms"}}), "k1_ms" (the kernel's
-    summed event spans; None off the card and when partial) and "builds"
-    (regions, truncated, wall_s and k1_by of each call of
-    frontier.build_partition through the module: the tools' builds).
+    summed event spans; None off the card and when partial), "k2"
+    (locate's count, from zero) and "builds" (regions, truncated, wall_s
+    and k1_by of each call of frontier.build_partition through the
+    module: the tools' builds).
     With `cells`, the point-solve cells (CellRecorder) also go to
     <cells>.cells.p<RANK>.npy."""
     import contextlib
     import signal
 
+    from explicit_hybrid_mpc_tpu_torch.online import locate
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
     from explicit_hybrid_mpc_tpu_torch.partition import frontier
 
@@ -6058,7 +6118,7 @@ def counted(run, argv: list, record: dict, cells: str | None = None) -> int:
                 "partial": partial, "wall_s": time.perf_counter() - t0,
                 "k1": ipm_leg.launches, "k1_by": by,
                 "k1_ms": (sum(ms) if ms and None not in ms else None),
-                "builds": builds}) + "\n")
+                "k2": locate.launches, "builds": builds}) + "\n")
 
     def crash(code: int) -> None:
         note(code)
@@ -6068,7 +6128,7 @@ def counted(run, argv: list, record: dict, cells: str | None = None) -> int:
     os._exit = crash
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     signal.signal(signal.SIGUSR1, lambda *_: note(None, True))
-    ipm_leg.launches = 0
+    ipm_leg.launches = locate.launches = 0
     rec = CellRecorder() if cells else contextlib.nullcontext()
     rc = None
     try:
@@ -7044,6 +7104,9 @@ def analysis_only() -> int:
 CHAOS_EPS = 0.2
 CHAOS_BATCH = 64
 CHAOS_TIMEOUT_S = 300.0
+#: After the reference build, 22a runs the schedules CHAOS_LANES at a time
+#: (chaos_suite.run_suite's lanes).
+CHAOS_LANES = 3
 _CHAOS_MAIN = ("import sys, chip_smoke; "
                "sys.exit(chip_smoke.counted_cli(sys.argv[1:]))")
 #: 22b: phase 3's flagship under the supervisor, checkpointed every 20
@@ -7071,8 +7134,9 @@ def _chaos_run_name(argv: list) -> str:
 
 def chaos_phase(dev, tmp: str) -> dict:
     """22a: tools/chaos_suite.py's five schedules on `dev`'s backend at
-    the JAX package's configuration, every child through counted_cli
-    (K1 launches a run).  On the card the verdicts are the card's
+    the JAX package's configuration, CHAOS_LANES schedules at a time,
+    every child through counted_cli (K1 launches a run).  On the card
+    the verdicts are the card's
     (schedules 1, 2 and 4 end with NoCpuFallback; 3 and 5 as on the
     CPU); on the CPU the JAX package's.  Fails on any failed schedule
     and, on the card, on a build that launched no K1."""
@@ -7084,7 +7148,7 @@ def chaos_phase(dev, tmp: str) -> dict:
     with k1_log_env(os.path.join(tmp, "22a_k1.jsonl")) as k1_log:
         v = chaos_suite.run_suite(
             wd, CHAOS_EPS, CHAOS_BATCH, dev.type, timeout_s=CHAOS_TIMEOUT_S,
-            entry=[sys.executable, "-c", _CHAOS_MAIN])
+            entry=[sys.executable, "-c", _CHAOS_MAIN], lanes=CHAOS_LANES)
     wall = time.perf_counter() - t0
     k1: dict = {}
     for rec in k1_records(k1_log, partial=False):
@@ -7299,8 +7363,9 @@ WATCH_MAX_WALL_S = 300.0
 WATCH_POLL_S = 0.005
 #: 23d: the preflight run.  tier1 is not asked for: it holds the port
 #: against the JAX package, which the card's machine does not have
-#: (preflight lists it under not_run), and the chaos suite is 22a's.
-PREFLIGHT_ARGV = ["--only", "lint,drift_smoke"]
+#: (preflight lists it under not_run); the chaos suite is 22a's and the
+#: drift smoke 22c's.
+PREFLIGHT_ARGV = ["--only", "lint"]
 
 
 def fleet_smoke_phase(dev, tmp: str) -> dict:
@@ -7685,15 +7750,18 @@ ONSET_JAX_REGIONS = {"satellite": ((720, 720), (1224, 1224), (7744, 7744)),
 ONSET_MAY_TRUNCATE = ("quadrotor", 0.1)
 #: The K1 path each family's QPs take (satellite nz 24, quadrotor nz 60).
 ONSET_PATHS = {"satellite": "general", "quadrotor": "large"}
-#: 24d: tools/long_build on the flagship at eps 1e-2, checkpointed every
-#: 20 steps, its batch and depth at PartitionConfig's defaults (phase 3's
-#: build); the first process is SIGKILLed after its 2nd progress row and
-#: a second one resumes it.  Held to phase 3's bar (LONG_REF: regions,
-#: uncertified at most).
-LONG_ENV = {"LONG_EPS": "1e-2", "LONG_CKPT_EVERY": "20",
+#: 24d: tools/long_build on the flagship at eps 0.1 (22b holds a killed
+#: and resumed flagship at phase 3's eps 1e-2), checkpointed every 5 of
+#: its 26 steps, its batch and depth at PartitionConfig's defaults; the
+#: first process is SIGKILLed after its 2nd progress row and a second one
+#: resumes it.  Held to LONG_REF (regions within 2%, uncertified at
+#: most): the port's CPU build at these settings, 2,158 regions and 0
+#: uncertified (`main -e inverted_pendulum -a 0.1 --batch 256
+#: --max-depth 40 --backend cpu`).
+LONG_ENV = {"LONG_EPS": "0.1", "LONG_CKPT_EVERY": "5",
             "LONG_BATCH": "256", "LONG_MAX_DEPTH": "40"}
 LONG_KILL_AFTER_ROWS = 2
-LONG_REF = (REF_REGIONS, REF_UNCERTIFIED_MAX)
+LONG_REF = (2158, OTHER_UNCERTIFIED_MAX)
 CAPTURE_POLL_S = 0.05
 
 
@@ -8360,14 +8428,20 @@ def precision_reference(dev, tmp: str):
 
 
 def capture_tools_phase(dev, tmp: str, ref_proc) -> dict:
-    """Phase 24 (24b, 24c, 24d, 24a) in `tmp`, beside 24a's CPU reference
-    `ref_proc` started earlier in the same `tmp` (precision_reference);
-    returns the kernels line's ipm_leg keys."""
+    """Phase 24 (24b, then 24c beside 24d, then 24a) in `tmp`, beside
+    24a's CPU reference `ref_proc` started earlier in the same `tmp`
+    (precision_reference); returns the kernels line's ipm_leg keys."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     try:
         out = tune_phase(dev, tmp)
-        out.update(onset_phase(dev, tmp))
-        out.update(long_build_phase(dev, tmp))
+        # 24c and 24d hold counts and trees, no times: side by side.
+        with ThreadPoolExecutor(2) as pool:
+            both = [pool.submit(f, dev, tmp)
+                    for f in (onset_phase, long_build_phase)]
+            for f in both:
+                out.update(f.result())
         out.update(precision_phase(dev, tmp, ref_proc))
     finally:
         if ref_proc.poll() is None:
@@ -8397,6 +8471,273 @@ def capture_tools_only() -> int:
     log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as tmp:
         out = capture_tools_phase(dev, tmp, precision_reference(dev, tmp))
+    log(json.dumps(out))
+    return 0
+
+
+# -- phase 25: the bench tool (tools/bench.py), each mode a process of its
+# own ---------------------------------------------------------------------
+
+_BENCH = ("import sys, chip_smoke; "
+          "sys.exit(chip_smoke.bench_worker(sys.argv[1:]))")
+#: 25: tools/bench's four modes, each a child through bench_worker (K1 and
+#: K2 of the bench's process counted; the multichip mode's builds each a
+#: counted_cli process).  The default mode runs alone on CAPTURE_THREADS
+#: threads, at the tool's card defaults; then the other three together,
+#: BENCH_GROUP_THREADS threads
+#: each: the rebuild at eps 0.1 (phase 15 holds the flagship's eps 9e-3
+#: rebuild), the drift walk over 5 revisions, the multichip mode at its
+#: defaults (the DI fixture at eps 0.2, two processes).
+BENCH_MODES = (("default", [], {}),
+               ("rebuild", ["--rebuild"], {"BENCH_EPS": "0.1"}),
+               ("drift_walk", ["--drift-walk"], {"BENCH_DRIFT_K": "5"}),
+               ("multichip", ["--multichip"], {}))
+BENCH_GROUP_THREADS = 2
+BENCH_TIMEOUT_S = 600.0
+#: The default row's bar: regions within 2% of the JAX package's build
+#: at the bench's card settings (f64, max_depth 56, 512 simplices a
+#: batch: 13,152 regions, 0 uncertified, `python -m
+#: explicit_hybrid_mpc_tpu.main -e inverted_pendulum -a 1e-2 --max-depth
+#: 56 --precision f64 --batch 512 --backend cpu`; at max_depth 56 the
+#: mode-boundary slivers certify, so it is not phase 3's 11,670 at depth
+#: 40), uncertified at most phase 3's bound; the synthetic large-L tree's
+#: leaves (6! x 2^11) and the drift walk's least generations.
+BENCH_REF = (13152, REF_UNCERTIFIED_MAX)
+BENCH_LARGE_LEAVES = 1_474_560
+BENCH_DRIFT_MIN = 5
+#: The multichip mode's build processes: the reference, then two shards
+#: twice.
+BENCH_MULTICHIP_PROCS = 5
+#: The JAX package's bench history, which no child may touch.
+JAX_HISTORY = "BENCH_HISTORY.jsonl"
+
+
+def bench_worker(argv: list) -> int:
+    """`python -m explicit_hybrid_mpc_tpu_torch.tools.bench argv` through
+    `counted`, the multichip mode's builds through counted_cli: phase 25's
+    children.  The default mode's large-L outputs are held to the
+    synthetic tree's law (large_law) in the row's "large_l_law"."""
+    from explicit_hybrid_mpc_tpu_torch.tools import bench
+
+    large_l = bench.large_l_metrics
+
+    def held(result, dev, obs=None):
+        got = large_l(result, dev, obs=obs)
+        if got is not None:
+            result["large_l_law"] = large_law(
+                got["table"], got["queries"],
+                {k: got[k] for k in ("flat", "sharded")})
+        return got
+    bench.large_l_metrics = held
+    entry = [sys.executable, "-c", _CHAOS_MAIN]
+    return counted(lambda a: bench.main(a, entry=entry), argv,
+                   {"tool": "bench", "argv": argv})
+
+
+def _bench_child(dev, mode: str, argv: list, env_extra: dict, tmp: str,
+                 threads: int):
+    """One bench_worker child in `tmp`: its K1 records in
+    25_<mode>_k1.jsonl, its history in 25_<mode>.history.jsonl, its
+    BENCH_OUT copy in 25_<mode>.json, stdout in 25_<mode>.out, stderr in
+    25_<mode>.log; the process."""
+    def at(suffix):
+        return os.path.join(tmp, f"25_{mode}{suffix}")
+    env = dict(os.environ, **{K1_LOG_ENV: at("_k1.jsonl")},
+               OMP_NUM_THREADS=str(threads), TMPDIR=tmp,
+               BENCH_HISTORY=at(".history.jsonl"), BENCH_OUT=at(".json"),
+               **env_extra)
+    env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
+    argv = ["--backend", dev.type, "--sentinel", at(".sentinel")] + argv
+    with open(at(".out"), "wb") as out, open(at(".log"), "wb") as err:
+        return subprocess.Popen([sys.executable, "-c", _BENCH] + argv,
+                                cwd=_root(), env=env, stdout=out,
+                                stderr=err)
+
+
+def _bench_done(proc, tmp: str, mode: str) -> tuple[int, dict]:
+    """(exit code, the JSON line) of a _bench_child; fails the phase when
+    it outlives BENCH_TIMEOUT_S or prints no JSON line, with its log's
+    tail."""
+    def tail():
+        with open(os.path.join(tmp, f"25_{mode}.log"), "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+    try:
+        rc = proc.wait(BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"25 bench {mode}: no exit within {BENCH_TIMEOUT_S:.0f} s\n"
+             f"{tail()}")
+    with open(os.path.join(tmp, f"25_{mode}.out")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    try:
+        return rc, json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"25 bench {mode}: exit {rc}, no JSON line\n{tail()}")
+
+
+def _finite_positive(x) -> bool:
+    return isinstance(x, (int, float)) and bool(np.isfinite(x)) and x > 0
+
+
+def _bench_holds(mode: str, row: dict, on_card: bool, k2: int) -> list:
+    """What phase 25 holds each mode's row to; the failures."""
+    bad = []
+    if "error" in row:
+        bad.append(f"error {row['error']}")
+    if mode == "default":
+        ref, unc_max = BENCH_REF
+        if row.get("regions") is None \
+                or abs(row["regions"] - ref) > 0.02 * ref \
+                or (row.get("uncertified") or 0) > unc_max \
+                or row.get("truncated") is not False:
+            bad.append(f"regions {row.get('regions')} (bar {ref} within "
+                       f"2%), uncertified {row.get('uncertified')} (at "
+                       f"most {unc_max}), truncated {row.get('truncated')}")
+        path = "locate" if on_card else "descent"
+        if row.get("online_path") != path or (on_card and k2 < 1):
+            bad.append(f"online_path {row.get('online_path')} with {k2} "
+                       f"K2 launches (expected {path})")
+        if row.get("large_l_leaves") != BENCH_LARGE_LEAVES:
+            bad.append(f"large_l_leaves {row.get('large_l_leaves')}")
+        bad += large_law_failures(row.get("large_l_law"))
+        for key in ("vs_baseline", "vs_baseline_bnb", "online_us_per_query",
+                    "large_l_flat_us_per_query",
+                    "large_l_sharded_us_per_query"):
+            if not _finite_positive(row.get(key)):
+                bad.append(f"{key} {row.get(key)}")
+        tile = row.get("ipm_kernel_tile_us")
+        if (on_card and not _finite_positive(tile)) \
+                or (not on_card and tile is not None):
+            bad.append(f"ipm_kernel_tile_us {tile}")
+    elif mode == "rebuild":
+        reuse = row.get("rebuild_reuse_frac")
+        if not (isinstance(reuse, (int, float)) and 0 < reuse <= 1) \
+                or not _finite_positive(row.get("rebuild_speedup")):
+            bad.append(f"rebuild_reuse_frac {reuse}, rebuild_speedup "
+                       f"{row.get('rebuild_speedup')}")
+    elif mode == "drift_walk":
+        if (row.get("drift_generations") or 0) < BENCH_DRIFT_MIN \
+                or not all(_finite_positive(row.get(k)) for k in
+                           ("staleness_p50_s", "staleness_p99_s")):
+            bad.append(f"generations {row.get('drift_generations')} (at "
+                       f"least {BENCH_DRIFT_MIN}), staleness p50/p99 "
+                       f"{row.get('staleness_p50_s')}/"
+                       f"{row.get('staleness_p99_s')}")
+    elif row.get("multichip_scaling_frac") is None:
+        bad.append("no multichip_scaling_frac (parity not shown)")
+    return bad
+
+
+def bench_phase(dev, tmp: str) -> dict:
+    """Phase 25: tools/bench's default mode at full width alone, then its
+    rebuild, drift-walk and multichip modes together (BENCH_MODES), each a
+    process through bench_worker.  Each row held (_bench_holds), with
+    exit 0, its history row appended to its own file (the summary of the
+    row, key for key) and the JAX package's BENCH_HISTORY.jsonl
+    unchanged byte for byte; on the card the default mode's online figure
+    through K2, and K1 launched in every process (the multichip mode's
+    BENCH_MULTICHIP_PROCS builds each).  Returns the kernels line's
+    "bench_*" keys."""
+    import hashlib
+
+    from explicit_hybrid_mpc_tpu_torch.tools import bench_history
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    jax_hist = os.path.join(_root(), JAX_HISTORY)
+
+    def digest():
+        if not os.path.exists(jax_hist):
+            return None
+        with open(jax_hist, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+    before = digest()
+    out: dict = {"bench_k1_launches": {}, "bench_k1_ms": {},
+                 "bench_wall_s": {}}
+    groups = ([(BENCH_MODES[0], CAPTURE_THREADS)],
+              [(m, BENCH_GROUP_THREADS) for m in BENCH_MODES[1:]])
+    for group in groups:
+        t1 = time.perf_counter()
+        procs = [(mode, _bench_child(dev, mode, argv, env, tmp, threads))
+                 for (mode, argv, env), threads in group]
+        for mode, proc in procs:
+            rc, row = _bench_done(proc, tmp, mode)
+            wall = time.perf_counter() - t1
+            recs = k1_records(os.path.join(tmp, f"25_{mode}_k1.jsonl"),
+                              partial=False)
+            own = [r for r in recs if r.get("tool") == "bench"]
+            builds = [r for r in recs if r.get("tool") != "bench"]
+            k1_by = own[-1]["k1_by"] if own else {}
+            k2 = own[-1]["k2"] if own else 0
+            out["bench_k1_launches"][mode] = sum(r["k1"] for r in recs)
+            out["bench_k1_ms"][mode] = own[-1]["k1_ms"] if own else None
+            out["bench_wall_s"][mode] = wall
+            log(f"[bench] 25 {mode}: exit {rc} in {wall:.1f} s; row "
+                + json.dumps(row))
+            log(f"[bench] 25 {mode}: K1 of the bench process "
+                f"{_k1_text(k1_by)}, event ms "
+                f"{own[-1]['k1_ms'] if own else None}; K2 {k2}"
+                + (f"; K1 launches of its builds "
+                   f"{[r['k1'] for r in builds]}" if builds else ""))
+            bad = _bench_holds(mode, row, on_card, k2)
+            if rc != 0:
+                bad.append(f"exit {rc}")
+            hist = bench_history.load_history(
+                os.path.join(tmp, f"25_{mode}.history.jsonl"))
+            copy = os.path.join(tmp, f"25_{mode}.json")
+            want = (bench_history.summarize(
+                row, copy, round(os.path.getmtime(copy), 3))
+                if os.path.exists(copy) else None)
+            if hist != [want]:
+                bad.append(f"history {hist} against the row's summary "
+                           f"{want}")
+            if on_card and mode != "multichip" and not any(
+                    v["launches"] for k, v in k1_by.items()
+                    if k.startswith("cuda:")):
+                bad.append(f"no K1 launch ({_k1_text(k1_by)})")
+            if on_card and mode == "multichip" and (
+                    len(builds) != BENCH_MULTICHIP_PROCS
+                    or not all(r["k1"] for r in builds)):
+                bad.append(f"K1 launches by build process "
+                           f"{[r['k1'] for r in builds]}, expected "
+                           f"{BENCH_MULTICHIP_PROCS} each with a launch")
+            if mode == "default":
+                out["bench_k2_launches"] = k2
+                out["bench_default"] = {k: row.get(k) for k in (
+                    "value", "regions", "uncertified", "vs_baseline",
+                    "vs_baseline_bnb", "online_us_per_query",
+                    "large_l_flat_us_per_query",
+                    "large_l_sharded_us_per_query", "ipm_kernel_tile_us")}
+            if bad:
+                fail(f"25 bench {mode}: " + "; ".join(bad))
+    if digest() != before:
+        fail(f"25: {JAX_HISTORY} changed")
+    out["bench_phase_s"] = time.perf_counter() - t0
+    log(f"[bench] phase 25 took {out['bench_phase_s']:.1f} s; "
+        f"{JAX_HISTORY} unchanged")
+    return out
+
+
+def bench_only() -> int:
+    """Phase 25 alone, for iterating on the card: the kernels built, then
+    the four modes.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.bench_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        out = bench_phase(dev, tmp)
     log(json.dumps(out))
     return 0
 
@@ -8873,12 +9214,15 @@ def main() -> int:
     # -- phase 9: where the device time of a build goes --------------------
     # A second flagship build, steps PROFILE_WINDOW of it under
     # torch.profiler (device activity only; profiling the whole build
-    # spent four times the build in the profiler's teardown): the
+    # spent four times the build in the profiler's teardown), stopped at
+    # the window's end: the
     # device's busy share of that window is the summed time of every
     # CUDA kernel over its wall (one stream, so kernels do not overlap);
     # the profiler's own overhead lengthens the wall, so the share is a
     # lower bound.  K1's device time in the window is held against the
     # summed bound of the launches recorded in the same window.
+    import dataclasses
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -8909,7 +9253,8 @@ def main() -> int:
     torch.cuda.synchronize()
     t_prof = time.perf_counter()
     try:
-        build_partition(problem, cfg)
+        build_partition(problem, dataclasses.replace(
+            cfg, max_steps=PROFILE_WINDOW[1]))
         torch.cuda.synchronize()
     finally:
         FrontierEngine.step = real_step
@@ -9054,6 +9399,13 @@ def main() -> int:
                 ref_proc.kill()
                 ref_proc.wait()
 
+    # -- phase 25: the bench tool (its default mode at full width, then its
+    # rebuild, drift-walk and multichip modes) -----------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        bench = bench_phase(dev, tmp)
+    host.end("phase 25 (bench tool)")
+    bench_k2 = bench.pop("bench_k2_launches")
+
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/ipm_leg.cu",
@@ -9065,7 +9417,7 @@ def main() -> int:
          "sim_launches": sim["sim_k1"],
          "large": k1_large, "general": k1_general, "pruned": k1_pruned,
          **reb["ipm_leg"], **sd["ipm_leg"], **multi, **guard,
-         **robust, **operator, **capture},
+         **robust, **operator, **capture, **bench},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",
@@ -9073,7 +9425,7 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_lib_ms,
          "splits": k2_splits, "sim_launches": sim["sim_k2"],
-         **reb["locate"]},
+         "bench_launches": bench_k2, **reb["locate"]},
         k3_entry,
     ], "host": host.summary()}
     log(f"[done] the script took {time.perf_counter() - t_script:.1f} s")

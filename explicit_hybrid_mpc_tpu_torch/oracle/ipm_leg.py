@@ -28,6 +28,17 @@ from explicit_hybrid_mpc_tpu_torch import kernels
 #: after, to show the build went through the kernel.
 launches = 0
 
+# A launch over K QPs runs K blocks, one QP a block, on every path.  The
+# Oracle's ``oracle.ipm_kernel_tile_s`` (the JAX package's per-tile
+# histogram, whose tile holds several QPs) is therefore a batch's
+# blocking wall over its n QPs, one observation a batch: the Oracle's
+# wall a QP on the kernel route, host work included (assembly, every
+# leg of the batch -- two precisions, a phase-2 cohort, a rescue pass --
+# and the copies back), as the JAX figure is its blocking wall a tile.
+# It is not K1's own time a block, which CUDA events time far lower.
+# The padding rows that round a launch up to its bucket run blocks too
+# and are not counted.
+
 #: The CUDA kernel's three paths.  Up to GENERAL_MAX_NZ variables and
 #: GENERAL_MAX_NC constraints a QP runs on one warp: nz <= 8 in its
 #: register-resident path, larger nz in its general path (the

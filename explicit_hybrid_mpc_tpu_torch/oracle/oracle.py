@@ -744,6 +744,12 @@ class Oracle:
         # 1 = the CUDA kernel runs the IPM legs, 0 = the plain version.
         m.gauge("oracle.ipm_kernel").set(
             1.0 if self.ipm_kernel == "cuda" else 0.0)
+        # The blocking wall a QP on the kernel route, host work included
+        # (the JAX package's per-tile figure): the batch's wall over its n
+        # QPs, one K1 block each (oracle/ipm_leg.py); one observation a
+        # batch, none on the plain route.
+        if self.ipm_kernel == "cuda":
+            m.histogram("oracle.ipm_kernel_tile_s").observe(wall / n)
 
     @staticmethod
     def _scaled_cond(H: np.ndarray) -> float:

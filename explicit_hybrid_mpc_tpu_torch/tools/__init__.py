@@ -24,10 +24,16 @@
 - ``long_build``: a checkpointed campaign resumed across sessions, with
   its progress rows, health halt and online figure;
 - ``capture``: the helpers those four share (the JAX package's bench.py
-  helpers of the same names).
+  helpers of the same names);
+- ``bench``: the JAX package's bench.py, its four modes (the flagship
+  build's regions/s with its baselines, online and large-L figures; the
+  warm rebuild; the drift walk; the sharded build), one JSON line a run;
+- ``bench_history``: the bench's history row (scripts/bench_gate.py's
+  format) in the port's own file.
 
-The builds, smokes and captures run on the CUDA device unless
-``--backend cpu`` is given (for the captures also ``BENCH_PLATFORM=cpu``),
+The builds, smokes, captures and the bench run on the CUDA device unless
+``--backend cpu`` is given (for the captures and the bench also
+``BENCH_PLATFORM=cpu``),
 and refuse to start without a card otherwise; the report and
 the watcher read streams and touch no device.
 """

@@ -556,10 +556,14 @@ def run_schedule(name: str, wd: str, eps: float, batch: int,
 def run_suite(wd: str, eps: float = 0.2, batch: int = 64,
               backend: str = "cuda", schedules=None,
               timeout_s: float = TIMEOUT_S,
-              entry: list[str] | None = None) -> dict:
-    """The reference build, then each schedule (default all); the
-    verdict {"backend", "eps", "batch", "reference", "schedules",
-    "failures"}."""
+              entry: list[str] | None = None, lanes: int = 1) -> dict:
+    """The reference build, then each schedule (default all), `lanes` of
+    them at a time (each its own processes and files; the schedules of
+    several processes, the longest, start first); the verdict
+    {"backend", "eps", "batch", "reference", "schedules", "failures"},
+    in schedule order whatever order the lanes run them in."""
+    from concurrent.futures import ThreadPoolExecutor
+
     names = list(schedules or SCHEDULES)
     verdict: dict = {"backend": backend, "eps": eps, "batch": batch,
                      "schedules": {}, "failures": []}
@@ -571,17 +575,30 @@ def run_suite(wd: str, eps: float = 0.2, batch: int = 64,
     verdict["failures"] += ref["failures"]
     if ref["rc"] != 0 or ref["hung"]:
         return verdict
-    for name in names:
+
+    def one(name: str) -> dict:
         print(f"chaos: schedule {name} ...", file=sys.stderr)
         row = run_schedule(name, wd, eps, batch, backend, timeout_s, entry)
-        verdict["schedules"][name] = {k: v for k, v in row.items()
-                                      if k != "failures"}
-        verdict["schedules"][name]["ok"] = not row["failures"]
-        verdict["failures"] += [f"{name}: {m}" for m in row["failures"]]
         print(f"chaos: {name}: "
               + ("ok" if not row["failures"] else "FAILED: "
                  + "; ".join(row["failures"]))
               + f" ({row.get('wall_s', 0.0):.1f} s)", file=sys.stderr)
+        return row
+
+    def several(name: str) -> bool:
+        spec = SCHEDULES[name]
+        return bool(spec.get("sharded") or spec.get("lifecycle")
+                    or spec.get("supervised"))
+    with ThreadPoolExecutor(max(1, lanes)) as pool:
+        started = {name: pool.submit(one, name) for name in
+                   sorted(names, key=lambda n: not several(n))}
+        rows = {name: f.result() for name, f in started.items()}
+    for name in names:
+        row = rows[name]
+        verdict["schedules"][name] = {k: v for k, v in row.items()
+                                      if k != "failures"}
+        verdict["schedules"][name]["ok"] = not row["failures"]
+        verdict["failures"] += [f"{name}: {m}" for m in row["failures"]]
     return verdict
 
 

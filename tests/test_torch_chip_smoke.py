@@ -1620,3 +1620,116 @@ def test_f32_leg_verdict_holds_the_kernel_to_the_witnesses(
     out = capsys.readouterr().out
     assert "chip_smoke: FAIL: 24a K1 float32 leg joint: after" in out
     assert message in out, out
+
+
+#: Phase 25's modes at small sizes on the DI problem (its drift walk on
+#: the pendulum's small box, 3 revisions; its multichip mode at eps 0.5).
+_BENCH_SMALL = {"BENCH_PROBLEM": "double_integrator", "BENCH_EPS": "1.0",
+                "BENCH_BATCH": "32", "BENCH_POINTS_CAP": "16",
+                "BENCH_BNB_POINTS": "4", "BENCH_LARGE_DEPTH": "6",
+                "BENCH_LARGE_P": "3", "BENCH_SHARDS": "4"}
+
+
+def test_bench_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 25 on the CPU: tools/bench's default mode alone, then its
+    rebuild, drift-walk and multichip modes together, each a
+    bench_worker child counted by `counted` (the plain leg by path and
+    dtype, K2's count), each row held and its history row appended to its
+    own file, BENCH_HISTORY.jsonl untouched."""
+    monkeypatch.setattr(chip_smoke, "BENCH_MODES", (
+        ("default", [], _BENCH_SMALL),
+        ("rebuild", ["--rebuild"], _BENCH_SMALL),
+        ("drift_walk", ["--drift-walk"], {"BENCH_DRIFT_K": "3"}),
+        ("multichip", ["--multichip"], {"BENCH_MULTICHIP_EPS": "0.5"})))
+    monkeypatch.setattr(chip_smoke, "BENCH_REF", (452, 0))
+    monkeypatch.setattr(chip_smoke, "BENCH_LARGE_LEAVES", 6 * 2 ** 6)
+    monkeypatch.setattr(chip_smoke, "BENCH_DRIFT_MIN", 3)
+    out = chip_smoke.bench_phase(torch.device("cpu"), str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ('[bench] 25 default: exit 0 in', '"online_path": "descent"',
+                '"large_l_leaves": 384', '"large_l_law": {"flat": '
+                '{"outside": 0', "[bench] 25 rebuild: exit 0",
+                "[bench] 25 drift_walk: exit 0", '"drift_generations": 3',
+                "[bench] 25 multichip: exit 0", "K1 launches of its builds "
+                "[0, 0, 0, 0, 0]", "[bench] phase 25 took",
+                "BENCH_HISTORY.jsonl unchanged"):
+        assert tag in log, tag
+    assert out["bench_default"]["regions"] == 452
+    assert out["bench_k2_launches"] == 0
+    assert set(out["bench_k1_launches"]) == {"default", "rebuild",
+                                             "drift_walk", "multichip"}
+    assert "K1 of the bench process plain:register:float64" in log
+
+
+def _bench_row(**kw):
+    row = {"regions": chip_smoke.BENCH_REF[0], "uncertified": 0,
+           "truncated": False, "online_path": "locate",
+           "large_l_leaves": chip_smoke.BENCH_LARGE_LEAVES,
+           "vs_baseline": 12.5, "vs_baseline_bnb": 30.0,
+           "ipm_kernel_tile_us": 0.4, "online_us_per_query": 0.014,
+           "large_l_flat_us_per_query": 0.14,
+           "large_l_sharded_us_per_query": 2.1,
+           "large_l_law": {k: {"outside": 0, "du_law": 1e-14,
+                               "dcost_law": 5e-15, "du_host": 5e-15}
+                           for k in ("flat", "sharded")}}
+    row.update(kw)
+    return row
+
+
+def _law(name, **kw):
+    law = _bench_row()["large_l_law"]
+    law[name] = dict(law[name], **kw)
+    return law
+
+
+@pytest.mark.parametrize("mode,row,k2,words", [
+    ("default", _bench_row(), 1, None),
+    ("default", _bench_row(error="KernelError('x')"), 1, "error"),
+    ("default", _bench_row(regions=chip_smoke.REF_REGIONS), 1,
+     f"regions {chip_smoke.REF_REGIONS}"),
+    ("default", _bench_row(truncated=True), 1, "truncated True"),
+    ("default", _bench_row(), 0, "0 K2 launches"),
+    ("default", _bench_row(online_path="descent"), 1, "online_path"),
+    ("default", _bench_row(large_l_leaves=384), 1, "large_l_leaves 384"),
+    ("default", _bench_row(vs_baseline=float("nan")), 1, "vs_baseline nan"),
+    ("default", _bench_row(ipm_kernel_tile_us=None), 1,
+     "ipm_kernel_tile_us None"),
+    ("default", _bench_row(online_us_per_query=None), 1,
+     "online_us_per_query None"),
+    ("default", _bench_row(large_l_flat_us_per_query=None), 1,
+     "large_l_flat_us_per_query None"),
+    ("default", _bench_row(large_l_sharded_us_per_query=None), 1,
+     "large_l_sharded_us_per_query None"),
+    ("default", _bench_row(large_l_law=None), 1,
+     "not held to the tree's law"),
+    ("default", _bench_row(large_l_law=_law("sharded", outside=3)), 1,
+     "large sharded: 3 outside"),
+    ("default", _bench_row(large_l_law=_law("flat", du_law=1e-3)), 1,
+     "large flat: 0 outside, |du| 1.00e-03"),
+    ("default", _bench_row(large_l_law=_law("flat", du_host=float("nan"))),
+     1, "large flat: |du| nan against the f64 host evaluator"),
+    ("rebuild", {"rebuild_reuse_frac": 0.0, "rebuild_speedup": 2.0}, 0,
+     "rebuild_reuse_frac 0.0"),
+    ("rebuild", {"rebuild_reuse_frac": 0.9, "rebuild_speedup": 2.0}, 0,
+     None),
+    ("drift_walk", {"drift_generations": 4, "staleness_p50_s": 0.2,
+                    "staleness_p99_s": 0.3}, 0, "generations 4"),
+    ("drift_walk", {"drift_generations": 5, "staleness_p50_s": 0.2,
+                    "staleness_p99_s": 0.3}, 0, None),
+    ("multichip", {"multichip_scaling_frac": None,
+                   "error": "RuntimeError('multichip sync tree diverged')"},
+     0, "diverged"),
+    ("multichip", {"multichip_scaling_frac": 0.4}, 0, None),
+])
+def test_bench_holds_each_rows_bar_on_the_card(mode, row, k2, words):
+    """What phase 25 holds a row to on the card: no error; the default
+    mode's regions, online path through K2, large-L leaves and their
+    outputs held to the tree's law, baselines, K1's tile time and the
+    timed online and large-L figures; the rebuild's reuse, the walk's
+    generations and staleness, the multichip mode's parity."""
+    bad = chip_smoke._bench_holds(mode, row, True, k2)
+    if words is None:
+        assert bad == []
+    else:
+        assert any(words in b for b in bad), bad

@@ -5,8 +5,9 @@ Checked in a fresh interpreter (this test process has both loaded):
 every module under ``explicit_hybrid_mpc_tpu_torch`` is imported, the
 serving, lifecycle, analysis and tools subpackages included, and then ``sys.modules``
 must hold no ``jax`` / ``jax.*``, no ``explicit_hybrid_mpc_tpu`` /
-``explicit_hybrid_mpc_tpu.*`` and no ``bench`` (the JAX package's
-bench.py) entry."""
+``explicit_hybrid_mpc_tpu.*``, no ``bench`` (the JAX package's
+bench.py) and no module loaded from scripts/ (bench_gate and the other
+JAX scripts)."""
 
 import json
 import os
@@ -18,15 +19,17 @@ import pytest
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, os, pkgutil, sys
 import explicit_hybrid_mpc_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith(".__main__")]
 for n in names:
     importlib.import_module(n)
-bad = sorted(m for m in sys.modules
+scripts = os.path.join(os.getcwd(), "scripts") + os.sep
+bad = sorted(m for m, mod in list(sys.modules.items())
              if m in ("jax", "jaxlib", "explicit_hybrid_mpc_tpu", "bench")
-             or m.startswith(("jax.", "jaxlib.", "explicit_hybrid_mpc_tpu.")))
+             or m.startswith(("jax.", "jaxlib.", "explicit_hybrid_mpc_tpu."))
+             or (getattr(mod, "__file__", None) or "").startswith(scripts))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -83,6 +86,7 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "tools.fleet_smoke", "tools.preflight",
                                  "tools.capture", "tools.precision_check",
                                  "tools.tune_schedule", "tools.onset_probe",
-                                 "tools.long_build"])
+                                 "tools.long_build", "tools.bench",
+                                 "tools.bench_history"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

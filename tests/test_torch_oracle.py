@@ -159,3 +159,47 @@ def test_mixed_precision_oracle_matches_the_reference():
     assert np.array_equal(a.conv, b.conv) and np.array_equal(a.dstar,
                                                              b.dstar)
     _close(a.V, b.V, a.conv)
+
+
+@pytest.mark.parametrize("route", ["cuda", "torch"])
+def test_the_kernel_tile_histogram_follows_the_route(route):
+    """oracle.ipm_kernel_tile_s (the JAX package's per-tile figure, read
+    by the bench's ipm_kernel_tile_us): one observation a batch, its
+    blocking wall over the batch's QPs -- K1's blocks, one a QP -- when
+    the route is the kernel, nothing on the plain route.  The kernel's route is stubbed on
+    the CPU: the legs follow the tensors' device, so the plain leg runs
+    under either name."""
+    from explicit_hybrid_mpc_tpu_torch import obs as obs_lib
+
+    name, kw = PROBLEMS["di"]
+    prob = make(name, **kw)
+    obs = obs_lib.Obs("jsonl")
+    to = toracle.Oracle(prob, backend="cpu", obs=obs, **KNOBS)
+    to.ipm_kernel = route
+    batches = []
+    real = to._obs_batch
+
+    def counted(cls, n, wall, *a, **k):
+        if n > 0:
+            batches.append((cls, n, wall))
+        return real(cls, n, wall, *a, **k)
+
+    to._obs_batch = counted
+    rng = np.random.default_rng(5)
+    to.solve_vertices(rng.uniform(prob.theta_lb, prob.theta_ub,
+                                  (24, prob.n_theta)))
+    to.solve_simplex_min(_simplices(prob, rng, 12),
+                         np.zeros(12, dtype=np.int64))
+    assert {c for c, _n, _w in batches} >= {"point", "simplex"}
+    hists = obs.metrics.snapshot()["histograms"]
+    if route == "torch":
+        assert "oracle.ipm_kernel_tile_s" not in hists
+        return
+    tile = hists["oracle.ipm_kernel_tile_s"]
+    assert tile["count"] == len(batches)
+    assert tile["sum"] == pytest.approx(sum(w / n for _c, n, w in batches),
+                                        rel=1e-12)
+    point = hists["oracle.point_solve_s"]
+    (p_n, p_wall), = [(n, w) for c, n, w in batches if c == "point"]
+    assert point["sum"] == pytest.approx(p_wall, rel=1e-12)
+    assert p_n == 24 * prob.canonical.n_delta

@@ -11,6 +11,8 @@ tools/) on the CPU, against the JAX package's scripts.
   package's clean build of the same argv (through the arrays); the
   card's verdicts rehearsed with children that stand in for a card
   build (a CPU build whose recovery acts as on the card);
+- the suite's lanes (schedules run concurrently) keeping its serial
+  verdict;
 - the port's comparators against scripts/chaos_suite.py's on the same
   pairs of trees and artifact directories, identical and perturbed;
 - the drift smoke at ``--backend cpu --eps 0.5``;
@@ -340,6 +342,54 @@ def test_exception_chain_reads_the_last_traceback():
     assert chaos_suite.exception_chain(text) == ["InjectedFault",
                                                  "NoCpuFallback"]
     assert chaos_suite.exception_chain("no traceback here\n") == []
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_the_suites_lanes_keep_its_verdict(tmp_path, monkeypatch, lanes):
+    """run_suite with `lanes` schedules at a time gives the serial
+    verdict: the same reference, every schedule's row with its "ok", the
+    failures in schedule order, whatever order the lanes finish in; the
+    schedules of several processes start first, and at 3 lanes
+    schedules do overlap."""
+    import threading
+    import time as _time
+
+    names = list(chaos_suite.SCHEDULES)
+    live, most, order = [0], [0], []
+    lock = threading.Lock()
+
+    def ref(wd, eps, batch, backend, timeout_s, entry):
+        return {"rc": 0, "hung": False, "wall_s": 1.0, "stderr": "x",
+                "t_exit": 0.0, "failures": []}
+
+    def sched(name, wd, eps, batch, backend, timeout_s=0.0, entry=None):
+        with lock:
+            order.append(name)
+            live[0] += 1
+            most[0] = max(most[0], live[0])
+        _time.sleep(0.05 * (len(names) - names.index(name)))
+        with lock:
+            live[0] -= 1
+        return {"rc": 0, "wall_s": 2.0, "name": name,
+                "failures": ([f"{name} broke"] if name in (
+                    "solve_timeout", "sharded_device_failure") else [])}
+    monkeypatch.setattr(chaos_suite, "reference_build", ref)
+    monkeypatch.setattr(chaos_suite, "run_schedule", sched)
+    v = chaos_suite.run_suite(str(tmp_path), EPS, BATCH, "cpu",
+                              lanes=lanes)
+    assert v["reference"] == {"rc": 0, "hung": False, "wall_s": 1.0}
+    assert list(v["schedules"]) == names
+    assert v["schedules"]["device_failure"] == {
+        "rc": 0, "wall_s": 2.0, "name": "device_failure", "ok": True}
+    assert [n for n in names if not v["schedules"][n]["ok"]] == [
+        "solve_timeout", "sharded_device_failure"]
+    assert v["failures"] == ["solve_timeout: solve_timeout broke",
+                             "sharded_device_failure: "
+                             "sharded_device_failure broke"]
+    assert most[0] == min(lanes, len(names))
+    assert set(order[:3]) == {"kill_mid_checkpoint",
+                              "lifecycle_publish_crash",
+                              "sharded_device_failure"}
 
 
 # -- the drift smoke -------------------------------------------------------
