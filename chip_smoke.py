@@ -7,7 +7,7 @@ plain torch version on the card, drives the port's main paths -- the
 flagship inverted-pendulum partition build at eps_a=1e-2, the online
 evaluation of 65,536 thetas through the point-location kernel, and
 multi-tenant serving of the flagship table to four tenants from one
-device arena (20,000 requests through the scheduler and the arena
+device arena (10,000 requests through the scheduler and the arena
 kernel, with a delta hot swap mid-traffic and a bitwise torn-read
 audit) -- with every kernel launch counted from zero just before each
 path, and checks the results against the plain references.  Phases
@@ -175,7 +175,17 @@ and K1's tile time present; then the rebuild mode at eps 0.1,
 the drift walk over 5 revisions and the multichip mode at its defaults
 together (no error, reuse in (0, 1], at least 5 generations, parity
 held); every row's history row appended to its own file, and the JAX
-package's BENCH_HISTORY.jsonl unchanged byte for byte.  One
+package's BENCH_HISTORY.jsonl unchanged byte for byte.  Phase 26 drives
+the serving bench (tools/serve_bench.py), one process at a time through
+serve_bench_worker (counted, its client windows recorded): the legacy
+sweep, the legacy sweep under skewed traffic with demand capture (the
+demand and trace off/on pairs) and the four-tenant arena sweep, each at
+the JAX script's defaults but depth 13 (16,384 leaves), held to the JAX
+script's bars, the card named and both versions seen; in the arena
+child K3's launches over the windows equal to the scheduler's batches,
+window by window against the row's launches per request, and at least
+1,024 of its served in-box rows, over every extent, re-evaluated by
+K3's plain version within 1e-5.  One
 ContentionMonitor samples the host across the whole script; each
 phase is followed by its verdict (competing CPU share, contended), and
 the kernels line carries the whole run's summary under "host".  Any
@@ -188,8 +198,8 @@ call: for locate it is two kernels when the leaves are split across
 blocks (its entry's "splits" > 1), the split scan and the merge.
 arena_eval's entry is at the serving run's most frequent batch size
 ("rows"), its error the largest over every size it was held to its
-plain version at (the sweep's and that one), and its "profiled_*"
-keys come from a second, shorter serving run under torch.profiler
+plain version at (the sweep's, that one and phase 26's served rows),
+and its "profiled_*" keys come from a second, shorter serving run under torch.profiler
 (the timed run's p50/p99 are taken without the profiler).  The
 ipm_leg and locate entries' "sim_launches" count the closed loop's
 launches (phase 11), from zero; the ipm_leg entry's "large" object is
@@ -227,7 +237,11 @@ regions, "preflight_walls_s" 23d's and "operator_wall_s" phase 23's; the
 and so on) and "capture_wall_s" phase 24's; the "bench_*" keys phase
 25's (K1 launches and the bench process's K1 event ms by mode, each
 mode's wall, the default row's headline figures), and the locate
-entry's "bench_launches" the default mode's K2 launches.  The ipm_leg entry's
+entry's "bench_launches" the default mode's K2 launches; arena_eval's
+"serve_bench_*" keys phase 26's (K3's launches over the arena sweep's
+windows and in its process, the plain-version hold, K3's graph-replayed
+ms a launch at the sweep's most frequent batch size beside its plain
+version's and its bound, each child's wall).  The ipm_leg entry's
 "build_ms" is K1's device time in phase 9's profiled window of the
 flagship build (its steps "build_window_steps"), beside the summed
 bound of the launches recorded in that window.
@@ -289,7 +303,11 @@ phase 24, and
 
     python3 -c "import sys, chip_smoke as c; sys.exit(c.bench_only())"
 
-phase 25.
+phase 25, and
+
+    python3 -c "import sys, chip_smoke as c; sys.exit(c.serve_bench_only())"
+
+phase 26.
 
     K2_BASELINE=old_locate.cu K3_BASELINE=old_arena_eval.cu \
         python3 chip_smoke.py
@@ -353,10 +371,12 @@ K3_SWEEP_B = (1, 4, 16, 64, 256, QUERIES)
 #: spare extent for the delta publish's two-epoch handoff), closed-loop
 #: client threads, requests in all, the scheduler's micro-batch cap
 #: (ServeConfig.max_batch) and deadline, and the share of queries
-#: drawn outside the certified box.
+#: drawn outside the certified box.  REQUESTS (also 16c's traced arena
+#: runs) is 10,000 since phase 26's arena sweep serves a delta hot swap
+#: under load with the same bitwise audit and K3 count, traced.
 TENANTS = 4
 CLIENTS = 16
-REQUESTS = 20_000
+REQUESTS = 10_000
 MAX_BATCH = 256
 MAX_WAIT_US = 2000.0
 OUTSIDE_FRAC = 0.05
@@ -4751,16 +4771,17 @@ def diagnostics_only() -> int:
 # -- phase 19: the SLO engine and demand telemetry ---------------------------
 
 #: Phase 19 (the SLO engine and demand telemetry).  Requests of each arena
-#: run (phase 8's traffic, cut from 20,000 so the phase stays short), the
+#: run (phase 8's traffic, cut to 5,000 so the phase stays short), the
 #: run pairs timed in turns (off/on, on/off, ...), the online
 #: suboptimality stride and eps (the flagship's eps_a; eps_r is 0),
 #: `main serve --selftest` rows, the sketch's exact capacity (above the
 #: flagship's leaf count, so the per-leaf counts stay exact), the SLO
 #: windows scaled to seconds (the JAX tests' geometry, 1 s slots) with
 #: their burn thresholds, and the demand-ordered rebuild's region
-#: tolerance against phase 15a's unprioritized rebuild.
+#: tolerance against phase 15a's unprioritized rebuild.  One pair (off,
+#: on) since phase 26's skewed sweep times five demand off/on pairs.
 SD_REQUESTS = 5_000
-SD_PAIRS = 2
+SD_PAIRS = 1
 SD_SUBOPT_FRAC = 1 / 16
 SD_SUBOPT_EPS = 1e-2
 SD_SELFTEST = 4096
@@ -6082,7 +6103,8 @@ def counted(run, argv: list, record: dict, cells: str | None = None) -> int:
     "rc", "partial", "wall_s", "k1" (ipm_leg's count), "k1_by"
     ({"route:path:dtype": {"launches", "ms"}}), "k1_ms" (the kernel's
     summed event spans; None off the card and when partial), "k2"
-    (locate's count, from zero) and "builds" (regions, truncated, wall_s
+    (locate's count, from zero), "k3" (arena_eval's, from zero) and
+    "builds" (regions, truncated, wall_s
     and k1_by of each call of frontier.build_partition through the
     module: the tools' builds).
     With `cells`, the point-solve cells (CellRecorder) also go to
@@ -6090,7 +6112,7 @@ def counted(run, argv: list, record: dict, cells: str | None = None) -> int:
     import contextlib
     import signal
 
-    from explicit_hybrid_mpc_tpu_torch.online import locate
+    from explicit_hybrid_mpc_tpu_torch.online import fused, locate
     from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
     from explicit_hybrid_mpc_tpu_torch.partition import frontier
 
@@ -6118,7 +6140,8 @@ def counted(run, argv: list, record: dict, cells: str | None = None) -> int:
                 "partial": partial, "wall_s": time.perf_counter() - t0,
                 "k1": ipm_leg.launches, "k1_by": by,
                 "k1_ms": (sum(ms) if ms and None not in ms else None),
-                "k2": locate.launches, "builds": builds}) + "\n")
+                "k2": locate.launches, "k3": fused.launches,
+                "builds": builds}) + "\n")
 
     def crash(code: int) -> None:
         note(code)
@@ -6128,7 +6151,7 @@ def counted(run, argv: list, record: dict, cells: str | None = None) -> int:
     os._exit = crash
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     signal.signal(signal.SIGUSR1, lambda *_: note(None, True))
-    ipm_leg.launches = locate.launches = 0
+    ipm_leg.launches = locate.launches = fused.launches = 0
     rec = CellRecorder() if cells else contextlib.nullcontext()
     rc = None
     try:
@@ -8742,6 +8765,385 @@ def bench_only() -> int:
     return 0
 
 
+# -- phase 26: the serving bench (tools/serve_bench.py), each mode a process
+# of its own ----------------------------------------------------------------
+
+_SERVE_BENCH = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.serve_bench_worker(sys.argv[1:]))")
+#: 26: tools/serve_bench at the JAX script's defaults (2 shards or 4
+#: tenants, 8 clients, rates 1,000 / 4,000 / 16,000 for 2 s each), the
+#: legacy and the arena sweep at depth 13: p = 2 and 2 x 2^13 = 16,384
+#: leaves, the size of the flagship's table (11,674), where the JAX
+#: default depth 9 gives 1,024.  The skewed capture (the demand and trace
+#: off/on pairs) at depth 9, as in BENCH_serve_r03/r04.json: the script's
+#: blobs are sized for that depth, and at depth 13 the JAX script itself
+#: misses its top-decile bar (0.655 on the CPU, the port 0.624; PERF.md).
+#: One child at a time.
+SERVE_BENCH_RUNS = (
+    ("legacy", {"SERVE_BENCH_DEPTH": "13"}),
+    ("skew", {"SERVE_BENCH_DEPTH": "9", "SERVE_BENCH_SKEW": "3.0"}),
+    ("arena", {"SERVE_BENCH_DEPTH": "13", "SERVE_BENCH_TENANTS": "4"}))
+SERVE_BENCH_TIMEOUT_S = 300.0
+#: The arena child's served in-box rows re-evaluated by K3's plain
+#: version: at least this many (every one up to SB_PLAIN_MAX, else evenly
+#: spaced), held to SB_PLAIN_TOL times max(1, |value|) -- the float32
+#: products of the kernel and of the plain version, summed in another
+#: order -- with the leaf ids equal where the winner clears
+#: SB_PLAIN_TIE.
+SB_PLAIN_MIN = 1024
+SB_PLAIN_MAX = 16_384
+SB_PLAIN_TOL = 1e-5
+SB_PLAIN_TIE = 1e-5
+SB_GRAPH_REPS = 200
+
+
+class SweepRecorder:
+    """In a serve_bench child: each client window's arena_eval launches
+    and requests (tools/serve_bench._Clients.window), and every
+    arena_eval call made inside a window (its arguments and records), for
+    `hold_plain` and `time_k3` after the run.  A context manager that
+    patches and restores both."""
+
+    def __init__(self):
+        self.windows: list = []
+        self.calls: list = []
+        self._active = False
+
+    def __enter__(self):
+        from explicit_hybrid_mpc_tpu_torch.online import fused
+        from explicit_hybrid_mpc_tpu_torch.tools import serve_bench
+
+        self._real = (serve_bench._Clients.window, fused.arena_eval)
+        real_window, real_eval = self._real
+
+        def window(clients, rate, *a, **kw):
+            sched = clients.submit.__self__
+            k0, r0 = fused.launches, sched.n_requests
+            self._active = True
+            try:
+                return real_window(clients, rate, *a, **kw)
+            finally:
+                self._active = False
+                self.windows.append({
+                    "rate": rate, "k3": fused.launches - k0,
+                    "requests": sched.n_requests - r0})
+
+        def arena_eval(*args, **kw):
+            rec = real_eval(*args, **kw)
+            if self._active:
+                self.calls.append((args, kw, rec))
+            return rec
+
+        serve_bench._Clients.window = window
+        fused.arena_eval = arena_eval
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from explicit_hybrid_mpc_tpu_torch.online import fused
+        from explicit_hybrid_mpc_tpu_torch.tools import serve_bench
+
+        serve_bench._Clients.window, fused.arena_eval = self._real
+
+    def hold_plain(self) -> dict | None:
+        """The in-box rows served by K3 inside the windows (clamped 0),
+        all up to SB_PLAIN_MAX, else evenly spaced, re-evaluated through
+        fused.arena_eval_torch on the serving arena's buffers (a column a
+        batch read is not written later: a publish writes free columns
+        only, and nothing is published after the sweep).  None without an
+        arena call."""
+        import torch
+
+        from explicit_hybrid_mpc_tpu_torch.online import fused
+
+        if not self.calls:
+            return None
+        bary, U, V = self.calls[0][0][:3]
+        q = torch.cat([a[3] for a, _kw, _r in self.calls], dim=1)
+        ext = torch.cat([a[4] for a, _kw, _r in self.calls])
+        rec = torch.cat([r for _a, _kw, r in self.calls])
+        rows = torch.nonzero(rec[:, 3] == 0)[:, 0]
+        if rows.numel() > SB_PLAIN_MAX:
+            rows = rows[torch.linspace(0, rows.numel() - 1, SB_PLAIN_MAX,
+                                       device=rows.device).long()]
+        q, ext, rec = q[:, rows].contiguous(), ext[rows].contiguous(), \
+            rec[rows]
+        plain = fused.arena_eval_torch(bary, U, V, q, ext)
+        kv, kc, ku, kcost, kcl = fused.unpack(rec)
+        pv, pc, pu, pcost, pcl = fused.unpack(plain)
+
+        def rel(a, b):
+            return (a - b).abs() / b.abs().clamp(min=1)
+
+        def most(t):
+            return float(t.max()) if t.numel() else 0.0
+
+        clear = pv > SB_PLAIN_TIE
+        same = kc == pc
+        diff = torch.nonzero(~same)[:, 0]
+        # Where the columns differ (a tie on a shared facet), the plain
+        # score at the kernel's column against the plain maximum.
+        thc = torch.minimum(torch.maximum(q[0, diff], q[1, diff]),
+                            q[2, diff])
+        at_k = (thc.T[None] * bary[:, :, kc[diff].long()]).sum(1).amin(0)
+        worst = {"val": most(rel(kv, pv)), "u": most(rel(ku, pu)[same]),
+                 "cost": most(rel(kcost, pcost)[same]),
+                 "tie": most(rel(at_k, pv[diff]))}
+        return {
+            "rows": int(rows.numel()),
+            "extents": len({tuple(e) for e in ext.tolist()}),
+            "clamped_differ": int((kcl != pcl).sum()),
+            "tie_free": int(clear.sum()),
+            "tie_free_cols_differ": int((kc != pc)[clear].sum()),
+            "cols_differ": int(diff.numel()),
+            "tol": SB_PLAIN_TOL, "max_rel": worst,
+            "max_abs_err": max(most((kv - pv).abs()),
+                               most((ku - pu)[same].abs()),
+                               most((kcost - pcost)[same].abs()))}
+
+    def time_k3(self) -> dict | None:
+        """K3 at the windows' most frequent batch size, on the last such
+        batch's own inputs and plan: device ms a launch by CUDA-graph
+        replay (CUDA events around SB_GRAPH_REPS replayed launches), the
+        plain version's ms by CUDA events, the bound.  None off the card
+        or without an arena call."""
+        import collections
+
+        from explicit_hybrid_mpc_tpu_torch.online import fused
+
+        cuda = [c for c in self.calls if c[0][0].device.type == "cuda"]
+        if not cuda:
+            return None
+        sizes = collections.Counter(int(a[3].shape[1]) for a, _k, _r in cuda)
+        B, n = sizes.most_common(1)[0]
+        args = next(a for a, _k, _r in reversed(cuda)
+                    if int(a[3].shape[1]) == B)
+        bary, U, V, q, ext, plan, scratch = args
+        pp1, n_u = int(bary.shape[0]), int(U.shape[2])
+        ms = graph_time(lambda: fused.arena_eval_cuda(*args), SB_GRAPH_REPS)
+        plain_ms = cuda_time(
+            lambda: fused.arena_eval_torch(bary, U, V, q, ext), 20)
+        nbytes, flops = arena_eval_cost(ext.cpu().numpy(), B, pp1, n_u)
+        by_bytes = nbytes / PEAK_BYTES_S >= flops / PEAK_F32_S
+        return {"rows": B, "batches_of_that_size": n, "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_S,
+                                      flops / PEAK_F32_S),
+                "bound_by": "bytes" if by_bytes else "operations"}
+
+
+def serve_bench_worker(argv: list) -> int:
+    """`python -m explicit_hybrid_mpc_tpu_torch.tools.serve_bench argv`
+    through `counted` (K3's count from zero over the process), under a
+    SweepRecorder: the record adds "windows" (each window's K3 launches
+    and requests), "k3_plain" (SweepRecorder.hold_plain) and "k3_time"
+    (SweepRecorder.time_k3, after the run): phase 26's children."""
+    from explicit_hybrid_mpc_tpu_torch.tools import serve_bench
+
+    record = {"tool": "serve_bench", "argv": argv}
+
+    def run(a):
+        with SweepRecorder() as sweep:
+            rc = serve_bench.main(a)
+        record["windows"] = sweep.windows
+        record["k3_plain"] = sweep.hold_plain()
+        record["k3_time"] = sweep.time_k3()
+        return rc
+
+    return counted(run, argv, record)
+
+
+def _serve_bench_child(dev, mode: str, env_extra: dict, tmp: str):
+    """One serve_bench_worker child in `tmp`: its record in
+    26_<mode>_k1.jsonl, its history in 26_<mode>.history.jsonl, its
+    result in 26_<mode>.json, stdout in 26_<mode>.out, stderr in
+    26_<mode>.log; the process."""
+    def at(suffix):
+        return os.path.join(tmp, f"26_{mode}{suffix}")
+    env = dict(os.environ, **{K1_LOG_ENV: at("_k1.jsonl")}, TMPDIR=tmp,
+               BENCH_HISTORY=at(".history.jsonl"),
+               SERVE_BENCH_OUT=at(".json"), **env_extra)
+    env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
+    with open(at(".out"), "wb") as out, open(at(".log"), "wb") as err:
+        return subprocess.Popen(
+            [sys.executable, "-c", _SERVE_BENCH, "--backend", dev.type],
+            cwd=_root(), env=env, stdout=out, stderr=err)
+
+
+def serve_bench_holds(mode: str, row: dict | None, rec: dict | None,
+                      on_card: bool) -> list:
+    """What phase 26 holds a child's result and record to; the failures.
+    Every child: a result without `error` that holds the JAX script's
+    bars (serve_bench.bars), `platform` "gpu" with `device_name` on the
+    card, versions v1 and v2 seen, every rate's p99 finite.  The arena
+    child on the card also: K3's launches over the windows equal to the
+    scheduler's batches, each window's launches per request the row's,
+    and at least SB_PLAIN_MIN served in-box rows, over every extent (the
+    four tenants and t0's delta), equal to K3's plain version within
+    SB_PLAIN_TOL, the leaf ids equal on tie-free rows."""
+    from explicit_hybrid_mpc_tpu_torch.tools import serve_bench
+
+    if row is None:
+        return ["no result"]
+    if "error" in row:
+        return [f"error {row['error']}"]
+    bad = serve_bench.bars(row)
+    platform = "gpu" if on_card else "cpu"
+    if row.get("platform") != platform or (on_card
+                                           and not row.get("device_name")):
+        bad.append(f"platform {row.get('platform')}, device_name "
+                   f"{row.get('device_name')}")
+    if row.get("versions_seen") != ["v1", "v2"]:
+        bad.append(f"versions_seen {row.get('versions_seen')}")
+    p99s = [r.get("p99_us") for r in row.get("rates", [])]
+    if not p99s or not all(_finite_positive(x) for x in p99s):
+        bad.append(f"rates' p99_us {p99s}")
+    if mode != "arena" or not on_card:
+        return bad
+    if rec is None:
+        return bad + ["no record of the child's K3 launches"]
+    wins = rec.get("windows") or []
+    k3 = sum(w["k3"] for w in wins)
+    if k3 != row.get("batches") or k3 < 1:
+        bad.append(f"K3 launched {k3} times over the sweep's windows for "
+                   f"{row.get('batches')} batches")
+    lpr = [round(w["k3"] / w["requests"], 4) if w["requests"] else None
+           for w in wins]
+    if lpr != [r.get("launches_per_req") for r in row.get("rates", [])] \
+            or row.get("batch_launches_per_req") != (lpr or [None])[-1]:
+        bad.append(f"K3 launches per request by window {lpr}, the row's "
+                   f"{[r.get('launches_per_req') for r in row['rates']]} "
+                   f"(top {row.get('batch_launches_per_req')})")
+    held = rec.get("k3_plain")
+    if held is None:
+        return bad + ["K3 was not held to its plain version"]
+    tenants = row.get("tenants") or 0
+    if held["rows"] < SB_PLAIN_MIN or held["extents"] != tenants + 1 \
+            or held["clamped_differ"] or held["tie_free_cols_differ"] \
+            or not max(held["max_rel"].values()) <= SB_PLAIN_TOL:
+        bad.append(f"K3 against its plain version: {held['rows']} rows "
+                   f"(at least {SB_PLAIN_MIN}) over {held['extents']} "
+                   f"extents ({tenants + 1}), clamped flags differ on "
+                   f"{held['clamped_differ']}, columns differ on "
+                   f"{held['tie_free_cols_differ']} tie-free rows, "
+                   f"relative gaps {held['max_rel']} (at most "
+                   f"{SB_PLAIN_TOL})")
+    return bad
+
+
+def serve_bench_phase(dev, tmp: str) -> dict:
+    """Phase 26: tools/serve_bench's legacy, skewed and arena sweeps
+    (SERVE_BENCH_RUNS), one serve_bench_worker child at a time, so that
+    no two sweeps share the card.  Each held (serve_bench_holds), with
+    exit 0 and its history row appended to its own file (the summary of
+    the result, key for key); the JAX package's BENCH_HISTORY.jsonl
+    unchanged byte for byte.  Prints each result without its rates, the
+    rates' rows, K3's launches and ms a launch at the arena run's most
+    frequent batch size, and each child's wall.  Returns the kernels
+    line's "serve_bench_*" keys of K3's entry."""
+    import hashlib
+
+    from explicit_hybrid_mpc_tpu_torch.tools import bench_history
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    jax_hist = os.path.join(_root(), JAX_HISTORY)
+
+    def digest():
+        if not os.path.exists(jax_hist):
+            return None
+        with open(jax_hist, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+    before = digest()
+    out: dict = {"serve_bench_wall_s": {}}
+    for mode, env_extra in SERVE_BENCH_RUNS:
+        def at(suffix, mode=mode):
+            return os.path.join(tmp, f"26_{mode}{suffix}")
+        t1 = time.perf_counter()
+        proc = _serve_bench_child(dev, mode, env_extra, tmp)
+        try:
+            rc = proc.wait(SERVE_BENCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        wall = time.perf_counter() - t1
+        out["serve_bench_wall_s"][mode] = wall
+        row = _read_json(at(".json"))
+        recs = k1_records(at("_k1.jsonl"), partial=False)
+        rec = recs[-1] if recs else None
+        bad = serve_bench_holds(mode, row, rec, on_card)
+        if rc != 0:
+            with open(at(".log"), "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            bad.append(f"exit {rc} (limit {SERVE_BENCH_TIMEOUT_S:.0f} s)\n"
+                       f"{tail}")
+        if row is not None:
+            log(f"[serve-bench] 26 {mode}: exit {rc} in {wall:.1f} s; row "
+                + json.dumps({k: v for k, v in row.items() if k != "rates"}))
+            for r in row.get("rates", []):
+                log(f"[serve-bench] 26 {mode} rate " + json.dumps(r))
+            hist = bench_history.load_history(at(".history.jsonl"))
+            want = bench_history.summarize(
+                row, at(".json"), os.path.getmtime(at(".json")))
+            if hist != [want]:
+                bad.append(f"history {hist} against the result's summary "
+                           f"{want}")
+        if mode == "arena" and rec is not None:
+            wins = rec.get("windows") or []
+            tk = rec.get("k3_time")
+            out["serve_bench_launches"] = sum(w["k3"] for w in wins)
+            out["serve_bench_k3_process"] = rec.get("k3")
+            out["serve_bench_plain"] = rec.get("k3_plain")
+            out["serve_bench_k3"] = tk
+            log(f"[serve-bench] 26 arena: K3 {out['serve_bench_launches']} "
+                f"launches over the sweep's windows "
+                f"({[w['k3'] for w in wins]} by window, for "
+                f"{[w['requests'] for w in wins]} requests), "
+                f"{rec.get('k3')} in the process (warm-up and audit "
+                f"included); against its plain version "
+                + json.dumps(rec.get("k3_plain")))
+            if tk is not None:
+                log(f"[serve-bench] 26 arena: K3 at the most frequent batch "
+                    f"size {tk['rows']} ({tk['batches_of_that_size']} "
+                    f"batches): {tk['ms']:.4f} ms a launch (CUDA events "
+                    f"over {SB_GRAPH_REPS} graph-replayed launches), plain "
+                    f"{tk['plain_ms']:.4f} ms, bound {tk['bound_ms']:.5f} "
+                    f"ms ({tk['bound_by']})")
+        if bad:
+            fail(f"26 serve_bench {mode}: " + "; ".join(bad))
+    if digest() != before:
+        fail(f"26: {JAX_HISTORY} changed")
+    out["serve_bench_phase_s"] = time.perf_counter() - t0
+    log(f"[serve-bench] phase 26 took {out['serve_bench_phase_s']:.1f} s "
+        "(walls " + ", ".join(f"{m} {w:.1f} s" for m, w in
+                              out["serve_bench_wall_s"].items())
+        + f"); {JAX_HISTORY} unchanged")
+    return out
+
+
+def serve_bench_only() -> int:
+    """Phase 26 alone, for iterating on the card: the kernels built, then
+    the three sweeps.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.serve_bench_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_bench_") as tmp:
+        out = serve_bench_phase(dev, tmp)
+    log(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -9405,6 +9807,15 @@ def main() -> int:
         bench = bench_phase(dev, tmp)
     host.end("phase 25 (bench tool)")
     bench_k2 = bench.pop("bench_k2_launches")
+
+    # -- phase 26: the serving bench (its legacy, skewed and arena sweeps,
+    # one process at a time) ------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_bench_") as tmp:
+        serve = serve_bench_phase(dev, tmp)
+    host.end("phase 26 (serving bench)")
+    k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"],
+                                  serve["serve_bench_plain"]["max_abs_err"])
+    k3_entry.update(serve)
 
     kernels_line = {"kernels": [
         {"name": "ipm_leg", "route": "cuda",

@@ -482,6 +482,10 @@ class DemandHub:
         self._obs = obs if obs is not None else obs_lib.NOOP
         self._clock = clock
         self._lock = threading.Lock()
+        # One snapshot writer at a time: the maintenance thread's periodic
+        # snapshot and a caller's must not interleave their npz and meta
+        # writes in one directory (the meta would name the other's npz).
+        self._snap_lock = threading.Lock()
         self._ctl: dict[str, _ControllerDemand] = {}
         self._closed = False
         self._last_snapshot = self._clock()
@@ -746,7 +750,8 @@ class DemandHub:
             if d is None:
                 raise ValueError("no snapshot_dir configured and no "
                                  "dir_path given")
-            meta = self._snapshot_one(nm, d)
+            with self._snap_lock:
+                meta = self._snapshot_one(nm, d)
             out[nm] = meta
             with self._lock:
                 st = self.ctl(nm)

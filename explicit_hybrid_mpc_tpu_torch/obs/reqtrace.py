@@ -40,7 +40,11 @@ shallow copy -- lock-free on the record path.
 
 Host forensics.  ``GcPauseRecorder`` hooks ``gc.callbacks`` and emits
 ``serve.host.gc_pause_us`` events + histogram per collection, so
-major-GC stalls are measured and attributed instead of hidden.
+major-GC stalls are measured and attributed instead of hidden.  The
+callback only records: a collection runs on whichever thread allocated,
+possibly one holding that histogram's or the stream's lock, so the
+events and the histogram are published from the recorder's own thread
+(within PUBLISH_S) and at ``stop()``.
 ``ReqTrace.note_stall`` records scheduler flush-loop sleep overshoot
 (the worker woke this much past its deadline -- host interference, not
 queueing) into ``serve.host.stall_us``.
@@ -339,17 +343,31 @@ class ReqTrace:
                                 slowest=ex[:self.exemplar_k])
 
 
+#: Longest a recorded collection waits for its event and histogram
+#: observation (GcPauseRecorder's publishing thread).
+PUBLISH_S = 0.25
+
+
 class GcPauseRecorder:
     """``gc.callbacks``-based collection-pause recorder.
 
     Each collection emits a ``serve.host.gc_pause_us`` event (pause,
     generation, collected/uncollectable counts) and observes the
-    same-named histogram, so a major-GC stall lands in the stream next
-    to the request it stretched instead of being hidden by
+    same-named histogram, so a major-GC stall lands in the stream beside
+    the requests it stretched instead of being hidden by
     ``gc.disable()``.  ``pauses`` / ``total_pause_s()`` give callers
     the aggregate without parsing the stream.  Reentrant-safe:
     start/stop are idempotent and the callback tolerates a missed
-    start phase."""
+    start phase.
+
+    The callback takes no lock: it appends to ``pauses`` and to a
+    pending queue (list and deque appends hold none).  A collection can
+    start inside any allocation, on a thread that holds the histogram's
+    lock (its snapshot copies) or the stream's (an emit), and a callback
+    that observed or emitted there would wait on that thread's own lock
+    forever (the JAX package's recorder does, and so hung a serving
+    bench).  The recorder's thread publishes the pending collections
+    every PUBLISH_S, and ``stop()`` publishes the rest."""
 
     def __init__(self, obs: "obs_lib.Obs | None" = None):
         self._obs = obs if obs is not None else obs_lib.NOOP
@@ -357,12 +375,19 @@ class GcPauseRecorder:
                                       bounds=PHASE_BOUNDS_US)
         self._t0: Optional[int] = None
         self._installed = False
+        self._pending: deque = deque()
+        self._halt = threading.Event()
+        self._thread: Optional[threading.Thread] = None
         self.pauses: list[float] = []   # microseconds, per collection
 
     def start(self) -> "GcPauseRecorder":
         if not self._installed:
             gc.callbacks.append(self._cb)
             self._installed = True
+            self._halt.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="gc-pause-publish", daemon=True)
+            self._thread.start()
         return self
 
     def stop(self) -> None:
@@ -372,6 +397,10 @@ class GcPauseRecorder:
             except ValueError:
                 pass
             self._installed = False
+            self._halt.set()
+            self._thread.join()
+            self._thread = None
+        self._publish()
 
     def _cb(self, phase: str, info: dict) -> None:
         if phase == "start":
@@ -380,12 +409,25 @@ class GcPauseRecorder:
             pause_us = (time.perf_counter_ns() - self._t0) / 1e3
             self._t0 = None
             self.pauses.append(pause_us)
+            self._pending.append((pause_us, info.get("generation"),
+                                  info.get("collected"),
+                                  info.get("uncollectable")))
+
+    def _run(self) -> None:
+        while not self._halt.wait(PUBLISH_S):
+            self._publish()
+
+    def _publish(self) -> None:
+        """The pending collections' histogram observations and events,
+        outside any collection."""
+        while self._pending:
+            pause_us, gen, collected, uncollectable = \
+                self._pending.popleft()
             self._h.observe(pause_us)
             self._obs.event("serve.host.gc_pause_us",
-                            pause_us=round(pause_us, 1),
-                            generation=info.get("generation"),
-                            collected=info.get("collected"),
-                            uncollectable=info.get("uncollectable"))
+                            pause_us=round(pause_us, 1), generation=gen,
+                            collected=collected,
+                            uncollectable=uncollectable)
 
     def total_pause_s(self) -> float:
         return sum(self.pauses) / 1e6

@@ -118,7 +118,10 @@ class JsonlSink:
     def emit(self, kind: str, name: str, **fields) -> dict:
         rec = {"t": round(time.perf_counter() - self.t0, 6),
                "kind": kind, "name": name, **fields}
-        line = json.dumps(rec, default=json_default)
+        # Serialized only for the file and the echo: an in-memory stream
+        # (a serving process's, a bench's) keeps the dict.
+        line = json.dumps(rec, default=json_default) \
+            if self._fh or self._echo else None
         with self._lock:
             if self._keep:
                 if len(self.records) < self._max_records:

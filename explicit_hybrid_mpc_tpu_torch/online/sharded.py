@@ -24,13 +24,26 @@ larger than any cache.  This module shards them:
 The counterpart of the JAX package's online/sharded.py.  The descent is
 plain torch here, as it is plain XLA (no Pallas kernel) there: one
 batch costs about ``max_depth`` x (ops a level) small launches per
-shard.  Same value contract as descent.evaluate_descent: interpolated
-u/cost equal (leaf ids may differ on shared facets, as everywhere else
-in the online stack); ``leaf`` is the GLOBAL leaf-table row.
+shard.  On a CUDA device each program -- the routing descent, a shard's
+descent + interpolation -- is captured once per padding bucket as a CUDA
+graph (``_Graphed``) and replayed afterwards, as the JAX package
+compiles one program per shard and bucket: one graph launch instead of
+a few hundred kernel launches from the host, the same kernels (so the
+same bits).  A bucket's first call runs eagerly and then captures.  A
+call takes a set of graphs no other call is using (their input and
+output buffers are the call's until it has read its results), so
+concurrent callers -- a scheduler's worker and a demand hub's oracle --
+neither wait for each other nor share buffers; a server holds as many
+sets as it ever had concurrent calls.  Same value contract as descent.evaluate_descent:
+interpolated u/cost equal (leaf ids may differ on shared facets, as
+everywhere else in the online stack); ``leaf`` is the GLOBAL leaf-table
+row.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -67,6 +80,42 @@ def _bucket(n: int) -> int:
     """Power-of-two padding >= n: bounds the per-shard batch shapes to
     log2(max batch) sizes."""
     return max(_MIN_BUCKET, 1 << max(0, (n - 1).bit_length()))
+
+
+class _Graphed:
+    """One program (`fn(*inputs)` -> tensor) at one padding bucket as a
+    CUDA graph: static input tensors, the graph, its output tensor
+    (overwritten by every replay, so read before the next)."""
+
+    __slots__ = ("inputs", "graph", "out")
+
+    def __init__(self, fn, inputs: list):
+        import torch
+
+        self.inputs = [t.clone() for t in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        # Captured on a side stream, as torch.cuda.graph does, but
+        # without its device synchronize, full garbage collection and
+        # cache release: a capture in a serving process must not stall
+        # every thread for a collection of the whole heap.
+        # thread_local: another thread's CUDA calls during the capture
+        # (a scheduler's or a hub's) are not this capture's business.
+        cur = torch.cuda.current_stream(self.inputs[0].device)
+        side = torch.cuda.Stream(self.inputs[0].device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.out = fn(*self.inputs)
+            finally:
+                self.graph.capture_end()
+        cur.wait_stream(side)
+
+    def __call__(self, inputs: list):
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.out
 
 
 def _find_cut(children: np.ndarray, root_node: np.ndarray,
@@ -197,6 +246,10 @@ class ShardedDescent:
         # callable(thetas (B, p)) -> (B,) GLOBAL root index.  The caller
         # owns the claim that it matches this tree's root layout.
         self._router = router
+        # Sets of CUDA graphs by (program, shard, bucket, ...) that no
+        # call is using, and the lock of that list (module docstring).
+        self._graph_sets: list[dict] = []
+        self._sets_lock = threading.Lock()
         if n_shards is None:
             n_shards = len(devices)
         children = np.asarray(dt.children)
@@ -338,7 +391,7 @@ class ShardedDescent:
 
     # -- host routing ------------------------------------------------------
 
-    def _route(self, thetas: np.ndarray) -> np.ndarray:
+    def _route(self, thetas: np.ndarray, graphs: dict) -> np.ndarray:
         """(B,) routing-local cut node per query: root pick (analytic
         router when given, else the routing table's locate_descent) +
         cut_depth hyperplane sign tests, through the shared descent
@@ -361,8 +414,10 @@ class ShardedDescent:
                     device_lib.to_device(node, self._r_dev, torch.int64))
                 node = nd.cpu().numpy()
         else:
-            _row, nd = descent_mod.locate_descent(self._rt, q)
-            node = nd.cpu().numpy()
+            def route(q):
+                return descent_mod.locate_descent(self._rt, q)[1]
+            node = self._run(graphs, ("route", pad), route,
+                             [q]).cpu().numpy()
         if ms:
             ms["route_q"].inc(B)
             ms["route_s"].observe(time.perf_counter() - t0)
@@ -370,12 +425,39 @@ class ShardedDescent:
 
     # -- serving -----------------------------------------------------------
 
-    def _dispatch(self, thetas: np.ndarray, program) -> list[tuple]:
+    @contextlib.contextmanager
+    def _graph_set(self):
+        """A set of graphs no other call is using, for one call."""
+        with self._sets_lock:
+            graphs = self._graph_sets.pop() if self._graph_sets else {}
+        try:
+            yield graphs
+        finally:
+            with self._sets_lock:
+                self._graph_sets.append(graphs)
+
+    @staticmethod
+    def _run(graphs: dict, key: tuple, fn, inputs: list):
+        """`fn(*inputs)` on their device: on a CUDA device through the
+        graph of `key` in `graphs` (captured after an eager first call,
+        which this call returns), elsewhere eagerly."""
+        if inputs[0].device.type != "cuda":
+            return fn(*inputs)
+        g = graphs.get(key)
+        if g is None:
+            out = fn(*inputs)
+            graphs[key] = _Graphed(fn, inputs)
+            return out
+        return g(inputs)
+
+    def _dispatch(self, thetas: np.ndarray, program, key: tuple,
+                  graphs: dict) -> list[tuple]:
         """Route, then batch per shard (power-of-two padding, staged on
         the shard's device) and enqueue `program(shard, queries, start)`
-        on each; returns [(query idx, shard, output tensor), ...].  No
-        result is read here: every shard is enqueued first."""
-        rnode = self._route(thetas)
+        on each (the graph of (`key`, shard, bucket) on a CUDA device);
+        returns [(query idx, shard, output tensor), ...].  No result is
+        read here: every shard is enqueued first."""
+        rnode = self._route(thetas, graphs)
         shard = self._r_shard[rnode]
         ms = self._ms
         pending = []
@@ -392,9 +474,10 @@ class ShardedDescent:
             n0 = np.zeros(pad, dtype=np.int64)
             n0[:idx.size] = self._r_start[rnode[idx]]
             dev = sh["device"]
-            pending.append((idx, sh, program(
-                sh, device_lib.to_device(qs, dev, torch.float64),
-                device_lib.to_device(n0, dev, torch.int64))))
+            pending.append((idx, sh, self._run(
+                graphs, key + (s, pad), lambda q, n, sh=sh: program(sh, q, n),
+                [device_lib.to_device(qs, dev, torch.float64),
+                 device_lib.to_device(n0, dev, torch.int64)])))
         return pending
 
     @staticmethod
@@ -445,16 +528,19 @@ class ShardedDescent:
         B = thetas.shape[0]
         ms = self._ms
         t0 = time.perf_counter() if ms else 0.0
-        pending = self._dispatch(
-            thetas, lambda sh, qs, n0: _serve_shard(
-                sh["dt"], sh["leaves"], qs, n0, tol))
+        with self._graph_set() as graphs:
+            pending = self._dispatch(
+                thetas, lambda sh, qs, n0: _serve_shard(
+                    sh["dt"], sh["leaves"], qs, n0, tol), ("serve", tol),
+                graphs)
+            outs = _read(pending)
         n_u = (int(pending[0][2].shape[1]) - 3 if pending
                else self._shards_n_u())
         u = np.zeros((B, n_u))
         cost = np.zeros(B)
         leaf = np.full(B, -1, dtype=np.int64)
         inside = np.zeros(B, dtype=bool)
-        for (idx, sh, _out), out in zip(pending, _read(pending)):
+        for (idx, sh, _out), out in zip(pending, outs):
             # Per-shard histogram: this shard's host-side scatter per
             # query (the device work of every shard overlaps, and all
             # of a device's shards come back in one copy).
@@ -506,11 +592,14 @@ class ShardedDescent:
         B = thetas.shape[0]
         if self._ms:
             self._ms["locate_q"].inc(B)
-        pending = self._dispatch(
-            thetas, lambda sh, qs, n0: _locate_shard(sh["dt"], qs, n0))
+        with self._graph_set() as graphs:
+            pending = self._dispatch(
+                thetas, lambda sh, qs, n0: _locate_shard(sh["dt"], qs, n0),
+                ("locate",), graphs)
+            outs = _read(pending)
         rows = np.full(B, -1, dtype=np.int64)
         nodes = np.full(B, -1, dtype=np.int64)
-        for (idx, sh, _out), out in zip(pending, _read(pending)):
+        for (idx, sh, _out), out in zip(pending, outs):
             rows[idx] = self._global_rows(sh, out[:, 0])
             nodes[idx] = sh["nodes_global"][out[:, 1]]
         return rows, nodes

@@ -56,12 +56,10 @@ import traceback
 
 import numpy as np
 
-from explicit_hybrid_mpc_tpu_torch import device as device_lib
-from explicit_hybrid_mpc_tpu_torch import kernels
 from explicit_hybrid_mpc_tpu_torch.tools import bench_history
 from explicit_hybrid_mpc_tpu_torch.tools.capture import (
-    SENTINEL, choose_device, default_precision, is_cuda_error, log,
-    out_path, schedule_kwargs, sync, warm_oracle)
+    SENTINEL, card_fault, choose_device, default_precision, log, out_path,
+    schedule_kwargs, sync, warm_oracle)
 
 T_START = time.time()
 
@@ -74,12 +72,6 @@ ONLINE_REPS = 10
 def deadline() -> float:
     """Absolute soft deadline for the whole run (epoch seconds)."""
     return T_START + float(os.environ.get("BENCH_DEADLINE", "1500"))
-
-
-def card_fault(e: BaseException) -> bool:
-    """A failure of the card or of a kernel."""
-    return isinstance(e, (kernels.KernelError, device_lib.NoCpuFallback)) \
-        or is_cuda_error(e)
 
 
 def fatal(e: BaseException, on_card: bool) -> bool:

@@ -14,9 +14,9 @@ this module writes.
   history off, as in the JAX package.
 - A row carries the metrics the JAX gate gates (``GATED_METRICS``, the
   same directions and tolerances), the row extras of the JAX gate and,
-  from a card's run, ``device_name``.  Its ``contended`` is null where
-  the bench's host block says contention was not measured; the JAX row
-  reads that as false.
+  from a card's run, ``device_name`` and ``power_limit``.  Its
+  ``contended`` is null where the bench's host block says contention
+  was not measured; the JAX row reads that as false.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ GATED_METRICS: dict[str, tuple] = {
 }
 
 #: Informational keys a row carries when the bench result has them: the
-#: JAX gate's, then the card's name.
+#: JAX gate's, then the card's name and power limit.
 ROW_EXTRAS = (
     "regions", "unit", "precision", "truncated", "device_failures",
     "quarantined_cells", "uncertified", "serve_qps", "serve_batch_fill",
@@ -82,7 +82,7 @@ ROW_EXTRAS = (
     "serve_p99_trace_off_us", "serve_p99_trace_on_us", "gc_pause_frac",
     "gc_pauses", "gc_disabled", "slo_budget_remaining_frac",
     "slo_burn_fast_max", "slo_overhead_frac", "cert_margin_p01",
-    "device_name")
+    "device_name", "power_limit")
 
 
 def history_path() -> str | None:

@@ -7,10 +7,13 @@ names, kept here so that no tool of the port imports bench.py.
   the first CUDA device and refuses to start without one; ``cpu`` only
   when asked for, by ``--backend cpu`` or ``BENCH_PLATFORM=cpu``.  There
   is no probe and no fallback to the CPU (bench.py's ``choose_backend``
-  probes the TPU in a subprocess and falls back to the CPU).
+  probes the TPU in a subprocess and falls back to the CPU).  On the
+  card the result also names the card and its power limit.
 - ``default_precision``: on the CPU the JAX rule (the problem's
   ``cpu_precision_hint``, else ``"mixed"``); on the card ``"f64"``, the
   port's ``PartitionConfig.precision`` default.
+- ``card_fault``: a kernel error, a ``NoCpuFallback`` or a CUDA error:
+  the failures a tool on the card reports and never skips or counts.
 - ``retry_transient``: bench.py's retry of transient device errors,
   except that a kernel error, a ``NoCpuFallback`` and a CUDA error are
   raised at once: a dead card does not come back in 20 s.
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import atexit
 import os
+import subprocess
 import sys
 import tempfile
 import threading
@@ -61,7 +65,8 @@ def choose_device(result: dict | None = None, backend: str | None = None,
                   sentinel: str = SENTINEL):
     """The torch device a capture runs on, recorded in
     ``result["platform"]`` ("gpu" or "cpu", as jax.default_backend()
-    names them) and, on the card, ``result["device_name"]``.
+    names them) and, on the card, ``result["device_name"]`` and
+    ``result["power_limit"]`` (``power_limit``).
 
     `backend` (a tool's ``--backend``) wins over ``BENCH_PLATFORM``;
     neither given means the card.  'tpu' and unknown names are refused,
@@ -86,8 +91,35 @@ def choose_device(result: dict | None = None, backend: str | None = None,
         import torch
 
         result["device_name"] = torch.cuda.get_device_name(dev)
+        result["power_limit"] = power_limit(dev)
     log(f"platform: {result['platform']}, device: {dev}")
     return dev
+
+
+def power_limit(dev) -> str | None:
+    """The power limit of CUDA device `dev` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives it
+    ("700.00 W"); None where nvidia-smi cannot say or the device's
+    index among nvidia-smi's cards is not known (CUDA_VISIBLE_DEVICES
+    naming cards by UUID).  A card below its maximum runs slower under
+    load, so a timed row carries it."""
+    idx = dev.index or 0
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        ids = [v.strip() for v in visible.split(",")]
+        if idx >= len(ids) or not ids[idx].isdigit():
+            return None
+        idx = int(ids[idx])
+    try:
+        lines = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    if idx >= len(lines):
+        return None
+    return lines[idx].rsplit(",", 1)[-1].strip()
 
 
 def sync(dev) -> None:
@@ -115,6 +147,13 @@ def is_cuda_error(e: BaseException) -> bool:
     subclasses AcceleratorError, OutOfMemoryError) naming CUDA."""
     return "CUDA" in str(e) or "cuda" in type(e).__name__.lower() \
         or type(e).__name__ in ("AcceleratorError", "OutOfMemoryError")
+
+
+def card_fault(e: BaseException) -> bool:
+    """A failure of the card or of a kernel (a kernels.KernelError, a
+    device.NoCpuFallback, a CUDA error)."""
+    return isinstance(e, (kernels.KernelError, device_lib.NoCpuFallback)) \
+        or is_cuda_error(e)
 
 
 def retry_transient(fn, attempts: int = 3, wait_s: float = 20.0,

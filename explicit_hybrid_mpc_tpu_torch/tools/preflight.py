@@ -24,9 +24,11 @@ fails in seconds, not after the chaos suite:
   (``tools/``), each on the backend given to ``--backend`` (default the
   card; ``--quick`` passes ``--eps 0.5``).
 
-``bench_gate`` waits for the port's bench (ROADMAP A7): the JAX
+``bench_gate`` waits for the port's gate (ROADMAP A7c): the JAX
 package's scripts/bench_gate.py gates the JAX package's own bench
-history, which holds no row of the port.  It is not in the battery;
+history, which holds no row of the port; the port's rows
+(tools/bench.py, tools/serve_bench.py) go to BENCH_HISTORY_TORCH.jsonl,
+which no gate reads yet.  It is not in the battery;
 ``--only bench_gate`` exits non-zero saying so, and every verdict lists
 it under ``not_run``, so no one takes its absence for a pass.
 
@@ -57,9 +59,10 @@ PKG = "explicit_hybrid_mpc_tpu_torch"
 
 #: Checks of the JAX package's battery that the port cannot run yet.
 WAITING = {
-    "bench_gate": ("waits for ROADMAP A7 (the port's bench): "
-                   "scripts/bench_gate.py gates the JAX package's "
-                   "BENCH_HISTORY.jsonl, which holds no row of the port"),
+    "bench_gate": ("waits for ROADMAP A7c (the gate over the port's "
+                   "BENCH_HISTORY_TORCH.jsonl): scripts/bench_gate.py "
+                   "gates the JAX package's BENCH_HISTORY.jsonl, which "
+                   "holds no row of the port"),
 }
 NO_JAX = ("needs jax (the tier-1 tests hold the port against the JAX "
           "package), which is not installed here")

@@ -215,10 +215,10 @@ def test_each_bench_appends_its_row_and_the_jax_history_is_untouched(rows):
 def test_the_history_row_is_the_jax_row_format(rows):
     """summarize of the port and of scripts/bench_gate.py, key for key,
     on both rows; the tables are the JAX gate's (the port's extras add
-    the card's name)."""
+    the card's name and power limit)."""
     assert bench_history.GATED_METRICS == bench_gate.GATED_METRICS
     assert bench_history.ROW_EXTRAS == bench_gate._ROW_EXTRAS \
-        + ("device_name",)
+        + ("device_name", "power_limit")
     for tag in ("port", "jax"):
         summaries(rows[tag][1], "x.json", 1.5)
     # A row whose host could not measure contention is not read as

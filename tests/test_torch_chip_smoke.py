@@ -942,7 +942,7 @@ def test_slo_demand_phase_rehearses_on_the_cpu(small_pendulum, tmp_path,
     log = capsys.readouterr().out
     assert "FAIL" not in log
     for tag in ("[demand] 19a: answers with --demand on bitwise those with "
-                "it off on 256 of 256", "rows", "19b run 3 capture off",
+                "it off on 256 of 256", "rows", "19b run 1 capture on",
                 "p99 ratio", "torn reads 0", "for 4 of 4 tenants",
                 "demand.error events 0", "max relative difference",
                 "health.subopt events at eps 2: 0",
@@ -1729,6 +1729,132 @@ def test_bench_holds_each_rows_bar_on_the_card(mode, row, k2, words):
     timed online and large-L figures; the rebuild's reuse, the walk's
     generations and staleness, the multichip mode's parity."""
     bad = chip_smoke._bench_holds(mode, row, True, k2)
+    if words is None:
+        assert bad == []
+    else:
+        assert any(words in b for b in bad), bad
+
+
+#: tools/serve_bench at tests/test_serve.py's sizes, shorter windows.
+_SB_SMALL = {"SERVE_BENCH_SECS": "0.3", "SERVE_BENCH_DEPTH": "5",
+             "SERVE_BENCH_RATES": "800,6000"}
+
+
+def test_serve_bench_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
+                                                capsys):
+    """Phase 26 on the CPU: the legacy and the arena sweep, each a
+    serve_bench_worker child counted by `counted` (K3's count, 0 on the
+    CPU) under a SweepRecorder: each result held, its history row
+    appended to its own file, the arena's served in-box rows re-evaluated
+    by K3's plain version, BENCH_HISTORY.jsonl untouched."""
+    monkeypatch.setattr(chip_smoke, "SERVE_BENCH_RUNS", (
+        ("legacy", dict(_SB_SMALL, SERVE_BENCH_MAX_BATCH="32")),
+        ("arena", dict(_SB_SMALL, SERVE_BENCH_TENANTS="4"))))
+    out = chip_smoke.serve_bench_phase(torch.device("cpu"), str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("[serve-bench] 26 legacy: exit 0 in",
+                '"versions_seen": ["v1", "v2"]', "[serve-bench] 26 legacy "
+                'rate {"offered_qps": 6000.0', "[serve-bench] 26 arena: "
+                "exit 0 in", '"config": {"p": 2, "depth": 5, "n_u": 2, '
+                '"tenants": 4', "[serve-bench] 26 arena: K3 0 launches "
+                "over the sweep's windows", "[serve-bench] phase 26 took",
+                "BENCH_HISTORY.jsonl unchanged"):
+        assert tag in log, tag
+    assert set(out["serve_bench_wall_s"]) == {"legacy", "arena"}
+    assert out["serve_bench_launches"] == out["serve_bench_k3_process"] == 0
+    assert out["serve_bench_k3"] is None
+    plain = out["serve_bench_plain"]
+    # The plain version against itself: every in-box row, both of t0's
+    # extents and the other tenants'.
+    assert plain["rows"] >= 100 and plain["extents"] == 5
+    assert plain["max_abs_err"] == 0.0
+    assert plain["tie_free_cols_differ"] == plain["cols_differ"] == 0
+
+
+def _sb_rates(lpr=0.125):
+    return [{"offered_qps": q, "p99_us": 800.0 + q / 100,
+             "launches_per_req": lpr, "phase_sum_err_frac": 0.0}
+            for q in (1000.0, 4000.0, 16000.0)]
+
+
+def _sb_row(**kw):
+    row = {"platform": "gpu", "device_name": "NVIDIA H100 80GB HBM3",
+           "power_limit": "700.00 W", "swap_dropped": 0, "swap_torn": 0,
+           "swap_drained": True, "versions_seen": ["v1", "v2"],
+           "tenants": 4, "batch_launches_per_req": 0.125,
+           "serve_batch_fill": 1.0, "batches": 5250, "config": {"skew": 0.0},
+           "rates": _sb_rates(), "slo_overhead_frac": 0.0001,
+           "trace_exemplar_p99_bound": True}
+    row.update(kw)
+    return row
+
+
+def _sb_rec(**kw):
+    rec = {"k3": 5300,
+           "windows": [{"rate": r, "k3": n, "requests": 8 * n}
+                       for r, n in ((1000.0, 250), (4000.0, 1000),
+                                    (16000.0, 4000))],
+           "k3_plain": {"rows": 16384, "extents": 5, "clamped_differ": 0,
+                        "tie_free": 16300, "tie_free_cols_differ": 0,
+                        "cols_differ": 0, "tol": 1e-5,
+                        "max_rel": {"val": 1e-7, "u": 2e-7, "cost": 0.0,
+                                    "tie": 0.0},
+                        "max_abs_err": 4e-7}}
+    rec.update(kw)
+    return rec
+
+
+def _plain(**kw):
+    held = dict(_sb_rec()["k3_plain"])
+    held.update(kw)
+    return held
+
+
+@pytest.mark.parametrize("mode,row,rec,words", [
+    ("arena", _sb_row(), _sb_rec(), None),
+    ("legacy", _sb_row(tenants=None, batch_launches_per_req=None), None,
+     None),
+    ("arena", _sb_row(error="KernelError('x')"), _sb_rec(), "error"),
+    ("arena", None, None, "no result"),
+    ("arena", _sb_row(device_name=None), _sb_rec(), "device_name None"),
+    ("legacy", _sb_row(platform="cpu"), None, "platform cpu"),
+    ("arena", _sb_row(versions_seen=["v1"]), _sb_rec(), "versions_seen"),
+    ("arena", _sb_row(rates=[dict(r, p99_us=None) for r in _sb_rates()]),
+     _sb_rec(), "rates' p99_us"),
+    ("arena", _sb_row(swap_torn=2), _sb_rec(), "torn 2"),
+    ("arena", _sb_row(batch_launches_per_req=1.0,
+                      rates=_sb_rates(1.0)), _sb_rec(),
+     "batch_launches_per_req 1.0 (bar < 1)"),
+    ("arena", _sb_row(batches=5251), _sb_rec(),
+     "K3 launched 5250 times over the sweep's windows for 5251 batches"),
+    ("arena", _sb_row(), _sb_rec(windows=[
+        {"rate": 1000.0, "k3": 250, "requests": 2000},
+        {"rate": 4000.0, "k3": 1000, "requests": 8000},
+        {"rate": 16000.0, "k3": 4000, "requests": 16000}]),
+     "K3 launches per request by window"),
+    ("arena", _sb_row(), _sb_rec(windows=[]), "K3 launched 0 times"),
+    ("arena", _sb_row(), None, "no record"),
+    ("arena", _sb_row(), _sb_rec(k3_plain=None), "not held to its plain"),
+    ("arena", _sb_row(), _sb_rec(k3_plain=_plain(
+        max_rel={"val": 1e-7, "u": 3e-5, "cost": 0.0, "tie": 0.0})),
+     "relative gaps"),
+    ("arena", _sb_row(), _sb_rec(k3_plain=_plain(tie_free_cols_differ=1)),
+     "columns differ on 1 tie-free rows"),
+    ("arena", _sb_row(), _sb_rec(k3_plain=_plain(rows=1000)),
+     "1000 rows (at least 1024)"),
+    ("arena", _sb_row(), _sb_rec(k3_plain=_plain(extents=4)),
+     "over 4 extents (5)"),
+    ("arena", _sb_row(slo_overhead_frac=0.02), _sb_rec(),
+     "slo_overhead_frac 0.02"),
+])
+def test_serve_bench_holds_each_bar_on_the_card(mode, row, rec, words):
+    """What phase 26 holds a child's result and record to on the card: no
+    error, the JAX script's bars, the card named, both versions, finite
+    p99s; in the arena child K3's launches equal to the batches window by
+    window, and at least 1,024 served rows over every extent equal to
+    K3's plain version within its tolerance."""
+    bad = chip_smoke.serve_bench_holds(mode, row, rec, True)
     if words is None:
         assert bad == []
     else:

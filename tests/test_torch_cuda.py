@@ -681,6 +681,68 @@ def test_sharded_descent_on_the_card_matches_the_cpu(gpu, router):
     assert all(d.type == "cuda" for d in dflt.devices)
 
 
+def test_sharded_descent_replays_its_graphs_bitwise(gpu):
+    """A bucket's first call runs eagerly and captures its graphs (the
+    routing and each shard's); a replay on other inputs of the same
+    buckets gives the eager program's bits, row for row, and so does a
+    replay after the other buckets' captures."""
+    g = _synthetic_server(gpu)
+    rng = np.random.default_rng(11)
+    first = rng.uniform(-0.1, 1.1, (40, 3))
+    again = rng.uniform(-0.1, 1.1, (40, 3))
+    a0 = g.evaluate(first)
+    (graphs,) = g._graph_sets
+    n_graphs = len(graphs)
+    assert n_graphs >= 2 and ("route", 64) in graphs
+    r1 = g.evaluate(again)                       # replays
+    assert g._graph_sets == [graphs] and len(graphs) == n_graphs
+    g.evaluate(rng.uniform(0, 1, (300, 3)))      # other buckets
+    eager = _synthetic_server(gpu)
+    eager._run = lambda graphs, key, fn, inputs: fn(*inputs)
+    for th, got in ((first, a0), (again, r1), (again, g.evaluate(again))):
+        ref = eager.evaluate(th)
+        for x, y in zip(got, ref):
+            assert np.array_equal(x, y)
+    for x, y in zip(g.locate(again), eager.locate(again)):
+        assert np.array_equal(x, y)
+
+
+def test_concurrent_calls_take_graph_sets_of_their_own(gpu):
+    """Two threads evaluating one server at once, one on a stream of
+    its own: each call takes a set of graphs no other call is using,
+    and every answer is the eager program's, bitwise."""
+    import threading
+
+    g = _synthetic_server(gpu)
+    eager = _synthetic_server(gpu)
+    eager._run = lambda graphs, key, fn, inputs: fn(*inputs)
+    rng = np.random.default_rng(12)
+    batches = [rng.uniform(-0.1, 1.1, (int(n), 3))
+               for n in rng.integers(1, 200, 64)]
+    got: dict = {}
+    errors: list = []
+
+    def client(c):
+        try:
+            stream = torch.cuda.Stream(gpu) if c else None
+            with torch.cuda.stream(stream):
+                for j in range(c, len(batches), 2):
+                    got[j] = g.evaluate(batches[j])
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert 1 <= len(g._graph_sets) <= 2
+    for j, th in enumerate(batches):
+        for x, y in zip(got[j], eager.evaluate(th)):
+            assert np.array_equal(x, y)
+
+
 def test_request_scheduler_on_the_card_with_a_hot_swap(gpu):
     """16 threads submit while v2 (payloads exactly 2x v1's) is published:
     nothing drops, every answer is bitwise its version's."""

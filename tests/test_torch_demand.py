@@ -264,6 +264,41 @@ def test_hub_snapshot_roundtrip_and_priority_mapping(tmp_path):
     assert set(priority_from_snapshot(snap, np.arange(2))) <= {0, 1}
 
 
+def test_concurrent_snapshots_never_mix_their_files(tmp_path,
+                                                    monkeypatch):
+    """Two writers of one controller's snapshot (the maintenance
+    thread's periodic one and a caller's) take turns.  A slow writer's
+    meta is delayed so that, without the turns, a second writer's npz
+    and meta land between the first's npz and meta, and the first's
+    meta, written last, names an npz that is no longer there: the strict
+    load fails."""
+    import threading
+
+    hub = DemandHub(mode="on", snapshot_dir=str(tmp_path), clock=_Clock())
+    _fill_hub(hub)
+    real = atomic.atomic_write_json
+
+    def slow_meta(*a, **kw):
+        if threading.current_thread().name == "slow-writer":
+            time.sleep(0.3)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(atomic, "atomic_write_json", slow_meta)
+    slow = threading.Thread(target=hub.snapshot, name="slow-writer")
+    slow.start()
+    time.sleep(0.1)
+    # Different contents, so the two npz files differ.
+    hub.record("c", np.full((1, 2), 0.5), np.array([9]), [None],
+               np.array([True]), np.array([1.0]),
+               box=(np.zeros(2), np.ones(2)))
+    hub.snapshot()
+    slow.join(60)
+    assert not slow.is_alive()
+    hub.close(snapshot=False)
+    snap = load_demand(str(tmp_path / "c"))   # strict: npz sha == meta's
+    assert snap.meta["controller"] == "c"
+
+
 def test_torn_snapshot_never_loads(tmp_path):
     hub = DemandHub(mode="on", snapshot_dir=str(tmp_path), clock=_Clock())
     _fill_hub(hub)

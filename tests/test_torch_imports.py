@@ -87,6 +87,7 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "tools.capture", "tools.precision_check",
                                  "tools.tune_schedule", "tools.onset_probe",
                                  "tools.long_build", "tools.bench",
-                                 "tools.bench_history"])
+                                 "tools.bench_history",
+                                 "tools.serve_bench"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

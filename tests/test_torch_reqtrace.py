@@ -540,6 +540,36 @@ def test_gc_pause_recorder_captures_forced_collect():
     assert len(rec.pauses) == n
 
 
+def test_a_collection_under_the_recorders_locks_does_not_hang():
+    """A collection that starts while its own thread holds the
+    histogram's lock (a snapshot copying it) or the stream's (an emit)
+    finishes: the callback only records, the recorder's thread publishes
+    the event and the observation, and stop() the rest."""
+    o = obs_lib.Obs("jsonl")
+    rec = GcPauseRecorder(obs=o).start()
+    done = threading.Event()
+
+    def collect_under_the_locks():
+        with rec._h._lock, o.sink._lock:
+            gc.collect()
+        done.set()
+
+    threading.Thread(target=collect_under_the_locks, daemon=True).start()
+    assert done.wait(10.0), "gc.collect() under the recorder's locks hung"
+    deadline = time.monotonic() + 10.0
+    while not [r for r in o.sink.records
+               if r.get("name") == "serve.host.gc_pause_us"]:
+        assert time.monotonic() < deadline, "no event published"
+        time.sleep(0.01)
+    rec.stop()
+    assert not any(t.name == "gc-pause-publish"
+                   for t in threading.enumerate())
+    h = o.metrics.snapshot()["histograms"]["serve.host.gc_pause_us"]
+    evs = [r for r in o.sink.records
+           if r.get("name") == "serve.host.gc_pause_us"]
+    assert h["count"] == len(evs) == len(rec.pauses) >= 1
+
+
 def test_note_stall_histogram_always_event_rate_limited():
     clk = _Clock()
     o = obs_lib.Obs("jsonl")
