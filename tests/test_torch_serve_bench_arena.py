@@ -5,11 +5,12 @@ on the CPU.
 The JAX package has no tier-1 test of either mode, so both tools run
 through the same assertions: each mode once (module fixtures, the two
 tools side by side as subprocesses, results and histories in the test's
-directory).  The arena sweep at tests/test_serve.py's serve_bench sizes
-with four tenants: the delta's figures equal, no torn and no dropped
-request, a fused launch for several requests, the rows' keys and
-configuration equal (the configuration's ``backend`` aside: the JAX
-arena's "xla", the port's "torch" on the CPU).  The skewed capture at
+directory), at tests/test_serve.py's serve_bench sizes with 1 s
+windows.  The arena sweep with four tenants: the delta's figures
+equal, no torn and no dropped request, a fused launch for several
+requests, the rows' keys and configuration equal (the configuration's
+``backend`` aside: the JAX arena's "xla", the port's "torch" on the
+CPU).  The skewed capture at
 the JAX default depth 9, where the script's blobs are sized: the
 demand sketch's top decile at least 0.7 in both, the snapshot loaded
 strictly, the five off/on pairs of both overhead figures taken.  No
