@@ -177,11 +177,11 @@ together (no error, reuse in (0, 1], at least 5 generations, parity
 held); every row's history row appended to its own file, and the JAX
 package's BENCH_HISTORY.jsonl unchanged byte for byte.  Phase 26 drives
 the serving bench (tools/serve_bench.py), one process at a time through
-serve_bench_worker (counted, its client windows recorded): the legacy
-sweep, the legacy sweep under skewed traffic with demand capture (the
-demand and trace off/on pairs) and the four-tenant arena sweep, each at
-the JAX script's defaults but depth 13 (16,384 leaves), held to the JAX
-script's bars, the card named and both versions seen; in the arena
+serve_bench_worker (counted, its client windows recorded): the
+four-tenant arena sweep and the legacy sweep, each at the JAX script's
+defaults but depth 13 (16,384 leaves), held to the JAX script's bars,
+the card named and both versions seen (not the skewed capture, whose
+1% overhead bars the card cannot resolve: SERVE_BENCH_RUNS); in the arena
 child K3's launches over the windows equal to the scheduler's batches,
 window by window against the row's launches per request, and at least
 1,024 of its served in-box rows, over every extent, re-evaluated by
@@ -4778,10 +4778,9 @@ def diagnostics_only() -> int:
 #: flagship's leaf count, so the per-leaf counts stay exact), the SLO
 #: windows scaled to seconds (the JAX tests' geometry, 1 s slots) with
 #: their burn thresholds, and the demand-ordered rebuild's region
-#: tolerance against phase 15a's unprioritized rebuild.  One pair (off,
-#: on) since phase 26's skewed sweep times five demand off/on pairs.
+#: tolerance against phase 15a's unprioritized rebuild.
 SD_REQUESTS = 5_000
-SD_PAIRS = 1
+SD_PAIRS = 2
 SD_SUBOPT_FRAC = 1 / 16
 SD_SUBOPT_EPS = 1e-2
 SD_SELFTEST = 4096
@@ -8772,17 +8771,18 @@ _SERVE_BENCH = ("import sys, chip_smoke; "
                 "sys.exit(chip_smoke.serve_bench_worker(sys.argv[1:]))")
 #: 26: tools/serve_bench at the JAX script's defaults (2 shards or 4
 #: tenants, 8 clients, rates 1,000 / 4,000 / 16,000 for 2 s each), the
-#: legacy and the arena sweep at depth 13: p = 2 and 2 x 2^13 = 16,384
+#: arena and the legacy sweep at depth 13: p = 2 and 2 x 2^13 = 16,384
 #: leaves, the size of the flagship's table (11,674), where the JAX
-#: default depth 9 gives 1,024.  The skewed capture (the demand and trace
-#: off/on pairs) at depth 9, as in BENCH_serve_r03/r04.json: the script's
-#: blobs are sized for that depth, and at depth 13 the JAX script itself
-#: misses its top-decile bar (0.655 on the CPU, the port 0.624; PERF.md).
-#: One child at a time.
+#: default depth 9 gives 1,024.  One child at a time, the arena child
+#: first; each runs and is held whatever the one before it showed.  The
+#: skewed capture (SERVE_BENCH_SKEW) is not among them: its demand and
+#: trace overhead bars (min p99 of five off/on windows a side, <= 1%)
+#: read -27% to +41% between identical arms on the card at 2 s windows
+#: and held in none of three runs at 4 and 6 s (PERF.md), so it would
+#: fail this script in most runs; ROADMAP "The serving bench".
 SERVE_BENCH_RUNS = (
-    ("legacy", {"SERVE_BENCH_DEPTH": "13"}),
-    ("skew", {"SERVE_BENCH_DEPTH": "9", "SERVE_BENCH_SKEW": "3.0"}),
-    ("arena", {"SERVE_BENCH_DEPTH": "13", "SERVE_BENCH_TENANTS": "4"}))
+    ("arena", {"SERVE_BENCH_DEPTH": "13", "SERVE_BENCH_TENANTS": "4"}),
+    ("legacy", {"SERVE_BENCH_DEPTH": "13"}))
 SERVE_BENCH_TIMEOUT_S = 300.0
 #: The arena child's served in-box rows re-evaluated by K3's plain
 #: version: at least this many (every one up to SB_PLAIN_MAX, else evenly
@@ -9031,15 +9031,16 @@ def serve_bench_holds(mode: str, row: dict | None, rec: dict | None,
 
 
 def serve_bench_phase(dev, tmp: str) -> dict:
-    """Phase 26: tools/serve_bench's legacy, skewed and arena sweeps
+    """Phase 26: tools/serve_bench's arena and legacy sweeps
     (SERVE_BENCH_RUNS), one serve_bench_worker child at a time, so that
     no two sweeps share the card.  Each held (serve_bench_holds), with
     exit 0 and its history row appended to its own file (the summary of
     the result, key for key); the JAX package's BENCH_HISTORY.jsonl
-    unchanged byte for byte.  Prints each result without its rates, the
-    rates' rows, K3's launches and ms a launch at the arena run's most
-    frequent batch size, and each child's wall.  Returns the kernels
-    line's "serve_bench_*" keys of K3's entry."""
+    unchanged byte for byte.  Every child runs; the phase fails once,
+    after the last, naming every child's failures.  Prints each result
+    without its rates, the rates' rows, K3's launches and ms a launch at
+    the arena run's most frequent batch size, and each child's wall.
+    Returns the kernels line's "serve_bench_*" keys of K3's entry."""
     import hashlib
 
     from explicit_hybrid_mpc_tpu_torch.tools import bench_history
@@ -9055,6 +9056,7 @@ def serve_bench_phase(dev, tmp: str) -> dict:
             return hashlib.sha256(f.read()).hexdigest()
     before = digest()
     out: dict = {"serve_bench_wall_s": {}}
+    failures = []
     for mode, env_extra in SERVE_BENCH_RUNS:
         def at(suffix, mode=mode):
             return os.path.join(tmp, f"26_{mode}{suffix}")
@@ -9110,9 +9112,12 @@ def serve_bench_phase(dev, tmp: str) -> dict:
                     f"{tk['plain_ms']:.4f} ms, bound {tk['bound_ms']:.5f} "
                     f"ms ({tk['bound_by']})")
         if bad:
-            fail(f"26 serve_bench {mode}: " + "; ".join(bad))
+            log(f"[serve-bench] 26 {mode} FAILED: " + "; ".join(bad))
+            failures.append(f"26 serve_bench {mode}: " + "; ".join(bad))
     if digest() != before:
-        fail(f"26: {JAX_HISTORY} changed")
+        failures.append(f"26: {JAX_HISTORY} changed")
+    if failures:
+        fail(" | ".join(failures))
     out["serve_bench_phase_s"] = time.perf_counter() - t0
     log(f"[serve-bench] phase 26 took {out['serve_bench_phase_s']:.1f} s "
         "(walls " + ", ".join(f"{m} {w:.1f} s" for m, w in
@@ -9123,7 +9128,7 @@ def serve_bench_phase(dev, tmp: str) -> dict:
 
 def serve_bench_only() -> int:
     """Phase 26 alone, for iterating on the card: the kernels built, then
-    the three sweeps.
+    the sweeps.
 
         python3 -c "import sys, chip_smoke as c; sys.exit(c.serve_bench_only())"
     """
@@ -9808,8 +9813,8 @@ def main() -> int:
     host.end("phase 25 (bench tool)")
     bench_k2 = bench.pop("bench_k2_launches")
 
-    # -- phase 26: the serving bench (its legacy, skewed and arena sweeps,
-    # one process at a time) ------------------------------------------------
+    # -- phase 26: the serving bench (its arena and legacy sweeps, one
+    # process at a time) ----------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_bench_") as tmp:
         serve = serve_bench_phase(dev, tmp)
     host.end("phase 26 (serving bench)")

@@ -484,8 +484,10 @@ class DemandHub:
         self._lock = threading.Lock()
         # One snapshot writer at a time: the maintenance thread's periodic
         # snapshot and a caller's must not interleave their npz and meta
-        # writes in one directory (the meta would name the other's npz).
-        self._snap_lock = threading.Lock()
+        # writes in one directory (the meta would name the other's npz),
+        # and a periodic one waiting behind a caller's is skipped
+        # (_periodic_snapshot).
+        self._snap_lock = threading.RLock()
         self._ctl: dict[str, _ControllerDemand] = {}
         self._closed = False
         self._last_snapshot = self._clock()
@@ -580,8 +582,7 @@ class DemandHub:
                     now = self._clock()
                     if now - self._last_snapshot \
                             >= self.snapshot_every_s:
-                        self._last_snapshot = now
-                        self.snapshot()
+                        self._periodic_snapshot()
             except Exception as e:  # noqa: BLE001 -- telemetry must never kill serving; evented below
                 self._obs.event("demand.error", msg=repr(e))
 
@@ -636,6 +637,17 @@ class DemandHub:
                          f"budget {self.subopt_eps:g}: the tree is "
                          "serving answers outside its certificate -- "
                          "check provenance / trigger a rebuild"))
+
+    def _periodic_snapshot(self) -> None:
+        """The maintenance thread's snapshot, once the interval has
+        passed since the last snapshot of ANY writer, checked under the
+        snapshot lock: a caller's snapshot (a bench's epilogue, which
+        then strict-loads it) is not overwritten by a periodic one that
+        waited behind it."""
+        with self._snap_lock:
+            if self._clock() - self._last_snapshot \
+                    >= self.snapshot_every_s:
+                self.snapshot()
 
     def drain_for_test(self) -> None:
         """Synchronously run one subopt drain (deterministic tests --
@@ -740,6 +752,12 @@ class DemandHub:
         the demand gauges."""
         if not self.enabled:
             return {}
+        with self._snap_lock:
+            self._last_snapshot = self._clock()
+            return self._snapshot_all(name, dir_path)
+
+    def _snapshot_all(self, name: Optional[str],
+                      dir_path: Optional[str]) -> dict[str, dict]:
         with self._lock:
             names = [name] if name is not None else sorted(self._ctl)
         out: dict[str, dict] = {}
@@ -750,8 +768,7 @@ class DemandHub:
             if d is None:
                 raise ValueError("no snapshot_dir configured and no "
                                  "dir_path given")
-            with self._snap_lock:
-                meta = self._snapshot_one(nm, d)
+            meta = self._snapshot_one(nm, d)
             out[nm] = meta
             with self._lock:
                 st = self.ctl(nm)

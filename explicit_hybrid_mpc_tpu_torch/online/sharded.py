@@ -29,7 +29,8 @@ descent + interpolation -- is captured once per padding bucket as a CUDA
 graph (``_Graphed``) and replayed afterwards, as the JAX package
 compiles one program per shard and bucket: one graph launch instead of
 a few hundred kernel launches from the host, the same kernels (so the
-same bits).  A bucket's first call runs eagerly and then captures.  A
+same bits).  A bucket's first call runs eagerly and then captures;
+``warm(max_batch)`` makes every such first call before serving.  A
 call takes a set of graphs no other call is using (their input and
 output buffers are the call's until it has read its results), so
 concurrent callers -- a scheduler's worker and a demand hub's oracle --
@@ -80,6 +81,11 @@ def _bucket(n: int) -> int:
     """Power-of-two padding >= n: bounds the per-shard batch shapes to
     log2(max batch) sizes."""
     return max(_MIN_BUCKET, 1 << max(0, (n - 1).bit_length()))
+
+
+def _graphable(t: torch.Tensor) -> bool:
+    """Whether a program on `t`'s device runs as a CUDA graph."""
+    return t.device.type == "cuda"
 
 
 class _Graphed:
@@ -414,14 +420,15 @@ class ShardedDescent:
                     device_lib.to_device(node, self._r_dev, torch.int64))
                 node = nd.cpu().numpy()
         else:
-            def route(q):
-                return descent_mod.locate_descent(self._rt, q)[1]
-            node = self._run(graphs, ("route", pad), route,
+            node = self._run(graphs, ("route", pad), self._route_program,
                              [q]).cpu().numpy()
         if ms:
             ms["route_q"].inc(B)
             ms["route_s"].observe(time.perf_counter() - t0)
         return node[:B].astype(np.int64)
+
+    def _route_program(self, q: torch.Tensor) -> torch.Tensor:
+        return descent_mod.locate_descent(self._rt, q)[1]
 
     # -- serving -----------------------------------------------------------
 
@@ -441,7 +448,7 @@ class ShardedDescent:
         """`fn(*inputs)` on their device: on a CUDA device through the
         graph of `key` in `graphs` (captured after an eager first call,
         which this call returns), elsewhere eagerly."""
-        if inputs[0].device.type != "cuda":
+        if not _graphable(inputs[0]):
             return fn(*inputs)
         g = graphs.get(key)
         if g is None:
@@ -465,7 +472,6 @@ class ShardedDescent:
             idx = np.flatnonzero(shard == s)
             if idx.size == 0:
                 continue
-            sh = self._shards[s]
             if ms:
                 ms["batch"].observe(idx.size)
             pad = _bucket(idx.size)
@@ -473,12 +479,61 @@ class ShardedDescent:
             qs[:idx.size] = thetas[idx]
             n0 = np.zeros(pad, dtype=np.int64)
             n0[:idx.size] = self._r_start[rnode[idx]]
-            dev = sh["device"]
-            pending.append((idx, sh, self._run(
-                graphs, key + (s, pad), lambda q, n, sh=sh: program(sh, q, n),
-                [device_lib.to_device(qs, dev, torch.float64),
-                 device_lib.to_device(n0, dev, torch.int64)])))
+            pending.append((idx, self._shards[s],
+                            self._enqueue(graphs, program, key, s, qs, n0)))
         return pending
+
+    def _enqueue(self, graphs: dict, program, key: tuple, s: int,
+                 qs: np.ndarray, n0: np.ndarray) -> torch.Tensor:
+        """`program(shard s, queries, start nodes)` on the shard's device
+        (the graph of (`key`, s, bucket) on a CUDA device)."""
+        sh = self._shards[s]
+        dev = sh["device"]
+        return self._run(
+            graphs, key + (s, qs.shape[0]),
+            lambda q, n, sh=sh: program(sh, q, n),
+            [device_lib.to_device(qs, dev, torch.float64),
+             device_lib.to_device(n0, dev, torch.int64)])
+
+    @staticmethod
+    def _serve_program(tol: float):
+        return lambda sh, qs, n0: _serve_shard(sh["dt"], sh["leaves"], qs,
+                                               n0, tol)
+
+    def warm(self, max_batch: int, tol: float = 1e-9) -> int:
+        """Run every program of `evaluate` at every padding bucket of a
+        batch of up to `max_batch` rows: the routing descent at each
+        bucket and EACH shard's descent + interpolation at each bucket,
+        whatever split of a batch across the shards would mint it, in
+        the graph set the next call takes.  On a CUDA device that makes
+        each first call and its capture here, before serving.  Returns
+        the number of programs run."""
+        p = self.root_bary.shape[-1] - 1
+        top = _bucket(min(max(1, int(max_batch)), self.max_bucket))
+        pads = [b for b in (1 << k for k in range(top.bit_length()))
+                if _MIN_BUCKET <= b <= top]
+        program = self._serve_program(tol)
+        n = 0
+        with self._graph_set() as graphs:
+            for pad in pads:
+                if self._router is None:
+                    q = device_lib.to_device(np.zeros((pad, p)),
+                                             self._r_dev, torch.float64)
+                    self._run(graphs, ("route", pad), self._route_program,
+                              [q])
+                    n += 1
+                for s, sh in enumerate(self._shards):
+                    starts = self._r_start[self._r_shard == s]
+                    if sh is None or starts.size == 0:
+                        continue
+                    self._enqueue(graphs, program, ("serve", tol), s,
+                                  np.zeros((pad, p)),
+                                  np.full(pad, starts[0], dtype=np.int64))
+                    n += 1
+        for d in {str(sh["device"]) for sh in self._shards if sh}:
+            if torch.device(d).type == "cuda":
+                torch.cuda.synchronize(d)
+        return n
 
     @staticmethod
     def _global_rows(sh: dict, local: np.ndarray) -> np.ndarray:
@@ -529,10 +584,8 @@ class ShardedDescent:
         ms = self._ms
         t0 = time.perf_counter() if ms else 0.0
         with self._graph_set() as graphs:
-            pending = self._dispatch(
-                thetas, lambda sh, qs, n0: _serve_shard(
-                    sh["dt"], sh["leaves"], qs, n0, tol), ("serve", tol),
-                graphs)
+            pending = self._dispatch(thetas, self._serve_program(tol),
+                                     ("serve", tol), graphs)
             outs = _read(pending)
         n_u = (int(pending[0][2].shape[1]) - 3 if pending
                else self._shards_n_u())

@@ -40,13 +40,7 @@ Demand capture (obs/demand.py): both schedulers optionally hold a
 ``DemandHub`` and make exactly ONE batched ``record`` call per
 (controller, micro-batch) AFTER results scatter back to tickets --
 leaf rows, fallback tags, certified box and served costs, all host
-arrays the serve path already produced.
-
-The folds and the records run on a telemetry thread of the scheduler,
-in batch order, not on the worker (the JAX package's worker makes them
-itself, after the scatter): the worker goes back to the queue as soon
-as the tickets are filled, and the telemetry runs while it waits for
-the next deadline or for the device.  ``close()`` drains it.  SLO tracking (obs/slo.py):
+arrays the serve path already produced.  SLO tracking (obs/slo.py):
 an optional ``SloTracker`` ticks on the metrics snapshot each worker
 flushes every ``METRICS_FLUSH_S`` seconds, never per request, and
 persists its budget on ``close()``.  Both follow the off-mode
@@ -237,44 +231,11 @@ class _MicroBatcher:
         self._fill_roll: deque[float] = deque(maxlen=64)
         self._last_flush = time.perf_counter()
         self._ms = None
-        # Post-batch telemetry (module docstring): jobs in batch order,
-        # and the event that wakes the thread running them.
-        self._tel_jobs: deque = deque()
-        self._tel_wake = threading.Event()
 
     def _start(self, name: str) -> None:
         self._worker = threading.Thread(target=self._loop, name=name,
                                         daemon=True)
-        self._telemetry = threading.Thread(
-            target=self._telemetry_loop, name=f"{name}-telemetry",
-            daemon=True)
         self._worker.start()
-        self._telemetry.start()
-
-    def _after_batch(self, jobs: list) -> None:
-        """Hand one batch's telemetry calls [(fn, args, kwargs)] to the
-        telemetry thread."""
-        self._tel_jobs.append(jobs)
-        self._tel_wake.set()
-
-    def _telemetry_loop(self) -> None:
-        """Run the batches' telemetry calls in order until close() sends
-        None.  A failing call is evented and the rest still run: a
-        batch's results are already with its callers."""
-        while True:
-            self._tel_wake.wait()
-            self._tel_wake.clear()
-            while self._tel_jobs:
-                jobs = self._tel_jobs.popleft()
-                if jobs is None:
-                    return
-                for fn, args, kw in jobs:
-                    try:
-                        fn(*args, **kw)
-                    except Exception as e:  # noqa: BLE001 -- evented
-                        self._obs.event("serve.telemetry_error",
-                                        call=getattr(fn, "__name__", "?"),
-                                        msg=repr(e))
 
     def queue_depth(self) -> int:
         with self._lock:
@@ -369,9 +330,6 @@ class _MicroBatcher:
             self._closed = True
             self._cond.notify_all()
         self._worker.join(timeout)
-        if self._telemetry.is_alive():
-            self._after_batch(None)
-            self._telemetry.join(timeout)
         if self.slo is not None:
             self.slo.flush()
 
@@ -564,14 +522,13 @@ class RequestScheduler(_MicroBatcher):
         # Trace fold: ONE call per micro-batch, after tickets are
         # filled (attribution never sits between a result and its
         # caller); the stamps above are raw clock reads only.
-        jobs = []
         if tr is not None and trace_rows:
-            jobs.append((tr.fold, (self.controller,), dict(
-                seal=self._t_seal_ns, lease=ts_lease, eval0=ts_eval0,
-                eval1=ts_eval1, fb_end=ts_fb_end, done=ts_done,
-                rows=trace_rows, fill=fill, version=version,
-                extent=getattr(srv, "n_leaves", None),
-                stall_ns=self._stall_over_ns)))
+            tr.fold(self.controller, seal=self._t_seal_ns,
+                    lease=ts_lease, eval0=ts_eval0, eval1=ts_eval1,
+                    fb_end=ts_fb_end, done=ts_done, rows=trace_rows,
+                    fill=fill, version=version,
+                    extent=getattr(srv, "n_leaves", None),
+                    stall_ns=self._stall_over_ns)
             self._stall_over_ns = 0
         # Demand capture: one batched call, AFTER tickets are filled
         # (telemetry never sits between a result and its caller).
@@ -582,12 +539,10 @@ class RequestScheduler(_MicroBatcher):
         if hub is not None:
             box = self.fallback.box(srv) \
                 if self.fallback is not None else None
-            jobs.append((hub.record, (
+            hub.record(
                 self.controller, thetas, res.leaf, tags, res.inside,
-                res.cost), dict(box=box,
-                                n_leaves=getattr(srv, "n_leaves", None))))
-        if jobs:
-            self._after_batch(jobs)
+                res.cost, box=box,
+                n_leaves=getattr(srv, "n_leaves", None))
 
 
 class ArenaScheduler(_MicroBatcher):
@@ -791,16 +746,15 @@ class ArenaScheduler(_MicroBatcher):
         # exemplars are per-controller; batch-scoped stamps are shared
         # -- the mixed batch attributes the same launch to every
         # tenant riding it).
-        jobs = []
         if tr is not None and trace_rows:
             for name, rws in trace_rows.items():
                 ext = self.arena.extent(name)
-                jobs.append((tr.fold, (name,), dict(
-                    seal=self._t_seal_ns, lease=ts_lease, eval0=ts_eval0,
-                    eval1=ts_eval1, fb_end=ts_fb_end, done=ts_done,
-                    rows=rws, fill=fill, version=res.versions[name],
-                    extent=getattr(ext, "n_leaves", None),
-                    stall_ns=self._stall_over_ns)))
+                tr.fold(name, seal=self._t_seal_ns, lease=ts_lease,
+                        eval0=ts_eval0, eval1=ts_eval1,
+                        fb_end=ts_fb_end, done=ts_done, rows=rws,
+                        fill=fill, version=res.versions[name],
+                        extent=getattr(ext, "n_leaves", None),
+                        stall_ns=self._stall_over_ns)
                 self._stall_over_ns = 0
         # Demand capture, grouped per tenant (the hub's sketches are
         # per-controller and ``res.leaf`` is controller-LOCAL, so the
@@ -812,10 +766,8 @@ class ArenaScheduler(_MicroBatcher):
             for name in sorted(set(names)):
                 msk = names_arr == name
                 ext = self.arena.extent(name)
-                jobs.append((hub.record, (
+                hub.record(
                     name, thetas[msk], res.leaf[msk],
                     [tags[i] for i in np.flatnonzero(msk)],
-                    res.served[msk], res.cost[msk]),
-                    dict(box=(ext.lb, ext.ub), n_leaves=ext.n_leaves)))
-        if jobs:
-            self._after_batch(jobs)
+                    res.served[msk], res.cost[msk],
+                    box=(ext.lb, ext.ub), n_leaves=ext.n_leaves)

@@ -899,7 +899,10 @@ def run_legacy(result: dict, dev, no_gc: bool = False) -> None:
                 demand=run.hub, trace=tr, slo=slo)
             hub = run.hub
             # Every pow-2 bucket of both servers once before the sweep,
-            # so no first use lands inside a measured window.
+            # so no first use lands inside a measured window; then every
+            # (program, shard, bucket) of each, since a batch that falls
+            # mostly to one shard mints a shard bucket a uniform batch
+            # does not (on the card: each graph's capture).
             wrng = np.random.default_rng(0)
             k = 1
             while k <= max_batch:
@@ -907,6 +910,8 @@ def run_legacy(result: dict, dev, no_gc: bool = False) -> None:
                 srv1.evaluate(warm)
                 srv2.evaluate(warm)
                 k *= 2
+            srv1.warm(max_batch)
+            srv2.warm(max_batch)
 
             clients = _Clients(sched.submit, None,
                                _skew_sampler(skew, lb, ub), lb, ub,

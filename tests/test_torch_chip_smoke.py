@@ -942,7 +942,7 @@ def test_slo_demand_phase_rehearses_on_the_cpu(small_pendulum, tmp_path,
     log = capsys.readouterr().out
     assert "FAIL" not in log
     for tag in ("[demand] 19a: answers with --demand on bitwise those with "
-                "it off on 256 of 256", "rows", "19b run 1 capture on",
+                "it off on 256 of 256", "rows", "19b run 3 capture off",
                 "p99 ratio", "torn reads 0", "for 4 of 4 tenants",
                 "demand.error events 0", "max relative difference",
                 "health.subopt events at eps 2: 0",
@@ -1770,6 +1770,37 @@ def test_serve_bench_phase_rehearses_on_the_cpu(tmp_path, monkeypatch,
     assert plain["rows"] >= 100 and plain["extents"] == 5
     assert plain["max_abs_err"] == 0.0
     assert plain["tie_free_cols_differ"] == plain["cols_differ"] == 0
+
+
+def test_serve_bench_phase_runs_every_child_and_fails_once(tmp_path,
+                                                           monkeypatch,
+                                                           capsys):
+    """A child that fails does not stop phase 26: the arena child runs
+    first, every child after it still runs and is held, and the phase
+    fails once, naming each child's failures."""
+    started = []
+
+    class _Failed:
+        def wait(self, timeout=None):
+            return 1
+
+    def child(dev, mode, env_extra, tmp):
+        started.append(mode)
+        with open(os.path.join(tmp, f"26_{mode}.log"), "w") as f:
+            f.write(f"{mode} stopped\n")
+        return _Failed()
+
+    monkeypatch.setattr(chip_smoke, "_serve_bench_child", child)
+    with pytest.raises(SystemExit):
+        chip_smoke.serve_bench_phase(torch.device("cpu"), str(tmp_path))
+    assert started == [m for m, _e in chip_smoke.SERVE_BENCH_RUNS] \
+        == ["arena", "legacy"]
+    log = capsys.readouterr()
+    text = log.out + log.err
+    for mode in started:
+        assert f"26 serve_bench {mode}: no result" in text, mode
+        assert f"{mode} stopped" in text, mode
+    assert text.count("FAIL:") == 1, text
 
 
 def _sb_rates(lpr=0.125):

@@ -299,6 +299,29 @@ def test_concurrent_snapshots_never_mix_their_files(tmp_path,
     assert snap.meta["controller"] == "c"
 
 
+def test_a_periodic_snapshot_never_overwrites_a_newer_one(tmp_path):
+    """The maintenance thread's periodic snapshot, checked under the
+    snapshot lock, is skipped while the interval since ANY writer's
+    last snapshot has not passed: a caller's snapshot (a bench's
+    epilogue, strict-loaded against the meta it returned) stays the
+    newest.  Sketch decay makes a later snapshot's npz differ."""
+    clock = _Clock()
+    hub = DemandHub(mode="on", snapshot_dir=str(tmp_path), clock=clock,
+                    snapshot_every_s=1.0)
+    _fill_hub(hub)
+    clock.t = 5.0
+    meta = hub.snapshot()["c"]
+    clock.t = 5.5    # a periodic snapshot that waited behind the caller's
+    hub._periodic_snapshot()
+    assert load_demand(str(tmp_path / "c")).meta["npz_sha256"] \
+        == meta["npz_sha256"]
+    clock.t = 6.0    # the interval has passed: it writes
+    hub._periodic_snapshot()
+    newer = load_demand(str(tmp_path / "c")).meta["npz_sha256"]
+    hub.close(snapshot=False)
+    assert newer != meta["npz_sha256"]
+
+
 def test_torn_snapshot_never_loads(tmp_path):
     hub = DemandHub(mode="on", snapshot_dir=str(tmp_path), clock=_Clock())
     _fill_hub(hub)

@@ -386,3 +386,49 @@ def test_flat_descent_of_jax_tables_unchanged(built):
                                    torch.as_tensor(th))
     np.testing.assert_allclose(got.u.numpy(), np.asarray(ref.u), atol=1e-8)
     assert np.array_equal(got.inside.numpy(), np.asarray(ref.inside))
+
+
+def test_warm_makes_every_capture_a_skewed_batch_needs(built, monkeypatch):
+    """ShardedDescent.warm(max_batch) runs every (program, shard, bucket)
+    first call: with the graph path forced on the CPU (a stand-in graph
+    that counts its captures and replays eagerly), batches routed all to
+    one shard, or split unevenly, capture nothing after it, and serve
+    the same values as an unwarmed server's."""
+    captured: list = []
+
+    class _Counted:
+        def __init__(self, fn, inputs):
+            captured.append(tuple(t.shape for t in inputs))
+            self.fn = fn
+
+        def __call__(self, inputs):
+            return self.fn(*inputs)
+
+    plain = sharded.shard_descent(built["dt"], built["table"], n_shards=2,
+                                  devices=CPUS)
+    th = _thetas(512, 11)
+    shard = plain._r_shard[plain._route(th, {})]
+    assert (shard == 0).any() and (shard == 1).any()
+    batches = [th[shard == 0][:k] for k in (1, 9, 17, 32)]
+    batches += [th[shard == 1][:k] for k in (3, 31)]
+    batches += [np.concatenate([th[shard == 0][:29], th[shard == 1][:3]])]
+    refs = [plain.evaluate(b) for b in batches]
+    monkeypatch.setattr(sharded, "_graphable", lambda t: True)
+    monkeypatch.setattr(sharded, "_Graphed", _Counted)
+    srv = sharded.shard_descent(built["dt"], built["table"], n_shards=2,
+                                devices=CPUS)
+    n = srv.warm(32)
+    # Buckets 8, 16, 32: the routing descent and both shards' programs.
+    assert n == len(captured) == 3 * 3
+    for b, ref in zip(batches, refs):
+        got = srv.evaluate(b)
+        np.testing.assert_array_equal(got.u, ref.u)
+        np.testing.assert_array_equal(got.cost, ref.cost)
+    assert len(captured) == n
+    # Unwarmed, the same batches capture (the route's buckets and each
+    # shard's).
+    cold = sharded.shard_descent(built["dt"], built["table"], n_shards=2,
+                                 devices=CPUS)
+    for b in batches:
+        cold.evaluate(b)
+    assert len(captured) > n
