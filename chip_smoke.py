@@ -246,6 +246,16 @@ version's and its bound, each child's wall).  The ipm_leg entry's
 flagship build (its steps "build_window_steps"), beside the summed
 bound of the launches recorded in that window.
 
+From phase 14 on, three processes share the card (LANES): this one runs
+phases 14, 15, 17, 18 and 19, which build on one another's results;
+lane B, from a flagship build of its own, phases 16, 20, 21 and 22;
+lane C phases 23, 24 and 25.  Each lane's lines come through as they
+are printed, behind "[lane B] " or "[lane C] "; a lane that fails
+fails the script at this process's next phase boundary, and every lane
+is stopped with it.  Phases 1-13 run before the lanes start and phase
+26 after they have all ended, alone on the card both: the kernels'
+timings and the serving sweeps' latencies see no other work there.
+
 It refuses to run (exit code 2, no result) without a CUDA device, and
 exits non-zero in a directory that does not hold the repository.
 
@@ -609,7 +619,9 @@ SOC_SAMPLES = 192
 
 
 def log(*a) -> None:
-    print(*a, flush=True)
+    # One write a line: the lanes' relays print beside this process.
+    sys.stdout.write(" ".join(map(str, a)) + "\n")
+    sys.stdout.flush()
 
 
 def fail(msg: str) -> None:
@@ -9149,6 +9161,202 @@ def serve_bench_only() -> int:
     return 0
 
 
+# -- the lanes: phases 16 and 20-25 beside phases 14-19 -----------------------
+
+#: From phase 14 on, two more processes run beside the script's own, each
+#: its phases in order: main() keeps 14, 15, 17, 18 and 19, which build on
+#: one another's results (17 on 14's unpruned builds, 19 on 15's rebuild
+#: references); lane "B" runs the phases that start from a flagship tree
+#: (a build of its own, as each `*_only()` runs one); lane "C" the phases
+#: that need only the kernels.  Phases 1-13 (the kernels' timings, the
+#: main paths' counts) run before the lanes start and phase 26 (the
+#: serving sweeps' latencies) after every lane has ended, alone on the
+#: card both.
+LANES = {"B": ("16", "20", "21", "22"), "C": ("23", "24", "25")}
+#: A lane's wall limit, counted from its start.
+LANE_TIMEOUT_S = 1000.0
+_LANE = ("import sys, chip_smoke; "
+         "sys.exit(chip_smoke.lane_worker(sys.argv[1:]))")
+
+
+def lane_tree(dev):
+    """Lane B's flagship build, standing in for phase 3's: the result,
+    its wall, its K1 launches counted from zero, and its leaf table."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.config import PartitionConfig
+    from explicit_hybrid_mpc_tpu_torch.online import export
+    from explicit_hybrid_mpc_tpu_torch.oracle import ipm_leg
+    from explicit_hybrid_mpc_tpu_torch.partition.frontier import (
+        build_partition)
+    from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+    problem = make("inverted_pendulum")
+    cfg = PartitionConfig(problem="inverted_pendulum", eps_a=1e-2)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    ipm_leg.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    res = build_partition(problem, cfg)
+    sync()
+    build_s = time.perf_counter() - t0
+    n_k1 = ipm_leg.launches
+    log(f"[main] build {build_s:.1f} s: regions {res.stats['regions']}, "
+        f"K1 {n_k1}")
+    return problem, cfg, res, build_s, n_k1, export.export_leaves(res.tree)
+
+
+def run_lane(name: str, dev, card: str) -> dict:
+    """The phases of lane `name` (LANES) in order on `dev`, each in a
+    temporary directory of its own; returns each phase's result by its
+    number (16's is None)."""
+    from explicit_hybrid_mpc_tpu_torch import kernels
+    from explicit_hybrid_mpc_tpu_torch.analysis.recompile_guard import (
+        RecompileGuard)
+
+    phases = LANES[name]
+    out: dict = {}
+    if name == "B":
+        problem, cfg, res, build_s, n_k1, table = lane_tree(dev)
+        # Every kernel library is in this process from here on: 21c's
+        # loader guard, armed here, must see none added by 21a's end.
+        for lib in kernels.SOURCES:
+            kernels.library(lib)
+        loader_guard = RecompileGuard(watch=[kernels.loader])
+        host = HostVerdict()
+        for ph in phases:
+            with tempfile.TemporaryDirectory(
+                    prefix=f"chip_smoke_{ph}_") as tmp:
+                if ph == "16":   # its parts print their own verdicts
+                    out[ph] = observability_phase(dev, problem, cfg, res,
+                                                  table, tmp, host)
+                    continue
+                if ph == "20":
+                    out[ph] = multi_gpu_phase(dev, problem, cfg, res,
+                                              build_s, tmp)
+                elif ph == "21":
+                    out[ph] = analysis_phase(dev, res, n_k1, card, tmp,
+                                             loader_guard)
+                else:
+                    out[ph] = robustness_phase(dev, res, n_k1, tmp)
+            host.end(f"phase {ph}")
+        return out
+    # Lane C: 24a's CPU reference starts before phase 23 and runs beside
+    # phases 23 and 24.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as cap:
+        ref_proc = precision_reference(dev, cap)
+        try:
+            with tempfile.TemporaryDirectory(
+                    prefix="chip_smoke_operator_") as tmp:
+                out["23"] = operator_tools_phase(dev, tmp)
+            out["24"] = capture_tools_phase(dev, cap, ref_proc)
+        finally:
+            if ref_proc.poll() is None:
+                ref_proc.kill()
+                ref_proc.wait()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        out["25"] = bench_phase(dev, tmp)
+    return out
+
+
+def lane_worker(argv: list) -> int:
+    """A lane's process: `argv` is [lane, result path, card]; the kernels
+    (built by the script's phase 1) loaded, run_lane on the card, its
+    results written as JSON to the result path."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    name, path, card = argv
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    kernels.build()
+    out = run_lane(name, torch.device("cuda", 0), card)
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+class Lanes:
+    """The lanes' processes, started together (`cmds`: lane name -> argv,
+    by default lane_worker's), each in a session of its own, its lines
+    relayed to this process's standard output as they come, each behind
+    "[lane <name>] ".  `check()` fails the script as soon as a lane has
+    exited non-zero; `join()` waits for all, fails on any lane's exit
+    other than 0 or past its wall limit, and returns each lane's
+    results; `stop()` kills every lane's process group that still runs
+    (the lane and whatever it started)."""
+
+    def __init__(self, tmp: str, card: str, cmds: dict | None = None,
+                 timeout_s: float = LANE_TIMEOUT_S):
+        import threading
+
+        self.paths = {n: os.path.join(tmp, f"lane_{n}.json") for n in LANES}
+        cmds = cmds or {n: [sys.executable, "-c", _LANE, n, p, card]
+                        for n, p in self.paths.items()}
+        self.timeout_s = timeout_s
+        self.t0 = time.perf_counter()
+        self.walls: dict = {}
+        env = dict(os.environ)
+        env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
+        self.procs = {n: subprocess.Popen(
+            argv, cwd=_root(), env=env, stdout=subprocess.PIPE,
+            stderr=None, text=True, start_new_session=True)
+            for n, argv in cmds.items()}
+        self.relays = {n: threading.Thread(target=self._relay, args=(n, p),
+                                           daemon=True)
+                       for n, p in self.procs.items()}
+        for t in self.relays.values():
+            t.start()
+
+    def _relay(self, name: str, proc) -> None:
+        for line in proc.stdout:
+            sys.stdout.write(f"[lane {name}] {line}")
+            sys.stdout.flush()
+        # The lane's output ends with its process: its wall.
+        self.walls[name] = time.perf_counter() - self.t0
+
+    def check(self) -> None:
+        bad = {n: p.returncode for n, p in self.procs.items()
+               if p.returncode not in (None, 0)}
+        if bad:
+            for n in bad:   # the failed lanes' last lines first
+                self.relays[n].join(timeout=10)
+            fail(f"lane(s) exited non-zero: {bad}")
+
+    def join(self) -> dict:
+        for n, p in self.procs.items():
+            left = self.timeout_s - (time.perf_counter() - self.t0)
+            try:
+                p.wait(timeout=max(left, 0.1))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                fail(f"lane {n} still ran after {self.timeout_s:.0f} s")
+            self.check()
+        for t in self.relays.values():
+            t.join(timeout=10)
+        out = {}
+        for n, path in self.paths.items():
+            if n in self.procs:
+                with open(path) as f:
+                    out[n] = json.load(f)
+        return out
+
+    def stop(self) -> None:
+        import signal
+
+        for p in self.procs.values():
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+            p.wait()
+        for t in self.relays.values():
+            t.join(timeout=10)
+
+
 def main() -> int:
     import torch
 
@@ -9722,95 +9930,75 @@ def main() -> int:
     large_partition_phase(dev)
     host.end("phase 13 (large partition)")
 
-    # -- phase 14: the other problems' published sub-boxes -----------------
-    unpruned: dict = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
-        k1_large, k1_general = other_problems_phase(dev, tmp, unpruned,
-                                                    base)
-    host.end("phase 14 (other problems)")
+    # -- phases 14-25 in three processes (LANES): this one runs 14, 15, 17,
+    # 18 and 19; lane B 16 and 20-22 from a flagship build of its own; lane
+    # C 23-25 ------------------------------------------------------------------
+    import signal
 
-    # -- phase 15: the warm rebuild and the rebuild service ----------------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_rebuild_") as tmp:
-        reb = rebuild_phase(dev, problem, cfg, res, build_s, tmp)
-    host.end("phase 15 (warm rebuild, service)")
+    # A SIGTERM to this process unwinds it, so that the lanes are stopped.
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    lane_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_lanes_")
+    lanes = Lanes(lane_tmp.name, card)
+    t_lanes = time.perf_counter()
+    log("[lanes] started beside phases 14, 15, 17, 18 and 19: " + "; ".join(
+        f"lane {n}, phases {', '.join(ph)}" for n, ph in LANES.items()))
+    try:
+        # -- phase 14: the other problems' published sub-boxes -------------
+        unpruned: dict = {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
+            k1_large, k1_general = other_problems_phase(dev, tmp, unpruned,
+                                                        base)
+        host.end("phase 14 (other problems)")
+        lanes.check()
 
-    # -- phase 16: the serial baseline, profiler capture, request tracing
-    # and the rebuild service's host forensics ------------------------------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as tmp:
-        observability_phase(dev, problem, cfg, res, table, tmp, host)
+        # -- phase 15: the warm rebuild and the rebuild service ------------
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_rebuild_") as tmp:
+            reb = rebuild_phase(dev, problem, cfg, res, build_s, tmp)
+        host.end("phase 15 (warm rebuild, service)")
+        lanes.check()
 
-    # -- phase 17: constraint-row pruning and the SOC oracle stack --------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_prune_") as tmp:
-        k1_pruned = pruning_soc_phase(dev, tmp, unpruned, base)
-    host.end("phase 17 (pruning, SOC)")
-    k1_general["builds"]["pruned"] = (
-        k1_pruned["builds"].get("satellite", {}).get("k1"))
+        # -- phase 17: constraint-row pruning and the SOC oracle stack -----
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_prune_") as tmp:
+            k1_pruned = pruning_soc_phase(dev, tmp, unpruned, base)
+        host.end("phase 17 (pruning, SOC)")
+        k1_general["builds"]["pruned"] = (
+            k1_pruned["builds"].get("satellite", {}).get("k1"))
+        lanes.check()
 
-    # -- phase 18: the build's diagnostics (recorder, replay, health
-    # monitor, auto-profile trigger, per-process fleet streams) --------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_diag_") as tmp:
-        diagnostics_phase(dev, problem, cfg, res, build_s, tmp)
-    host.end("phase 18 (diagnostics)")
+        # -- phase 18: the build's diagnostics (recorder, replay, health
+        # monitor, auto-profile trigger, per-process fleet streams) -------
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_diag_") as tmp:
+            diagnostics_phase(dev, problem, cfg, res, build_s, tmp)
+        host.end("phase 18 (diagnostics)")
+        lanes.check()
 
-    # -- phase 19: the SLO engine and demand telemetry (main serve with
-    # demand capture, the arena with capture and SLO tracking, the hub's
-    # suboptimality re-solves through K1, the demand-ordered rebuild,
-    # budget durability and the fleet fold) --------------------------------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_slo_") as tmp:
-        sd = slo_demand_phase(dev, problem, cfg, res, table, tmp,
-                              reb["refs"])
-    host.end("phase 19 (SLO engine, demand telemetry)")
-    k3_entry.update(sd["arena_eval"])
+        # -- phase 19: the SLO engine and demand telemetry (main serve with
+        # demand capture, the arena with capture and SLO tracking, the
+        # hub's suboptimality re-solves through K1, the demand-ordered
+        # rebuild, budget durability and the fleet fold) ------------------
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_slo_") as tmp:
+            sd = slo_demand_phase(dev, problem, cfg, res, table, tmp,
+                                  reb["refs"])
+        host.end("phase 19 (SLO engine, demand telemetry)")
+        k3_entry.update(sd["arena_eval"])
+        t_own = time.perf_counter() - t_lanes
 
-    # -- phase 20: multi-GPU (the solve mesh against the dense grid, the
-    # sharded flagship build through the launcher, the lockstep
-    # multi-process build on the global mesh) -----------------------------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
-        multi = multi_gpu_phase(dev, problem, cfg, res, build_s, tmp)
-    host.end("phase 20 (multi-GPU)")
-
-    # -- phase 21: the analysis package (the recompile guard through the
-    # frontier: the guarded flagship through the CLI, a forced violation,
-    # the kernel-loader watch) ------------------------------------------------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as tmp:
-        guard = analysis_phase(dev, res, n_k1, card, tmp, loader_guard)
-    host.end("phase 21 (recompile guard)")
-
-    # -- phase 22: the robustness gate (the chaos suite's schedules on the
-    # card, the supervised flagship resumed from .prev, the drift smoke) ----
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_robust_") as tmp:
-        robust = robustness_phase(dev, res, n_k1, tmp)
-    host.end("phase 22 (robustness gate)")
-
-    # 24a's CPU reference (precision_check on the CPU, on half the host's
-    # cores) starts here and runs beside phases 23 and 24.
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as cap:
-        ref_proc = precision_reference(dev, cap)
-        try:
-            # -- phase 23: the operator's tools (the fleet smoke's restart
-            # chain and sharded build, the watchdog over a live and a
-            # stopped build, the report over the card's own streams, the
-            # preflight battery) -------------------------------------------
-            with tempfile.TemporaryDirectory(
-                    prefix="chip_smoke_operator_") as tmp:
-                operator = operator_tools_phase(dev, tmp)
-            host.end("phase 23 (operator's tools)")
-
-            # -- phase 24: the capture tools (tune_schedule; onset_probe
-            # and the checkpointed long_build; precision_check against
-            # its CPU run) ---------------------------------------------
-            capture = capture_tools_phase(dev, cap, ref_proc)
-            host.end("phase 24 (capture tools)")
-        finally:
-            if ref_proc.poll() is None:
-                ref_proc.kill()
-                ref_proc.wait()
-
-    # -- phase 25: the bench tool (its default mode at full width, then its
-    # rebuild, drift-walk and multichip modes) -----------------------------
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
-        bench = bench_phase(dev, tmp)
-    host.end("phase 25 (bench tool)")
+        # The lanes' phases: 16 (the serial baseline, profiler capture,
+        # request tracing, the rebuild service's host forensics), 20
+        # (multi-GPU), 21 (the recompile guard), 22 (the robustness gate),
+        # 23 (the operator's tools), 24 (the capture tools), 25 (the bench
+        # tool).
+        by_lane = lanes.join()
+    finally:
+        lanes.stop()
+        lane_tmp.cleanup()
+    lane_out = {ph: v for outs in by_lane.values() for ph, v in outs.items()}
+    multi, guard, robust = lane_out["20"], lane_out["21"], lane_out["22"]
+    operator, capture, bench = lane_out["23"], lane_out["24"], lane_out["25"]
+    log(f"[lanes] phases 14-25 took {time.perf_counter() - t_lanes:.1f} s: "
+        f"this process's 14, 15, 17, 18, 19 {t_own:.1f} s, "
+        + ", ".join(f"lane {n} {w:.1f} s" for n, w in lanes.walls.items()))
+    host.end("phases 14-25 (three lanes)")
     bench_k2 = bench.pop("bench_k2_launches")
 
     # -- phase 26: the serving bench (its arena and legacy sweeps, one

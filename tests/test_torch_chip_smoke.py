@@ -7,6 +7,7 @@ checked on synthetic inputs."""
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -1890,3 +1891,145 @@ def test_serve_bench_holds_each_bar_on_the_card(mode, row, rec, words):
         assert bad == []
     else:
         assert any(words in b for b in bad), bad
+
+
+def test_each_lane_runs_its_phases_in_order(tmp_path, monkeypatch):
+    """run_lane: lane B from a flagship tree of its own through 16, 20,
+    21 and 22 (21 with a loader guard armed after every library is
+    loaded), lane C through 23, 24 (its CPU reference started before 23
+    and stopped after 24) and 25; each phase's result by its number."""
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    calls = []
+    tree = ("problem", "cfg", "res", 12.5, 694, "table")
+    monkeypatch.setattr(chip_smoke, "lane_tree", lambda dev: tree)
+    monkeypatch.setattr(kernels, "library",
+                        lambda name: calls.append(("library", name)))
+
+    class Host:
+        def end(self, name):
+            calls.append(("end", name))
+    monkeypatch.setattr(chip_smoke, "HostVerdict", Host)
+
+    def phase(num, ret):
+        def run(*a):
+            calls.append((num, a))
+            return ret
+        return run
+    monkeypatch.setattr(chip_smoke, "observability_phase", phase("16", None))
+    monkeypatch.setattr(chip_smoke, "multi_gpu_phase", phase("20", {"m": 1}))
+    monkeypatch.setattr(chip_smoke, "analysis_phase", phase("21", {"g": 2}))
+    monkeypatch.setattr(chip_smoke, "robustness_phase", phase("22", {"r": 3}))
+    dev = torch.device("cpu")
+    out = chip_smoke.run_lane("B", dev, "card")
+    assert out == {"16": None, "20": {"m": 1}, "21": {"g": 2},
+                   "22": {"r": 3}}
+    nums = [c[0] for c in calls if c[0] not in ("library", "end")]
+    assert tuple(nums) == chip_smoke.LANES["B"]
+    assert {c[1] for c in calls if c[0] == "library"} == set(kernels.SOURCES)
+    args = {c[0]: c[1] for c in calls}
+    assert args["16"][:5] == (dev, "problem", "cfg", "res", "table")
+    assert args["20"][:5] == (dev, "problem", "cfg", "res", 12.5)
+    assert args["21"][:3] == (dev, "res", 694) and args["21"][3] == "card"
+    assert args["22"][:3] == (dev, "res", 694)
+    assert [c[1] for c in calls if c[0] == "end"] == [
+        "phase 20", "phase 21", "phase 22"]
+
+    calls.clear()
+    ref = subprocess.Popen([sys.executable, "-c",
+                            "import time; time.sleep(60)"])
+    monkeypatch.setattr(chip_smoke, "precision_reference",
+                        lambda dev, tmp: calls.append(("ref", tmp)) or ref)
+    monkeypatch.setattr(chip_smoke, "operator_tools_phase",
+                        phase("23", {"o": 4}))
+    monkeypatch.setattr(chip_smoke, "capture_tools_phase",
+                        phase("24", {"c": 5}))
+    monkeypatch.setattr(chip_smoke, "bench_phase",
+                        phase("25", {"bench_k2_launches": 6}))
+    out = chip_smoke.run_lane("C", dev, "card")
+    assert out == {"23": {"o": 4}, "24": {"c": 5},
+                   "25": {"bench_k2_launches": 6}}
+    assert [c[0] for c in calls] == ["ref", *chip_smoke.LANES["C"]]
+    assert calls[2][1][1] == calls[0][1] and calls[2][1][2] is ref
+    assert ref.poll() is not None, "24a's reference still runs"
+
+
+def _lane_cmd(code: str) -> list:
+    return [sys.executable, "-c", code]
+
+
+def test_lanes_relay_their_lines_and_return_their_results(tmp_path, capsys):
+    """Each lane's lines come through behind its tag, join() returns the
+    JSON each lane wrote, and every lane's wall is taken."""
+    paths = {n: tmp_path / f"lane_{n}.json" for n in chip_smoke.LANES}
+    cmds = {n: _lane_cmd(
+        f"import json; print('phase of {n}', flush=True); "
+        f"json.dump({{'2{i}': {{'k': {i}}}}}, open({str(p)!r}, 'w'))")
+        for i, (n, p) in enumerate(paths.items())}
+    lanes = chip_smoke.Lanes(str(tmp_path), "card", cmds=cmds)
+    try:
+        out = lanes.join()
+    finally:
+        lanes.stop()
+    assert out == {n: {f"2{i}": {"k": i}} for i, n in enumerate(paths)}
+    log = capsys.readouterr().out
+    for n in paths:
+        assert f"[lane {n}] phase of {n}\n" in log
+    assert set(lanes.walls) == set(paths)
+    assert all(w > 0 for w in lanes.walls.values())
+
+
+def test_a_failed_lane_fails_the_script_and_stops_the_others(tmp_path,
+                                                             capsys):
+    """A lane that exits non-zero fails the script at the next check;
+    stop() then kills the lane still running and the child it started."""
+    child = tmp_path / "child.pid"
+    cmds = {"B": _lane_cmd("import sys; print('chip_smoke: FAIL: 20b', "
+                           "flush=True); sys.exit(1)"),
+            "C": _lane_cmd(
+                "import subprocess, sys, time; p = subprocess.Popen("
+                "[sys.executable, '-c', 'import time; time.sleep(120)']); "
+                f"open({str(child)!r}, 'w').write(str(p.pid)); "
+                "time.sleep(120)")}
+    lanes = chip_smoke.Lanes(str(tmp_path), "card", cmds=cmds)
+    try:
+        lanes.procs["B"].wait(timeout=60)
+        deadline = time.time() + 60
+        while not child.exists() and time.time() < deadline:
+            time.sleep(0.05)
+        with pytest.raises(SystemExit):
+            lanes.check()
+    finally:
+        lanes.stop()
+    log = capsys.readouterr().out
+    assert "[lane B] chip_smoke: FAIL: 20b" in log
+    assert "chip_smoke: FAIL: lane(s) exited non-zero: {'B': 1}" in log
+    assert lanes.procs["C"].returncode is not None
+    pid = int(child.read_text())
+    deadline = time.time() + 10
+    while _alive(pid) and time.time() < deadline:
+        time.sleep(0.05)
+    if _alive(pid):
+        os.kill(pid, 9)
+        pytest.fail("the lane's child outlived stop()")
+
+
+def _alive(pid: int) -> bool:
+    """Whether `pid` runs (a zombie, dead but not yet reaped, does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def test_a_lane_past_its_wall_limit_fails_the_script(tmp_path, capsys):
+    cmds = {"B": _lane_cmd("import time; time.sleep(120)")}
+    lanes = chip_smoke.Lanes(str(tmp_path), "card", cmds=cmds, timeout_s=1)
+    try:
+        with pytest.raises(SystemExit):
+            lanes.join()
+    finally:
+        lanes.stop()
+    assert lanes.procs["B"].returncode is not None
+    assert "lane B still ran after 1 s" in capsys.readouterr().out
