@@ -8672,7 +8672,8 @@ def bench_phase(dev, tmp: str) -> dict:
     unchanged byte for byte; on the card the default mode's online figure
     through K2, and K1 launched in every process (the multichip mode's
     BENCH_MULTICHIP_PROCS builds each).  Returns the kernels line's
-    "bench_*" keys."""
+    "bench_*" keys and "bench_history_rows" (each mode's history rows,
+    which phase 27 gates)."""
     import hashlib
 
     from explicit_hybrid_mpc_tpu_torch.tools import bench_history
@@ -8719,6 +8720,7 @@ def bench_phase(dev, tmp: str) -> dict:
                 bad.append(f"exit {rc}")
             hist = bench_history.load_history(
                 os.path.join(tmp, f"25_{mode}.history.jsonl"))
+            out.setdefault("bench_history_rows", {})[mode] = hist
             copy = os.path.join(tmp, f"25_{mode}.json")
             want = (bench_history.summarize(
                 row, copy, round(os.path.getmtime(copy), 3))
@@ -9052,7 +9054,9 @@ def serve_bench_phase(dev, tmp: str) -> dict:
     after the last, naming every child's failures.  Prints each result
     without its rates, the rates' rows, K3's launches and ms a launch at
     the arena run's most frequent batch size, and each child's wall.
-    Returns the kernels line's "serve_bench_*" keys of K3's entry."""
+    Returns the kernels line's "serve_bench_*" keys of K3's entry and
+    "serve_bench_history_rows" (each child's history rows, which phase 27
+    gates)."""
     import hashlib
 
     from explicit_hybrid_mpc_tpu_torch.tools import bench_history
@@ -9097,6 +9101,7 @@ def serve_bench_phase(dev, tmp: str) -> dict:
             for r in row.get("rates", []):
                 log(f"[serve-bench] 26 {mode} rate " + json.dumps(r))
             hist = bench_history.load_history(at(".history.jsonl"))
+            out.setdefault("serve_bench_history_rows", {})[mode] = hist
             want = bench_history.summarize(
                 row, at(".json"), os.path.getmtime(at(".json")))
             if hist != [want]:
@@ -9161,18 +9166,515 @@ def serve_bench_only() -> int:
     return 0
 
 
-# -- the lanes: phases 16 and 20-25 beside phases 14-19 -----------------------
+# -- phase 27: the bench gate (tools/bench_gate.py) over phases 25's and
+# 26's history rows -------------------------------------------------------
 
-#: From phase 14 on, two more processes run beside the script's own, each
-#: its phases in order: main() keeps 14, 15, 17, 18 and 19, which build on
-#: one another's results (17 on 14's unpruned builds, 19 on 15's rebuild
-#: references); lane "B" runs the phases that start from a flagship tree
-#: (a build of its own, as each `*_only()` runs one); lane "C" the phases
-#: that need only the kernels.  Phases 1-13 (the kernels' timings, the
-#: main paths' counts) run before the lanes start and phase 26 (the
-#: serving sweeps' latencies) after every lane has ended, alone on the
-#: card both.
-LANES = {"B": ("16", "20", "21", "22"), "C": ("23", "24", "25")}
+#: 27: the power limit a row of another card setting carries.
+GATE_OTHER_POWER = "350.00 W"
+#: The port's history file at the repository root, which no phase writes.
+TORCH_HISTORY = "BENCH_HISTORY_TORCH.jsonl"
+
+
+def repo_histories() -> tuple:
+    """(the JAX package's BENCH_HISTORY.jsonl digest or None, whether the
+    port's BENCH_HISTORY_TORCH.jsonl exists) at the repository root."""
+    import hashlib
+
+    jax_hist = os.path.join(_root(), JAX_HISTORY)
+    digest = None
+    if os.path.exists(jax_hist):
+        with open(jax_hist, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    return digest, os.path.exists(os.path.join(_root(), TORCH_HISTORY))
+
+
+def gate_phase(tmp: str, rows: list, default_row: dict,
+               before: tuple) -> dict:
+    """Phase 27: the port's gate over `rows` (phases 25's and 26's history
+    rows, written to a history of its own).  A copy of phase 25's default
+    row under another source gates clean against its comparable rows; a
+    copy with `value` scaled to 0.8x is flagged, and as the history's
+    newest row the CLI exits 1; a copy with another power limit has no
+    comparable row and passes vacuously; `preflight --only bench_gate` on
+    an empty history exits 0.  `before` (repo_histories() at the script's
+    start): the JAX package's history unchanged byte for byte and no
+    BENCH_HISTORY_TORCH.jsonl at the repository root.  Returns the walls
+    and verdicts."""
+    import contextlib
+    import io
+
+    from explicit_hybrid_mpc_tpu_torch.tools import bench_gate
+
+    t0 = time.perf_counter()
+    hist = os.path.join(tmp, "27.history.jsonl")
+    with open(hist, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    history = bench_gate.load_history(hist)
+
+    def copy(**kw):
+        return {**default_row, "source": "27_candidate.json", **kw}
+    out: dict = {"gate_rows": len(history)}
+    bad = []
+    flags, info = bench_gate.gate(copy(), history)
+    out["gate_clean"] = [flags, info]
+    if flags or not any(ln.startswith("ok value") for ln in info):
+        bad.append(f"the default row's copy: flags {flags}, info {info}")
+    low = copy(value=0.8 * default_row["value"])
+    flags, info = bench_gate.gate(low, history)
+    out["gate_low"] = flags
+    if not any(f.startswith("REGRESSION value") for f in flags):
+        bad.append(f"the 0.8x copy: flags {flags}, info {info}")
+    low_hist = os.path.join(tmp, "27.low.history.jsonl")
+    with open(low_hist, "w") as f:
+        for r in rows + [low]:
+            f.write(json.dumps(r) + "\n")
+    cli = io.StringIO()
+    with contextlib.redirect_stdout(cli):
+        out["gate_low_rc"] = bench_gate.main(["--history", low_hist])
+    cli_last = cli.getvalue().strip().splitlines()[-1:]
+    if out["gate_low_rc"] != 1:
+        bad.append(f"the CLI on the 0.8x copy exited {out['gate_low_rc']}")
+    flags, info = bench_gate.gate(copy(power_limit=GATE_OTHER_POWER),
+                                  history)
+    out["gate_other_power"] = [flags, info]
+    if flags or not any("no comparable history rows" in ln for ln in info):
+        bad.append(f"the copy at {GATE_OTHER_POWER}: flags {flags}, info "
+                   f"{info}")
+    env = dict(os.environ, BENCH_HISTORY=os.path.join(tmp, "27.empty.jsonl"))
+    env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
+    pf = subprocess.run(
+        [sys.executable, "-m", "explicit_hybrid_mpc_tpu_torch.tools."
+         "preflight", "--only", "bench_gate", "--out-dir",
+         os.path.join(tmp, "27_preflight")], cwd=_root(), env=env,
+        capture_output=True, text=True, timeout=300)
+    out["gate_preflight_rc"] = pf.returncode
+    if pf.returncode != 0 or "PREFLIGHT OK" not in pf.stdout:
+        bad.append(f"preflight --only bench_gate on an empty history exited "
+                   f"{pf.returncode}\n{pf.stdout[-2000:]}{pf.stderr[-2000:]}")
+    if repo_histories() != before:
+        bad.append(f"{JAX_HISTORY} changed or {TORCH_HISTORY} appeared at "
+                   f"the repository root ({before} -> {repo_histories()})")
+    out["gate_phase_s"] = time.perf_counter() - t0
+    log(f"[gate] 27 over {len(history)} rows of phases 25 and 26: the "
+        f"default row's copy {len(out['gate_clean'][1])} ok lines, no flag; "
+        f"the 0.8x copy {out['gate_low']}; the 0.8x copy's CLI: "
+        f"{' '.join(cli_last)}, exit {out['gate_low_rc']}; "
+        f"at {GATE_OTHER_POWER}: {out['gate_other_power'][1]}; preflight "
+        f"--only bench_gate on an empty history exit "
+        f"{out['gate_preflight_rc']}; {JAX_HISTORY} unchanged, no "
+        f"{TORCH_HISTORY}; {out['gate_phase_s']:.1f} s")
+    if bad:
+        fail("27 bench gate: " + "; ".join(bad))
+    return out
+
+
+# -- phase 28: the remaining captures (tools/north_star, bench_configs,
+# eps_ladder, online_crossover), each a process of its own --------------------
+
+_CAPTURE = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.capture_worker(sys.argv[1:]))")
+#: 28: the four captures, one child at a time, each with its knobs: 28a
+#: north_star at its card defaults, its parity builds at eps 2.0 (the
+#: serial build of the pendulum there takes about 27 s on a CPU host, 446
+#: regions; at the JAX default 0.1 it would take many minutes); 28b
+#: bench_configs' rows 1 (the double integrator at eps 1e-2, built nowhere
+#: else) and 2 (mass_spring, which CFG_TIME_BUDGET cuts); 28c eps_ladder
+#: at its defaults; 28d online_crossover at its defaults.
+CAPTURE_RUNS = (
+    ("north_star", {"NS_PARITY_EPS": "2.0"}),
+    ("bench_configs", {"CFG_ONLY": "double_integrator,mass_spring",
+                       "CFG_TIME_BUDGET": "30"}),
+    ("eps_ladder", {}),
+    ("online_crossover", {}))
+CAPTURE_RUN_THREADS = 2
+CAPTURE_RUN_TIMEOUT_S = 600.0
+#: 28b's complete row, by its label's start, and its regions: the double
+#: integrator at eps 1e-2 in float64, the JAX package on the CPU:
+#: `BENCH_PLATFORM=cpu CFG_ONLY=double_integrator CFG_PRECISION=f64
+#: CFG_TIME_BUDGET=600 python3 scripts/bench_configs.py` (complete, 0
+#: uncertified, volume 1.0); held within CFG_REF_TOL.  (None: no row
+#: held so, for a rehearsal on a host that builds no such row in seconds.)
+CFG_REF = ("1. ", 52374)
+CFG_REF_TOL = 0.02
+#: 28c and 28d: the phase's own check of each rung's and row's online
+#: paths on HOLD_QUERIES seeded queries, tie-free where the f64
+#: evaluator's leaf holds the query by HOLD_TIE in barycentric margin (as
+#: phase 4): the descent's leaf and u (HOLD_DU) equal the evaluator's;
+#: K2's leaf equal, and locate.evaluate's u and V within HOLD_REL relative
+#: (x max(1, |v|)) on every query.
+HOLD_QUERIES = 4096
+HOLD_SEED = 28
+HOLD_TIE = 1e-5
+HOLD_DU = 1e-9
+HOLD_REL = 1e-5
+
+
+def online_held(res, problem, dev, qs=None) -> dict:
+    """Phase 28's own check of a built tree's online paths: the f64
+    evaluator against the descent (every device) and locate.evaluate (K2,
+    the card only) on HOLD_QUERIES seeded queries (or `qs`)."""
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch.online import (descent, evaluator,
+                                                      export, locate)
+
+    table = export.export_leaves(res.tree)
+    dtab = evaluator.stage(table, device=dev)
+    if qs is None:
+        qs = torch.as_tensor(np.random.default_rng(HOLD_SEED).uniform(
+            problem.theta_lb, problem.theta_ub,
+            (HOLD_QUERIES, problem.n_theta)), device=dev)
+    ref = evaluator.evaluate(dtab, qs)
+    th1 = torch.cat([qs, torch.ones_like(qs[:, :1])], 1)
+    margin = torch.einsum("bij,bj->bi", dtab.bary_M[ref.leaf], th1).amin(1)
+    clear = margin > HOLD_TIE
+    dt = descent.export_descent(res.tree, res.roots, table, device=dev)
+    de = descent.evaluate_descent(dt, dtab, qs)
+    held = {"leaves": int(table.n_leaves), "queries": int(qs.shape[0]),
+            "tie_free": int(clear.sum()),
+            "descent_leaf_differ": int((de.leaf != ref.leaf)[clear].sum()),
+            "descent_du": float((de.u - ref.u)[clear].abs().max())
+            if bool(clear.any()) else 0.0}
+    if dev.type == "cuda":
+        k = locate.evaluate(locate.stage(table, device=dev), dtab, qs)
+
+        def rel(a, b):
+            return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        held.update(
+            locate_leaf_differ=int((k.leaf.long() != ref.leaf)[clear].sum()),
+            locate_rel_u=rel(k.u, ref.u), locate_rel_V=rel(k.cost, ref.cost))
+    return held
+
+
+def parity_split(paths: dict) -> str:
+    """28a's batched and serial parity trees (pickled by capture_worker)
+    compared cell by cell under the canonical node identity (a node is
+    its vertex bytes): the cells in one tree only, the cells a leaf in
+    one and split in the other, and the leaves whose commutation
+    differs."""
+    import pickle
+
+    trees = {}
+    for backend, path in paths.items():
+        with open(path, "rb") as f:
+            trees[backend] = pickle.load(f)
+    if len(trees) != 2 or "serial" not in trees:
+        return f"parity trees not recorded ({sorted(paths)})"
+    (bk,) = set(trees) - {"serial"}
+    a, b = trees[bk], trees["serial"]
+
+    def index(t):
+        return {t.vertices[i].tobytes(): i for i in range(len(t))}
+    ia, ib = index(a), index(b)
+    both = set(ia) & set(ib)
+    split_differs = [k for k in both if a.is_leaf(ia[k]) != b.is_leaf(ib[k])]
+
+    def delta(t, i):
+        ld = t.leaf_data[i]
+        return None if ld is None else ld.delta_idx
+    delta_differs = [k for k in both if a.is_leaf(ia[k]) and b.is_leaf(ib[k])
+                     and delta(a, ia[k]) != delta(b, ib[k])]
+    depths = sorted(int(a.depth[ia[k]]) for k in split_differs)
+    return (f"cell by cell: {len(set(ia) - set(ib))} cells only in the "
+            f"{bk} tree, {len(set(ib) - set(ia))} only in the serial one; "
+            f"{len(split_differs)} cells a leaf in one and split in the "
+            f"other (depths {depths}); {len(delta_differs)} leaves of "
+            "another commutation")
+
+
+def capture_worker(argv: list) -> int:
+    """`python -m explicit_hybrid_mpc_tpu_torch.tools.<argv[0]> argv[1:]`
+    through `counted`: phase 28's children.  eps_ladder's rungs and
+    online_crossover's rows also run the phase's own check (online_held)
+    after the tool's figures, into the record's "held"; a crossover row's
+    K2 launches of the tool itself go in first, as "k2"."""
+    import importlib
+
+    from explicit_hybrid_mpc_tpu_torch.online import locate
+
+    name = argv[0]
+    tool = importlib.import_module(
+        f"explicit_hybrid_mpc_tpu_torch.tools.{name}")
+    record: dict = {"tool": name, "argv": argv[1:], "held": []}
+    if name == "north_star":
+        import pickle
+
+        from explicit_hybrid_mpc_tpu_torch.partition import frontier
+
+        build = frontier.build_partition
+        eps = float(os.environ.get("NS_PARITY_EPS", "0.1"))
+
+        def build_partition(problem, cfg, *a, **kw):
+            res = build(problem, cfg, *a, **kw)
+            if cfg.eps_a == eps and cfg.batch_simplices == 256:
+                path = f"{os.environ[K1_LOG_ENV]}.{cfg.backend}.tree.pkl"
+                with open(path, "wb") as f:
+                    pickle.dump(res.tree, f)
+                record.setdefault("parity_trees", {})[cfg.backend] = path
+            return res
+        frontier.build_partition = build_partition
+    elif name == "eps_ladder":
+        rung = tool.descent_row
+
+        def descent_row(row, res, problem, dev, rng):
+            rung(row, res, problem, dev, rng)
+            record["held"].append(online_held(res, problem, dev))
+        tool.descent_row = descent_row
+    elif name == "online_crossover":
+        cols = tool.columns
+
+        def columns(row, res, qs, dev):
+            from explicit_hybrid_mpc_tpu_torch.problems.registry import make
+
+            n0 = locate.launches
+            cols(row, res, qs, dev)
+            k2 = locate.launches - n0
+            record["held"].append({"k2": k2, **online_held(
+                res, make("double_integrator"), dev, qs)})
+        tool.columns = columns
+    return counted(tool.main, argv[1:], record)
+
+
+def _capture_child(dev, name: str, env_extra: dict, tmp: str):
+    """One capture_worker child in `tmp`: its record in 28_<name>_k1.jsonl,
+    its JSON in 28_<name>.json, stdout in 28_<name>.out, stderr in
+    28_<name>.log; the process."""
+    def at(suffix):
+        return os.path.join(tmp, f"28_{name}{suffix}")
+    env = dict(os.environ, **{K1_LOG_ENV: at("_k1.jsonl")}, TMPDIR=tmp,
+               OMP_NUM_THREADS=str(CAPTURE_RUN_THREADS), **env_extra)
+    env["PYTHONPATH"] = _root() + os.pathsep + env.get("PYTHONPATH", "")
+    argv = [name, "--backend", dev.type, "--out", at(".json"),
+            "--sentinel", at(".sentinel")]
+    with open(at(".out"), "wb") as out, open(at(".log"), "wb") as err:
+        return subprocess.Popen([sys.executable, "-c", _CAPTURE] + argv,
+                                cwd=_root(), env=env, stdout=out, stderr=err)
+
+
+def capture_holds(name: str, res: dict | None, rec: dict | None,
+                  on_card: bool) -> list:
+    """What phase 28 holds a capture's JSON and record to; the failures.
+    Every capture: no `error`, `platform` "gpu" with `device_name` and
+    `power_limit` on the card, and on the card K1 launched.  28a: the
+    flagship to phase 25's bar (BENCH_REF, not truncated), a finite
+    vs_serial_estimate, parity_ok.  28b: the row CFG_REF names complete
+    with its regions within CFG_REF_TOL, a truncated row that reports a
+    volume_certified_frac in [0, 1], no row's error.  28c: every rung
+    complete, regions rising strictly, each rung's descent equal to the
+    f64 evaluator on its tie-free queries.  28d:
+    every row without error, its three columns timed (K2's on the card);
+    each row's descent equal to the evaluator on tie-free queries and, on
+    the card, K2 launched once a timed call plus the warm call, its leaf
+    equal on tie-free queries (so locate_leaf_match_frac is 1 there) and
+    locate.evaluate's u and V within HOLD_REL."""
+    from explicit_hybrid_mpc_tpu_torch.tools import online_crossover
+
+    if res is None:
+        return ["no JSON"]
+    if res.get("error"):
+        return [f"error {res['error']}"]
+    bad = []
+    platform = "gpu" if on_card else "cpu"
+    if res.get("platform") != platform or (on_card and not (
+            res.get("device_name") and res.get("power_limit"))):
+        bad.append(f"platform {res.get('platform')}, device_name "
+                   f"{res.get('device_name')}, power_limit "
+                   f"{res.get('power_limit')}")
+    if rec is None:
+        return bad + ["no record of the child's launches"]
+    if on_card and not any(v["launches"] for k, v in rec["k1_by"].items()
+                           if k.startswith("cuda:")):
+        bad.append(f"no K1 launch ({_k1_text(rec['k1_by'])})")
+    held = rec.get("held") or []
+
+    def online_bad(h, i):
+        out = []
+        if not h["tie_free"] or h["descent_leaf_differ"] \
+                or h["descent_du"] > HOLD_DU:
+            out.append(f"{i}: descent against the f64 evaluator on "
+                       f"{h['tie_free']} tie-free queries: leaves differ on "
+                       f"{h['descent_leaf_differ']}, max |du| "
+                       f"{h['descent_du']:.2e}")
+        if on_card and (h["locate_leaf_differ"] or h["locate_rel_u"]
+                        > HOLD_REL or h["locate_rel_V"] > HOLD_REL):
+            out.append(f"{i}: K2 against the f64 evaluator: leaves differ "
+                       f"on {h['locate_leaf_differ']} tie-free queries, "
+                       f"relative u {h['locate_rel_u']:.2e}, V "
+                       f"{h['locate_rel_V']:.2e}")
+        return out
+
+    if name == "north_star":
+        fl, par = res.get("flagship") or {}, res.get("parity") or {}
+        ref, unc_max = BENCH_REF
+        if fl.get("regions") is None or abs(fl["regions"] - ref) > 0.02 * ref \
+                or (fl.get("uncertified") or 0) > unc_max \
+                or fl.get("truncated") is not False:
+            bad.append(f"flagship regions {fl.get('regions')} (bar {ref} "
+                       f"within 2%), uncertified {fl.get('uncertified')} (at "
+                       f"most {unc_max}), truncated {fl.get('truncated')}")
+        if not _finite_positive(fl.get("vs_serial_estimate")):
+            bad.append(f"vs_serial_estimate {fl.get('vs_serial_estimate')}")
+        if not par.get("parity_ok"):
+            bad.append(f"parity {par}; "
+                       + parity_split(rec.get("parity_trees") or {}))
+    elif name == "bench_configs":
+        rows = res.get("rows") or []
+        label, ref = CFG_REF or ("", None)
+        first = [r for r in rows if r.get("label", "").startswith(label)]
+        r1 = first[0] if first else {}
+        if ref is None:
+            pass
+        elif r1.get("truncated") is not False or r1.get("uncertified") != 0 \
+                or r1.get("regions") is None \
+                or abs(r1["regions"] - ref) > CFG_REF_TOL * ref:
+            bad.append(f"row {label.strip()} regions {r1.get('regions')} "
+                       f"(JAX {ref} within {CFG_REF_TOL:.0%}), truncated "
+                       f"{r1.get('truncated')}, uncertified "
+                       f"{r1.get('uncertified')}")
+        cut = [r for r in rows if r.get("truncated")
+               and isinstance(r.get("volume_certified_frac"), float)
+               and 0.0 <= r["volume_certified_frac"] <= 1.0]
+        if not cut:
+            bad.append("no truncated row with a volume_certified_frac in "
+                       "[0, 1]: " + json.dumps(
+                           [[r.get(k) for k in ("label", "truncated",
+                                                "volume_certified_frac")]
+                            for r in rows]))
+        errs = [r for r in rows if "error" in r]
+        if errs:
+            bad.append(f"rows with an error {errs}")
+    elif name == "eps_ladder":
+        rows = res.get("rows") or []
+        regions = [r.get("regions") for r in rows]
+        if not rows or not all(r.get("complete") for r in rows) \
+                or any(b <= a for a, b in zip(regions, regions[1:])):
+            bad.append(f"rungs complete {[r.get('complete') for r in rows]}"
+                       f", regions {regions} (rising strictly)")
+        for r in rows:
+            if "descent_error" in r \
+                    or not _finite_positive(r.get("descent_us_per_query")):
+                bad.append(f"eps {r.get('eps_a')}: descent "
+                           f"{r.get('descent_error')} "
+                           f"{r.get('descent_us_per_query')}")
+        if len(held) != len(rows):
+            bad.append(f"{len(held)} rungs held of {len(rows)}")
+        for r, h in zip(rows, held):
+            bad += online_bad(h, f"eps {r['eps_a']}")
+    else:
+        rows = res.get("rows") or []
+        keys = ("jax_us", "descent_us") + (("locate_us",) if on_card else ())
+        for r in rows:
+            if "error" in r or not all(_finite_positive(r.get(k))
+                                       for k in keys):
+                bad.append(f"row {r}")
+        if len(held) != len(rows) or not rows:
+            bad.append(f"{len(held)} rows held of {len(rows)}")
+        for r, h in zip(rows, held):
+            if on_card and h["k2"] != online_crossover.REPS + 1:
+                bad.append(f"eps {r['eps_a']}: K2 launched {h['k2']} times "
+                           f"for {online_crossover.REPS} timed calls and a "
+                           "warm one")
+            bad += online_bad(h, f"eps {r['eps_a']}")
+    return bad
+
+
+def captures_phase(dev, tmp: str) -> dict:
+    """Phase 28: tools/north_star, bench_configs, eps_ladder and
+    online_crossover (CAPTURE_RUNS), one capture_worker child at a time,
+    each held (capture_holds) with exit 0.  Every child runs; the phase
+    fails once, after the last, naming every child's failures.  Returns
+    the kernels line's "captures_*" keys: K1's launches by child and K2's
+    in 28d (the tool's own, the phase's checks apart)."""
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    out: dict = {"captures_k1_launches": {}, "captures_k1_ms": {},
+                 "captures_wall_s": {}}
+    failures = []
+    for name, env_extra in CAPTURE_RUNS:
+        def at(suffix, name=name):
+            return os.path.join(tmp, f"28_{name}{suffix}")
+        t1 = time.perf_counter()
+        proc = _capture_child(dev, name, env_extra, tmp)
+        try:
+            rc = proc.wait(CAPTURE_RUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        wall = time.perf_counter() - t1
+        res = _read_json(at(".json"))
+        recs = k1_records(at("_k1.jsonl"), partial=False)
+        rec = recs[-1] if recs else None
+        out["captures_wall_s"][name] = wall
+        out["captures_k1_launches"][name] = rec["k1"] if rec else None
+        out["captures_k1_ms"][name] = rec["k1_ms"] if rec else None
+        bad = capture_holds(name, res, rec, on_card)
+        if rc != 0:
+            with open(at(".log"), "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            bad.append(f"exit {rc} (limit {CAPTURE_RUN_TIMEOUT_S:.0f} s)\n"
+                       f"{tail}")
+        log(f"[captures] 28 {name}: exit {rc} in {wall:.1f} s; "
+            + json.dumps(res))
+        if rec is not None:
+            log(f"[captures] 28 {name}: K1 {_k1_text(rec['k1_by'])}; K2 "
+                f"{rec['k2']}; builds "
+                f"{[(b['regions'], b['truncated']) for b in rec['builds']]}"
+                + (f"; held {json.dumps(rec['held'])}" if rec["held"]
+                   else ""))
+            if name == "online_crossover":
+                out["captures_k2_launches"] = sum(h["k2"]
+                                                  for h in rec["held"])
+        if bad:
+            log(f"[captures] 28 {name} FAILED: " + "; ".join(bad))
+            failures.append(f"28 {name}: " + "; ".join(bad))
+    if failures:
+        fail(" | ".join(failures))
+    out["captures_phase_s"] = time.perf_counter() - t0
+    log(f"[captures] phase 28 took {out['captures_phase_s']:.1f} s (walls "
+        + ", ".join(f"{n} {w:.1f} s" for n, w in
+                    out["captures_wall_s"].items()) + ")")
+    return out
+
+
+def captures_only() -> int:
+    """Phase 28 alone, for iterating on the card: the kernels built, then
+    the four captures.
+
+        python3 -c "import sys, chip_smoke as c; sys.exit(c.captures_only())"
+    """
+    import torch
+
+    from explicit_hybrid_mpc_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] kernels in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_captures_") as tmp:
+        out = captures_phase(dev, tmp)
+    log(json.dumps(out))
+    return 0
+
+
+# -- the lanes: phases 16, 20-25 and 28 beside phases 14-19 ------------------
+
+#: From phase 14 on, three more processes run beside the script's own,
+#: each its phases in order: main() keeps 14, 15, 17, 18 and 19, which
+#: build on one another's results (17 on 14's unpruned builds, 19 on 15's
+#: rebuild references); lane "B" runs the phases that start from a
+#: flagship tree (a build of its own, as each `*_only()` runs one); lanes
+#: "C" and "D" the phases that need only the kernels (D: phase 28's
+#: captures, each building its own trees).  Phases 1-13 (the kernels'
+#: timings, the main paths' counts) run before the lanes start and
+#: phases 26 (the serving sweeps' latencies) and 27 (the gate over 25's
+#: and 26's rows) after every lane has ended, alone on the card both.
+LANES = {"B": ("16", "20", "21", "22"), "C": ("23", "24", "25"),
+         "D": ("28",)}
 #: A lane's wall limit, counted from its start.
 LANE_TIMEOUT_S = 1000.0
 _LANE = ("import sys, chip_smoke; "
@@ -9240,6 +9742,11 @@ def run_lane(name: str, dev, card: str) -> dict:
                 else:
                     out[ph] = robustness_phase(dev, res, n_k1, tmp)
             host.end(f"phase {ph}")
+        return out
+    if name == "D":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_captures_") \
+                as tmp:
+            out["28"] = captures_phase(dev, tmp)
         return out
     # Lane C: 24a's CPU reference starts before phase 23 and runs beside
     # phases 23 and 24.
@@ -9383,6 +9890,8 @@ def main() -> int:
     # One contention monitor across the whole script: each phase's
     # timing lines are followed by the host's verdict over that phase.
     host = HostVerdict()
+    # The repository's bench histories as the script found them (27).
+    histories = repo_histories()
     base_src = baseline_source()
     k2_src = baseline_source(var="K2_BASELINE")
     k3_src = baseline_source(var="K3_BASELINE")
@@ -9930,9 +10439,9 @@ def main() -> int:
     large_partition_phase(dev)
     host.end("phase 13 (large partition)")
 
-    # -- phases 14-25 in three processes (LANES): this one runs 14, 15, 17,
-    # 18 and 19; lane B 16 and 20-22 from a flagship build of its own; lane
-    # C 23-25 ------------------------------------------------------------------
+    # -- phases 14-25 and 28 in four processes (LANES): this one runs 14,
+    # 15, 17, 18 and 19; lane B 16 and 20-22 from a flagship build of its
+    # own; lane C 23-25; lane D 28 ----------------------------------------
     import signal
 
     # A SIGTERM to this process unwinds it, so that the lanes are stopped.
@@ -9987,7 +10496,7 @@ def main() -> int:
         # request tracing, the rebuild service's host forensics), 20
         # (multi-GPU), 21 (the recompile guard), 22 (the robustness gate),
         # 23 (the operator's tools), 24 (the capture tools), 25 (the bench
-        # tool).
+        # tool), 28 (the remaining captures).
         by_lane = lanes.join()
     finally:
         lanes.stop()
@@ -9995,17 +10504,29 @@ def main() -> int:
     lane_out = {ph: v for outs in by_lane.values() for ph, v in outs.items()}
     multi, guard, robust = lane_out["20"], lane_out["21"], lane_out["22"]
     operator, capture, bench = lane_out["23"], lane_out["24"], lane_out["25"]
-    log(f"[lanes] phases 14-25 took {time.perf_counter() - t_lanes:.1f} s: "
-        f"this process's 14, 15, 17, 18, 19 {t_own:.1f} s, "
+    captures = lane_out["28"]
+    log(f"[lanes] phases 14-25 and 28 took "
+        f"{time.perf_counter() - t_lanes:.1f} s: this process's 14, 15, 17, "
+        f"18, 19 {t_own:.1f} s, "
         + ", ".join(f"lane {n} {w:.1f} s" for n, w in lanes.walls.items()))
-    host.end("phases 14-25 (three lanes)")
+    host.end("phases 14-25 and 28 (four lanes)")
     bench_k2 = bench.pop("bench_k2_launches")
+    bench_rows = bench.pop("bench_history_rows")
+    captures_k2 = captures.pop("captures_k2_launches")
 
     # -- phase 26: the serving bench (its arena and legacy sweeps, one
     # process at a time) ----------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_bench_") as tmp:
         serve = serve_bench_phase(dev, tmp)
     host.end("phase 26 (serving bench)")
+    serve_rows = serve.pop("serve_bench_history_rows")
+
+    # -- phase 27: the bench gate over phases 25's and 26's rows ------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        gate_phase(tmp, [r for rows in (*bench_rows.values(),
+                                        *serve_rows.values()) for r in rows],
+                   bench_rows["default"][0], histories)
+    host.end("phase 27 (bench gate)")
     k3_entry["max_abs_err"] = max(k3_entry["max_abs_err"],
                                   serve["serve_bench_plain"]["max_abs_err"])
     k3_entry.update(serve)
@@ -10021,7 +10542,7 @@ def main() -> int:
          "sim_launches": sim["sim_k1"],
          "large": k1_large, "general": k1_general, "pruned": k1_pruned,
          **reb["ipm_leg"], **sd["ipm_leg"], **multi, **guard,
-         **robust, **operator, **capture, **bench},
+         **robust, **operator, **capture, **bench, **captures},
         {"name": "locate", "route": "cuda",
          "source": "explicit_hybrid_mpc_tpu_torch/csrc/locate.cu",
          "replaces": "explicit_hybrid_mpc_tpu/online/pallas_eval.py:111",
@@ -10029,7 +10550,8 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_lib_ms,
          "splits": k2_splits, "sim_launches": sim["sim_k2"],
-         "bench_launches": bench_k2, **reb["locate"]},
+         "bench_launches": bench_k2, "captures_launches": captures_k2,
+         **reb["locate"]},
         k3_entry,
     ], "host": host.summary()}
     log(f"[done] the script took {time.perf_counter() - t_script:.1f} s")

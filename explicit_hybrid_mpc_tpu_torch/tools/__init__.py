@@ -29,7 +29,14 @@
   build's regions/s with its baselines, online and large-L figures; the
   warm rebuild; the drift walk; the sharded build), one JSON line a run;
 - ``bench_history``: the bench's history row (scripts/bench_gate.py's
-  format) in the port's own file.
+  format) in the port's own file;
+- ``bench_gate``: the regression gate over that history (a row against
+  the trailing window of rows of the same card and power limit);
+- ``serve_bench``: the serving bench (scripts/serve_bench.py's sweeps);
+- ``north_star``, ``bench_configs``, ``eps_ladder``,
+  ``online_crossover``: the JAX package's remaining captures (the
+  flagship with its serial parity, one row a configuration, an eps
+  ladder, online µs a query against leaf count).
 
 The builds, smokes, captures and the bench run on the CUDA device unless
 ``--backend cpu`` is given (for the captures and the bench also

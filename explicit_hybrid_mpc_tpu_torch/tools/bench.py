@@ -40,6 +40,8 @@ are skipped, as in bench.py.
 ``BENCH_OUT`` writes a copy (never under the JAX package's artifacts/);
 a run that produced its headline appends its row to the port's history
 (tools/bench_history.py, ``BENCH_HISTORY``; the empty string disables).
+Every result carries ``"package": "explicit_hybrid_mpc_tpu_torch"``, by
+which tools/bench_gate.py tells it from a JAX capture.
 """
 
 from __future__ import annotations
@@ -157,17 +159,17 @@ def _problem_name() -> str:
     return os.environ.get("BENCH_PROBLEM") or default
 
 
-def _timed_us(dev, fn, n: int):
+def timed_us(dev, fn, n: int, reps: int = ONLINE_REPS):
     """(µs a query of fn() over `n` queries, the last call's output): one
-    warm call, then ONLINE_REPS calls, the device synchronized before the
+    warm call, then `reps` calls, the device synchronized before the
     clock stops."""
     fn()
     sync(dev)
     t0 = time.perf_counter()
-    for _ in range(ONLINE_REPS):
+    for _ in range(reps):
         out = fn()
     sync(dev)
-    return (time.perf_counter() - t0) / (ONLINE_REPS * n) * 1e6, out
+    return (time.perf_counter() - t0) / (reps * n) * 1e6, out
 
 
 def _warm(oracle, problem, problem_name: str, dev, batch: int,
@@ -386,7 +388,7 @@ def run(result: dict, dev, monitor=None) -> None:
             staged = evaluator.stage(table, device=dev)
             fn = lambda: descent.evaluate_descent(dt, staged, qs)  # noqa: E731
             result["online_path"] = "descent"
-        online_us, _ = _timed_us(dev, fn, ONLINE_QUERIES)
+        online_us, _ = timed_us(dev, fn, ONLINE_QUERIES)
         log(f"online: {online_us:.3f} us/query over {table.n_leaves} "
             f"leaves ({result['online_path']}, incl host round-trip)")
         result["online_us_per_query"] = round(online_us, 3)
@@ -453,7 +455,7 @@ def large_l_metrics(result: dict, dev, obs=None) -> dict | None:
         dt_dev = descent.stage_table(dt, device=dev)
         lt = evaluator.stage(table, device=dev)
         qs = torch.as_tensor(qs_np, device=dev)
-        flat_us, out_f = _timed_us(
+        flat_us, out_f = timed_us(
             dev, lambda: descent.evaluate_descent(dt_dev, lt, qs),
             ONLINE_QUERIES)
         del dt_dev, lt
@@ -943,6 +945,7 @@ def main(argv: list[str] | None = None,
     from explicit_hybrid_mpc_tpu_torch.obs.sink import SCHEMA_VERSION
 
     monitor = ContentionMonitor()
+    result[bench_history.PACKAGE_KEY] = bench_history.PACKAGE
     result["run_id"] = clock.run_id()
     result["obs_schema_version"] = SCHEMA_VERSION
     fault = False

@@ -31,6 +31,11 @@ from explicit_hybrid_mpc_tpu_torch.utils import atomic
 HISTORY = os.path.join(ROOT, "BENCH_HISTORY_TORCH.jsonl")
 #: The JAX package's history, which the port never writes.
 JAX_HISTORY = os.path.join(ROOT, "BENCH_HISTORY.jsonl")
+#: The key every result of the port's benches (tools/bench.py,
+#: tools/serve_bench.py) carries, and its value: what tells a result of
+#: the port from a JAX capture of the same shape (tools/bench_gate.py).
+PACKAGE_KEY = "package"
+PACKAGE = "explicit_hybrid_mpc_tpu_torch"
 
 #: metric -> (direction, relative tolerance[, absolute slack]): "higher"
 #: is better when bigger, "lower" when smaller (scripts/bench_gate.py's
@@ -85,11 +90,12 @@ ROW_EXTRAS = (
     "device_name", "power_limit")
 
 
-def history_path() -> str | None:
-    """The history file a bench appends to: ``BENCH_HISTORY``, else
-    HISTORY; None when ``BENCH_HISTORY`` is the empty string.  The JAX
-    package's history is refused (ValueError)."""
-    path = os.environ.get("BENCH_HISTORY")
+def history_path(path: str | None = None) -> str | None:
+    """The history file a bench appends to (and the gate reads): `path`,
+    else ``BENCH_HISTORY``, else HISTORY; None when ``BENCH_HISTORY`` is
+    the empty string.  The JAX package's history is refused
+    (ValueError)."""
+    path = path if path is not None else os.environ.get("BENCH_HISTORY")
     if path == "":
         return None
     path = path or HISTORY

@@ -20,17 +20,14 @@ fails in seconds, not after the chaos suite:
 - **tier1**: the tier-1 pytest command of ROADMAP.md.  The tests hold
   the port against the JAX package, so the check runs only where JAX is
   installed; elsewhere it is listed under ``not_run`` with the reason;
+- **bench_gate**: the port's bench regression gate
+  (tools/bench_gate.py) on the port's own history (``BENCH_HISTORY``,
+  else BENCH_HISTORY_TORCH.jsonl; never the JAX package's): its newest
+  row against the trailing window of comparable rows, exit 0 on an
+  empty or vacuous history and 1 on a regression;
 - **chaos_suite**, **fleet_smoke**, **drift_smoke**: the port's tools
   (``tools/``), each on the backend given to ``--backend`` (default the
   card; ``--quick`` passes ``--eps 0.5``).
-
-``bench_gate`` waits for the port's gate (ROADMAP A7c): the JAX
-package's scripts/bench_gate.py gates the JAX package's own bench
-history, which holds no row of the port; the port's rows
-(tools/bench.py, tools/serve_bench.py) go to BENCH_HISTORY_TORCH.jsonl,
-which no gate reads yet.  It is not in the battery;
-``--only bench_gate`` exits non-zero saying so, and every verdict lists
-it under ``not_run``, so no one takes its absence for a pass.
 
 Verdict JSON: ``{"ok": bool, "wall_s": total, "quick": bool, "backend":
 str, "checks": [{"name", "cmd", "exit", "ok", "wall_s", "log"}, ...],
@@ -57,13 +54,9 @@ from explicit_hybrid_mpc_tpu_torch.parallel.launch import ROOT
 PY = sys.executable
 PKG = "explicit_hybrid_mpc_tpu_torch"
 
-#: Checks of the JAX package's battery that the port cannot run yet.
-WAITING = {
-    "bench_gate": ("waits for ROADMAP A7c (the gate over the port's "
-                   "BENCH_HISTORY_TORCH.jsonl): scripts/bench_gate.py "
-                   "gates the JAX package's BENCH_HISTORY.jsonl, which "
-                   "holds no row of the port"),
-}
+#: Checks of the JAX package's battery that the port cannot run yet
+#: (name -> the reason, naming its ROADMAP item); none since A7c.
+WAITING: dict = {}
 NO_JAX = ("needs jax (the tier-1 tests hold the port against the JAX "
           "package), which is not installed here")
 
@@ -85,6 +78,9 @@ def battery(quick: bool, backend: str = "cuda") -> list[dict]:
                   "-p", "no:cacheprovider", "-p", "no:xdist",
                   "-p", "no:randomly"],
          "timeout": 870, "env": {"JAX_PLATFORMS": "cpu"}, "device": False},
+        {"name": "bench_gate",
+         "argv": [PY, "-m", f"{PKG}.tools.bench_gate"],
+         "timeout": 120, "env": {}, "device": False},
         {"name": "chaos_suite",
          "argv": [PY, "-m", f"{PKG}.tools.chaos_suite"] + smoke,
          "timeout": 900, "env": {}, "device": True},

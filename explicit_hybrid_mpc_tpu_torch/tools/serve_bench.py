@@ -85,7 +85,9 @@ exception): it stops the sweep and becomes the result's ``error``, the
 exit code is 1 and no history row is appended.  Any other exception of
 a client is counted in ``swap_dropped``, as in the JAX script.
 ``main()`` exits 1 when a bar of the JAX script's ``main()`` fails
-(``bars``).
+(``bars``).  Every result carries ``"package":
+"explicit_hybrid_mpc_tpu_torch"``, by which tools/bench_gate.py tells it
+from a JAX capture.
 """
 
 from __future__ import annotations
@@ -1058,7 +1060,7 @@ def run(out_path_: str | None = None, backend: str | None = None,
     path under the JAX package's artifacts/, the JAX package's history
     file (SystemExit).  A card fault ends the run with the result's
     `error` (no history row); any other exception propagates."""
-    result: dict = {}
+    result: dict = {bench_history.PACKAGE_KEY: bench_history.PACKAGE}
     dev = choose_device(result, backend, hold_capture_sentinel=False)
     out = out_path(out_path_, "SERVE_BENCH_OUT", "serve_bench.json",
                    "serve_bench")

@@ -167,6 +167,9 @@ def test_both_benches_produce_their_row(rows):
         assert "error" not in row, (tag, row["error"])
         assert row["value"] > 0 and row["platform"] == "cpu"
     assert rows["port"][1]["unit"] == "regions/s"
+    # The stamp by which the gate's --update tells a port result.
+    assert rows["port"][1]["package"] == "explicit_hybrid_mpc_tpu_torch"
+    assert "package" not in rows["jax"][1]
 
 
 def test_every_jax_key_has_its_namesake_in_the_port(rows):

@@ -1893,11 +1893,186 @@ def test_serve_bench_holds_each_bar_on_the_card(mode, row, rec, words):
         assert any(words in b for b in bad), bad
 
 
+#: Phase 28's captures at the CPU's sizes: north_star on the double
+#: integrator (its depth capped at 12: 8,192 regions, every one at the
+#: cap), bench_configs' mass_spring row cut by a 3 s budget, the ladder
+#: and the crossover on the double integrator at eps 0.5 and 0.2.
+_CAPTURES_SMALL = (
+    ("north_star", {"NS_PROBLEM": "double_integrator", "NS_MAX_DEPTH": "12",
+                    "NS_PARITY_EPS": "0.5", "NS_POINTS_CAP": "64"}),
+    ("bench_configs", {"CFG_ONLY": "mass_spring", "CFG_TIME_BUDGET": "3"}),
+    ("eps_ladder", {"LADDER_PROBLEM": "double_integrator",
+                    "LADDER_EPS": "0.5,0.2"}),
+    ("online_crossover", {"CROSS_EPS": "0.5,0.2", "CROSS_BATCH": "512"}))
+
+
+def test_captures_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 28 on the CPU: the four captures, each a capture_worker child
+    counted by `counted` (the plain leg by path and dtype), each JSON held
+    (capture_holds), the ladder's rungs and the crossover's rows also
+    held by the phase's own check of the descent against the f64
+    evaluator on tie-free queries."""
+    monkeypatch.setattr(chip_smoke, "CAPTURE_RUNS", _CAPTURES_SMALL)
+    monkeypatch.setattr(chip_smoke, "BENCH_REF", (8192, 8192))
+    monkeypatch.setattr(chip_smoke, "CFG_REF", None)
+    out = chip_smoke.captures_phase(torch.device("cpu"), str(tmp_path))
+    log = capsys.readouterr().out
+    assert "FAIL" not in log
+    for tag in ("[captures] 28 north_star: exit 0 in", '"parity_ok": true',
+                "[captures] 28 bench_configs: exit 0 in",
+                '"label": "2. mass-spring mp-QP (4s, N=10)"',
+                "[captures] 28 eps_ladder: exit 0 in",
+                '"descent_leaf_differ": 0',
+                "[captures] 28 online_crossover: exit 0 in",
+                '{"k2": 0, "leaves": 1566', "[captures] phase 28 took"):
+        assert tag in log, tag
+    assert set(out["captures_wall_s"]) == set(out["captures_k1_launches"]) \
+        == {"north_star", "bench_configs", "eps_ladder", "online_crossover"}
+    # Off the card K1's own count stays 0; the records count the plain leg.
+    assert set(out["captures_k1_launches"].values()) == {0}
+    assert out["captures_k2_launches"] == 0
+    assert "plain:register:float64" in log
+    assert "plain:general:float64" in log  # mass_spring's QPs
+
+
+def _cap_rec(held=(), k1=3):
+    return {"k1": k1, "k1_ms": 1.0, "k2": 0, "builds": [], "held": list(held),
+            "k1_by": {"cuda:register:float64": {"launches": k1, "ms": 1.0}}}
+
+
+_CARD = {"platform": "gpu", "device_name": "NVIDIA H100 80GB HBM3",
+         "power_limit": "700.00 W"}
+
+
+def _held(**kw):
+    return {"leaves": 100, "queries": 64, "tie_free": 60,
+            "descent_leaf_differ": 0, "descent_du": 0.0,
+            "locate_leaf_differ": 0, "locate_rel_u": 0.0,
+            "locate_rel_V": 0.0, **kw}
+
+
+def _ns(**kw):
+    fl = {"regions": chip_smoke.BENCH_REF[0], "uncertified": 0,
+          "truncated": False, "vs_serial_estimate": 3.5}
+    return {**_CARD, "flagship": {**fl, **kw}, "parity": {"parity_ok": True}}
+
+
+def _cfg(r1=None, cut=0.4):
+    return {**_CARD, "rows": [
+        {"label": "1. double integrator", "regions": chip_smoke.CFG_REF[1],
+         "truncated": False, "uncertified": 0, **(r1 or {})},
+        {"label": "2. mass-spring", "truncated": True,
+         "volume_certified_frac": cut}]}
+
+
+def _lad(regions=(13000, 23000, 37000), complete=True):
+    return {**_CARD, "rows": [{"eps_a": e, "regions": r, "complete": complete,
+                               "descent_us_per_query": 2.0}
+                              for e, r in zip((1e-2, 5e-3, 3e-3), regions)]}
+
+
+def _cross(n=2):
+    return {**_CARD, "rows": [{"eps_a": e, "jax_us": 1.0, "descent_us": 2.0,
+                               "locate_us": 0.1}
+                              for e in (0.5, 0.2)[:n]]}
+
+
+#: K2's launches a crossover row: 20 timed calls and the warm one.
+_K2 = 21
+
+
+@pytest.mark.parametrize("name,res,rec,words", [
+    ("north_star", _ns(), _cap_rec(), None),
+    ("north_star", _ns(regions=11670), _cap_rec(), "flagship regions 11670"),
+    ("north_star", {**_ns(), "parity": {"parity_ok": False}}, _cap_rec(),
+     "parity"),
+    ("north_star", _ns(), _cap_rec(k1=0), "no K1 launch"),
+    ("north_star", {**_ns(), "power_limit": None}, _cap_rec(),
+     "power_limit None"),
+    ("bench_configs", _cfg(), _cap_rec(), None),
+    ("bench_configs", _cfg(r1={"regions": 40000}), _cap_rec(),
+     "row 1. regions 40000"),
+    ("bench_configs", _cfg(cut=None), _cap_rec(), "no truncated row"),
+    ("eps_ladder", _lad(), _cap_rec([_held()] * 3), None),
+    ("eps_ladder", _lad(regions=(13000, 13000, 37000)),
+     _cap_rec([_held()] * 3), "rising strictly"),
+    ("eps_ladder", _lad(complete=False), _cap_rec([_held()] * 3),
+     "rungs complete"),
+    ("eps_ladder", _lad(), _cap_rec([_held(descent_leaf_differ=2)] * 3),
+     "descent against the f64 evaluator"),
+    ("online_crossover", _cross(), _cap_rec([_held(k2=_K2)] * 2), None),
+    ("online_crossover", _cross(), _cap_rec([_held(k2=22)] * 2),
+     "K2 launched 22 times"),
+    ("online_crossover", _cross(),
+     _cap_rec([_held(k2=_K2, locate_rel_V=1e-3)] * 2),
+     "K2 against the f64 evaluator"),
+    ("online_crossover", _cross(1), _cap_rec([_held(k2=_K2)] * 2),
+     "2 rows held of 1"),
+    ("online_crossover", {"error": "KernelError('x')"}, _cap_rec(),
+     "error KernelError"),
+])
+def test_capture_holds_each_bar_on_the_card(name, res, rec, words):
+    bad = chip_smoke.capture_holds(name, res, rec, on_card=True)
+    if words is None:
+        assert bad == []
+    else:
+        assert any(words in b for b in bad), bad
+
+
+def _gate_rows():
+    """History rows as phases 25 and 26 leave them on the card."""
+    from explicit_hybrid_mpc_tpu_torch.tools import bench_history
+
+    card = {"platform": "gpu", "device_name": "NVIDIA H100 80GB HBM3",
+            "power_limit": "700.00 W", "host": {"contended": None}}
+    results = [
+        ({"value": 1000.0, "online_us_per_query": 0.015, **card},
+         "25_default.json"),
+        ({"rebuild_reuse_frac": 0.9, "rebuild_speedup": 3.0, **card},
+         "25_rebuild.json"),
+        ({"serve_p99_us": 9500.0, "fallback_frac": 0.05, **card},
+         "26_legacy.json"),
+        ({"serve_p99_us": 8600.0, "tenants": 4, **card}, "26_arena.json")]
+    return [bench_history.summarize(r, src, float(i))
+            for i, (r, src) in enumerate(results)]
+
+
+def test_gate_phase_rehearses_on_the_cpu(tmp_path, capsys):
+    """Phase 27 over rows like phases 25's and 26's: the default row's
+    copy gates clean, its 0.8x copy is flagged and exits 1, its copy at
+    another power limit passes vacuously, preflight --only bench_gate on
+    an empty history exits 0, and the repository's histories are as the
+    script found them."""
+    rows = _gate_rows()
+    out = chip_smoke.gate_phase(str(tmp_path), rows, rows[0],
+                                chip_smoke.repo_histories())
+    log = capsys.readouterr().out
+    assert "chip_smoke: FAIL" not in log and "[gate] 27 over 4 rows" in log
+    assert "the 0.8x copy's CLI: GATE FAILED: 1 regression(s), exit 1" \
+        in log
+    assert out["gate_clean"][0] == [] and out["gate_low_rc"] == 1
+    assert out["gate_low"] == ["REGRESSION value: 800 vs trailing-1 mean "
+                               "1000 (20.0% lower, tol 10%)"]
+    assert out["gate_preflight_rc"] == 0
+    assert any("no comparable history rows" in ln
+               for ln in out["gate_other_power"][1])
+
+
+def test_a_repository_history_that_moved_fails_27(tmp_path, capsys):
+    rows = _gate_rows()
+    digest, exists = chip_smoke.repo_histories()
+    with pytest.raises(SystemExit):
+        chip_smoke.gate_phase(str(tmp_path), rows, rows[0],
+                              (digest, not exists))
+    assert "appeared at the repository root" in capsys.readouterr().out
+
+
 def test_each_lane_runs_its_phases_in_order(tmp_path, monkeypatch):
     """run_lane: lane B from a flagship tree of its own through 16, 20,
     21 and 22 (21 with a loader guard armed after every library is
     loaded), lane C through 23, 24 (its CPU reference started before 23
-    and stopped after 24) and 25; each phase's result by its number."""
+    and stopped after 24) and 25, lane D through 28; each phase's result
+    by its number."""
     from explicit_hybrid_mpc_tpu_torch import kernels
 
     calls = []
@@ -1952,6 +2127,15 @@ def test_each_lane_runs_its_phases_in_order(tmp_path, monkeypatch):
     assert [c[0] for c in calls] == ["ref", *chip_smoke.LANES["C"]]
     assert calls[2][1][1] == calls[0][1] and calls[2][1][2] is ref
     assert ref.poll() is not None, "24a's reference still runs"
+
+    calls.clear()
+    monkeypatch.setattr(chip_smoke, "captures_phase",
+                        phase("28", {"captures_k2_launches": 7}))
+    out = chip_smoke.run_lane("D", dev, "card")
+    assert out == {"28": {"captures_k2_launches": 7}}
+    assert [c[0] for c in calls] == list(chip_smoke.LANES["D"]) == ["28"]
+    assert calls[0][1][0] == dev and os.path.basename(
+        calls[0][1][1]).startswith("chip_smoke_captures_")
 
 
 def _lane_cmd(code: str) -> list:

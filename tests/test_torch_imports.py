@@ -88,6 +88,9 @@ def test_no_module_of_the_port_loads_jax(probe):
                                  "tools.tune_schedule", "tools.onset_probe",
                                  "tools.long_build", "tools.bench",
                                  "tools.bench_history",
-                                 "tools.serve_bench"])
+                                 "tools.serve_bench", "tools.bench_gate",
+                                 "tools.north_star", "tools.bench_configs",
+                                 "tools.eps_ladder",
+                                 "tools.online_crossover"])
 def test_the_walk_reaches_every_subpackage(probe, sub):
     assert f"explicit_hybrid_mpc_tpu_torch.{sub}" in probe["modules"]

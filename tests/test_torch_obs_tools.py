@@ -806,9 +806,11 @@ def test_a_child_that_loses_its_card_fails_the_smoke(tmp_path, capsys):
 def test_preflight_lists_the_battery(capsys):
     assert preflight.main(["--list"]) == 0
     out = capsys.readouterr().out
-    for name in ("lint", "chaos_suite", "fleet_smoke", "drift_smoke"):
+    for name in ("lint", "bench_gate", "chaos_suite", "fleet_smoke",
+                 "drift_smoke"):
         assert name in out
-    assert "bench_gate   not run: waits for ROADMAP A7" in out
+    assert "not run" not in out.replace("tier1        not run", "")
+    assert "explicit_hybrid_mpc_tpu_torch.tools.bench_gate" in out
 
 
 @pytest.mark.parametrize("flag", ["--only", "--skip"])
@@ -819,14 +821,31 @@ def test_preflight_rejects_unknown_checks(flag, capsys):
     assert "unknown check(s) ['tpulint']" in capsys.readouterr().err
 
 
-def test_preflight_refuses_bench_gate(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        preflight.main(["--only", "bench_gate", "--out-dir",
-                        str(tmp_path)])
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert "ROADMAP A7" in err and "scripts/bench_gate.py" in err
-    assert list(tmp_path.iterdir()) == []  # nothing ran
+@pytest.mark.parametrize("values,rc", [([], 0), ([100.0, 102.0, 80.0], 1)])
+def test_preflight_runs_the_bench_gate(values, rc, tmp_path, monkeypatch,
+                                       capsys):
+    """`--only bench_gate` runs the port's gate on the port's history
+    (BENCH_HISTORY): an empty history passes, a newest row 20% below the
+    window fails the battery."""
+    from explicit_hybrid_mpc_tpu_torch.tools import bench_history
+
+    hist = str(tmp_path / "history.jsonl")
+    for i, v in enumerate(values):
+        bench_history.append_history(
+            {"value": v, "platform": "cpu", "unit": "regions/s"},
+            f"bench_{i}", path=hist, mtime=float(i))
+    monkeypatch.setenv("BENCH_HISTORY", hist)
+    assert preflight.main(["--only", "bench_gate", "--out-dir",
+                           str(tmp_path / "pf")]) == rc
+    out = capsys.readouterr().out
+    with open(tmp_path / "pf" / "preflight.json") as f:
+        v = json.load(f)
+    assert [c["name"] for c in v["checks"]] == ["bench_gate"]
+    assert v["checks"][0]["exit"] == rc and v["ok"] is (rc == 0)
+    with open(v["checks"][0]["log"]) as f:
+        log = f.read()
+    assert ("GATE FAILED: 1 regression(s)" in log) == (rc == 1)
+    assert ("PREFLIGHT OK" in out) == (rc == 0)
 
 
 def test_preflight_runs_lint_and_writes_the_verdict(tmp_path, capsys):
@@ -840,7 +859,7 @@ def test_preflight_runs_lint_and_writes_the_verdict(tmp_path, capsys):
     assert [c["name"] for c in v["checks"]] == ["lint"]
     assert v["checks"][0]["exit"] == 0 and v["checks"][0]["wall_s"] > 0
     assert os.path.exists(v["checks"][0]["log"])
-    assert "bench_gate" in v["not_run"]
+    assert "bench_gate" not in v["not_run"]
 
 
 @pytest.mark.parametrize("backend", ["cpu", "cuda"])
@@ -859,6 +878,7 @@ def test_preflight_passes_the_backend_to_the_smokes(backend):
 def test_preflight_lists_tier1_as_not_run_without_jax(tmp_path,
                                                       monkeypatch, capsys):
     monkeypatch.setattr(preflight, "has_jax", lambda: False)
+    monkeypatch.setenv("BENCH_HISTORY", str(tmp_path / "history.jsonl"))
     with pytest.raises(SystemExit) as e:
         preflight.main(["--only", "tier1"])
     assert e.value.code != 0 and "needs jax" in capsys.readouterr().err
@@ -868,8 +888,9 @@ def test_preflight_lists_tier1_as_not_run_without_jax(tmp_path,
     capsys.readouterr()
     with open(tmp_path / "preflight.json") as f:
         v = json.load(f)
-    assert rc == 0 and [c["name"] for c in v["checks"]] == ["lint"]
-    assert set(v["not_run"]) == {"bench_gate", "tier1"}
+    assert rc == 0 and [c["name"] for c in v["checks"]] == ["lint",
+                                                            "bench_gate"]
+    assert set(v["not_run"]) == {"tier1"}
 
 
 # -- no card, no quiet CPU run ---------------------------------------------

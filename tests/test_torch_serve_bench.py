@@ -142,6 +142,7 @@ def test_every_jax_key_is_in_the_ports_row(legacy):
         assert pr["offered_qps"] == jr["offered_qps"]
     assert port["platform"] == jax["platform"] == "cpu"
     assert "device_name" not in port and "power_limit" not in port
+    assert port["package"] == "explicit_hybrid_mpc_tpu_torch"
     # The metric line names the same sweep (a contended host says so).
     assert port["metric"].split(" [")[0] == jax["metric"].split(" [")[0]
 
